@@ -1,0 +1,392 @@
+// Decode-step attention over a KV cache, for Hopper (sm_90a).
+//
+// Replaces two Pallas TPU kernels of paddle_tpu/kernels/attention.py:
+//   * _decode_fwd_kernel        (dense ring cache [B, H, C, d])
+//   * _paged_decode_fwd_kernel  (shared pool [P, H, ptok, d] + page table)
+// Both compute, for every (b, h, q-row r),
+//   o = softmax(mask(q . K^T * scale)) . V
+// where column c is live iff c < limit, limit = min(cache_len[b], C)
+// (minus Q-1-r under causal_window). Dead columns score -1e30, not -inf,
+// so a row whose window is empty averages V uniformly over the whole
+// capacity, as the plain version does, instead of producing NaN.
+//
+// Bound on the card: bytes. One decode step reads each live key and value
+// row once (2 * live_cols * d * sizeof(T) per (b, h)) and does 4 * d flops
+// per key, far below the H100's flops-per-byte balance point, so the least
+// time is those bytes over the HBM rate (3.35 TB/s on the H100 SXM). The
+// design therefore reads only live columns (the loop stops at the window
+// limit; a partially live tail tile is cut short, not padded), keeps many
+// bytes in flight, and materialises nothing in device memory:
+//   * tiles of kTile key columns are copied global -> shared with 16-byte
+//     cp.async into a ring of kStages buffers, so the copies of the next
+//     kStages - 1 tiles are in flight while the block does the math of the
+//     current one (K and V of a tile travel together);
+//   * the math reads rows with 16-byte shared loads: a group of L lanes
+//     covers one row (L = d * sizeof(T) / 16, a template parameter), each
+//     lane holding its slice of q in registers; a group's partial dot
+//     products meet by shuffles, those of a thread's rows interleaved;
+//   * the running max is block-wide, so every group rescales its share of
+//     the sum and of the accumulator by the same factor, and the groups'
+//     shares are added once at the end.
+// What it does not do: split a long row over several blocks. With one
+// block per (b, h, q-row), a batch of 8 streams of 16 heads gives only 128
+// blocks for 132 SMs, and the longest row's tiles run one after the other
+// on one SM.
+//
+// The dense and paged kernels are one template over a key/value source.
+// Hopper has no scalar prefetch: the paged source copies its slot's row
+// of the page table into shared memory once, and each tile copy reads its
+// page indices there. The paged kernel on a pool and the dense kernel on
+// the gathered cache see identical tiles and agree bit for bit.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <cmath>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 64;     // logical key columns per tile
+constexpr int kStages = 3;    // shared-memory tile buffers in the ring
+constexpr float kMasked = -1e30f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store_f32(float v, float* p) { *p = v; }
+__device__ __forceinline__ void store_f32(float v, __nv_bfloat16* p) {
+  *p = __float2bfloat16(v);
+}
+
+// 16 bytes of shared memory -> kVec fp32 values.
+__device__ __forceinline__ void load16(const float* p, float* x) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* x) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most N of this thread's committed copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Dense ring cache [B, H, C, d]: logical column == ring slot.
+struct DenseKV {
+  int H, C, d;
+  static constexpr bool kHasTable = false;
+  __device__ __forceinline__ DenseKV bind(int, int*) const { return *this; }
+  __device__ __forceinline__ size_t offset(int b, int h, int col) const {
+    return ((static_cast<size_t>(b) * H + h) * C + col) * d;
+  }
+};
+
+// Paged pool [P, H, ptok, d]: logical column c of slot b lives in pool
+// row table[b, c / ptok] at offset c % ptok. bind() copies slot b's row
+// of the table into shared memory, so a tile copy reads its page index
+// there instead of waiting on a global load before each 16-byte copy.
+struct PagedKV {
+  const int* table;  // [B, npages]; once bound, slot b's row [npages]
+  int H, ptok, npages, d;
+  static constexpr bool kHasTable = true;
+  __device__ __forceinline__ PagedKV bind(int b, int* s_table) const {
+    for (int i = threadIdx.x; i < npages; i += kThreads)
+      s_table[i] = table[static_cast<size_t>(b) * npages + i];
+    PagedKV bound = *this;
+    bound.table = s_table;
+    return bound;
+  }
+  __device__ __forceinline__ size_t offset(int, int h, int col) const {
+    const int page = table[col / ptok];
+    return ((static_cast<size_t>(page) * H + h) * ptok + col % ptok) * d;
+  }
+};
+
+// Start the copies of `n` key and value rows from logical column `col0`
+// into the stage buffers sk / sv ([kTile][D] each, rows packed), one
+// 16-byte piece per thread per step.
+template <typename T, int L, typename KV>
+__device__ __forceinline__ void issue_tile(const KV& kv, const T* k,
+                                           const T* v, int b, int h,
+                                           int col0, int n, T* sk, T* sv) {
+  constexpr int kVec = 16 / sizeof(T), D = L * kVec;
+  for (int c = threadIdx.x; c < n * L; c += kThreads) {
+    const int row = c / L, off = (c % L) * kVec;
+    const size_t src = kv.offset(b, h, col0 + row) + off;
+    cp_async16(sk + row * D + off, k + src);
+    cp_async16(sv + row * D + off, v + src);
+  }
+}
+
+// L lanes cover one key row of D = L * 16 / sizeof(T) elements; the block
+// holds G = kThreads / L row groups, each taking R = kTile / G rows of a
+// tile (rows g, g + G, ...), so the R dot products of a thread are
+// independent and their shuffles interleave.
+template <typename T, int L, typename KV>
+__global__ void __launch_bounds__(kThreads)
+    decode_attention_kernel(const T* __restrict__ q, const T* k, const T* v,
+                            T* __restrict__ out, const int* __restrict__ lens,
+                            KV kv, int H, int Q, int capacity, float scale,
+                            int causal_window) {
+  constexpr int kVec = 16 / sizeof(T), D = L * kVec;
+  constexpr int G = kThreads / L, R = kTile / G;
+  static_assert(R >= 1 && kTile % G == 0, "tile rows must split over groups");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s_tiles = reinterpret_cast<T*>(smem_raw);  // [kStages][2][kTile][D]
+  float* s_acc = reinterpret_cast<float*>(s_tiles + kStages * 2 * kTile * D);
+  float* s_l = s_acc + G * D;                   // s_acc [G][D], s_l [G]
+  float* s_red = s_l + G;                       // [kWarps]
+  int* s_table = reinterpret_cast<int*>(s_red + kWarps);  // paged: [npages]
+
+  const int r = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = tid / L, piece = tid % L;  // row group, 16-byte slice
+  const size_t qoff = ((static_cast<size_t>(b) * H + h) * Q + r) * D;
+
+  const int valid = min(lens[b], capacity);
+  const int limit = causal_window ? valid - (Q - 1 - r) : valid;
+  // every column < limit is live; an empty window walks the whole
+  // capacity with every score masked, which makes the softmax uniform
+  const int n_cols = limit > 0 ? limit : capacity;
+  const int n_tiles = (n_cols + kTile - 1) / kTile;
+
+  const KV src = kv.bind(b, s_table);
+  if (KV::kHasTable) __syncthreads();
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles) {
+      T* sk = s_tiles + s * 2 * kTile * D;
+      issue_tile<T, L>(src, k, v, b, h, s * kTile,
+                       min(kTile, n_cols - s * kTile), sk, sk + kTile * D);
+    }
+    cp_async_commit();  // empty groups keep the count per tile uniform
+  }
+
+  float qv[kVec], acc[kVec];
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) {
+    qv[e] = to_f32(q[qoff + piece * kVec + e]);
+    acc[e] = 0.f;
+  }
+  float m = kMasked, l = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    // tile i has landed for every thread, and every thread is done with
+    // tile i - 1, whose buffer the copy below reuses
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int nxt = i + kStages - 1;
+    if (nxt < n_tiles) {
+      T* sk = s_tiles + (nxt % kStages) * 2 * kTile * D;
+      issue_tile<T, L>(src, k, v, b, h, nxt * kTile,
+                       min(kTile, n_cols - nxt * kTile), sk, sk + kTile * D);
+    }
+    cp_async_commit();
+
+    const int col0 = i * kTile, n = min(kTile, n_cols - col0);
+    const T* sk = s_tiles + (i % kStages) * 2 * kTile * D;
+    const T* sv = sk + kTile * D;
+    float sc[R];
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      const int j = g + rr * G;
+      float dot = 0.f;
+      if (j < n) {
+        float kx[kVec];
+        load16(sk + j * D + piece * kVec, kx);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) dot = fmaf(qv[e], kx[e], dot);
+      }
+      sc[rr] = dot;
+    }
+#pragma unroll
+    for (int o = L >> 1; o > 0; o >>= 1) {
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr)
+        sc[rr] += __shfl_xor_sync(0xffffffffu, sc[rr], o);
+    }
+    float mx = -INFINITY;  // rows past the tile take no part at all
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      const int j = g + rr * G;
+      if (j < n) {
+        sc[rr] = col0 + j < limit ? sc[rr] * scale : kMasked;
+        mx = fmaxf(mx, sc[rr]);
+      }
+    }
+    mx = warp_max(mx);
+    if (lane == 0) s_red[tid >> 5] = mx;
+    __syncthreads();
+    float m_new = m;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) m_new = fmaxf(m_new, s_red[w]);
+    const float corr = expf(m - m_new);
+    l *= corr;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[e] *= corr;
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      const int j = g + rr * G;
+      if (j < n) {
+        const float p = expf(sc[rr] - m_new);
+        float vx[kVec];
+        load16(sv + j * D + piece * kVec, vx);
+        l += p;
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) acc[e] = fmaf(p, vx[e], acc[e]);
+      }
+    }
+    m = m_new;
+  }
+
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) s_acc[g * D + piece * kVec + e] = acc[e];
+  if (piece == 0) s_l[g] = l;
+  __syncthreads();
+  for (int t = tid; t < D; t += kThreads) {
+    float o = 0.f, sum = 0.f;
+    for (int gg = 0; gg < G; ++gg) {
+      o += s_acc[gg * D + t];
+      sum += s_l[gg];
+    }
+    store_f32(o / sum, out + qoff + t);
+  }
+}
+
+template <typename T, int L, typename KV>
+int launch_rows(const T* q, const T* k, const T* v, T* out, const int* lens,
+                KV kv, int table_ints, int B, int H, int Q, int capacity,
+                float scale, int causal_window, cudaStream_t stream) {
+  constexpr int D = L * 16 / sizeof(T), G = kThreads / L;
+  const size_t smem = sizeof(T) * kStages * 2 * kTile * D +
+                      sizeof(float) * (G * D + G + kWarps) +
+                      sizeof(int) * table_ints;
+  auto kernel = decode_attention_kernel<T, L, KV>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid(Q, H, B);
+  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, out, lens, kv, H, Q,
+                                           capacity, scale, causal_window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// d * sizeof(T) must be 16 << k for k in 1..5 (2 to 32 lanes per row):
+// float32 d in {8, ..., 128}, bfloat16 d in {16, ..., 256}.
+template <typename T, typename KV>
+int launch(const T* q, const T* k, const T* v, T* out, const int* lens,
+           KV kv, int table_ints, int B, int H, int Q, int d, int capacity,
+           float scale, int causal_window, cudaStream_t stream) {
+  if (B < 1 || H < 1 || Q < 1 || capacity < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define PT_ROWS(L)                                                         \
+  launch_rows<T, L, KV>(q, k, v, out, lens, kv, table_ints, B, H, Q,       \
+                        capacity, scale, causal_window, stream)
+  switch (d * static_cast<int>(sizeof(T))) {
+    case 32: return PT_ROWS(2);
+    case 64: return PT_ROWS(4);
+    case 128: return PT_ROWS(8);
+    case 256: return PT_ROWS(16);
+    case 512: return PT_ROWS(32);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PT_ROWS
+}
+
+template <typename T>
+int dense(const void* q, const void* k, const void* v, const void* lens,
+          void* out, int B, int H, int Q, int d, int C, float scale,
+          int causal_window, void* stream) {
+  return launch<T>(static_cast<const T*>(q), static_cast<const T*>(k),
+                   static_cast<const T*>(v), static_cast<T*>(out),
+                   static_cast<const int*>(lens), DenseKV{H, C, d}, 0, B, H,
+                   Q, d, C, scale, causal_window,
+                   static_cast<cudaStream_t>(stream));
+}
+
+template <typename T>
+int paged(const void* q, const void* k_pool, const void* v_pool,
+          const void* table, const void* lens, void* out, int B, int H,
+          int Q, int d, int ptok, int npages, float scale, void* stream) {
+  PagedKV kv{static_cast<const int*>(table), H, ptok, npages, d};
+  return launch<T>(static_cast<const T*>(q), static_cast<const T*>(k_pool),
+                   static_cast<const T*>(v_pool), static_cast<T*>(out),
+                   static_cast<const int*>(lens), kv, npages, B, H, Q, d,
+                   ptok * npages, scale, 0,
+                   static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+// Plain C entry points for ctypes. Each returns cudaGetLastError() after
+// the launch (0 on success); the kernel runs on `stream` and does not
+// synchronise. All pointers are device pointers to contiguous tensors:
+// q/out [B, H, Q, d], k/v [B, H, C, d] or pools [P, H, ptok, d] (16-byte
+// aligned), lens [B] int32, table [B, npages] int32.
+extern "C" {
+
+int pt_decode_attention_f32(const void* q, const void* k, const void* v,
+                            const void* lens, void* out, int B, int H, int Q,
+                            int d, int C, int causal_window, float scale,
+                            void* stream) {
+  return dense<float>(q, k, v, lens, out, B, H, Q, d, C, scale,
+                      causal_window, stream);
+}
+
+int pt_decode_attention_bf16(const void* q, const void* k, const void* v,
+                             const void* lens, void* out, int B, int H,
+                             int Q, int d, int C, int causal_window,
+                             float scale, void* stream) {
+  return dense<__nv_bfloat16>(q, k, v, lens, out, B, H, Q, d, C, scale,
+                              causal_window, stream);
+}
+
+int pt_paged_attention_f32(const void* q, const void* k_pool,
+                           const void* v_pool, const void* table,
+                           const void* lens, void* out, int B, int H, int Q,
+                           int d, int ptok, int npages, float scale,
+                           void* stream) {
+  return paged<float>(q, k_pool, v_pool, table, lens, out, B, H, Q, d, ptok,
+                      npages, scale, stream);
+}
+
+int pt_paged_attention_bf16(const void* q, const void* k_pool,
+                            const void* v_pool, const void* table,
+                            const void* lens, void* out, int B, int H, int Q,
+                            int d, int ptok, int npages, float scale,
+                            void* stream) {
+  return paged<__nv_bfloat16>(q, k_pool, v_pool, table, lens, out, B, H, Q,
+                              d, ptok, npages, scale, stream);
+}
+
+}  // extern "C"

@@ -89,6 +89,11 @@ def pytest_configure(config):
                    "iters=k windows, checkpoint resharding); the "
                    "compile-heavy equivalence/report cases additionally "
                    "carry 'slow' — run -m pipeline3d for full coverage")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the port's hand-written "
+                   "kernels have no CPU mode); skips where torch sees "
+                   "none — on the card run tests/test_torch_cuda.py "
+                   "with --noconftest")
 
 
 @pytest.fixture(autouse=True)
