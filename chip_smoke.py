@@ -9,13 +9,17 @@ the script exits non-zero without its final line:
 
 1. card      nvidia-smi name and power limit; build every CUDA kernel.
 2. kernels   each kernel against its plain PyTorch version at the main
-             path's shapes and at the edge cases (ragged capacity,
-             causal window, wrapped ring; fp32 and bf16), with its time
-             (CUDA events, median of 25 cold-L2 launches), the plain
+             paths' shapes and at the edge cases, with its time (CUDA
+             events, median of 25 cold-L2 launches), the plain
              version's, one PyTorch library call's where one computes the
              same function, and the least time the card could take. The
              times are device time: the host's launch overhead is kept
-             out of the timed span.
+             out of the timed span. Decode attention: ragged capacity,
+             causal window, wrapped ring, paged; fp32 and bf16. Fused
+             training attention (forward, and the backward's dq, dk, dv
+             and dbias): BERT-base's shape (batch 32, 12 heads of 64,
+             S 512, padding-mask bias) at dropout 0.1 and 0, every other
+             bias mode, a ragged S and d 128; fp32 and bf16.
 3. dense     GenerativePredictor(Transformer.big(), batch 64, src 128,
              prompt 64, capacity 1024).run for 32 new tokens: the dense
              decode kernel launches once per decoder layer per step, and
@@ -25,7 +29,14 @@ the script exits non-zero without its final line:
              128 tokens, 25-page pool, prefix cache of 8): 16 requests
              from 4 threads, some repeated; every future resolves through
              the paged kernel and the prefix cache hits.
-5. summary   the kernels line, the card line, then the result line.
+5. bert      BERT-base MLM pretraining at S 512 through the Program IR:
+             build_pretrain_program -> Executor.run (startup, then train
+             steps) on one synthetic batch of 32. One step with the fused
+             kernels agrees with the same step on the plain attention from
+             a cloned scope and generator; then 6 timed steps, each
+             through 12 forward and 12 + 12 backward kernel launches,
+             with finite losses that fall (the batch is memorised).
+6. summary   the kernels line, the card line, then the result line.
 """
 
 import contextlib
@@ -48,6 +59,10 @@ PEAK_OPS_PER_S = {torch.float32: 67e12,      # fp32, no tensor cores
 REPS, WARMUP = 25, 3
 HOLD_CYCLES = 2_000_000            # about 1 ms of SM clock
 FP32_ATOL, BF16_ATOL = 2e-5, 2e-2
+# fused training attention, kernel vs plain, as a share of max(1, the
+# plain result's largest magnitude): fp32 sums in another order; bf16
+# outputs are rounded to bf16 by both, at different points
+FUSED_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 PAGED_VS_DENSE_ATOL = 1e-6
 # whole-model fp32 step, kernel vs plain: about ten times the 1.1e-6 to
 # 1.3e-6 read on the H100 (PERF.md), so a wrong live window in one layer
@@ -186,9 +201,138 @@ def paged_case(A, dev, gen, flush):
     return rec
 
 
+def fused_bound(q, bias, backward):
+    """(bound_ms, bound_by) of fused attention on q [B, H, S, d]: the
+    bytes each input is read and each output written once (forward: q,
+    k, v, bias, o, lse; backward: q, k, v, o, dO, lse, bias, dq, dk, dv,
+    dbias) over the HBM rate, against the operations (forward 4 B H S^2 d:
+    q.k^T and p.v; backward 10 B H S^2 d: q.k^T again, dO.v^T, dV, dK and
+    dQ) at the peak rate of the input type."""
+    B, H, S, d = q.shape
+    n, e = q.numel(), q.element_size()
+    if backward:
+        nbytes = 8 * n * e + 4 * B * H * S + 2 * 4 * bias.numel()
+        ops = 10.0 * B * H * S * S * d
+    else:
+        nbytes = 4 * n * e + 4 * B * H * S + 4 * bias.numel()
+        ops = 4.0 * B * H * S * S * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[q.dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fused_case(A, dev, gen, flush, name, B, H, S, d, bias_shape, p, dtype):
+    """The fused training-attention kernels against the plain version on
+    the same inputs and seed: forward output, and dq, dk, dv, dbias of
+    one random upstream gradient. ``bias_shape`` "padding" is BERT's
+    [B, 1, 1, S] mask (0 on the first len_b keys, -1e4 after them, lengths
+    S/2..S), else a random bias of that shape. Times the forward kernel,
+    the two backward kernels together, the plain version (autograd for its
+    backward) and SDPA with the same float mask at p = 0."""
+    q, k, v, do = (torch.randn(B, H, S, d, device=dev, generator=gen)
+                   .to(dtype) for _ in range(4))
+    if bias_shape == "padding":
+        lens = torch.randint(S // 2, S + 1, (B, 1), device=dev,
+                             generator=gen)
+        bias = torch.where(torch.arange(S, device=dev)[None] < lens, 0.0,
+                           -1e4).view(B, 1, 1, S)
+    else:
+        bias = torch.randn(*bias_shape, device=dev, generator=gen)
+    seed = torch.tensor([7919 * S + d], dtype=torch.int64, device=dev)
+    scale = d ** -0.5
+    bias_f, strides = A._bias_operand(bias, B, H, S)
+
+    def forward():
+        return A.fused_attention_fwd_kernel(q, k, v, bias_f, strides, seed,
+                                            scale, p)
+
+    o, lse = forward()
+
+    def backward():
+        return A.fused_attention_backward(q, k, v, bias_f, strides, seed, o,
+                                          lse, do, scale, p, bias_grad=True)
+
+    got = (o,) + tuple(backward())
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v,
+                                                                 bias)]
+    ref = A._ref_fused_attention(*leaves, scale, p, seed)
+    want = (ref.detach(),) + tuple(torch.autograd.grad(ref, leaves, do,
+                                                       retain_graph=True))
+    torch.cuda.synchronize()
+    errs = {}
+    for key, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        limit = FUSED_ATOL[dtype] * max(1.0, b.float().abs().max().item())
+        if not err <= limit:
+            raise AssertionError("%s: fused attention %s kernel vs plain "
+                                 "max |err| %g > %g" % (name, key, err,
+                                                        limit))
+        errs[key] = err
+    mask = bias.to(dtype)
+    lib_leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_leaves, attn_mask=mask,
+                                             scale=scale)
+    f_ms, f_by = fused_bound(q, bias, False)
+    b_ms, b_by = fused_bound(q, bias, True)
+    rec = dict(
+        name=name, B=B, H=H, S=S, d=d, dtype=str(dtype),
+        bias=list(bias.shape), dropout=p, max_abs_err=errs,
+        fwd=dict(
+            max_abs_err=errs["out"],
+            kernel_ms=time_ms(forward, flush),
+            plain_ms=time_ms(lambda: A._ref_fused_attention(
+                q, k, v, bias, scale, p, seed), flush),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=scale), flush),
+            bound_ms=f_ms, bound_by=f_by),
+        bwd=dict(
+            max_abs_err=max(errs[x] for x in ("dq", "dk", "dv", "dbias")),
+            kernel_ms=time_ms(backward, flush),
+            plain_ms=time_ms(lambda: torch.autograd.grad(
+                ref, leaves, do, retain_graph=True), flush),
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                lib_out, lib_leaves, do, retain_graph=True), flush),
+            library_fwd_bwd_ms=time_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(*lib_leaves, attn_mask=mask,
+                                               scale=scale),
+                lib_leaves, do), flush),
+            bound_ms=b_ms, bound_by=b_by))
+    emit(phase="kernels", kernel="fused_attention", **rec)
+    return rec
+
+
+def fused_cases(A, dev, gen, flush):
+    """Every case of the fused kernels; returns the BERT path's fp32
+    record (dropout 0.1), the one the summary line reports."""
+    path = None
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        rec = fused_case(A, dev, gen, flush, "path_" + tag, 32, 12, 512, 64,
+                         "padding", 0.1, dtype)
+        path = path or rec
+        fused_case(A, dev, gen, flush, "path_p0_" + tag, 32, 12, 512, 64,
+                   "padding", 0.0, dtype)
+        for bias_shape in ((4, 12, 1, 256), (4, 1, 256, 256),
+                           (4, 12, 256, 256)):
+            fused_case(A, dev, gen, flush, "bias_%s_%s" % (
+                "x".join(map(str, bias_shape[1:3])), tag), 4, 12, 256, 64,
+                bias_shape, 0.1, dtype)
+        fused_case(A, dev, gen, flush, "ragged_" + tag, 8, 12, 500, 64,
+                   "padding", 0.1, dtype)
+        fused_case(A, dev, gen, flush, "d128_" + tag, 8, 8, 512, 128,
+                   "padding", 0.1, dtype)
+    return path
+
+
+FUSED_KERNELS = ("fused_attention_fwd_kernel", "fused_attention_bwd_dq_kernel",
+                 "fused_attention_bwd_dkdv_kernel")
+
+
 def reset_launches(A):
     A.decode_attention_kernel.launches = 0
     A.paged_attention_kernel.launches = 0
+    for name in FUSED_KERNELS:
+        getattr(A, name).launches = 0
 
 
 @contextlib.contextmanager
@@ -371,6 +515,140 @@ def serving_path(T, A, inference, monitor, dev, dense_pred, dense_feed):
     return launches
 
 
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 32, 512, 6
+# One BERT-base training step, kernels vs plain attention from the same
+# cloned scope and generator (the same dropout masks), fp32 with TF32 off.
+# Loss: relative difference. Gradients: the Adam first moments after the
+# step, (1 - beta1) * grad, as a share of each tensor's largest
+# magnitude. Only summation order differs; a wrong mask or bias term in
+# one layer moves both by orders of magnitude more.
+# Limits: about ten times the first reading on the H100 (loss identical
+# to the last bit, gradients 6.0e-6; PERF.md), a few ulps for the loss.
+BERT_LOSS_RTOL = 1e-6
+BERT_GRAD_RTOL = 1e-4
+BERT_WATCH = ("word_emb", "layer_0_attn_q.w_0", "layer_5_attn_k.w_0",
+              "layer_11_ffn2.w_0", "mlm_out_bias")
+
+
+def clone_scope(fluid, scope):
+    """A copy of every tensor of ``scope`` and of its generator's state."""
+    c = fluid.Scope()
+    for n in scope.local_var_names():
+        c.set_var(n, scope.find_var(n).clone())
+    c.generator = torch.Generator(device=scope.generator.device)
+    c.generator.set_state(scope.generator.get_state())
+    return c
+
+
+@contextlib.contextmanager
+def plain_fused_attention(A):
+    """Route the program's fused_multihead_attention ops through the plain
+    version on the card (the whole-step kernel-vs-plain comparison)."""
+    def plain(q, k, v, bias=None, scale=None, dropout_prob=0.0, seed=None):
+        scale = q.shape[-1] ** -0.5 if scale is None else scale
+        return A._ref_fused_attention(q, k, v, bias, float(scale),
+                                      float(dropout_prob), seed)
+
+    saved, A.fused_attention = A.fused_attention, plain
+    try:
+        yield
+    finally:
+        A.fused_attention = saved
+
+
+def bert_path(A, dev):
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base()
+    t0 = time.perf_counter()
+    with fluid.unique_name.guard():
+        main, startup, loss = bert.build_pretrain_program(cfg,
+                                                          seq_len=BERT_SEQ)
+    build_s = time.perf_counter() - t0
+    ops = main.global_block().ops
+    fused = [op for op in ops if op.type == "fused_multihead_attention"]
+    if len(fused) != cfg.n_layers or any(
+            op.attr("dropout_prob") != cfg.attn_dropout for op in fused):
+        raise AssertionError("bert: %d fused attention ops (want %d with "
+                             "dropout %g)" % (len(fused), cfg.n_layers,
+                                              cfg.attn_dropout))
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    feed = bert.synthetic_batch(cfg, BERT_BATCH, BERT_SEQ, seed=0)
+    exe = fluid.Executor(dev)
+    scope = fluid.Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+
+    # one step with the kernels and one with the plain attention
+    res = {}
+    for route, ctx in (("kernel", contextlib.nullcontext()),
+                       ("plain", plain_fused_attention(A))):
+        sc = clone_scope(fluid, scope)
+        reset_launches(A)
+        with ctx:
+            step_loss = exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=sc)[0]
+        launched = [getattr(A, name).launches for name in FUSED_KERNELS]
+        if launched != [cfg.n_layers * (route == "kernel")] * 3:
+            raise AssertionError("bert: the %s step launched the fused "
+                                 "kernels %s times" % (route, launched))
+        res[route] = (float(step_loss[0]),
+                      {n: sc.find_var(n + "_moment1_0") for n in BERT_WATCH},
+                      {n: sc.find_var(n) for n in BERT_WATCH})
+        del sc
+    loss_rel = abs(res["kernel"][0] - res["plain"][0]) / abs(res["plain"][0])
+    grad_rel = max(
+        ((res["kernel"][1][n] - res["plain"][1][n]).abs().max() /
+         res["plain"][1][n].abs().max()).item() for n in BERT_WATCH)
+    # parameter moves differ in units of the learning rate (the first Adam
+    # step moves each entry by about lr, whatever its gradient)
+    param_lr = max((res["kernel"][2][n] - res["plain"][2][n]).abs().max()
+                   .item() for n in BERT_WATCH) / 1e-4
+    if not (math.isfinite(res["kernel"][0]) and loss_rel <= BERT_LOSS_RTOL
+            and grad_rel <= BERT_GRAD_RTOL):
+        raise AssertionError("bert: step kernel vs plain: loss %r vs %r "
+                             "(rel %g > %g?), gradients rel %g (> %g?)"
+                             % (res["kernel"][0], res["plain"][0], loss_rel,
+                                BERT_LOSS_RTOL, grad_rel, BERT_GRAD_RTOL))
+    del res
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(A)
+    losses, step_s = [], []
+    for _ in range(BERT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(out[0]))
+    launches = {name: getattr(A, name).launches for name in FUSED_KERNELS}
+    want = cfg.n_layers * BERT_STEPS
+    if any(n != want for n in launches.values()):
+        raise AssertionError("bert: fused kernel launches %s over %d steps "
+                             "(want %d each)" % (launches, BERT_STEPS, want))
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError("bert: losses not finite and falling: %s"
+                             % losses)
+    steady = statistics.median(step_s[1:])
+    emit(phase="bert", config="BertConfig.base", params=n_params,
+         batch=BERT_BATCH, seq_len=BERT_SEQ, dropout=cfg.hidden_dropout,
+         ops=len(ops), fused_attention_ops=len(fused), build_s=build_s,
+         startup_s=startup_s, losses=losses, step_s=step_s,
+         step_ms=steady * 1e3, tokens_per_s=BERT_BATCH * BERT_SEQ / steady,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+         launches=launches,
+         launches_per_step={k: v / BERT_STEPS for k, v in launches.items()},
+         step_vs_plain=dict(loss_rel=loss_rel, loss_rtol=BERT_LOSS_RTOL,
+                            grad_rel=grad_rel, grad_rtol=BERT_GRAD_RTOL,
+                            param_diff_in_lr=param_lr))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -409,12 +687,17 @@ def main():
         dense_case(A, dev, gen, flush, "wrapped_" + tag, 64, 16, 1, 1024, 64,
                    list(range(1025, 1025 + 64 * 37, 37)), dtype)
     paged_rec = paged_case(A, dev, gen, flush)
+    fused_rec = fused_cases(A, dev, gen, flush)
     del flush
+    torch.cuda.empty_cache()
 
     dense_pred, dense_launches, feed = dense_path(T, A, inference, monitor,
                                                   dev)
     paged_launches = serving_path(T, A, inference, monitor, dev, dense_pred,
                                   feed)
+    del dense_pred
+    torch.cuda.empty_cache()
+    bert_launches = bert_path(A, dev)
 
     src = "paddle_tpu_torch/kernels/csrc/decode_attention.cu"
     kernels = []
@@ -425,6 +708,20 @@ def main():
              "paddle_tpu/kernels/attention.py:1829")):
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
+            launches=launches, max_abs_err=rec["max_abs_err"],
+            ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
+            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+            library_ms=rec["library_ms"]))
+    fused_src = "paddle_tpu_torch/kernels/csrc/fused_attention.cu"
+    bwd_launches = bert_launches["fused_attention_bwd_dq_kernel"]
+    for name, rec, launches, replaces in (
+            ("fused_attention_fwd", fused_rec["fwd"],
+             bert_launches["fused_attention_fwd_kernel"],
+             "paddle_tpu/kernels/attention.py:294"),
+            ("fused_attention_bwd (dq + dk/dv kernels)", fused_rec["bwd"],
+             bwd_launches, "paddle_tpu/kernels/attention.py:307")):
+        kernels.append(dict(
+            name=name, route="cuda", source=fused_src, replaces=replaces,
             launches=launches, max_abs_err=rec["max_abs_err"],
             ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],

@@ -1,0 +1,29 @@
+"""Tensor layers (counterparts in ``paddle_tpu/fluid/layers/tensor.py``)."""
+
+from .. import framework
+from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
+
+__all__ = ["create_parameter", "fill_constant"]
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    helper = LayerHelper("create_parameter", **locals())
+    attr = ParamAttr._to_attr(attr)
+    if name:
+        attr.name = name
+    return helper.create_parameter(attr, shape, dtype, is_bias,
+                                   default_initializer)
+
+
+def fill_constant(shape, dtype, value, force_cpu=False, out=None):
+    helper = LayerHelper("fill_constant")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="fill_constant", outputs={"Out": [out]},
+        attrs={"shape": list(shape),
+               "dtype": framework.dtype_str(framework.convert_dtype(dtype)),
+               "value": float(value)})
+    return out

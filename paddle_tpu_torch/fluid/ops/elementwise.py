@@ -1,0 +1,37 @@
+"""Elementwise binary ops with fluid's axis broadcast (counterparts in
+``paddle_tpu/fluid/ops/elementwise.py``)."""
+
+import torch
+
+from ..registry import register
+
+
+def broadcast_y(x, y, axis):
+    """fluid semantics: Y's dims align with X's starting at ``axis``
+    (trailing size-1 dims of Y dropped); axis=-1 or equal ranks is
+    numpy's right-aligned broadcast."""
+    if axis is None or axis == -1 or x.dim() == y.dim():
+        return y
+    yshape = list(y.shape)
+    while yshape and yshape[-1] == 1 and len(yshape) > 1:
+        yshape.pop()
+    new_shape = [1] * x.dim()
+    for i, s in enumerate(yshape):
+        new_shape[axis + i] = s
+    return y.reshape(new_shape)
+
+
+_FNS = {"elementwise_add": torch.add, "elementwise_mul": torch.mul,
+        "elementwise_div": torch.div}
+
+
+def _make(name):
+    @register(name)
+    def _lower(ctx, op):
+        x = ctx.get_input(op, "X")
+        y = broadcast_y(x, ctx.get_input(op, "Y"), op.attr("axis", -1))
+        ctx.set_output(op, "Out", _FNS[name](x, y))
+
+
+for _name in _FNS:
+    _make(_name)

@@ -1,0 +1,72 @@
+"""Dense math ops: mul / matmul (plain ``torch.matmul``, as the JAX
+package left its products to XLA), scale, reduce_sum, einsum
+(counterparts in ``paddle_tpu/fluid/ops/math.py``)."""
+
+import numpy as np
+import torch
+
+from ..registry import register
+
+
+@register("mul")
+def _mul(ctx, op):
+    """Flatten x to 2-D at x_num_col_dims and y at y_num_col_dims, then
+    matmul."""
+    x = ctx.get_input(op, "X")
+    y = ctx.get_input(op, "Y")
+    xd = op.attr("x_num_col_dims", 1)
+    yd = op.attr("y_num_col_dims", 1)
+    xs, ys = tuple(x.shape), tuple(y.shape)
+    x2 = x.reshape(int(np.prod(xs[:xd])), -1)
+    y2 = y.reshape(int(np.prod(ys[:yd])), -1)
+    ctx.set_output(op, "Out", torch.matmul(x2, y2).reshape(xs[:xd] + ys[yd:]))
+
+
+@register("matmul")
+def _matmul(ctx, op):
+    x = ctx.get_input(op, "X")
+    y = ctx.get_input(op, "Y")
+    if x.dim() == 1:
+        x = x.unsqueeze(0)
+    if y.dim() == 1:
+        y = y.unsqueeze(1)
+    if op.attr("transpose_X", False):
+        x = x.transpose(-1, -2)
+    if op.attr("transpose_Y", False):
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    alpha = op.attr("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    ctx.set_output(op, "Out", out)
+
+
+@register("scale")
+def _scale(ctx, op):
+    x = ctx.get_input(op, "X")
+    scale, bias = op.attr("scale", 1.0), op.attr("bias", 0.0)
+    if op.attr("bias_after_scale", True):
+        out = x * scale + bias
+    else:
+        out = (x + bias) * scale
+    ctx.set_output(op, "Out", out.to(x.dtype))
+
+
+@register("reduce_sum")
+def _reduce_sum(ctx, op):
+    x = ctx.get_input(op, "X")
+    keep = op.attr("keep_dim", False)
+    if op.attr("reduce_all", False):
+        dims = tuple(range(x.dim()))
+    else:
+        dim = op.attr("dim", [0])
+        dims = tuple(d if d >= 0 else d + x.dim()
+                     for d in (dim if isinstance(dim, (list, tuple))
+                               else [dim]))
+    ctx.set_output(op, "Out", x.sum(dim=dims, keepdim=keep) if dims else x)
+
+
+@register("einsum")
+def _einsum(ctx, op):
+    ctx.set_output(op, "Out", torch.einsum(op.attr("equation"),
+                                           *ctx.get_inputs(op, "Operands")))

@@ -1,0 +1,179 @@
+"""Op registry: op type -> lowering rule, on torch tensors.
+
+The port's counterpart of ``paddle_tpu/fluid/registry.py``, kept apart
+from the JAX registry. A lowering rule ``lower(ctx, op)`` reads its
+inputs with ``ctx.get_input`` and binds its outputs with
+``ctx.set_output``. The executor runs the rules eagerly, op by op, so
+each rule computes its op at once on the tensors' device. Shape
+inference runs the same rules on ``meta`` tensors.
+
+Randomness comes from one explicit ``torch.Generator`` (the scope's, see
+``executor.py``): random ops draw from it in op order through
+``LowerCtx.next_seed``, ``random_bytes`` and ``uniform``, where the JAX
+registry splits a threaded PRNG key.
+"""
+
+import numpy as np
+import torch
+
+
+class OpRegistry:
+    def __init__(self):
+        self._ops = {}
+
+    def register(self, type):
+        """Decorator: ``fn(ctx, op)`` lowers ops of ``type``."""
+        def deco(fn):
+            self._ops[type] = fn
+            return fn
+        return deco
+
+    def get(self, type):
+        lower = self._ops.get(type)
+        if lower is None:
+            raise NotImplementedError(
+                "Op %r has no lowering rule registered in the port "
+                "(see paddle_tpu_torch/fluid/ops/)" % type)
+        return lower
+
+    def has(self, type):
+        return type in self._ops
+
+
+registry = OpRegistry()
+register = registry.register
+
+
+class LowerCtx:
+    """The environment a block is lowered in.
+
+    - ``env``: name -> torch tensor;
+    - ``written``: persistable names assigned while lowering (optimizer
+      updates), which the executor commits back to the Scope;
+    - ``generator``: the torch.Generator random ops draw from, on
+      ``device``; None under shape inference, where ``device`` is meta
+      and draws give shapes only.
+    """
+
+    def __init__(self, block, env, generator, device):
+        self.block = block
+        self.program = block.program
+        self.env = env
+        self.generator = generator
+        self.device = torch.device(device)
+        self.written = set()
+
+    def get(self, name):
+        if name not in self.env:
+            raise KeyError(
+                "Var %r not materialized; it must be fed, persistable, or "
+                "produced by an earlier op" % name)
+        return self.env[name]
+
+    def get_input(self, op, slot, default=None):
+        names = op.input(slot)
+        if not names:
+            return default
+        return self.get(names[0])
+
+    def get_inputs(self, op, slot):
+        return [self.get(n) for n in op.input(slot)]
+
+    def set(self, name, value):
+        self.env[name] = value
+        v = self.block._find_var_recursive(name)
+        if v is not None and v.persistable:
+            self.written.add(name)
+
+    def set_output(self, op, slot, value):
+        names = op.output(slot)
+        if names:
+            self.set(names[0], value)
+
+    def var(self, name):
+        return self.block._find_var_recursive(name)
+
+    def var_dtype(self, name):
+        v = self.var(name)
+        return np.dtype(v.dtype) if v is not None else np.dtype("float32")
+
+    # -- draws from the generator, in op order ------------------------------
+    @property
+    def abstract(self):
+        return self.generator is None
+
+    def next_seed(self):
+        """An int64 tensor [1] on the device: a kernel's 64-bit seed, drawn
+        without a host sync."""
+        if self.abstract:
+            return torch.empty(1, dtype=torch.int64, device=self.device)
+        return torch.randint(0, 2 ** 62, (1,), dtype=torch.int64,
+                             device=self.device, generator=self.generator)
+
+    def random_bytes(self, shape):
+        """uint8 tensor of uniform random words."""
+        if self.abstract:
+            return torch.empty(shape, dtype=torch.uint8, device=self.device)
+        return torch.randint(0, 256, tuple(shape), dtype=torch.uint8,
+                             device=self.device, generator=self.generator)
+
+    def uniform(self, shape, low, high):
+        """fp32 tensor uniform in [low, high)."""
+        if self.abstract:
+            return torch.empty(shape, dtype=torch.float32, device=self.device)
+        u = torch.rand(tuple(shape), dtype=torch.float32, device=self.device,
+                       generator=self.generator)
+        return u * (high - low) + low
+
+    def normal(self, shape, mean, std):
+        """fp32 tensor normal with ``mean`` and ``std``."""
+        if self.abstract:
+            return torch.empty(shape, dtype=torch.float32, device=self.device)
+        n = torch.randn(tuple(shape), dtype=torch.float32, device=self.device,
+                        generator=self.generator)
+        return n * std + mean
+
+
+def to_torch_dtype(dtype):
+    """torch dtype of a numpy dtype spec."""
+    return _TORCH_DTYPES[np.dtype(dtype)]
+
+
+def to_numpy_dtype(dtype):
+    return _NUMPY_DTYPES[dtype]
+
+
+_TORCH_DTYPES = {np.dtype(n): getattr(torch, t) for n, t in (
+    ("float32", "float32"), ("float64", "float64"), ("float16", "float16"),
+    ("int8", "int8"), ("uint8", "uint8"), ("int16", "int16"),
+    ("int32", "int32"), ("int64", "int64"), ("bool", "bool"))}
+_NUMPY_DTYPES = {t: n for n, t in _TORCH_DTYPES.items()}
+
+
+class EnforceError(RuntimeError):
+    """Op-attributed error: which op failed and where user code created
+    it."""
+
+
+def attribute_op_error(op, exc):
+    """Re-raise ``exc`` wrapped with the op's identity and creation site."""
+    lines = ["op %r failed during lowering: %s: %s"
+             % (op.type, type(exc).__name__, exc)]
+    ins = {k: v for k, v in op.inputs.items() if v}
+    outs = {k: v for k, v in op.outputs.items() if v}
+    lines.append("  inputs: %r  outputs: %r" % (ins, outs))
+    stack = getattr(op, "callstack", None)
+    if stack:
+        lines.append("  created at (most recent user frame first):")
+        lines.extend("    " + s for s in stack)
+    raise EnforceError("\n".join(lines)) from exc
+
+
+def lower_op(ctx, op):
+    """Lower ONE op, naming the op and its creation site on failure."""
+    try:
+        registry.get(op.type)(ctx, op)
+    except EnforceError:
+        raise
+    except Exception as e:  # noqa: BLE001 — attribute, then re-raise
+        attribute_op_error(op, e)

@@ -1,19 +1,22 @@
-"""Incremental-decode attention: KV ring-cache and paged-pool writes, and
-attention of the new token(s) over the cache.
+"""Attention: the fused training attention, and incremental-decode
+attention over KV ring caches and paged pools.
 
-Counterpart of the decode half of ``paddle_tpu/kernels/attention.py``.
-Two hand-written CUDA kernels (``csrc/decode_attention.cu``) replace the
-two Pallas TPU kernels of that half:
+Counterpart of ``paddle_tpu/kernels/attention.py``. Hand-written CUDA
+kernels replace four of its Pallas TPU kernels:
 
-* ``decode_attention_kernel`` replaces ``_decode_fwd_kernel`` (dense ring
-  cache, reached through ``attention_with_cache``);
-* ``paged_attention_kernel`` replaces ``_paged_decode_fwd_kernel`` (paged
-  pool, reached through ``paged_attention_cache``).
+* training (``csrc/fused_attention.cu``, reached through
+  ``fused_attention``): ``fused_attention_fwd_kernel`` replaces
+  ``_fwd_kernel``; ``fused_attention_bwd_dq_kernel`` and
+  ``fused_attention_bwd_dkdv_kernel`` together replace ``_bwd_kernel``;
+* decode (``csrc/decode_attention.cu``): ``decode_attention_kernel``
+  replaces ``_decode_fwd_kernel`` (dense ring cache, reached through
+  ``attention_with_cache``); ``paged_attention_kernel`` replaces
+  ``_paged_decode_fwd_kernel`` (paged pool, ``paged_attention_cache``).
 
 Each public function takes the plain PyTorch version for tensors on the
 CPU and the kernel for tensors on a CUDA device; anything else raises.
-Every capacity goes to the kernel: the TPU package's capacity threshold
-for its kernel tier is not carried over.
+Every decode capacity goes to the kernel: the TPU package's capacity
+threshold for its kernel tier is not carried over.
 
 Unlike the JAX package, whose arrays are immutable, the cache and pool
 updates here write IN PLACE: copying a whole pool every decode step
@@ -22,6 +25,7 @@ so call sites read like the reference's.
 """
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -37,6 +41,169 @@ _M_DECODE_LAUNCH = _monitor.counter(
 _M_PAGED_LAUNCH = _monitor.counter(
     "attn_paged_kernel_dispatch_total",
     "paged decode-attention CUDA kernel launches")
+_M_FWD_LAUNCH = _monitor.counter(
+    "attn_fused_fwd_kernel_dispatch_total",
+    "fused training-attention forward CUDA kernel launches")
+_M_BWD_DQ_LAUNCH = _monitor.counter(
+    "attn_fused_bwd_dq_kernel_dispatch_total",
+    "fused training-attention dq CUDA kernel launches")
+_M_BWD_DKDV_LAUNCH = _monitor.counter(
+    "attn_fused_bwd_dkdv_kernel_dispatch_total",
+    "fused training-attention dk/dv CUDA kernel launches")
+
+
+# -- fused training attention -----------------------------------------------
+# The kernels keep every score tile on chip, so any S up to this bound
+# goes to them; the TPU package sent longer sequences to its long and
+# flash tiers, which the port has not got yet.
+MAX_FUSED_SEQ = 1024
+_HEAD_DIMS = (16, 32, 64, 128)
+
+# Philox4x32-10 (Random123's constants), the generator of the kernels'
+# dropout masks (csrc/fused_attention.cu)
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_MASK32 = 0xFFFFFFFF
+
+
+def _mulhilo(m, x):
+    """(hi, lo) 32-bit halves of the 64-bit product of the constant ``m``
+    and ``x`` (int64 tensor of values below 2**32). The factors are split
+    into 16-bit halves, because their full product overflows int64."""
+    ml, mh = m & 0xFFFF, m >> 16
+    xl, xh = x & 0xFFFF, x >> 16
+    ll = ml * xl
+    mid = mh * xl + ml * xh + (ll >> 16)
+    return mh * xh + (mid >> 16), ((mid & 0xFFFF) << 16) | (ll & 0xFFFF)
+
+
+def philox4x32(counter, key):
+    """Philox4x32-10 on int64 tensors: ``counter`` four broadcastable
+    tensors of 32-bit values, ``key`` two. Returns the four output words."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _MASK32, (k1 + _PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def dropout_keep_mask(B, H, S, p, seed):
+    """The fused kernels' dropout mask [B, H, S, S] (True = kept), built in
+    plain PyTorch: element (b, h, row, col) takes word ``row & 3`` of the
+    Philox call keyed on ``seed`` (int64 tensor [1]) with counter
+    (col, row >> 2, b * H + h, 0), and is kept where
+    (bits >> 8) * 2**-24 >= p in fp32."""
+    dev = seed.device
+    r4 = (S + 3) // 4
+    ar = functools.partial(torch.arange, device=dev, dtype=torch.int64)
+    s = seed.reshape(()).to(torch.int64)
+    words = philox4x32(
+        (ar(S).view(1, 1, S), ar(r4).view(1, r4, 1),
+         ar(B * H).view(B * H, 1, 1), torch.zeros((), dtype=torch.int64,
+                                                  device=dev)),
+        (s & _MASK32, (s >> 32) & _MASK32))
+    shape = (B * H, r4, S)
+    bits = torch.stack([w.expand(shape) for w in words], dim=2)
+    bits = bits.reshape(B * H, 4 * r4, S)[:, :S]
+    u = (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    return (u >= p).view(B, H, S, S)
+
+
+def _ref_fused_attention(q, k, v, bias, scale, dropout_prob, seed):
+    """Plain version of the fused kernels (the einsum form of the
+    reference's ``_ref_attention``), differentiated by autograd: fp32
+    scores plus bias, softmax, dropout of the normalised weights with the
+    kernels' Philox mask and a 1/(1-p) upscale, PV, cast to q's type."""
+    B, H, S, _ = q.shape
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias.float()
+    p = torch.softmax(s, dim=-1)
+    if dropout_prob > 0.0:
+        keep = dropout_keep_mask(B, H, S, dropout_prob, seed)
+        p = torch.where(keep, p * (1.0 / (1.0 - dropout_prob)), 0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def fused_attention(q, k, v, bias=None, scale=None, dropout_prob=0.0,
+                    seed=None):
+    """softmax(q·kᵀ·scale + bias)·v over heads, with dropout of the
+    normalised weights.
+
+    q, k, v [B, H, S, d] of one dtype; bias additive, broadcastable as
+    [B|1, 1|H, 1|S, S] (0 keep / -1e4 mask); ``seed`` an int64 tensor [1]
+    on q's device, required when ``dropout_prob`` > 0. Returns
+    [B, H, S, d] in q's dtype, differentiable in q, k, v and bias.
+
+    A CPU tensor takes the plain version, a ``meta`` tensor gives the
+    shape only, a CUDA tensor the kernels (S <= ``MAX_FUSED_SEQ``)."""
+    B, H, S, d = q.shape
+    scale = float(1.0 / math.sqrt(d) if scale is None else scale)
+    p = float(dropout_prob)
+    if p > 0.0 and seed is None:
+        raise ValueError("dropout_prob > 0 needs a seed tensor")
+    if q.device.type == "meta":
+        return torch.empty_like(q)
+    if q.device.type == "cpu":
+        return _ref_fused_attention(q, k, v, bias, scale, p, seed)
+    if S > MAX_FUSED_SEQ:
+        raise NotImplementedError(
+            "fused_attention on the card takes S <= %d, got %d: the TPU "
+            "package's long (_fwd_kernel_long/_bwd_kernel_long) and flash "
+            "tiers are not ported yet" % (MAX_FUSED_SEQ, S))
+    return _FusedAttention.apply(q, k, v, bias, seed, scale, p)
+
+
+def _bias_operand(bias, B, H, S):
+    """(fp32 contiguous bias, its element strides (b, h, row)) for the
+    kernels; a broadcast dimension gets stride 0. None passes through."""
+    if bias is None:
+        return None, (0, 0, 0)
+    shape = tuple(bias.shape)
+    if len(shape) != 4 or shape[0] not in (1, B) or shape[1] not in (1, H) \
+            or shape[2] not in (1, S) or shape[3] != S:
+        raise ValueError("bias must broadcast as [B|1, 1|H, 1|S, S] = "
+                         "[%d, %d, %d, %d], got %s" % (B, H, S, S, shape))
+    bias = bias.to(torch.float32).contiguous()
+    rows, heads = shape[2], shape[1]
+    return bias, ((shape[0] > 1) * heads * rows * S, (heads > 1) * rows * S,
+                  (rows > 1) * S)
+
+
+class _FusedAttention(torch.autograd.Function):
+    """The kernels under autograd: the forward saves q, k, v, o and the
+    row logsumexp; the backward runs the dq and dk/dv kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, seed, scale, p):
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        B, H, S, _ = q.shape
+        bias_f, strides = _bias_operand(bias, B, H, S)
+        o, lse = fused_attention_fwd_kernel(q, k, v, bias_f, strides, seed,
+                                            scale, p)
+        ctx.save_for_backward(q, k, v, bias_f, seed, o, lse)
+        ctx.strides, ctx.scale, ctx.p = strides, scale, p
+        ctx.bias_meta = None if bias is None else (tuple(bias.shape),
+                                                   bias.dtype)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias_f, seed, o, lse = ctx.saved_tensors
+        want_db = ctx.bias_meta is not None and ctx.needs_input_grad[3]
+        dq, dk, dv, dbias = fused_attention_backward(
+            q, k, v, bias_f, ctx.strides, seed, o, lse, do.contiguous(),
+            ctx.scale, ctx.p, bias_grad=want_db)
+        if want_db:
+            shape, dtype = ctx.bias_meta
+            if shape[0] == 1 and dbias.shape[0] > 1:
+                dbias = dbias.sum(0, keepdim=True)
+            dbias = dbias.to(dtype)
+        return dq, dk, dv, dbias, None, None, None
 
 
 # -- KV ring cache -----------------------------------------------------------
@@ -287,3 +454,187 @@ def paged_attention_kernel(q, k_pool, v_pool, page_table, cache_len, scale):
 
 
 paged_attention_kernel.launches = 0
+
+
+# -- fused training-attention CUDA kernels -----------------------------------
+_BF16 = {torch.float32: 0, torch.bfloat16: 1}
+_I64 = ctypes.c_longlong
+
+
+def _fused_entry(name, signature):
+    """The C entry ``name`` of the fused-attention library with its
+    argument types: ``signature`` is a string of p (pointer), i (int),
+    l (int64), f (float), one letter per argument."""
+    fn = getattr(_build.library("fused_attention"), name)
+    if fn.argtypes is None:
+        types = {"p": _VOIDP, "i": _INT, "l": _I64, "f": _FLOAT}
+        fn.argtypes = [types[c] for c in signature]
+        fn.restype = _INT
+    return fn
+
+
+def _check_qkv(q, k, v):
+    if q.device.type != "cuda":
+        raise ValueError("the fused-attention kernels take CUDA tensors, "
+                         "got one on %s" % q.device)
+    if q.dtype not in _BF16:
+        raise TypeError("the fused-attention kernels take float32 or "
+                        "bfloat16, got %s" % q.dtype)
+    if q.dim() != 4 or min(q.shape) < 1 or q.shape[3] not in _HEAD_DIMS:
+        raise ValueError("q must be [B, H, S, d] with d in %s, got %s"
+                         % (_HEAD_DIMS, tuple(q.shape)))
+    if q.shape[2] > MAX_FUSED_SEQ:
+        raise ValueError("the fused-attention kernels take S <= %d, got %d"
+                         % (MAX_FUSED_SEQ, q.shape[2]))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(name, t, q.device, q.dtype, q.shape)
+
+
+def _check_extras(q, bias, strides, seed, p):
+    B, H, S, _ = q.shape
+    if bias is not None:
+        if bias.device != q.device or bias.dtype != torch.float32 or \
+                not bias.is_contiguous():
+            raise ValueError("bias must be contiguous float32 on %s"
+                             % q.device)
+        need = (strides[0] * (B - 1) + strides[1] * (H - 1) +
+                strides[2] * (S - 1) + S)
+        if any(s < 0 for s in strides) or bias.numel() < need:
+            raise ValueError("bias strides %s reach past its %d elements"
+                             % (tuple(strides), bias.numel()))
+    if not 0.0 <= p < 1.0:
+        raise ValueError("dropout_prob must be in [0, 1), got %r" % p)
+    if p > 0.0:
+        _check("seed", seed, q.device, torch.int64, (1,))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def fused_attention_fwd_kernel(q, k, v, bias, strides, seed, scale, p):
+    """Launch the forward kernel (replaces ``_fwd_kernel``,
+    ``paddle_tpu/kernels/attention.py``): q, k, v [B, H, S, d] contiguous
+    of one type (float32 or bfloat16, d in 16/32/64/128, S <= 1024) on one
+    CUDA device; bias None or contiguous float32 read at element strides
+    ``strides`` (batch, head, row; 0 broadcasts); seed int64 [1] when
+    ``p`` > 0. Returns (o [B, H, S, d] in q's type, lse [B, H, S] fp32).
+
+    Bound on the card: operations, 4·B·H·S²·d at the peak rate of the
+    input type (design note in ``csrc/fused_attention.cu``)."""
+    _check_qkv(q, k, v)
+    _check_extras(q, bias, strides, seed, p)
+    B, H, S, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    fn = _fused_entry("pt_fused_attention_fwd",
+                      "i" "pppp" "lll" "ppp" "iiii" "fff" "p")
+    with torch.cuda.device(q.device):
+        rc = fn(_BF16[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                _ptr(bias), *strides, _ptr(seed), o.data_ptr(),
+                lse.data_ptr(), B, H, S, d, float(scale), float(p),
+                _keep_scale(p), _stream(q.device))
+    _raise_on(rc, "fused-attention forward")
+    fused_attention_fwd_kernel.launches += 1
+    _M_FWD_LAUNCH.inc()
+    return o, lse
+
+
+fused_attention_fwd_kernel.launches = 0
+
+
+def _keep_scale(p):
+    return 1.0 / (1.0 - p) if p > 0.0 else 1.0
+
+
+def fused_attention_bwd_dq_kernel(q, k, v, bias, strides, seed, o, lse,
+                                  dout, scale, p):
+    """Launch the dq kernel (with the dk/dv kernel it replaces
+    ``_bwd_kernel``): the forward's operands plus o, lse and dout
+    [B, H, S, d] in q's type. Returns (dq in q's type, delta [B, H, S]
+    fp32 = rowsum(dout * o), which the dk/dv kernel reads)."""
+    _check_qkv(q, k, v)
+    _check_extras(q, bias, strides, seed, p)
+    B, H, S, d = q.shape
+    _check("o", o, q.device, q.dtype, q.shape)
+    _check("dout", dout, q.device, q.dtype, q.shape)
+    _check("lse", lse, q.device, torch.float32, (B, H, S))
+    dq = torch.empty_like(q)
+    delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    fn = _fused_entry("pt_fused_attention_bwd_dq",
+                      "i" "pppp" "lll" "pppppp" "iiii" "fff" "p")
+    with torch.cuda.device(q.device):
+        rc = fn(_BF16[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                _ptr(bias), *strides, _ptr(seed), o.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), B, H, S, d, float(scale), float(p),
+                _keep_scale(p), _stream(q.device))
+    _raise_on(rc, "fused-attention dq")
+    fused_attention_bwd_dq_kernel.launches += 1
+    _M_BWD_DQ_LAUNCH.inc()
+    return dq, delta
+
+
+fused_attention_bwd_dq_kernel.launches = 0
+
+
+def fused_attention_bwd_dkdv_kernel(q, k, v, bias, strides, seed, lse,
+                                    delta, dout, scale, p, dbias_shape=None):
+    """Launch the dk/dv kernel (with the dq kernel it replaces
+    ``_bwd_kernel``). ``dbias_shape`` (B, 1|H, 1|S, S) asks for the bias
+    gradient in fp32, reduced over the broadcast heads and rows (a
+    head-broadcast bias is summed with fp32 atomics into a zeroed
+    buffer). Returns (dk, dv, dbias or None)."""
+    _check_qkv(q, k, v)
+    _check_extras(q, bias, strides, seed, p)
+    B, H, S, d = q.shape
+    _check("dout", dout, q.device, q.dtype, q.shape)
+    _check("lse", lse, q.device, torch.float32, (B, H, S))
+    _check("delta", delta, q.device, torch.float32, (B, H, S))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dbias, heads, rows = None, 1, 1
+    if dbias_shape is not None:
+        _, heads, rows, _ = dbias_shape
+        if tuple(dbias_shape) != (B, heads, rows, S) or heads not in (1, H) \
+                or rows not in (1, S):
+            raise ValueError("dbias_shape must be [B, 1|H, 1|S, S], got %s"
+                             % (tuple(dbias_shape),))
+        alloc = torch.zeros if heads == 1 < H else torch.empty
+        dbias = alloc(B, heads, rows, S, dtype=torch.float32,
+                      device=q.device)
+    fn = _fused_entry("pt_fused_attention_bwd_dkdv",
+                      "i" "pppp" "lll" "ppppppp" "iiiiii" "fff" "p")
+    with torch.cuda.device(q.device):
+        rc = fn(_BF16[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                _ptr(bias), *strides, _ptr(seed), dout.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), _ptr(dbias), heads, rows, B, H, S, d,
+                float(scale), float(p), _keep_scale(p), _stream(q.device))
+    _raise_on(rc, "fused-attention dk/dv")
+    fused_attention_bwd_dkdv_kernel.launches += 1
+    _M_BWD_DKDV_LAUNCH.inc()
+    return dk, dv, dbias
+
+
+fused_attention_bwd_dkdv_kernel.launches = 0
+
+
+def fused_attention_backward(q, k, v, bias, strides, seed, o, lse, dout,
+                             scale, p, bias_grad=False):
+    """The backward of the fused kernels: the dq kernel (which also
+    writes delta), then the dk/dv kernel. Returns (dq, dk, dv, dbias);
+    dbias [B, 1|H, 1|S, S] fp32 when ``bias_grad``, else None."""
+    dq, delta = fused_attention_bwd_dq_kernel(q, k, v, bias, strides, seed,
+                                              o, lse, dout, scale, p)
+    dbias_shape = None
+    if bias_grad:
+        B, H, S, _ = q.shape
+        dbias_shape = (B, H if strides[1] else 1, S if strides[2] else 1, S)
+    dk, dv, dbias = fused_attention_bwd_dkdv_kernel(
+        q, k, v, bias, strides, seed, lse, delta, dout, scale, p,
+        dbias_shape)
+    return dq, dk, dv, dbias

@@ -178,6 +178,8 @@ def test_port_imports_without_jax_triton_or_nvcc():
         "import paddle_tpu_torch.inference.serving\n"
         "import paddle_tpu_torch.inference\n"
         "import paddle_tpu_torch.kernels.attention\n"
+        "import paddle_tpu_torch.fluid.executor, paddle_tpu_torch.fluid.layers\n"
+        "import paddle_tpu_torch.fluid.optimizer, paddle_tpu_torch.models.bert\n"
         "bad = [m for m in sys.modules if m in ('jax', 'triton') or\n"
         "       m == 'paddle_tpu' or m.startswith(('paddle_tpu.', 'jax.'))]\n"
         "assert not bad, bad\n"

@@ -1,0 +1,115 @@
+"""Where a BERT-base pretraining step of paddle_tpu_torch spends its time
+on the card.
+
+    python3 tools/profile_bert.py [--batch 32] [--steps 2]
+
+Needs one CUDA card. Builds the same program as chip_smoke.py's bert
+phase (``build_pretrain_program(BertConfig.base(), seq_len=512)``, fp32,
+dropout 0.1, Adam), runs its startup program and two warm-up steps on one
+synthetic batch, times ``--steps`` steps on the host clock (ending in a
+device sync), traces as many with torch.profiler, and prints one JSON
+line: wall ms per step, device-busy ms per step (the sum of kernel
+times), the device's idle share, kernel launches per step, the fused
+attention kernels' share of device time, and the kernels with the most
+device time. Device numbers are "not measured" where the profiler
+returned no device events.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from paddle_tpu_torch import fluid  # noqa: E402
+from paddle_tpu_torch.models import bert  # noqa: E402
+
+SEQ = 512
+ATTENTION_KERNELS = ("attn_fwd", "attn_bwd_dq", "attn_bwd_dkdv")
+
+
+def _device_kernels(prof):
+    """{kernel name: (device us, calls)} from a finished profile."""
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            out[e.key] = (us, e.count)
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--steps", type=int, default=2)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_bert: torch sees no CUDA device", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    cfg = bert.BertConfig.base()
+    with fluid.unique_name.guard():
+        main_prog, startup, loss = bert.build_pretrain_program(cfg,
+                                                               seq_len=SEQ)
+    feed = bert.synthetic_batch(cfg, args.batch, SEQ, seed=0)
+    exe, scope = fluid.Executor("cuda"), fluid.Scope()
+    exe.run(startup, scope=scope)
+
+    def step():
+        exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / args.steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.steps):
+            step()
+        torch.cuda.synchronize()
+    kern = _device_kernels(prof)
+    rec = dict(phase="profile", path="bert", batch=args.batch, seq_len=SEQ,
+               steps=args.steps, wall_ms_per_step=wall_ms,
+               tokens_per_s=args.batch * SEQ / wall_ms * 1e3)
+    if not kern:
+        rec.update(device_busy_ms_per_step="not measured",
+                   idle_share="not measured")
+    else:
+        busy_us = sum(us for us, _ in kern.values())
+        attn = {name: sum(us for k, (us, _) in kern.items() if name + "<" in k)
+                / args.steps / 1e3 for name in ATTENTION_KERNELS}
+        rec.update(
+            device_busy_ms_per_step=busy_us / args.steps / 1e3,
+            idle_share=1.0 - busy_us / args.steps / 1e3 / wall_ms,
+            kernel_launches_per_step=sum(n for _, n in kern.values())
+            / args.steps,
+            attention_ms_per_step=attn,
+            attention_share_of_busy=sum(attn.values()) * 1e3 * args.steps
+            / busy_us,
+            top=[dict(kernel=k[:96], ms_per_step=us / args.steps / 1e3,
+                      calls_per_step=n / args.steps)
+                 for k, (us, n) in sorted(kern.items(),
+                                          key=lambda kv: -kv[1][0])[:15]])
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
