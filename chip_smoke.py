@@ -19,7 +19,16 @@ the script exits non-zero without its final line:
              training attention (forward, and the backward's dq, dk, dv
              and dbias): BERT-base's shape (batch 32, 12 heads of 64,
              S 512, padding-mask bias) at dropout 0.1 and 0, every other
-             bias mode, a ragged S and d 128; fp32 and bf16.
+             bias mode, a ragged S and d 128; fp32 and bf16. The same
+             kernels past S 1024, where they stand in for the TPU
+             package's long and flash tiers: batch 1, 12 heads of 64, at
+             S 2048, 4096 and 8192, p = 0, fp32 and bf16, each kernel of
+             the backward also timed alone; at S 2048 dropout 0.1 and a
+             per-row [1, 12, S, S] bias; untimed, bf16 at dropout 0.1 at
+             each shape of bert_long (S 2048 x 8, 4096 x 4, 8192 x 2; at
+             S 8192 the plain version runs one (batch, head) pair at a
+             time). Each output of these is held to a limit relative to
+             the plain output's largest magnitude (LONG_RTOL).
 3. dense     GenerativePredictor(Transformer.big(), batch 64, src 128,
              prompt 64, capacity 1024).run for 32 new tokens: the dense
              decode kernel launches once per decoder layer per step, and
@@ -36,7 +45,17 @@ the script exits non-zero without its final line:
              a cloned scope and generator; then 6 timed steps, each
              through 12 forward and 12 + 12 backward kernel launches,
              with finite losses that fall (the batch is memorised).
-6. summary   the kernels line, the card line, then the result line.
+6. bert_long BERT-base long-context pretraining in bf16 AMP
+             (use_amp=True, dropout 0.1, max_seq = S), the reference's
+             long-sequence run: first one step with the kernels against
+             one with the plain attention at S 2048, batch 1, from a
+             cloned scope and generator; then (S 2048, batch 8),
+             (S 4096, batch 4) and (S 8192, batch 2), each one warm step
+             and 4 timed steps through 12 forward, 12 dq and 12 dk/dv
+             launches a step, reported under the TPU tier they stand in
+             for (``reference_tier``: long at S 2048, flash above), with
+             finite losses that fall.
+7. summary   the kernels line, the card line, then the result line.
 """
 
 import contextlib
@@ -48,6 +67,7 @@ import subprocess
 import sys
 import threading
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -299,6 +319,257 @@ def fused_case(A, dev, gen, flush, name, B, H, S, d, bias_shape, p, dtype):
             bound_ms=b_ms, bound_by=b_by))
     emit(phase="kernels", kernel="fused_attention", **rec)
     return rec
+
+
+# The TPU package's training tiers (paddle_tpu/kernels/attention.py), by
+# which the summary line names the TPU kernel each launch of the one CUDA
+# family stands in for: _fwd_kernel/_bwd_kernel up to S 1024, the long
+# kernels up to S 4096 where _long_qb finds a query tile, the flash kernels
+# past that.
+TPU_MAX_FUSED_SEQ, TPU_MAX_LONG_SEQ = 1024, 4096
+
+
+def long_qb(S, d):
+    """The TPU package's query tile for its long kernels: 128 or 64 rows
+    whose VMEM footprint estimate stays under 13 MB, else None."""
+    for qb in (128, 64):
+        if S % qb == 0 and 7.5 * qb * S * 4 + 24 * S * d <= 13 * 1024 * 1024:
+            return qb
+    return None
+
+
+def reference_tier(S, d):
+    """The TPU package tier whose kernels a launch at sequence length S
+    and head width d stands in for: "fused", "long" or "flash"."""
+    if S <= TPU_MAX_FUSED_SEQ:
+        return "fused"
+    if S <= TPU_MAX_LONG_SEQ and long_qb(S, d) is not None:
+        return "long"
+    return "flash"
+
+
+def long_bound(q, bias, kind):
+    """(bound_ms, bound_by) of one kernel of the long-sequence family on
+    q [B, H, S, d]: ``kind`` "fwd" (q, k, v, bias in; o, lse out; q.k^T
+    and p.v, 4 B H S^2 d), "dq" (q, k, v, o, dO, lse, bias in; dq, delta
+    out; q.k^T, dO.v^T and dS.K, 6 B H S^2 d) or "dkdv" (q, k, v, dO,
+    lse, delta, bias in; dk, dv, dbias out; q.k^T, dO.v^T, P^T.dO and
+    dS^T.Q, 8 B H S^2 d), or "bwd" for the whole backward as in
+    ``fused_bound``."""
+    if kind in ("fwd", "bwd"):
+        return fused_bound(q, bias, kind == "bwd")
+    B, H, S, d = q.shape
+    n, e, rows = q.numel(), q.element_size(), 4 * B * H * S
+    if kind == "dq":
+        nbytes, ops = 6 * n * e + 2 * rows + 4 * bias.numel(), 6.0
+    else:
+        nbytes, ops = 6 * n * e + 2 * rows + 2 * 4 * bias.numel(), 8.0
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops * B * H * S * S * d / PEAK_OPS_PER_S[q.dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+LONG_OUTPUTS = ("out", "lse", "dq", "dk", "dv", "dbias")
+# The kernels past S 1024 against the plain version: each output's
+# max |kernel - plain| as a share of the plain output's own largest
+# magnitude, held to a limit per output and type that lies between the
+# readings of the sound kernels and of planted faults on the H100
+# (tools/attention_fault_check.py; PERF.md). Largest sound readings over
+# the cases: fp32 4.1e-6 (out), 2.0e-7 (lse), 9.6e-7 (gradients); bf16,
+# whose outputs both sides round to bf16, 2.5e-3 (out), 4.0e-3 (dq),
+# 3.3e-3 (dk), 2.3e-3 (dv), 4.0e-4 (dbias, fp32). Smallest fault
+# readings: 2.2e-3 (lse, one 64-key tile skipped at S 8192), 9.9e-2
+# (dbias), 0.22 or more for the rest.
+LONG_RTOL = {
+    torch.float32: dict(out=1e-4, lse=1e-5, dq=1e-4, dk=1e-4, dv=1e-4,
+                        dbias=1e-4),
+    torch.bfloat16: dict(out=1e-2, lse=1e-5, dq=1e-2, dk=1e-2, dv=1e-2,
+                         dbias=1e-2)}
+
+
+def long_case_list():
+    """Every long-sequence kernel case as (name, B, H, S, bias_shape, p,
+    dtype, backward, by_pair): batch 1 with the full 12 heads of 64 at
+    S 2048, 4096 and 8192, p = 0, fp32 and bf16; at S 2048 dropout 0.1
+    and a per-row [1, 12, S, S] bias; then bf16 with dropout 0.1 at each
+    shape of the bert_long phase (S 2048 x 8, 4096 x 4, 8192 x 2), the
+    last one held to the plain version one (batch, head) pair at a time,
+    whose [B, H, S, S] tensors would not fit the card whole."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for S in (2048, 4096, 8192):
+            cases.append(("S%d_%s" % (S, tag), 1, 12, S, "padding", 0.0,
+                          dtype, True, False))
+        cases.append(("S2048_dropout_" + tag, 1, 12, 2048, "padding", 0.1,
+                      dtype, True, False))
+        cases.append(("S2048_bias_1x12xSxS_" + tag, 1, 12, 2048,
+                      (1, 12, 2048, 2048), 0.0, dtype, True, False))
+    for S, B in ((2048, 8), (4096, 4), (8192, 2)):
+        cases.append(("S%d_batch%d_dropout_bf16" % (S, B), B, 12, S,
+                      "padding", 0.1, torch.bfloat16, True, S == 8192))
+    return cases
+
+
+def long_plain(A, q, k, v, do, bias, seed, scale, p, backward, first_pair=0):
+    """{output: tensor} of the plain version: the forward, the row
+    logsumexp of the biased fp32 scores and, with ``backward``, autograd's
+    dq, dk, dv and dbias for the upstream gradient ``do``."""
+    leaves = [t.detach().clone().requires_grad_(backward)
+              for t in (q, k, v, bias)]
+    o = A._ref_fused_attention(*leaves, scale, p, seed, first_pair)
+    want = {"lse": torch.logsumexp(A._ref_scores(q, k, bias, scale), dim=-1)}
+    if backward:
+        want.update(zip(("dq", "dk", "dv", "dbias"),
+                        torch.autograd.grad(o, leaves, do)))
+    want["out"] = o.detach()
+    return want
+
+
+def long_check(A, dev, name, B, H, S, bias_shape, p, dtype, backward=True,
+               by_pair=False):
+    """The kernels past S 1024 (d 64) against the plain version on the
+    same inputs and seed: flash_attention's output and row logsumexp, and
+    flash_attention_backward's dq, dk, dv, dbias of one random upstream
+    gradient. ``bias_shape`` as ``fused_case``. ``by_pair`` runs the plain
+    version one (batch, head) pair at a time with that pair's dropout
+    mask, and sums its bias gradients over the pairs that share a bias
+    row. The inputs come from a generator seeded by the case, so every
+    run of a case sees the same data. Returns (record, inputs): the
+    record holds each output's max |err|, the plain output's largest
+    magnitude, their ratio and its limit; nothing is raised here."""
+    d = 64
+    gen = torch.Generator(device=dev).manual_seed(zlib.crc32(name.encode()))
+    q, k, v, do = (torch.randn(B, H, S, d, device=dev, generator=gen)
+                   .to(dtype) for _ in range(4))
+    if bias_shape == "padding":
+        lens = torch.randint(S // 2, S + 1, (B, 1), device=dev,
+                             generator=gen)
+        bias = torch.where(torch.arange(S, device=dev)[None] < lens, 0.0,
+                           -1e4).view(B, 1, 1, S)
+    else:
+        bias = torch.randn(*bias_shape, device=dev, generator=gen)
+    seed = torch.tensor([7919 * S + B], dtype=torch.int64, device=dev)
+    scale = d ** -0.5
+    o, lse = A.flash_attention(q, k, v, bias, scale, p, seed)
+    got = {"out": o, "lse": lse}
+    if backward:
+        got.update(zip(("dq", "dk", "dv", "dbias"),
+                       A.flash_attention_backward(q, k, v, bias, seed, do, o,
+                                                  lse, scale, p)))
+    err = dict.fromkeys(got, 0.0)
+    ref = dict.fromkeys(got, 0.0)
+
+    def compare(key, a, b):
+        err[key] = max(err[key], (a.float() - b.float()).abs().max().item())
+        ref[key] = max(ref[key], b.float().abs().max().item())
+
+    if not by_pair:
+        want = long_plain(A, q, k, v, do, bias, seed, scale, p, backward)
+        for key in got:
+            compare(key, got[key], want[key])
+        del want
+    else:
+        dbias = torch.zeros_like(got["dbias"]) if backward else None
+        for b in range(B):
+            for h in range(H):
+                one = [t[b:b + 1, h:h + 1] for t in (q, k, v, do)]
+                bb, bh = (b if bias.shape[0] > 1 else 0,
+                          h if bias.shape[1] > 1 else 0)
+                want = long_plain(A, *one, bias[bb:bb + 1, bh:bh + 1], seed,
+                                  scale, p, backward, first_pair=b * H + h)
+                for key in got:
+                    if key != "dbias":
+                        compare(key, got[key][b:b + 1, h:h + 1], want[key])
+                if backward:
+                    dbias[bb:bb + 1, bh:bh + 1] += want["dbias"].float()
+                del want
+        if backward:
+            compare("dbias", got["dbias"], dbias)
+    rtol = LONG_RTOL[dtype]
+    rec = dict(name=name, B=B, H=H, S=S, d=d, dtype=str(dtype),
+               bias=list(bias.shape), dropout=p, by_pair=by_pair,
+               tier=reference_tier(S, d), max_abs_err=err, ref_max_abs=ref,
+               rel_err={key: err[key] / ref[key] for key in err},
+               rtol={key: rtol[key] for key in err})
+    del got
+    return rec, (q, k, v, do, bias, seed, scale, p, o, lse)
+
+
+def long_case(A, dev, flush, case, timed):
+    """One long-sequence case (``long_case_list``): held to its limits,
+    then with ``timed`` the forward kernel, the dq kernel and the dk/dv
+    kernel alone and together, the plain version (autograd for its
+    backward) and SDPA with the same float mask at p = 0."""
+    name, B, H, S, bias_shape, p, dtype, backward, by_pair = case
+    rec, (q, k, v, do, bias, seed, scale, p, o, lse) = long_check(
+        A, dev, name, B, H, S, bias_shape, p, dtype, backward, by_pair)
+    for key, rel in rec["rel_err"].items():
+        if not rel <= rec["rtol"][key]:
+            raise AssertionError(
+                "%s: long attention %s kernel vs plain max |err| %g = %g of "
+                "the plain's largest magnitude > %g" % (
+                    name, key, rec["max_abs_err"][key], rel,
+                    rec["rtol"][key]))
+    if timed:
+        bias_f, strides = A._bias_operand(bias, B, H, S)
+        f_ms, f_by = long_bound(q, bias, "fwd")
+        rec["fwd"] = dict(
+            kernel_ms=time_ms(lambda: A.fused_attention_fwd_kernel(
+                q, k, v, bias_f, strides, seed, scale, p), flush),
+            plain_ms=time_ms(lambda: A._ref_fused_attention(
+                q, k, v, bias, scale, p, seed), flush),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias.to(dtype), scale=scale), flush),
+            bound_ms=f_ms, bound_by=f_by,
+            max_abs_err=max(rec["max_abs_err"][x] for x in ("out", "lse")))
+    if timed and backward:
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (q, k, v, bias)]
+        ref = A._ref_fused_attention(*leaves, scale, p, seed)
+        _, delta = A.fused_attention_bwd_dq_kernel(
+            q, k, v, bias_f, strides, seed, o, lse, do, scale, p)
+        dbias_shape = (B, H if strides[1] else 1, S if strides[2] else 1, S)
+        lib_leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(
+            *lib_leaves, attn_mask=bias.to(dtype), scale=scale)
+        plain_bwd = time_ms(lambda: torch.autograd.grad(
+            ref, leaves, do, retain_graph=True), flush)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            lib_out, lib_leaves, do, retain_graph=True), flush)
+        errs = {"dq": ("dq",), "dkdv": ("dk", "dv", "dbias"),
+                "bwd": ("dq", "dk", "dv", "dbias")}
+        for kind, fn in (
+                ("dq", lambda: A.fused_attention_bwd_dq_kernel(
+                    q, k, v, bias_f, strides, seed, o, lse, do, scale, p)),
+                ("dkdv", lambda: A.fused_attention_bwd_dkdv_kernel(
+                    q, k, v, bias_f, strides, seed, lse, delta, do, scale,
+                    p, dbias_shape)),
+                ("bwd", lambda: A.flash_attention_backward(
+                    q, k, v, bias, seed, do, o, lse, scale, p))):
+            b_ms, b_by = long_bound(q, bias, kind)
+            rec[kind] = dict(
+                kernel_ms=time_ms(fn, flush), plain_ms=plain_bwd,
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_bwd if kind == "bwd" else None,
+                max_abs_err=max(rec["max_abs_err"][x] for x in errs[kind]))
+        rec["bwd"]["library_bwd_of_both_halves_ms"] = lib_bwd
+        del ref, leaves, lib_out, lib_leaves
+    emit(phase="kernels", kernel="long_attention", **rec)
+    del q, k, v, do, bias, o, lse
+    torch.cuda.empty_cache()
+    return rec
+
+
+def long_cases(A, dev, flush):
+    """Every long-sequence case, the batch-1 ones timed; returns the bf16
+    records at S 2048 (the long tier's path length) and S 8192 (the flash
+    tier's), p = 0, which the summary line reports."""
+    recs = {}
+    for case in long_case_list():
+        recs[case[0]] = long_case(A, dev, flush, case, timed=case[1] == 1)
+    return recs["S2048_bf16"], recs["S8192_bf16"]
 
 
 def fused_cases(A, dev, gen, flush):
@@ -649,6 +920,160 @@ def bert_path(A, dev):
     return launches
 
 
+LONG_SHAPES = ((2048, 8), (4096, 4), (8192, 2))   # bench.py bench_longseq
+LONG_CHECK_SEQ, LONG_CHECK_BATCH, LONG_STEPS = 2048, 1, 4
+# One bf16 AMP step, kernels vs plain attention from a cloned scope and
+# generator (the same dropout masks), as the bert phase compares fp32.
+# Both compute attention in fp32 from the same bf16 q, k, v and round
+# their output to bf16, but they sum in another order, so an output that
+# lies near a rounding boundary comes out one bf16 step (2^-8 relative)
+# apart, and the bf16 products of the 12 layers below carry that on.
+# Readings on the H100 (tools/attention_fault_check.py, PERF.md): the
+# loss 4.0e-6 relative, 1.7e-5 with one k-tile skipped in every kernel;
+# its limit lies between. Each watched tensor's Adam first moment, 0.1
+# of its gradient, is held to its own limit as a share of its largest
+# magnitude, about five times its reading: word_emb 1.1e-2, the query
+# weight 1.3e-2 (0.16 with the tile skipped), the last FFN weight
+# 9.0e-3, the output bias 7.4e-5. The key weight stands apart at 2.7e-2
+# (0.14 with the tile skipped): its gradient passes through the
+# softmax's Jacobian, which cancels most of it (the key bias's
+# entirely), so the rounding differences of the layers above stand out.
+# The path's batch pads nothing (its bias is 0), so this step cannot see
+# a fault of the mask; the kernel cases with padding do.
+LONG_LOSS_RTOL = 1e-5
+LONG_GRAD_RTOL = {"word_emb": 6e-2, "layer_0_attn_q.w_0": 6e-2,
+                  "layer_5_attn_k.w_0": 2 ** -3,
+                  "layer_11_ffn2.w_0": 4.5e-2, "mlm_out_bias": 4e-4}
+
+
+def long_program(fluid, bert, S):
+    """(cfg, main, startup, loss, build seconds) of the AMP program."""
+    t0 = time.perf_counter()
+    cfg = bert.BertConfig.base()
+    cfg.max_seq = S
+    with fluid.unique_name.guard():
+        main, startup, loss = bert.build_pretrain_program(cfg, seq_len=S,
+                                                          use_amp=True)
+    return cfg, main, startup, loss, time.perf_counter() - t0
+
+
+def long_step_check(A, exe, fluid, bert, prog):
+    """One bf16 AMP step of ``prog`` (``long_program`` at LONG_CHECK_SEQ)
+    on a batch of LONG_CHECK_BATCH with the kernels, and one with the
+    plain attention, from one cloned scope and generator. Returns the
+    record: the loss's relative difference and each watched tensor's
+    first-moment difference as a share of its largest magnitude, beside
+    their limits. Raises here only if a route launched the wrong
+    kernels."""
+    cfg, main, startup, loss, _ = prog
+    feed = bert.synthetic_batch(cfg, LONG_CHECK_BATCH, LONG_CHECK_SEQ,
+                                seed=0)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    res = {}
+    for route, ctx in (("kernel", contextlib.nullcontext()),
+                       ("plain", plain_fused_attention(A))):
+        sc = clone_scope(fluid, scope)
+        reset_launches(A)
+        with ctx:
+            step_loss = exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=sc)[0]
+        launched = [getattr(A, name).launches for name in FUSED_KERNELS]
+        if launched != [cfg.n_layers * (route == "kernel")] * 3:
+            raise AssertionError("bert_long: the %s step launched the fused "
+                                 "kernels %s times" % (route, launched))
+        res[route] = (float(step_loss[0]),
+                      {n: sc.find_var(n + "_moment1_0") for n in BERT_WATCH})
+        del sc
+    del scope
+    grad_rel = {n: ((res["kernel"][1][n] - res["plain"][1][n]).abs().max() /
+                    res["plain"][1][n].abs().max()).item()
+                for n in BERT_WATCH}
+    return dict(seq_len=LONG_CHECK_SEQ, batch=LONG_CHECK_BATCH,
+                loss_kernel=res["kernel"][0], loss_plain=res["plain"][0],
+                loss_rel=abs(res["kernel"][0] - res["plain"][0]) /
+                abs(res["plain"][0]), loss_rtol=LONG_LOSS_RTOL,
+                grad_rel=grad_rel, grad_rtol=LONG_GRAD_RTOL)
+
+
+def bert_long_path(A, dev):
+    """The long-context AMP path; returns {tier: {kernel: launches}} over
+    the timed steps of every shape."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    exe = fluid.Executor(dev)
+    # one step with the kernels and one with the plain attention
+    cfg, main, startup, loss, build_s = prog = long_program(fluid, bert,
+                                                            LONG_CHECK_SEQ)
+    rec = long_step_check(A, exe, fluid, bert, prog)
+    over = {n: r for n, r in rec["grad_rel"].items()
+            if not r <= LONG_GRAD_RTOL[n]}
+    if not (math.isfinite(rec["loss_kernel"]) and
+            rec["loss_rel"] <= LONG_LOSS_RTOL and not over):
+        raise AssertionError(
+            "bert_long: step kernel vs plain: loss %r vs %r (rel %g > %g?), "
+            "first moments past their limits %s" % (
+                rec["loss_kernel"], rec["loss_plain"], rec["loss_rel"],
+                LONG_LOSS_RTOL, over))
+    emit(phase="bert_long", check="step_vs_plain", **rec)
+    torch.cuda.empty_cache()
+
+    tiers = {t: dict.fromkeys(FUSED_KERNELS, 0)
+             for t in ("fused", "long", "flash")}
+    for S, batch in LONG_SHAPES:
+        if S != LONG_CHECK_SEQ:
+            cfg, main, startup, loss, build_s = long_program(fluid, bert, S)
+        ops = main.global_block().ops
+        fused = [op for op in ops if op.type == "fused_multihead_attention"]
+        casts = sum(op.type == "cast" for op in ops)
+        if len(fused) != cfg.n_layers or not casts:
+            raise AssertionError("bert_long S %d: %d fused attention ops, %d "
+                                 "casts" % (S, len(fused), casts))
+        feed = bert.synthetic_batch(cfg, batch, S, seed=0)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope)[0][0])]       # warm step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(A)
+        step_s = []
+        for _ in range(LONG_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(out[0]))
+        tier = reference_tier(S, cfg.hidden // cfg.n_heads)
+        launches = {name: getattr(A, name).launches for name in FUSED_KERNELS}
+        want = cfg.n_layers * LONG_STEPS
+        if any(n != want for n in launches.values()):
+            raise AssertionError(
+                "bert_long S %d: fused kernel launches %s (want %d each)"
+                % (S, launches, want))
+        if not (all(math.isfinite(x) for x in losses) and
+                losses[-1] < losses[0]):
+            raise AssertionError("bert_long S %d: losses not finite and "
+                                 "falling: %s" % (S, losses))
+        for name in FUSED_KERNELS:
+            tiers[tier][name] += launches[name]
+        steady = statistics.median(step_s)
+        emit(phase="bert_long", config="BertConfig.base, max_seq %d" % S,
+             amp="bf16", seq_len=S, batch=batch, dropout=cfg.hidden_dropout,
+             masked_positions=bert.max_predictions(S), ops=len(ops),
+             casts=casts, build_s=build_s, losses=losses, step_s=step_s,
+             step_ms=steady * 1e3, tokens_per_s=batch * S / steady,
+             max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+             / 2 ** 30, tier=tier,
+             launches_per_step={k: v / LONG_STEPS for k, v in
+                                launches.items()})
+        del scope, main, startup
+        torch.cuda.empty_cache()
+    return tiers
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -688,6 +1113,7 @@ def main():
                    list(range(1025, 1025 + 64 * 37, 37)), dtype)
     paged_rec = paged_case(A, dev, gen, flush)
     fused_rec = fused_cases(A, dev, gen, flush)
+    long_rec, flash_rec = long_cases(A, dev, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -698,6 +1124,8 @@ def main():
     del dense_pred
     torch.cuda.empty_cache()
     bert_launches = bert_path(A, dev)
+    torch.cuda.empty_cache()
+    long_launches = bert_long_path(A, dev)
 
     src = "paddle_tpu_torch/kernels/csrc/decode_attention.cu"
     kernels = []
@@ -719,7 +1147,23 @@ def main():
              bert_launches["fused_attention_fwd_kernel"],
              "paddle_tpu/kernels/attention.py:294"),
             ("fused_attention_bwd (dq + dk/dv kernels)", fused_rec["bwd"],
-             bwd_launches, "paddle_tpu/kernels/attention.py:307")):
+             bwd_launches, "paddle_tpu/kernels/attention.py:307"),
+            ("fused_attention_fwd, long tier", long_rec["fwd"],
+             long_launches["long"]["fused_attention_fwd_kernel"],
+             "paddle_tpu/kernels/attention.py:362"),
+            ("fused_attention_bwd (dq + dk/dv kernels), long tier",
+             long_rec["bwd"],
+             long_launches["long"]["fused_attention_bwd_dq_kernel"],
+             "paddle_tpu/kernels/attention.py:390"),
+            ("fused_attention_fwd, flash tier", flash_rec["fwd"],
+             long_launches["flash"]["fused_attention_fwd_kernel"],
+             "paddle_tpu/kernels/attention.py:602"),
+            ("fused_attention_bwd_dq, flash tier", flash_rec["dq"],
+             long_launches["flash"]["fused_attention_bwd_dq_kernel"],
+             "paddle_tpu/kernels/attention.py:650"),
+            ("fused_attention_bwd_dkdv, flash tier", flash_rec["dkdv"],
+             long_launches["flash"]["fused_attention_bwd_dkdv_kernel"],
+             "paddle_tpu/kernels/attention.py:697")):
         kernels.append(dict(
             name=name, route="cuda", source=fused_src, replaces=replaces,
             launches=launches, max_abs_err=rec["max_abs_err"],

@@ -5,8 +5,8 @@ Build a program with ``layers`` inside ``program_guard``, add an
 The decode and serving slice also uses ``monitor`` and ``resilience``.
 """
 
-from . import (framework, initializer, layers, ops, optimizer,  # noqa: F401
-               unique_name)
+from . import (contrib, framework, initializer, layers, ops,  # noqa: F401
+               optimizer, unique_name)
 from .backward import append_backward  # noqa: F401
 from .executor import (Executor, Scope, copy_scope, global_scope,  # noqa: F401
                        scope_guard)

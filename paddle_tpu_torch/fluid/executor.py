@@ -5,7 +5,8 @@ The port's counterpart of ``paddle_tpu/fluid/executor.py`` for
 port lowers it op by op (``registry.lower_op``), each op launching its
 torch work or kernel at once. A run
 
-1. normalises the feeds to their declared dtypes on the device;
+1. normalises the feeds to their declared dtypes on the device (numpy
+   has no bfloat16, so a feed declared bfloat16 raises);
 2. gathers the program's persistables from the scope;
 3. binds each ``wrt`` parameter of the block's ``autodiff`` op as a fresh
    autograd leaf, so the forward ops build the graph as they run;
@@ -14,7 +15,8 @@ torch work or kernel at once. A run
    under ``torch.no_grad()``; an environment entry is dropped after its
    last reader, so activations live no longer than autograd needs them;
 5. commits the persistables written and those created (a startup
-   program's) to the scope, and returns the fetches as numpy.
+   program's) to the scope, and returns the fetches as numpy (bfloat16
+   ones as float32).
 
 RNG: each scope holds one ``torch.Generator`` on the executor's device,
 seeded from ``program.random_seed`` at its first run, as the reference
@@ -39,7 +41,7 @@ from .registry import LowerCtx, lower_op
 __all__ = ["Scope", "global_scope", "scope_guard", "Executor", "copy_scope"]
 
 # Programs are held to the reference in fp32, so fp32 products must not
-# drop to TF32 on the card.
+# drop to TF32 on the card (AMP programs cast to bf16 explicitly).
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
@@ -115,6 +117,10 @@ class Executor:
 
     def _feed(self, block, name, value):
         var = block._find_var_recursive(name)
+        if var is not None and var.dtype == framework.BFLOAT16:
+            raise TypeError(
+                "feed %r is declared bfloat16, which numpy cannot hold; "
+                "feed float32 and cast inside the program" % name)
         arr = np.asarray(value)
         if var is not None and arr.dtype != var.dtype:
             arr = arr.astype(var.dtype)
@@ -160,7 +166,9 @@ class Executor:
                 scope.set_var(n, env[n].detach())
         fetches = [env[n].detach() for n in fetch_names]
         if return_numpy:
-            return [t.cpu().numpy() for t in fetches]
+            # numpy has no bfloat16: a bf16 fetch comes back as float32
+            return [(t.float() if t.dtype == torch.bfloat16 else t)
+                    .cpu().numpy() for t in fetches]
         return fetches
 
 
@@ -172,9 +180,10 @@ def _last_readers(ops, keep):
         for n in op.input_arg_names() + op.output_arg_names():
             last[n] = i
         if op.type == "autodiff":
-            last[op.attr("loss")] = i
-            for n in op.attr("wrt"):
-                last[n] = i
+            for n in [op.attr("loss"), op.attr("loss_scale_var")] + list(
+                    op.attr("wrt")):
+                if n:
+                    last[n] = i
     out = [[] for _ in ops]
     for n, i in last.items():
         if n not in keep:

@@ -31,18 +31,43 @@ _DTYPES = {name: np.dtype(name) for name in (
     "int64", "bool")}
 
 
+class BFloat16Dtype:
+    """The IR's bfloat16, the AMP type. Plain numpy has no bfloat16 (the
+    JAX package borrows ``ml_dtypes``'s, which the card's machine may
+    lack), so the port spells it with this one object: its ``name`` is
+    "bfloat16", the desc's spelling in both packages, and it equals
+    any dtype of that name. Tensors of this type are torch.bfloat16."""
+
+    name = "bfloat16"
+    itemsize = 2
+
+    def __eq__(self, other):
+        return getattr(other, "name", other) == self.name
+
+    def __hash__(self):
+        return hash(self.name)
+
+    def __repr__(self):
+        return "dtype('bfloat16')"
+
+
+BFLOAT16 = BFloat16Dtype()
+
+
 def convert_dtype(dtype):
-    """Normalise a dtype spec (str / np.dtype) to np.dtype; None is
-    float32."""
+    """Normalise a dtype spec (str / np.dtype / torch.bfloat16) to
+    np.dtype, or to ``BFLOAT16`` for bfloat16; None is float32."""
     if dtype is None:
         return np.dtype("float32")
     if isinstance(dtype, str) and dtype in _DTYPES:
         return _DTYPES[dtype]
+    if dtype == BFLOAT16 or str(dtype) == "torch.bfloat16":
+        return BFLOAT16
     return np.dtype(dtype)
 
 
 def dtype_str(dtype):
-    return np.dtype(dtype).name
+    return convert_dtype(dtype).name
 
 
 class Variable:

@@ -1,4 +1,5 @@
-"""Elementwise binary ops with fluid's axis broadcast (counterparts in
+"""Elementwise binary ops with fluid's axis broadcast, the comparisons
+(bool outputs, numpy broadcast) and logical_and (counterparts in
 ``paddle_tpu/fluid/ops/elementwise.py``)."""
 
 import torch
@@ -35,3 +36,20 @@ def _make(name):
 
 for _name in _FNS:
     _make(_name)
+
+
+_COMPARE = {"less_than": torch.lt, "less_equal": torch.le,
+            "greater_than": torch.gt, "greater_equal": torch.ge,
+            "equal": torch.eq, "not_equal": torch.ne,
+            "logical_and": torch.logical_and}
+
+
+def _make_compare(name):
+    @register(name)
+    def _lower(ctx, op):
+        ctx.set_output(op, "Out", _COMPARE[name](ctx.get_input(op, "X"),
+                                                 ctx.get_input(op, "Y")))
+
+
+for _name in _COMPARE:
+    _make_compare(_name)

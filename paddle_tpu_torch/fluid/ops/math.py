@@ -1,6 +1,7 @@
 """Dense math ops: mul / matmul (plain ``torch.matmul``, as the JAX
-package left its products to XLA), scale, reduce_sum, einsum
-(counterparts in ``paddle_tpu/fluid/ops/math.py``)."""
+package left its products to XLA; bf16 operands under AMP), scale,
+reduce_sum, einsum, and isfinite of dynamic loss scaling (counterparts
+in ``paddle_tpu/fluid/ops/math.py``)."""
 
 import numpy as np
 import torch
@@ -70,3 +71,9 @@ def _reduce_sum(ctx, op):
 def _einsum(ctx, op):
     ctx.set_output(op, "Out", torch.einsum(op.attr("equation"),
                                            *ctx.get_inputs(op, "Operands")))
+
+
+@register("isfinite")
+def _isfinite(ctx, op):
+    """One bool: every element of X is finite."""
+    ctx.set_output(op, "Out", torch.isfinite(ctx.get_input(op, "X")).all())

@@ -1,10 +1,12 @@
 """Shape/layout ops: reshape, transpose, unsqueeze, gather and the dense
-lookup_table (counterparts in ``paddle_tpu/fluid/ops/tensor_ops.py``)."""
+lookup_table; cast (AMP) and the select ops of dynamic loss scaling:
+assign, where, zeros_like (counterparts in
+``paddle_tpu/fluid/ops/tensor_ops.py``)."""
 
 import torch
 import torch.nn.functional as F
 
-from ..registry import register
+from ..registry import register, to_torch_dtype
 
 
 def _resolve_reshape(x, shape):
@@ -59,3 +61,28 @@ def _lookup_table(ctx, op):
     if padding_idx is not None and padding_idx >= 0:
         out = out.masked_fill((ids == padding_idx).unsqueeze(-1), 0.0)
     ctx.set_output(op, "Out", out)
+
+
+@register("cast")
+def _cast(ctx, op):
+    dtype = to_torch_dtype(op.attr("out_dtype", op.attr("dtype", "float32")))
+    ctx.set_output(op, "Out", ctx.get_input(op, "X").to(dtype))
+
+
+@register("assign")
+def _assign(ctx, op):
+    """Out binds X's tensor: no op writes a tensor in place except
+    ``adam``, which writes only its own Param and moments."""
+    ctx.set_output(op, "Out", ctx.get_input(op, "X"))
+
+
+@register("where")
+def _where(ctx, op):
+    ctx.set_output(op, "Out", torch.where(ctx.get_input(op, "Condition"),
+                                          ctx.get_input(op, "X"),
+                                          ctx.get_input(op, "Y")))
+
+
+@register("zeros_like")
+def _zeros_like(ctx, op):
+    ctx.set_output(op, "Out", torch.zeros_like(ctx.get_input(op, "X")))

@@ -13,8 +13,9 @@ Randomness comes from one explicit ``torch.Generator`` (the scope's, see
 registry splits a threaded PRNG key.
 """
 
-import numpy as np
 import torch
+
+from .framework import convert_dtype
 
 
 class OpRegistry:
@@ -95,7 +96,7 @@ class LowerCtx:
 
     def var_dtype(self, name):
         v = self.var(name)
-        return np.dtype(v.dtype) if v is not None else np.dtype("float32")
+        return convert_dtype(None if v is None else v.dtype)
 
     # -- draws from the generator, in op order ------------------------------
     @property
@@ -135,18 +136,19 @@ class LowerCtx:
 
 
 def to_torch_dtype(dtype):
-    """torch dtype of a numpy dtype spec."""
-    return _TORCH_DTYPES[np.dtype(dtype)]
+    """torch dtype of an IR dtype spec (numpy dtype, its name, or
+    ``"bfloat16"``)."""
+    return _TORCH_DTYPES[convert_dtype(dtype)]
 
 
 def to_numpy_dtype(dtype):
+    """IR dtype of a torch dtype: a numpy dtype, or ``BFLOAT16``."""
     return _NUMPY_DTYPES[dtype]
 
 
-_TORCH_DTYPES = {np.dtype(n): getattr(torch, t) for n, t in (
-    ("float32", "float32"), ("float64", "float64"), ("float16", "float16"),
-    ("int8", "int8"), ("uint8", "uint8"), ("int16", "int16"),
-    ("int32", "int32"), ("int64", "int64"), ("bool", "bool"))}
+_TORCH_DTYPES = {convert_dtype(n): getattr(torch, n) for n in (
+    "float32", "float64", "float16", "bfloat16", "int8", "uint8", "int16",
+    "int32", "int64", "bool")}
 _NUMPY_DTYPES = {t: n for n, t in _TORCH_DTYPES.items()}
 
 

@@ -49,5 +49,5 @@ def infer_op_shapes(op):
         t = env[n]
         v.shape = tuple(-1 if (had_dummy and s % _DUMMY == 0 and s > 0)
                         else int(s) for s in t.shape)
-        dt = np.dtype(to_numpy_dtype(t.dtype))
+        dt = to_numpy_dtype(t.dtype)
         v.dtype = _RECORDED.get(dt, dt)

@@ -2,16 +2,32 @@
 attention over KV ring caches and paged pools.
 
 Counterpart of ``paddle_tpu/kernels/attention.py``. Hand-written CUDA
-kernels replace four of its Pallas TPU kernels:
+kernels replace nine of its Pallas TPU kernels:
 
 * training (``csrc/fused_attention.cu``, reached through
-  ``fused_attention``): ``fused_attention_fwd_kernel`` replaces
-  ``_fwd_kernel``; ``fused_attention_bwd_dq_kernel`` and
-  ``fused_attention_bwd_dkdv_kernel`` together replace ``_bwd_kernel``;
+  ``fused_attention`` and ``flash_attention`` /
+  ``flash_attention_backward``): ``fused_attention_fwd_kernel`` replaces
+  the three forward kernels of the TPU package's tiers, ``_fwd_kernel``
+  (S <= 1024), ``_fwd_kernel_long`` (1024 < S <= 4096) and
+  ``_flash_fwd_kernel`` (longer); ``fused_attention_bwd_dq_kernel`` and
+  ``fused_attention_bwd_dkdv_kernel`` together replace ``_bwd_kernel``
+  and ``_bwd_kernel_long``, and one each of the flash tier's split pair,
+  ``_flash_dq_kernel`` and ``_flash_dkdv_kernel``;
 * decode (``csrc/decode_attention.cu``): ``decode_attention_kernel``
   replaces ``_decode_fwd_kernel`` (dense ring cache, reached through
   ``attention_with_cache``); ``paged_attention_kernel`` replaces
   ``_paged_decode_fwd_kernel`` (paged pool, ``paged_attention_cache``).
+
+The TPU package splits training attention into tiers because VMEM
+bounds what one kernel can hold: a whole [S, S] tile up to S 1024,
+K/V of one head up to S 4096, past that both q and k tiled. The CUDA
+kernels tile both q and k at every S (the flash-attention-2 scheme:
+online softmax, row logsumexp, split backward), so one family takes
+every S, and also the cases the TPU package sends to its blockwise
+fallback: a per-row head-broadcast bias in the long range, a per-row
+bias in the flash range, an S that no flash tile divides. Dropout is
+one Philox mask keyed on (b·H+h, row, column) at every S, where the
+TPU tiers draw differently from one another.
 
 Each public function takes the plain PyTorch version for tensors on the
 CPU and the kernel for tensors on a CUDA device; anything else raises.
@@ -53,11 +69,8 @@ _M_BWD_DKDV_LAUNCH = _monitor.counter(
 
 
 # -- fused training attention -----------------------------------------------
-# The kernels keep every score tile on chip, so any S up to this bound
-# goes to them; the TPU package sent longer sequences to its long and
-# flash tiers, which the port has not got yet.
-MAX_FUSED_SEQ = 1024
 _HEAD_DIMS = (16, 32, 64, 128)
+
 
 # Philox4x32-10 (Random123's constants), the generator of the kernels'
 # dropout masks (csrc/fused_attention.cu)
@@ -91,20 +104,22 @@ def philox4x32(counter, key):
     return c0, c1, c2, c3
 
 
-def dropout_keep_mask(B, H, S, p, seed):
+def dropout_keep_mask(B, H, S, p, seed, first_pair=0):
     """The fused kernels' dropout mask [B, H, S, S] (True = kept), built in
     plain PyTorch: element (b, h, row, col) takes word ``row & 3`` of the
     Philox call keyed on ``seed`` (int64 tensor [1]) with counter
-    (col, row >> 2, b * H + h, 0), and is kept where
-    (bits >> 8) * 2**-24 >= p in fp32."""
+    (col, row >> 2, first_pair + b * H + h, 0), and is kept where
+    (bits >> 8) * 2**-24 >= p in fp32. ``first_pair`` b0 * H' + h0 gives
+    the mask of the one (b0, h0) pair of a larger [B', H'] call (B = H =
+    1), which the pairs' independence lets a check build alone."""
     dev = seed.device
     r4 = (S + 3) // 4
     ar = functools.partial(torch.arange, device=dev, dtype=torch.int64)
     s = seed.reshape(()).to(torch.int64)
     words = philox4x32(
         (ar(S).view(1, 1, S), ar(r4).view(1, r4, 1),
-         ar(B * H).view(B * H, 1, 1), torch.zeros((), dtype=torch.int64,
-                                                  device=dev)),
+         ar(B * H).view(B * H, 1, 1) + first_pair,
+         torch.zeros((), dtype=torch.int64, device=dev)),
         (s & _MASK32, (s >> 32) & _MASK32))
     shape = (B * H, r4, S)
     bits = torch.stack([w.expand(shape) for w in words], dim=2)
@@ -113,18 +128,22 @@ def dropout_keep_mask(B, H, S, p, seed):
     return (u >= p).view(B, H, S, S)
 
 
-def _ref_fused_attention(q, k, v, bias, scale, dropout_prob, seed):
+def _ref_scores(q, k, bias, scale):
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    return s if bias is None else s + bias.float()
+
+
+def _ref_fused_attention(q, k, v, bias, scale, dropout_prob, seed,
+                         first_pair=0):
     """Plain version of the fused kernels (the einsum form of the
     reference's ``_ref_attention``), differentiated by autograd: fp32
     scores plus bias, softmax, dropout of the normalised weights with the
-    kernels' Philox mask and a 1/(1-p) upscale, PV, cast to q's type."""
+    kernels' Philox mask and a 1/(1-p) upscale, PV, cast to q's type.
+    ``first_pair`` as ``dropout_keep_mask``."""
     B, H, S, _ = q.shape
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    if bias is not None:
-        s = s + bias.float()
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(_ref_scores(q, k, bias, scale), dim=-1)
     if dropout_prob > 0.0:
-        keep = dropout_keep_mask(B, H, S, dropout_prob, seed)
+        keep = dropout_keep_mask(B, H, S, dropout_prob, seed, first_pair)
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_prob)), 0.0)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
@@ -140,22 +159,87 @@ def fused_attention(q, k, v, bias=None, scale=None, dropout_prob=0.0,
     [B, H, S, d] in q's dtype, differentiable in q, k, v and bias.
 
     A CPU tensor takes the plain version, a ``meta`` tensor gives the
-    shape only, a CUDA tensor the kernels (S <= ``MAX_FUSED_SEQ``)."""
-    B, H, S, d = q.shape
-    scale = float(1.0 / math.sqrt(d) if scale is None else scale)
-    p = float(dropout_prob)
-    if p > 0.0 and seed is None:
-        raise ValueError("dropout_prob > 0 needs a seed tensor")
+    shape only, a CUDA tensor the kernels, at any S."""
+    scale, p = _scalars(q, scale, dropout_prob, seed)
     if q.device.type == "meta":
         return torch.empty_like(q)
     if q.device.type == "cpu":
         return _ref_fused_attention(q, k, v, bias, scale, p, seed)
-    if S > MAX_FUSED_SEQ:
-        raise NotImplementedError(
-            "fused_attention on the card takes S <= %d, got %d: the TPU "
-            "package's long (_fwd_kernel_long/_bwd_kernel_long) and flash "
-            "tiers are not ported yet" % (MAX_FUSED_SEQ, S))
     return _FusedAttention.apply(q, k, v, bias, seed, scale, p)
+
+
+def _scalars(q, scale, dropout_prob, seed):
+    scale = float(1.0 / math.sqrt(q.shape[-1]) if scale is None else scale)
+    p = float(dropout_prob)
+    if p > 0.0 and seed is None:
+        raise ValueError("dropout_prob > 0 needs a seed tensor")
+    return scale, p
+
+
+def _ref_flash_attention(q, k, v, bias, scale, dropout_prob, seed):
+    """Plain version of ``flash_attention``: the plain forward, and the
+    row logsumexp of the biased fp32 scores."""
+    lse = torch.logsumexp(_ref_scores(q, k, bias, scale), dim=-1)
+    return _ref_fused_attention(q, k, v, bias, scale, dropout_prob,
+                                seed), lse
+
+
+def _ref_flash_attention_backward(q, k, v, bias, seed, do, scale,
+                                  dropout_prob, bias_grad):
+    """Plain version of ``flash_attention_backward``: autograd of the
+    plain forward (which recomputes what o and lse hold)."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    want_db = bias is not None and bias_grad
+    if want_db:
+        leaves.append(bias.detach().requires_grad_(True))
+    with torch.enable_grad():
+        o = _ref_fused_attention(*leaves[:3], leaves[3] if want_db else bias,
+                                 scale, dropout_prob, seed)
+        grads = torch.autograd.grad(o, leaves, do)
+    return tuple(grads[:3]) + ((grads[3].float() if want_db else None),)
+
+
+def flash_attention(q, k, v, bias=None, scale=None, dropout_prob=0.0,
+                    seed=None):
+    """The flash tier's forward contract (counterpart of the TPU
+    package's ``_pallas_attention_flash``), which ring attention needs per
+    hop: returns (o [B, H, S, d] in q's type, lse [B, H, S] fp32, the
+    row logsumexp of the biased scores; the TPU package's lse is
+    [B, H, S, 1]). Arguments as ``fused_attention``; not differentiable:
+    ``flash_attention_backward`` is its backward. A CPU tensor takes the
+    plain version, a CUDA tensor the forward kernel."""
+    scale, p = _scalars(q, scale, dropout_prob, seed)
+    if q.device.type == "cpu":
+        return _ref_flash_attention(q, k, v, bias, scale, p, seed)
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    B, H, S, _ = q.shape
+    bias_f, strides = _bias_operand(bias, B, H, S)
+    return fused_attention_fwd_kernel(q, k, v, bias_f, strides, seed, scale,
+                                      p)
+
+
+def flash_attention_backward(q, k, v, bias, seed, do, o, lse, scale=None,
+                             dropout_prob=0.0, bias_grad=True):
+    """The flash tier's backward contract (counterpart of the TPU
+    package's ``_pallas_attention_flash_bwd``): from the forward's
+    operands, its upstream gradient ``do`` and its (o, lse), returns
+    (dq, dk, dv in q's type, dbias fp32 reduced to the bias's own
+    broadcast shape, or None without a bias or with ``bias_grad``
+    False). A CPU tensor takes the plain version (autograd of the plain
+    forward), a CUDA tensor the dq kernel and then the dk/dv kernel."""
+    scale, p = _scalars(q, scale, dropout_prob, seed)
+    if q.device.type == "cpu":
+        return _ref_flash_attention_backward(q, k, v, bias, seed, do, scale,
+                                             p, bias_grad)
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    B, H, S, _ = q.shape
+    bias_f, strides = _bias_operand(bias, B, H, S)
+    dq, dk, dv, dbias = fused_attention_backward(
+        q, k, v, bias_f, strides, seed, o.contiguous(), lse,
+        do.contiguous(), scale, p, bias_grad=bias is not None and bias_grad)
+    if dbias is not None and bias.shape[0] == 1 < B:
+        dbias = dbias.sum(0, keepdim=True)
+    return dq, dk, dv, dbias
 
 
 def _bias_operand(bias, B, H, S):
@@ -175,34 +259,26 @@ def _bias_operand(bias, B, H, S):
 
 
 class _FusedAttention(torch.autograd.Function):
-    """The kernels under autograd: the forward saves q, k, v, o and the
-    row logsumexp; the backward runs the dq and dk/dv kernels."""
+    """The kernels under autograd: the forward (``flash_attention``)
+    saves q, k, v, o and the row logsumexp; the backward
+    (``flash_attention_backward``) runs the dq and dk/dv kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, scale, p):
-        q, k, v = (t.contiguous() for t in (q, k, v))
-        B, H, S, _ = q.shape
-        bias_f, strides = _bias_operand(bias, B, H, S)
-        o, lse = fused_attention_fwd_kernel(q, k, v, bias_f, strides, seed,
-                                            scale, p)
-        ctx.save_for_backward(q, k, v, bias_f, seed, o, lse)
-        ctx.strides, ctx.scale, ctx.p = strides, scale, p
-        ctx.bias_meta = None if bias is None else (tuple(bias.shape),
-                                                   bias.dtype)
+        o, lse = flash_attention(q, k, v, bias, scale, p, seed)
+        ctx.save_for_backward(q, k, v, bias, seed, o, lse)
+        ctx.scale, ctx.p = scale, p
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, bias_f, seed, o, lse = ctx.saved_tensors
-        want_db = ctx.bias_meta is not None and ctx.needs_input_grad[3]
-        dq, dk, dv, dbias = fused_attention_backward(
-            q, k, v, bias_f, ctx.strides, seed, o, lse, do.contiguous(),
-            ctx.scale, ctx.p, bias_grad=want_db)
+        q, k, v, bias, seed, o, lse = ctx.saved_tensors
+        want_db = bias is not None and ctx.needs_input_grad[3]
+        dq, dk, dv, dbias = flash_attention_backward(
+            q, k, v, bias, seed, do, o, lse, ctx.scale, ctx.p,
+            bias_grad=want_db)
         if want_db:
-            shape, dtype = ctx.bias_meta
-            if shape[0] == 1 and dbias.shape[0] > 1:
-                dbias = dbias.sum(0, keepdim=True)
-            dbias = dbias.to(dtype)
+            dbias = dbias.to(bias.dtype)
         return dq, dk, dv, dbias, None, None, None
 
 
@@ -483,9 +559,6 @@ def _check_qkv(q, k, v):
     if q.dim() != 4 or min(q.shape) < 1 or q.shape[3] not in _HEAD_DIMS:
         raise ValueError("q must be [B, H, S, d] with d in %s, got %s"
                          % (_HEAD_DIMS, tuple(q.shape)))
-    if q.shape[2] > MAX_FUSED_SEQ:
-        raise ValueError("the fused-attention kernels take S <= %d, got %d"
-                         % (MAX_FUSED_SEQ, q.shape[2]))
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(name, t, q.device, q.dtype, q.shape)
 
@@ -518,8 +591,9 @@ def _stream(dev):
 
 def fused_attention_fwd_kernel(q, k, v, bias, strides, seed, scale, p):
     """Launch the forward kernel (replaces ``_fwd_kernel``,
+    ``_fwd_kernel_long`` and ``_flash_fwd_kernel``,
     ``paddle_tpu/kernels/attention.py``): q, k, v [B, H, S, d] contiguous
-    of one type (float32 or bfloat16, d in 16/32/64/128, S <= 1024) on one
+    of one type (float32 or bfloat16, d in 16/32/64/128, any S) on one
     CUDA device; bias None or contiguous float32 read at element strides
     ``strides`` (batch, head, row; 0 broadcasts); seed int64 [1] when
     ``p`` > 0. Returns (o [B, H, S, d] in q's type, lse [B, H, S] fp32).
@@ -554,7 +628,8 @@ def _keep_scale(p):
 def fused_attention_bwd_dq_kernel(q, k, v, bias, strides, seed, o, lse,
                                   dout, scale, p):
     """Launch the dq kernel (with the dk/dv kernel it replaces
-    ``_bwd_kernel``): the forward's operands plus o, lse and dout
+    ``_bwd_kernel`` and ``_bwd_kernel_long``; alone it replaces
+    ``_flash_dq_kernel``): the forward's operands plus o, lse and dout
     [B, H, S, d] in q's type. Returns (dq in q's type, delta [B, H, S]
     fp32 = rowsum(dout * o), which the dk/dv kernel reads)."""
     _check_qkv(q, k, v)
@@ -585,9 +660,10 @@ fused_attention_bwd_dq_kernel.launches = 0
 def fused_attention_bwd_dkdv_kernel(q, k, v, bias, strides, seed, lse,
                                     delta, dout, scale, p, dbias_shape=None):
     """Launch the dk/dv kernel (with the dq kernel it replaces
-    ``_bwd_kernel``). ``dbias_shape`` (B, 1|H, 1|S, S) asks for the bias
-    gradient in fp32, reduced over the broadcast heads and rows (a
-    head-broadcast bias is summed with fp32 atomics into a zeroed
+    ``_bwd_kernel`` and ``_bwd_kernel_long``; alone it replaces
+    ``_flash_dkdv_kernel``). ``dbias_shape`` (B, 1|H, 1|S, S) asks for
+    the bias gradient in fp32, reduced over the broadcast heads and rows
+    (a head-broadcast bias is summed with fp32 atomics into a zeroed
     buffer). Returns (dk, dv, dbias or None)."""
     _check_qkv(q, k, v)
     _check_extras(q, bias, strides, seed, p)

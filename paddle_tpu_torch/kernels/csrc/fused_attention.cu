@@ -1,17 +1,23 @@
 // Fused multi-head attention for training, forward and backward, for
 // Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of paddle_tpu/kernels/attention.py:
+// Replaces the training-attention Pallas TPU kernels of
+// paddle_tpu/kernels/attention.py, of all three of its tiers:
 //   * _fwd_kernel  (via _pallas_attention):      o = softmax(q.k^T*scale +
 //                  bias) . v per (batch block, head), dropout on the
 //                  normalised weights with a 1/(1-p) upscale;
 //   * _bwd_kernel  (via _pallas_attention_bwd):  dq, dk, dv in q's type and
-//                  dbias in fp32, reduced to the bias's broadcast shape.
+//                  dbias in fp32, reduced to the bias's broadcast shape;
+//   * _fwd_kernel_long, _bwd_kernel_long (1024 < S <= 4096), and
+//     _flash_fwd_kernel, _flash_dq_kernel, _flash_dkdv_kernel (longer):
+//                  the same functions; the flash forward also returns the
+//                  row logsumexp, which attn_fwd writes at every S.
 //
-// The TPU kernels hold a whole [S, S] score tile of a batch block in VMEM.
-// At S = 512 one head's fp32 tile is 1 MB, four times the 227 KB of shared
-// memory a Hopper block can have, so these kernels tile both the queries
-// and the keys (the flash-attention-2 scheme):
+// The TPU kernels hold a whole [S, S] score tile of a batch block in VMEM
+// (its long tier a [Qb, S] tile, its flash tier [Tb, Tb] tiles). At S = 512
+// one head's fp32 tile is 1 MB, four times the 227 KB of shared memory a
+// Hopper block can have, so these kernels tile both the queries and the
+// keys at every S (the flash-attention-2 scheme, as the TPU's flash tier):
 //   * attn_fwd, one block per (q-tile, head, batch): K/V tiles stream
 //     through shared memory; an online softmax keeps the row max m, the
 //     row sum l and the output accumulator in registers; it writes o in
@@ -31,6 +37,12 @@
 // Bias: fp32, read through element strides (b, h, row) with the key
 // column contiguous; a stride of 0 broadcasts that dimension, so all four
 // shapes [B, 1|H, 1|S, S] take one code path.
+//
+// Any S: nothing in shared memory or registers grows with S (a block
+// loops over S / 64 tiles), and every offset into a tensor is computed in
+// 64 bits (size_t bases, long long bias strides), because a per-row bias
+// or its gradient passes 2^31 elements at B = 3, H = 12, S = 8192; the
+// Philox counter holds row / 4 and b * H + h, far below 2^32.
 //
 // Dropout: Philox4x32-10 keyed on the op's 64-bit seed (read from device
 // memory, so drawing it costs the host no sync). Element (b, h, row, col)

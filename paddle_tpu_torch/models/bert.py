@@ -8,10 +8,13 @@ and dtypes), and a desc built by either runs in the other.
 
 ``_mha`` keeps the reference's ``use_fused_attention="auto"`` rule: from
 S >= 256 it emits one ``fused_multihead_attention`` op per layer (the
-fused CUDA kernels on the card), below that the einsum chain. The 256
-threshold was measured on a TPU (v5e) and is still to be measured on the
-H100. Not ported yet: the ``"packed"`` layout, tensor-parallel layouts
-(the reference's ``tp_axis``) and AMP (``use_amp``).
+fused CUDA kernels on the card, at any S: set ``BertConfig.max_seq`` to
+the sequence length for long-context runs, such as S 8192), below that
+the einsum chain. The 256 threshold was measured on a TPU (v5e) and is
+still to be measured on the H100. ``use_amp=True`` wraps Adam in
+``mixed_precision.decorate`` (bf16, static loss scale 1.0), as the
+reference does. Not ported yet: the ``"packed"`` layout and
+tensor-parallel layouts (the reference's ``tp_axis``).
 """
 
 import copy
@@ -21,6 +24,7 @@ import numpy as np
 
 from .. import fluid
 from ..fluid import layers, optimizer
+from ..fluid.contrib import mixed_precision
 
 
 class BertConfig:
@@ -207,10 +211,8 @@ def _feeds(seq_len):
 
 def build_pretrain_program(cfg=None, seq_len=128, lr=1e-4, seed=7,
                            use_amp=False, masked_gather=True):
-    """(main, startup, loss) of MLM pretraining with Adam."""
-    if use_amp:
-        raise NotImplementedError("AMP (mixed_precision.decorate) is not "
-                                  "ported yet")
+    """(main, startup, loss) of MLM pretraining with Adam; ``use_amp``
+    trains in bf16 mixed precision."""
     cfg = cfg or BertConfig.base()
     n_pred = max_predictions(seq_len)
     main, startup = fluid.Program(), fluid.Program()
@@ -230,7 +232,10 @@ def build_pretrain_program(cfg=None, seq_len=128, lr=1e-4, seed=7,
             mweight = layers.data("mask_weight", shape=[seq_len, 1],
                                   dtype="float32")
             loss = mlm_loss(enc, mlabel, mweight, cfg)
-        optimizer.Adam(learning_rate=lr).minimize(loss)
+        opt = optimizer.Adam(learning_rate=lr)
+        if use_amp:
+            opt = mixed_precision.decorate(opt)
+        opt.minimize(loss)
     return main, startup, loss
 
 

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as smoke
 from paddle_tpu_torch.kernels import attention as A
 from paddle_tpu_torch.models import transformer as T
 
@@ -225,9 +226,121 @@ def test_fused_attention_dropout_on_card(cuda_device):
 
 
 def test_fused_attention_refuses_long_sequences(cuda_device):
-    q = torch.zeros(1, 1, 1040, 64, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="long"):
+    """What the kernels still refuse past S 1024: a head width they were
+    not built for. The S 1040 call that was refused before the long and
+    flash tiers were ported now runs through the kernels and matches the
+    plain version."""
+    q = torch.zeros(1, 1, 2048, 48, device=cuda_device)
+    with pytest.raises(ValueError, match="d in"):
         A.fused_attention(q, q, q)
+    g = torch.Generator(device=cuda_device).manual_seed(1040)
+    q, k, v = (torch.randn(1, 2, 1040, 64, device=cuda_device, generator=g)
+               for _ in range(3))
+    got = A.fused_attention(q, k, v)
+    want = A._ref_fused_attention(q, k, v, None, 0.125, 0.0, None)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 2e-5
+
+
+_LONG_COUNTERS = (A.fused_attention_fwd_kernel,
+                  A.fused_attention_bwd_dq_kernel,
+                  A.fused_attention_bwd_dkdv_kernel)
+
+
+# Past S 1024 the same kernels stand in for the TPU package's long and
+# flash tiers. Each output is held to chip_smoke.py's limit for it: its
+# max |kernel - plain| as a share of the plain output's own largest
+# magnitude (LONG_RTOL, set between the sound kernels' readings and
+# planted faults' on the H100).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,S,bias_shape,p", [
+    (1, 2, 1088, (1, 1, 1, 1088), 0.1),     # 17 k-tiles
+    (1, 2, 1100, (1, 2, 1, 1100), 0.0),     # ragged: no tile divides
+    (2, 4, 2048, (2, 1, 1, 2048), 0.1),     # the path's mask
+    (2, 2, 2048, (2, 1, 2048, 2048), 0.0),  # dbias by head atomics
+    (1, 4, 4096, (1, 4, 4096, 4096), 0.0),  # per-row bias
+    (1, 2, 8192, (1, 1, 1, 8192), 0.0),
+])
+def test_long_attention_kernels_match_plain(cuda_device, dtype, B, H, S,
+                                            bias_shape, p):
+    d = 64
+    q, k, v, do, bias = _attn_inputs(cuda_device, dtype, B, H, S, d,
+                                     bias_shape, S)
+    seed = torch.tensor([S * 31 + 1], dtype=torch.int64, device=cuda_device)
+    n0 = [w.launches for w in _LONG_COUNTERS]
+    got = _grads(lambda q_, k_, v_, b_: A.fused_attention(
+        q_, k_, v_, b_, dropout_prob=p, seed=seed), q, k, v, bias, do)
+    torch.cuda.synchronize()
+    assert [w.launches for w in _LONG_COUNTERS] == [n + 1 for n in n0]
+    want = _grads(lambda q_, k_, v_, b_: A._ref_fused_attention(
+        q_, k_, v_, b_, d ** -0.5, p, seed), q, k, v, bias, do)
+    torch.cuda.synchronize()
+    over = {}
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
+        rel = ((a.float() - b.float()).abs().max() /
+               b.float().abs().max()).item()
+        if not rel <= smoke.LONG_RTOL[dtype][name]:
+            over[name] = rel
+    assert not over, over
+
+
+def test_long_attention_offsets_past_2_31(cuda_device):
+    """A per-row bias [3, 12, 8192, 8192] holds 2.4e9 elements, so its
+    offsets and those of its gradient pass 2^31: the (batch, head) pairs
+    at both ends of the kernels' output match the plain version on that
+    pair alone (pairs are independent)."""
+    B, H, S, d = 3, 12, 8192, 64
+    q, k, v, do, bias = _attn_inputs(cuda_device, torch.float32, B, H, S, d,
+                                     (B, H, S, S), 5)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)] + [
+        bias.requires_grad_(True)]     # no second 9.7 GB copy
+    out = A.fused_attention(*leaves)
+    got = [out.detach()] + list(torch.autograd.grad(out, leaves, do))
+    del leaves, out
+    for b, h in ((0, 0), (B - 1, H - 1)):
+        pair = [t[b:b + 1, h:h + 1] for t in (q, k, v, do, bias)]
+        want = _grads(lambda q_, k_, v_, b_: A._ref_fused_attention(
+            q_, k_, v_, b_, d ** -0.5, 0.0, None), *pair[:3], pair[4],
+            pair[3])
+        torch.cuda.synchronize()
+        for name, a, w in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
+            err = (a[b:b + 1, h:h + 1].float() - w).abs().max().item()
+            assert err <= 2e-5 * max(1.0, w.abs().max().item()), (b, h, name,
+                                                                  err)
+
+
+def test_long_dropout_mask_same_in_forward_and_backward(cuda_device):
+    """At S 2048 the forward and both backward kernels draw one mask:
+    with uniform weights the output is the kept share of each row and
+    the gradient of v the dropped weights' column sums. Tolerance rtol
+    1e-4: fp32 sums over 2048 terms (1.8e-5 read on the H100), while one
+    element masked otherwise moves a sum by 1/(0.9 S) = 5.4e-4."""
+    B, H, S, d, p = 1, 2, 2048, 64, 0.1
+    q = torch.zeros(B, H, S, d, device=cuda_device)
+    v = torch.ones_like(q).requires_grad_(True)
+    seed = torch.tensor([2048], dtype=torch.int64, device=cuda_device)
+    out = A.fused_attention(q, q, v, dropout_prob=p, seed=seed)
+    (dv,) = torch.autograd.grad(out.sum(), v)
+    keep = A.dropout_keep_mask(B, H, S, p, seed).float()
+    torch.testing.assert_close(out[..., :1], keep.sum(-1, keepdim=True) /
+                               (S * (1 - p)), rtol=1e-4, atol=0)
+    want_dv = (keep / (S * (1 - p))).sum(-2).unsqueeze(-1).expand_as(dv)
+    torch.testing.assert_close(dv, want_dv, rtol=1e-4, atol=0)
+
+
+def test_flash_attention_lse_on_card(cuda_device):
+    """flash_attention's row logsumexp equals torch.logsumexp of the
+    biased fp32 scores, and its output the plain forward's (S 4096)."""
+    q, k, v, _, bias = _attn_inputs(cuda_device, torch.float32, 1, 4, 4096,
+                                    64, (1, 1, 1, 4096), 4)
+    o, lse = A.flash_attention(q, k, v, bias)
+    want_o, want_lse = A._ref_flash_attention(q, k, v, bias, 0.125, 0.0,
+                                              None)
+    torch.cuda.synchronize()
+    assert lse.shape == (1, 4, 4096) and lse.dtype == torch.float32
+    assert (lse - want_lse).abs().max().item() <= 1e-5 * max(
+        1.0, want_lse.abs().max().item())
+    assert (o - want_o).abs().max().item() <= 2e-5
 
 
 def test_bert_tiny_step_on_card_matches_cpu(cuda_device):
@@ -279,3 +392,53 @@ def test_bert_tiny_step_on_card_matches_cpu(cuda_device):
             return card.find_var("layer_%d_attn_%s.b_0_moment1_0"
                                  % (i, kind)).abs().max().item()
         assert moment("k") <= 1e-3 * moment("q"), (i, moment("k"))
+
+
+def test_amp_bert_tiny_step_on_card_matches_cpu(cuda_device):
+    """One BERT-tiny AMP step (bf16, fused attention, dropout 0) on the
+    card through the kernels and bf16 cuBLAS products, against the same
+    step on the CPU from one state: the loss within 4e-3 relative (one
+    bf16 step, 2^-8: the two devices round their bf16 products at other
+    points), and every Adam first moment, 0.1 of a bf16 gradient, within
+    2^-5 of its tensor's largest magnitude. The query and key
+    projections are held apart, within 2^-3 (layer 1's query weight and
+    bias read 3.5e-2 on the H100, the key weights 3.4e-2): their
+    gradients pass through the softmax's Jacobian, a difference of
+    nearly equal terms at random init, which cancels the key biases'
+    entirely, so the rounding differences stand out."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.tiny()
+    cfg.use_fused_attention = True
+    cfg.hidden_dropout = cfg.attn_dropout = 0.0
+    with fluid.unique_name.guard():
+        main, startup, loss = bert.build_pretrain_program(cfg, seq_len=64,
+                                                          use_amp=True)
+    feed = bert.synthetic_batch(cfg, 2, 64, seed=0)
+    cpu = fluid.Scope()
+    fluid.Executor("cpu").run(startup, scope=cpu)
+    card = fluid.Scope()
+    for n in cpu.local_var_names():
+        card.set_var(n, cpu.find_var(n).to(cuda_device))
+    n0 = [w.launches for w in _LONG_COUNTERS]
+    got = fluid.Executor(cuda_device).run(main, feed=feed, fetch_list=[loss],
+                                          scope=card)
+    torch.cuda.synchronize()
+    assert [w.launches for w in _LONG_COUNTERS] == [
+        n + cfg.n_layers for n in n0]
+    want = fluid.Executor("cpu").run(main, feed=feed, fetch_list=[loss],
+                                     scope=cpu)
+    np.testing.assert_allclose(got[0], want[0], rtol=4e-3)
+    over = {}
+    for n in cpu.local_var_names():
+        # the key biases' gradients are zero but for rounding noise (see
+        # test_bert_tiny_step_on_card_matches_cpu)
+        if n.endswith("_moment1_0") and "_attn_k.b_0" not in n:
+            w = cpu.find_var(n)
+            rel = (card.find_var(n).cpu() - w).abs().max().item() / \
+                w.abs().max().item()
+            apart = "_attn_q." in n or "_attn_k.w_0" in n
+            if not rel <= (2 ** -3 if apart else 2 ** -5):
+                over[n] = rel
+    assert not over, over

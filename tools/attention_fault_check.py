@@ -1,0 +1,148 @@
+"""How far the long-sequence attention checks of chip_smoke.py stand from
+the sound kernels and from planted faults.
+
+    python3 tools/attention_fault_check.py
+
+Needs one CUDA card and nvcc. For each fault the port and chip_smoke.py
+are copied into a temporary directory and the fault is planted in the
+copy's ``csrc/fused_attention.cu`` (the checkout is never edited); all
+copies are built at once, then each runs, one after another, every
+kernel case of chip_smoke's ``long_case_list`` (untimed) and the
+bert_long phase's one-step kernel-vs-plain check. Faults:
+
+  sound         no fault: the readings the limits must clear;
+  skip_tile     each kernel skips its second tile (keys 64-127 in the
+                forward and dq kernels, query rows 64-127 in dk/dv);
+  no_mask       the bias (the padding mask) is ignored;
+  pair_by_head  the dropout mask is keyed on the head alone, not on
+                b * H + h, so every batch row draws the first row's mask.
+
+Prints one JSON line per (fault, case): each output's max |kernel -
+plain| over the plain output's largest magnitude, the limit chip_smoke
+holds it to, and the outputs over their limits; then one per fault for
+the step check. Exits 0 when the sound copy passes every limit and each
+planted fault is caught by at least one.
+"""
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join("paddle_tpu_torch", "kernels", "csrc",
+                      "fused_attention.cu")
+_K_LOOP = "  for (int k0 = 0; k0 < S; k0 += kB) {\n"
+_Q_LOOP = "  for (int q0 = 0; q0 < S; q0 += kB) {\n"
+# fault: [(text of the sound source, its replacement, occurrences)]
+FAULTS = {
+    "sound": [],
+    "skip_tile": [
+        (_K_LOOP, _K_LOOP + "    if (k0 == kB) continue;\n", 2),
+        (_Q_LOOP, _Q_LOOP + "    if (q0 == kB) continue;\n", 1)],
+    "no_mask": [("  return s * scale + (brow ? brow[col] : 0.f);",
+                 "  return s * scale;", 1)],
+    "pair_by_head": [(", bh, p_drop, keep);", ", h, p_drop, keep);", 3)],
+}
+
+
+def plant(copy, fault):
+    path = os.path.join(copy, SOURCE)
+    with open(path) as f:
+        text = f.read()
+    for old, new, count in FAULTS[fault]:
+        if text.count(old) != count:
+            raise RuntimeError("%s: %r occurs %d times in %s, expected %d"
+                               % (fault, old, text.count(old), SOURCE, count))
+        text = text.replace(old, new)
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def run_copy(copy, fault):
+    """In a child process: every long case and the step check on the copy
+    at ``copy``, one JSON line each. Returns whether any limit failed
+    (the child exits 10 then, 0 if none did)."""
+    sys.path.insert(0, copy)
+    import torch
+    import chip_smoke as smoke
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.kernels import attention as A
+    from paddle_tpu_torch.models import bert
+
+    dev = torch.device("cuda")
+    failed = False
+    for case in smoke.long_case_list():
+        rec, inputs = smoke.long_check(A, dev, *case)
+        del inputs
+        over = sorted(k for k, r in rec["rel_err"].items()
+                      if not r <= rec["rtol"][k])
+        failed |= bool(over)
+        print(json.dumps(dict(fault=fault, case=rec["name"],
+                              rel_err=rec["rel_err"], rtol=rec["rtol"],
+                              max_abs_err=rec["max_abs_err"],
+                              over=over)), flush=True)
+        torch.cuda.empty_cache()
+    prog = smoke.long_program(fluid, bert, smoke.LONG_CHECK_SEQ)
+    rec = smoke.long_step_check(A, fluid.Executor(dev), fluid, bert, prog)
+    over = sorted(n for n, r in rec["grad_rel"].items()
+                  if not r <= smoke.LONG_GRAD_RTOL[n])
+    if not rec["loss_rel"] <= smoke.LONG_LOSS_RTOL:
+        over.append("loss")
+    failed |= bool(over)
+    print(json.dumps(dict(fault=fault, check="step_vs_plain", over=over,
+                          **rec)), flush=True)
+    return failed
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--copy", help=argparse.SUPPRESS)
+    ap.add_argument("--fault", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.copy:
+        return 10 if run_copy(args.copy, args.fault) else 0
+
+    import torch
+    if not torch.cuda.is_available():
+        print("attention_fault_check: torch sees no CUDA device",
+              file=sys.stderr)
+        return 2
+    tmp = tempfile.mkdtemp(prefix="attention_faults_")
+    try:
+        copies = {}
+        for fault in FAULTS:
+            copies[fault] = os.path.join(tmp, fault)
+            shutil.copytree(os.path.join(ROOT, "paddle_tpu_torch"),
+                            os.path.join(copies[fault], "paddle_tpu_torch"),
+                            ignore=shutil.ignore_patterns("_build",
+                                                          "__pycache__"))
+            shutil.copy(os.path.join(ROOT, "chip_smoke.py"), copies[fault])
+            plant(copies[fault], fault)
+        build = ("import sys; sys.path.insert(0, sys.argv[1]); "
+                 "from paddle_tpu_torch.kernels import _build; "
+                 "_build.build_all()")
+        procs = [subprocess.Popen([sys.executable, "-c", build, c])
+                 for c in copies.values()]
+        if any([p.wait() for p in procs]):
+            raise RuntimeError("a copy failed to build")
+        caught = {}
+        for fault, copy in copies.items():
+            rc = subprocess.call([sys.executable, os.path.abspath(__file__),
+                                  "--copy", copy, "--fault", fault])
+            if rc not in (0, 10):
+                raise RuntimeError("%s: the check exited %d" % (fault, rc))
+            caught[fault] = rc == 10
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ok = all(caught[f] == (f != "sound") for f in caught)
+    print(json.dumps(dict(summary="faults", failed_a_limit=caught, ok=ok)),
+          flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,17 +1,21 @@
 """Where a BERT-base pretraining step of paddle_tpu_torch spends its time
 on the card.
 
-    python3 tools/profile_bert.py [--batch 32] [--steps 2]
+    python3 tools/profile_bert.py [--seq 512] [--batch 32] [--amp]
+                                  [--steps 2]
 
-Needs one CUDA card. Builds the same program as chip_smoke.py's bert
-phase (``build_pretrain_program(BertConfig.base(), seq_len=512)``, fp32,
-dropout 0.1, Adam), runs its startup program and two warm-up steps on one
-synthetic batch, times ``--steps`` steps on the host clock (ending in a
-device sync), traces as many with torch.profiler, and prints one JSON
-line: wall ms per step, device-busy ms per step (the sum of kernel
-times), the device's idle share, kernel launches per step, the fused
-attention kernels' share of device time, and the kernels with the most
-device time. Device numbers are "not measured" where the profiler
+Needs one CUDA card. Builds the program of chip_smoke.py's bert phase
+(``build_pretrain_program(BertConfig.base(), seq_len=--seq)``, dropout
+0.1, Adam; fp32, or bf16 mixed precision with ``--amp``, which the
+bert_long phase runs at S 2048/4096/8192 with batch 8/4/2;
+``BertConfig.max_seq`` is raised to ``--seq`` past 512), runs its
+startup program and two warm-up steps on one synthetic batch, times
+``--steps`` steps on the host clock (ending in a device sync), traces as
+many with torch.profiler, and prints the card's name and power limit,
+then one JSON line: wall ms per step, device-busy ms per step (the sum
+of kernel times), the device's idle share, kernel launches per step, the
+fused attention kernels' device ms and share, and the kernels with the
+most device time. Device numbers are "not measured" where the profiler
 returned no device events.
 """
 
@@ -31,7 +35,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from paddle_tpu_torch import fluid  # noqa: E402
 from paddle_tpu_torch.models import bert  # noqa: E402
 
-SEQ = 512
 ATTENTION_KERNELS = ("attn_fwd", "attn_bwd_dq", "attn_bwd_dkdv")
 
 
@@ -51,7 +54,10 @@ def _device_kernels(prof):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--amp", action="store_true",
+                    help="bf16 mixed precision (use_amp=True)")
     ap.add_argument("--steps", type=int, default=2)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -61,10 +67,11 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     cfg = bert.BertConfig.base()
+    cfg.max_seq = max(cfg.max_seq, args.seq)
     with fluid.unique_name.guard():
-        main_prog, startup, loss = bert.build_pretrain_program(cfg,
-                                                               seq_len=SEQ)
-    feed = bert.synthetic_batch(cfg, args.batch, SEQ, seed=0)
+        main_prog, startup, loss = bert.build_pretrain_program(
+            cfg, seq_len=args.seq, use_amp=args.amp)
+    feed = bert.synthetic_batch(cfg, args.batch, args.seq, seed=0)
     exe, scope = fluid.Executor("cuda"), fluid.Scope()
     exe.run(startup, scope=scope)
 
@@ -85,9 +92,10 @@ def main():
             step()
         torch.cuda.synchronize()
     kern = _device_kernels(prof)
-    rec = dict(phase="profile", path="bert", batch=args.batch, seq_len=SEQ,
+    rec = dict(phase="profile", path="bert", batch=args.batch,
+               seq_len=args.seq, amp="bf16" if args.amp else None,
                steps=args.steps, wall_ms_per_step=wall_ms,
-               tokens_per_s=args.batch * SEQ / wall_ms * 1e3)
+               tokens_per_s=args.batch * args.seq / wall_ms * 1e3)
     if not kern:
         rec.update(device_busy_ms_per_step="not measured",
                    idle_share="not measured")
