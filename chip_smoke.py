@@ -28,7 +28,15 @@ the script exits non-zero without its final line:
              each shape of bert_long (S 2048 x 8, 4096 x 4, 8192 x 2; at
              S 8192 the plain version runs one (batch, head) pair at a
              time). Each output of these is held to a limit relative to
-             the plain output's largest magnitude (LONG_RTOL).
+             the plain output's largest magnitude (LONG_RTOL). The same
+             kernels on packed [B, S, H*d] operands, through the heads'
+             strides, at the bert_packed path's shapes: BERT-base at
+             batch 128, S 128 (the TPU's resident tier) with a padding
+             mask and with a per-head bias, and BERT-tiny at batch 128,
+             S 128 (4 heads of 16: the TPU's packed tier), p 0 timed and
+             p 0.1 untimed; untimed, batch 8, S 256, 3 heads (an odd H);
+             fp32 and bf16, held to LONG_RTOL; and the packed entry equal
+             to the per-head one on contiguous copies at p 0.1.
 3. dense     GenerativePredictor(Transformer.big(), batch 64, src 128,
              prompt 64, capacity 1024).run for 32 new tokens: the dense
              decode kernel launches once per decoder layer per step, and
@@ -55,7 +63,23 @@ the script exits non-zero without its final line:
              launches a step, reported under the TPU tier they stand in
              for (``reference_tier``: long at S 2048, flash above), with
              finite losses that fall.
-7. summary   the kernels line, the card line, then the result line.
+7. bert_packed  BASELINE config 3 in the packed layout: BERT-base MLM
+             pretraining at batch 128, S 128, bf16 AMP with
+             use_fused_attention="packed" (the reference's bench_bert
+             shapes): one step against the plain attention at batch 2;
+             one warm and 4 timed steps through 12 forward, 12 dq and
+             12 dk/dv launches a step on the heads' strided views (the
+             program's only attention op is the packed one), with
+             falling losses; the same with "auto" (the einsum chain) and
+             True (per-head kernels behind transposes) for their step
+             times; BERT-tiny at the same shapes, which the TPU runs in
+             its packed tier.
+8. encoder_serving  a BERT-base packed encoder saved with
+             save_inference_model, loaded as a Predictor behind a Server
+             (batches up to 32, 2 ms delay, ladder warmed up): 64
+             requests of 1-4 rows from 8 threads, each held to a direct
+             Predictor.run of its rows; latency, occupancy, launches.
+9. summary   the kernels line, the card line, then the result line.
 """
 
 import contextlib
@@ -325,8 +349,11 @@ def fused_case(A, dev, gen, flush, name, B, H, S, d, bias_shape, p, dtype):
 # which the summary line names the TPU kernel each launch of the one CUDA
 # family stands in for: _fwd_kernel/_bwd_kernel up to S 1024, the long
 # kernels up to S 4096 where _long_qb finds a query tile, the flash kernels
-# past that.
-TPU_MAX_FUSED_SEQ, TPU_MAX_LONG_SEQ = 1024, 4096
+# past that; in the packed layout the resident kernels (S <= 1024, heads
+# in pairs of 128 lanes, a batch block in VMEM), else the packed kernels
+# (S <= 256), else the per-head tiers after a transpose.
+TPU_MAX_FUSED_SEQ, TPU_MAX_LONG_SEQ, TPU_PACKED_MAX_SEQ = 1024, 4096, 256
+MIB = 1024 * 1024
 
 
 def long_qb(S, d):
@@ -338,9 +365,52 @@ def long_qb(S, d):
     return None
 
 
-def reference_tier(S, d):
+def _largest_divisor(B, fits):
+    best = None
+    for bb in range(1, B + 1):
+        if B % bb == 0 and fits(bb):
+            best = bb
+    return best
+
+
+def res_blocks(B, S, HD, itemsize):
+    """The TPU package's resident batch block (``_res_blocks``): the
+    largest divisor of B whose six double-buffered [Bb, S, H*d] blocks
+    and ten [Bb, S, S] fp32 temporaries fit 13 MB, else None."""
+    return _largest_divisor(B, lambda bb: 6 * bb * S * HD * itemsize * 2 +
+                            10 * bb * S * S * 4 <= 13 * MIB)
+
+
+def packed_hc(H, S):
+    """The TPU package's packed-tier head chunk (``_packed_hc``)."""
+    return next((hc for hc in range(H, 0, -1)
+                 if H % hc == 0 and 22 * hc * S * S * 4 <= 8 * MIB), None)
+
+
+def packed_bb(B, S, HD, H):
+    """The TPU package's packed-tier batch block (``_packed_bb``)."""
+    if packed_hc(H, S) is None:
+        return None
+    return _largest_divisor(B, lambda bb: 42 * bb * S * HD + 8 * MIB <=
+                            15 * MIB)
+
+
+def reference_tier(S, d, packed=None):
     """The TPU package tier whose kernels a launch at sequence length S
-    and head width d stands in for: "fused", "long" or "flash"."""
+    and head width d stands in for: "fused", "long" or "flash" for
+    [B, H, S, d] operands; with ``packed`` = (B, H, itemsize, bias shape)
+    for the packed [B, S, H*d] entry, "resident" or "packed" (a copy of
+    ``_use_res_kernel`` and ``_use_packed_kernel``), else the per-head
+    tier that entry falls back to."""
+    if packed is not None:
+        B, H, itemsize, bias_shape = packed
+        bias_ok = bias_shape[2] == 1 and bias_shape[1] in (1, H)
+        if S <= TPU_MAX_FUSED_SEQ and H % 2 == 0 and (2 * d) % 128 == 0 \
+                and res_blocks(B, S, H * d, itemsize) and bias_ok:
+            return "resident"
+        if S <= TPU_PACKED_MAX_SEQ and packed_bb(B, S, H * d, H) \
+                and bias_ok:
+            return "packed"
     if S <= TPU_MAX_FUSED_SEQ:
         return "fused"
     if S <= TPU_MAX_LONG_SEQ and long_qb(S, d) is not None:
@@ -572,6 +642,207 @@ def long_cases(A, dev, flush):
     return recs["S2048_bf16"], recs["S8192_bf16"]
 
 
+def packed_case_list():
+    """Every packed-layout kernel case as (name, B, S, H, d, bias_shape,
+    p, dtype, timed), fp32 and bf16: BERT-base at batch 128, S 128 (the
+    bert_packed path, where the TPU runs its resident tier) with the
+    padding mask [B, 1, 1, S] and with a per-head bias [B, 12, 1, S];
+    BERT-tiny at the same batch and S (4 heads of 16, the padding mask:
+    the bert_packed path's BERT-tiny run, where the TPU runs its packed
+    tier); each at p 0 timed and at p 0.1 untimed; and, untimed, batch
+    8, S 256, 3 heads of 64 with a per-head bias, where the odd H fails
+    the resident gate and the TPU runs its packed tier."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for name, H, d, heads in (("resident_bcast", 12, 64, 1),
+                                  ("resident_heads", 12, 64, 12),
+                                  ("tiny_path", 4, 16, 1)):
+            for p in (0.0, 0.1):
+                cases.append(("%s%s_%s" % (name, "_dropout" if p else "",
+                                           tag), 128, 128, H, d,
+                              (128, heads, 1, 128), p, dtype, p == 0.0))
+        cases.append(("odd_heads_" + tag, 8, 256, 3, 64, (8, 3, 1, 256),
+                      0.0, dtype, False))
+    return cases
+
+
+def packed_check(A, dev, name, B, S, H, d, bias_shape, p, dtype, salt=0):
+    """The kernels on packed [B, S, H*d] operands, read through the heads'
+    [B, H, S, d] views (strides S*H*d, d, H*d), against the plain version
+    on the same inputs and seed: the forward's output and row logsumexp,
+    and the backward's dq, dk, dv and dbias of one random upstream
+    gradient. The bias is a padding mask (lengths S/2..S) plus, for a
+    per-head shape, a random term per head. The inputs come from a
+    generator seeded by the case and ``salt`` (0 in chip_smoke; others
+    give the spread of the readings over data and dropout masks).
+    Returns (record, inputs) as ``long_check``; raises nothing."""
+    gen = torch.Generator(device=dev).manual_seed(
+        zlib.crc32(name.encode()) + salt)
+    q, k, v, do = (A._split_heads(torch.randn(B, S, H * d, device=dev,
+                                              generator=gen).to(dtype), H)
+                   for _ in range(4))
+    lens = torch.randint(S // 2, S + 1, (B, 1), device=dev, generator=gen)
+    bias = torch.where(torch.arange(S, device=dev)[None] < lens, 0.0,
+                       -1e4).view(B, 1, 1, S)
+    if bias_shape[1] > 1:
+        bias = bias + torch.randn(*bias_shape, device=dev, generator=gen)
+    seed = torch.tensor([7919 * S + B + salt], dtype=torch.int64,
+                        device=dev)
+    scale = d ** -0.5
+    bias_f, strides = A._bias_operand(bias, B, H, S)
+    o, lse = A.fused_attention_fwd_kernel(q, k, v, bias_f, strides, seed,
+                                          scale, p)
+    got = dict(zip(LONG_OUTPUTS, (o, lse) + A.fused_attention_backward(
+        q, k, v, bias_f, strides, seed, o, lse, do, scale, p,
+        bias_grad=True)))
+    if not all(got[key].stride() == q.stride()
+               for key in ("out", "dq", "dk", "dv")):
+        raise AssertionError("%s: the kernels' outputs left the packed "
+                             "layout: %s" % (name, {
+                                 key: got[key].stride() for key in got}))
+    want = long_plain(A, q, k, v, do, bias, seed, scale, p, True)
+    err = {key: (got[key].float() - want[key].float()).abs().max().item()
+           for key in LONG_OUTPUTS}
+    ref = {key: want[key].float().abs().max().item() for key in LONG_OUTPUTS}
+    rtol = LONG_RTOL[dtype]
+    rec = dict(name=name, B=B, S=S, H=H, d=d, dtype=str(dtype),
+               bias=list(bias.shape), dropout=p,
+               tier=reference_tier(S, d, (B, H, q.element_size(),
+                                          bias.shape)), salt=salt,
+               max_abs_err=err, ref_max_abs=ref,
+               rel_err={key: err[key] / ref[key] for key in err},
+               rtol={key: rtol[key] for key in err})
+    del got, want
+    return rec, (q, k, v, do, bias, bias_f, strides, seed, scale, o, lse)
+
+
+def packed_case(A, dev, flush, case):
+    """One packed-layout case (``packed_case_list``): held to its limits
+    (LONG_RTOL), then when timed the forward kernel, the dq kernel and the
+    dk/dv kernel alone and together on the heads' views, the plain
+    version (autograd for its backward), and SDPA on the heads' views with
+    the same float mask at p = 0, its layout copies counted (it returns
+    the packed [B, S, H*d] output, as the kernels do). Bounds as
+    ``long_bound`` on the [B, H, S, d] view: at S 128 the bytes bound
+    both directions."""
+    name, B, S, H, d, bias_shape, p, dtype, timed = case
+    rec, (q, k, v, do, bias, bias_f, strides, seed, scale, o, lse) = \
+        packed_check(A, dev, name, B, S, H, d, bias_shape, p, dtype)
+    for key, rel in rec["rel_err"].items():
+        if not rel <= rec["rtol"][key]:
+            raise AssertionError(
+                "%s: packed attention %s kernel vs plain max |err| %g = %g "
+                "of the plain's largest magnitude > %g" % (
+                    name, key, rec["max_abs_err"][key], rel,
+                    rec["rtol"][key]))
+    if timed:
+        mask = bias.to(dtype)
+        packed = [A._merge_heads(t) for t in (q, k, v)]
+
+        def library(q_, k_, v_):
+            return A._merge_heads(F.scaled_dot_product_attention(
+                *(A._split_heads(t, H) for t in (q_, k_, v_)),
+                attn_mask=mask, scale=scale))
+
+        f_ms, f_by = long_bound(q, bias, "fwd")
+        rec["fwd"] = dict(
+            kernel_ms=time_ms(lambda: A.fused_attention_fwd_kernel(
+                q, k, v, bias_f, strides, seed, scale, p), flush),
+            plain_ms=time_ms(lambda: A._ref_fused_attention_packed(
+                *packed, bias, H, scale, p, seed), flush),
+            library_ms=time_ms(lambda: library(*packed), flush),
+            bound_ms=f_ms, bound_by=f_by,
+            max_abs_err=max(rec["max_abs_err"][x] for x in ("out", "lse")))
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in packed + [bias]]
+        ref = A._ref_fused_attention_packed(*leaves, H, scale, p, seed)
+        lib_leaves = [t.detach().clone().requires_grad_(True)
+                      for t in packed]
+        lib_out = library(*lib_leaves)
+        do_packed = A._merge_heads(do)
+        plain_bwd = time_ms(lambda: torch.autograd.grad(
+            ref, leaves, do_packed, retain_graph=True), flush)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            lib_out, lib_leaves, do_packed, retain_graph=True), flush)
+        _, delta = A.fused_attention_bwd_dq_kernel(
+            q, k, v, bias_f, strides, seed, o, lse, do, scale, p)
+        dbias_shape = (B, bias_shape[1], 1, S)
+        errs = {"dq": ("dq",), "dkdv": ("dk", "dv", "dbias"),
+                "bwd": ("dq", "dk", "dv", "dbias")}
+        for kind, fn in (
+                ("dq", lambda: A.fused_attention_bwd_dq_kernel(
+                    q, k, v, bias_f, strides, seed, o, lse, do, scale, p)),
+                ("dkdv", lambda: A.fused_attention_bwd_dkdv_kernel(
+                    q, k, v, bias_f, strides, seed, lse, delta, do, scale,
+                    p, dbias_shape)),
+                ("bwd", lambda: A.fused_attention_backward(
+                    q, k, v, bias_f, strides, seed, o, lse, do, scale, p,
+                    bias_grad=True))):
+            b_ms, b_by = long_bound(q, bias, kind)
+            rec[kind] = dict(
+                kernel_ms=time_ms(fn, flush), plain_ms=plain_bwd,
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_bwd if kind == "bwd" else None,
+                max_abs_err=max(rec["max_abs_err"][x] for x in errs[kind]))
+        rec["bwd"]["library_bwd_of_both_halves_ms"] = lib_bwd
+        del ref, leaves, lib_out, lib_leaves, packed
+    emit(phase="kernels", kernel="packed_attention", **rec)
+    del q, k, v, do, bias, o, lse
+    torch.cuda.empty_cache()
+    return rec
+
+
+def packed_cases(A, dev, flush):
+    """Every packed-layout case; returns the timed bf16 records at the
+    bert_packed path's two shapes, BERT-base (the TPU's resident tier)
+    and BERT-tiny (its packed tier), which the summary line reports."""
+    recs = {}
+    for case in packed_case_list():
+        recs[case[0]] = packed_case(A, dev, flush, case)
+    return recs["resident_bcast_bf16"], recs["tiny_path_bf16"]
+
+
+def packed_equals_per_head(A, dev):
+    """The packed entry (the kernels on the heads' strided views) and
+    fused_attention on contiguous transposed copies of the operands at
+    p 0.1 with one seed (BERT-base's heads, batch 16, S 128, padding
+    mask): out, dq, dk and dv equal to the last bit, dbias (summed over
+    heads by fp32 atomics in the order blocks finish) within 1e-6 of its
+    largest magnitude."""
+    B, S, H, d, p = 16, 128, 12, 64, 0.1
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q, k, v, do = (torch.randn(B, S, H * d, device=dev, generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    lens = torch.randint(S // 2, S + 1, (B, 1), device=dev, generator=gen)
+    bias = torch.where(torch.arange(S, device=dev)[None] < lens, 0.0,
+                       -1e4).view(B, 1, 1, S)
+    seed = torch.tensor([4242], dtype=torch.int64, device=dev)
+
+    def run(fn):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (q, k, v, bias)]
+        out = fn(*leaves)
+        return [out.detach()] + list(torch.autograd.grad(out, leaves, do))
+
+    packed = run(lambda q_, k_, v_, b_: A.fused_attention_packed(
+        q_, k_, v_, b_, n_heads=H, dropout_prob=p, seed=seed))
+    heads = run(lambda q_, k_, v_, b_: A._merge_heads(A.fused_attention(
+        *(A._split_heads(t, H).contiguous() for t in (q_, k_, v_)), b_,
+        dropout_prob=p, seed=seed)))
+    torch.cuda.synchronize()
+    equal = {key: bool(torch.equal(a, b)) for key, a, b in
+             zip(("out", "dq", "dk", "dv"), packed, heads)}
+    dbias_rel = ((packed[4] - heads[4]).abs().max() /
+                 heads[4].abs().max()).item()
+    if not (all(equal.values()) and dbias_rel <= 1e-6):
+        raise AssertionError("packed vs per-head at p %g: bit-equal %s, "
+                             "dbias rel %g (> 1e-6?)" % (p, equal,
+                                                         dbias_rel))
+    emit(phase="kernels", kernel="packed_vs_per_head", B=B, S=S, H=H, d=d,
+         dropout=p, bit_equal=equal, dbias_rel=dbias_rel)
+
+
 def fused_cases(A, dev, gen, flush):
     """Every case of the fused kernels; returns the BERT path's fp32
     record (dropout 0.1), the one the summary line reports."""
@@ -604,6 +875,10 @@ def reset_launches(A):
     A.paged_attention_kernel.launches = 0
     for name in FUSED_KERNELS:
         getattr(A, name).launches = 0
+
+
+def launches(A, names):
+    return {name: getattr(A, name).launches for name in names}
 
 
 @contextlib.contextmanager
@@ -1074,6 +1349,338 @@ def bert_long_path(A, dev):
     return tiers
 
 
+PACKED_BATCH, PACKED_SEQ, PACKED_STEPS = 128, 128, 4   # bench.py bench_bert
+PACKED_CHECK_BATCH, TIER_STEPS = 2, 2
+# the three attention layouts of config 3 run in this order, each from a
+# fresh scope, so a drift of the host's speed over the phase falls on
+# all three alike: (label, use_fused_attention)
+LAYOUT_ROUNDS = (("packed", "packed"), ("auto", "auto"), ("per_head", True),
+                 ("per_head", True), ("auto", "auto"), ("packed", "packed"))
+# One BERT-base AMP step at S 128 with the packed kernels against one
+# with the plain packed attention, from a cloned scope and generator (the
+# same dropout masks), batch 2, as long_step_check does at S 2048: the
+# loss as a relative difference, each watched tensor's Adam first moment
+# as a share of its largest magnitude; bert_long's limits. Readings on
+# the H100 (tools/attention_fault_check.py, PERF.md): sound, the loss
+# 1.7e-6, word_emb 1.1e-2, the query weight 1.1e-2, the key weight
+# 3.2e-2, the last FFN weight 8.3e-3, the output bias 1.8e-5; every
+# planted fault (a skipped tile, no mask, the head-keyed dropout mask, a
+# row stride of d) moves the loss by 1.8e-4 or more and the query and
+# key weights' moments by 0.11 or more. The second row is padded, so
+# this step also sees faults of the mask.
+PACKED_LOSS_RTOL = 1e-5
+PACKED_GRAD_RTOL = {"word_emb": 6e-2, "layer_0_attn_q.w_0": 6e-2,
+                    "layer_5_attn_k.w_0": 2 ** -3,
+                    "layer_11_ffn2.w_0": 4.5e-2, "mlm_out_bias": 4e-4}
+
+
+def packed_program(fluid, bert, cfg, attention, seq=PACKED_SEQ):
+    """(cfg, main, startup, loss, build seconds) of the AMP pretraining
+    program with ``use_fused_attention=attention``."""
+    t0 = time.perf_counter()
+    cfg.max_seq = max(cfg.max_seq, seq)
+    cfg.use_fused_attention = attention
+    with fluid.unique_name.guard():
+        main, startup, loss = bert.build_pretrain_program(cfg, seq_len=seq,
+                                                          use_amp=True)
+    return cfg, main, startup, loss, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def plain_packed_attention(A):
+    """Route the program's fused_multihead_attention_packed ops through
+    the plain version on the card."""
+    def plain(q, k, v, bias=None, n_heads=1, scale=None, dropout_prob=0.0,
+              seed=None):
+        d = q.shape[-1] // n_heads
+        scale = d ** -0.5 if scale is None else scale
+        return A._ref_fused_attention_packed(q, k, v, bias, n_heads,
+                                             float(scale),
+                                             float(dropout_prob), seed)
+
+    saved, A.fused_attention_packed = A.fused_attention_packed, plain
+    try:
+        yield
+    finally:
+        A.fused_attention_packed = saved
+
+
+def packed_step_check(A, exe, fluid, bert, prog):
+    """One bf16 AMP step of ``prog`` (``packed_program``, BERT-base) on a
+    batch of PACKED_CHECK_BATCH at S 128 with the packed kernels, and one
+    with the plain packed attention, from one cloned scope and generator.
+    Returns the record (as ``long_step_check``); raises here only if a
+    route launched the wrong kernels."""
+    cfg, main, startup, loss, _ = prog
+    feed = bert.synthetic_batch(cfg, PACKED_CHECK_BATCH, PACKED_SEQ, seed=0)
+    # padding: the second row keeps 96 of its 128 tokens
+    feed["input_mask"][1, 96:] = 0.0
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    res = {}
+    for route, ctx in (("kernel", contextlib.nullcontext()),
+                       ("plain", plain_packed_attention(A))):
+        sc = clone_scope(fluid, scope)
+        reset_launches(A)
+        with ctx:
+            step_loss = exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=sc)[0]
+        launched = list(launches(A, FUSED_KERNELS).values())
+        if launched != [cfg.n_layers * (route == "kernel")] * 3:
+            raise AssertionError("bert_packed: the %s step launched the "
+                                 "kernels %s times" % (route, launched))
+        res[route] = (float(step_loss[0]),
+                      {n: sc.find_var(n + "_moment1_0") for n in BERT_WATCH})
+        del sc
+    del scope
+    grad_rel = {n: ((res["kernel"][1][n] - res["plain"][1][n]).abs().max() /
+                    res["plain"][1][n].abs().max()).item()
+                for n in BERT_WATCH}
+    return dict(seq_len=PACKED_SEQ, batch=PACKED_CHECK_BATCH,
+                loss_kernel=res["kernel"][0], loss_plain=res["plain"][0],
+                loss_rel=abs(res["kernel"][0] - res["plain"][0]) /
+                abs(res["plain"][0]), loss_rtol=PACKED_LOSS_RTOL,
+                grad_rel=grad_rel, grad_rtol=PACKED_GRAD_RTOL)
+
+
+def timed_steps(A, exe, fluid, bert, prog, batch, steps):
+    """One warm step and ``steps`` timed steps of ``prog`` on one
+    synthetic batch: (losses, step seconds, peak GB, launches of the
+    fused wrappers over the timed steps)."""
+    cfg, main, startup, loss, _ = prog
+    feed = bert.synthetic_batch(cfg, batch, PACKED_SEQ, seed=0)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0][0])]          # warm step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(A)
+    step_s = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(out[0]))
+    got = launches(A, FUSED_KERNELS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del scope
+    torch.cuda.empty_cache()
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError("bert_packed (%s): losses not finite and "
+                             "falling: %s" % (cfg.use_fused_attention,
+                                              losses))
+    return losses, step_s, peak, got
+
+
+def bert_packed_path(A, dev):
+    """BASELINE config 3 in the packed layout: BERT-base MLM pretraining
+    at batch 128, S 128, bf16 AMP, use_fused_attention="packed". First
+    the one-step check against the plain version; then, in the order of
+    LAYOUT_ROUNDS, runs of one warm and PACKED_STEPS timed steps with
+    "packed" (12 + 12 + 12 launches a step on the heads' strided views:
+    the TPU's resident tier), "auto" (the einsum chain below S 256,
+    bench_bert's default, no launch) and True (the same kernels on
+    contiguous per-head operands behind transposes), for their step
+    times side by side; then BERT-tiny at the same batch and S, whose
+    d 16 the TPU runs in its packed tier. A packed run's program holds
+    one fused_multihead_attention_packed op a layer and no other
+    attention op, so its launches are the packed layout's. Returns
+    {tier: {wrapper: launches}} of the last packed run and the BERT-tiny
+    run."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    exe = fluid.Executor(dev)
+    prog = packed_program(fluid, bert, bert.BertConfig.base(), "packed")
+    rec = packed_step_check(A, exe, fluid, bert, prog)
+    over = {n: r for n, r in rec["grad_rel"].items()
+            if not r <= PACKED_GRAD_RTOL[n]}
+    if not (math.isfinite(rec["loss_kernel"]) and
+            rec["loss_rel"] <= PACKED_LOSS_RTOL and not over):
+        raise AssertionError(
+            "bert_packed: step kernel vs plain: loss %r vs %r (rel %g > "
+            "%g?), first moments past their limits %s" % (
+                rec["loss_kernel"], rec["loss_plain"], rec["loss_rel"],
+                PACKED_LOSS_RTOL, over))
+    emit(phase="bert_packed", check="step_vs_plain", **rec)
+    torch.cuda.empty_cache()
+
+    progs = {"packed": prog}
+    for label, attention in LAYOUT_ROUNDS[1:3]:
+        progs[label] = packed_program(fluid, bert, bert.BertConfig.base(),
+                                      attention)
+    runs = [(label, "base", attention, PACKED_BATCH, PACKED_STEPS)
+            for label, attention in LAYOUT_ROUNDS]
+    runs.append(("tiny_packed", "tiny", "packed", PACKED_BATCH, TIER_STEPS))
+    progs["tiny_packed"] = packed_program(fluid, bert,
+                                          bert.BertConfig.tiny(), "packed")
+    tiers, step_s_of = {}, {}
+    for label, size, attention, batch, steps in runs:
+        prog = progs[label]
+        cfg, main = prog[0], prog[1]
+        ops = main.global_block().ops
+        types = {t: sum(op.type == t for op in ops) for t in (
+            "fused_multihead_attention_packed", "fused_multihead_attention",
+            "einsum", "cast")}
+        losses, step_s, peak, got = timed_steps(A, exe, fluid, bert, prog,
+                                                batch, steps)
+        want = cfg.n_layers * steps * (attention != "auto")
+        op = {"packed": "fused_multihead_attention_packed",
+              True: "fused_multihead_attention"}.get(attention)
+        if [got[n] for n in FUSED_KERNELS] != [want] * 3 or any(
+                types[t] != (cfg.n_layers if t == op else 0) for t in (
+                    "fused_multihead_attention_packed",
+                    "fused_multihead_attention")):
+            raise AssertionError("bert_packed (%s): launches %s over %d "
+                                 "steps, ops %s" % (label, got, steps,
+                                                    types))
+        d = cfg.hidden // cfg.n_heads
+        tier = reference_tier(PACKED_SEQ, d, (batch, cfg.n_heads, 2,
+                                              (batch, 1, 1, PACKED_SEQ))) \
+            if attention == "packed" else None
+        if tier is not None:
+            tiers[tier] = got
+        step_s_of.setdefault(label, []).extend(step_s)
+        steady = statistics.median(step_s)
+        emit(phase="bert_packed",
+             config="BertConfig.%s" % size, attention=label,
+             amp="bf16", seq_len=PACKED_SEQ, batch=batch,
+             dropout=cfg.hidden_dropout,
+             masked_positions=bert.max_predictions(PACKED_SEQ),
+             ops=len(ops), op_counts=types, build_s=prog[4], losses=losses,
+             step_s=step_s, step_ms=steady * 1e3,
+             tokens_per_s=batch * PACKED_SEQ / steady,
+             max_memory_allocated_gb=peak, tier=tier,
+             launches_per_step={k: v / steps for k, v in got.items() if v})
+        del prog, main
+        torch.cuda.empty_cache()
+    del progs
+    emit(phase="bert_packed",
+         compare="BertConfig.base, batch 128, S 128, bf16 AMP: median step "
+                 "ms over both runs of each layout",
+         step_ms={label: statistics.median(v) * 1e3
+                  for label, v in step_s_of.items() if label != "tiny_packed"},
+         auto_rule="einsum below S 256, fused from S 256 (measured on a TPU)")
+    return tiers
+
+
+SERVE_SEQ, SERVE_REQUESTS, SERVE_CLIENTS = 128, 64, 8
+# Each served request's encoder output against a direct Predictor.run of
+# the same rows (fp32): the attention kernels treat every (row, head)
+# alone, so only the cuBLAS products, whose algorithm may change with
+# the batch's row count, sum in another order.
+SERVE_ATOL = 1e-4
+
+
+def encoder_serving_path(A, inference, monitor, dev):
+    """The non-generative serving tier: a BERT-base encoder (S 128,
+    use_fused_attention="packed", fp32) built, started on the card,
+    saved with save_inference_model and loaded back as a Predictor,
+    behind a Server (batches up to 32, 2 ms queue delay, ladder warmed
+    up); SERVE_REQUESTS requests of 1-4 padded rows from SERVE_CLIENTS
+    threads. Every future is held to a direct Predictor.run of its rows.
+    Returns the forward kernel's launches over the served batches."""
+    import tempfile
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base()
+    cfg.use_fused_attention = "packed"
+    feeds = ["src_ids", "pos_ids", "sent_ids", "input_mask"]
+    with fluid.unique_name.guard():
+        main, startup, enc = bert.build_encoder_program(cfg,
+                                                        seq_len=SERVE_SEQ)
+    exe, scope = fluid.Executor(dev), fluid.Scope()
+    rng = np.random.RandomState(5)
+    rows = bert.synthetic_batch(cfg, 4 * SERVE_REQUESTS, SERVE_SEQ, seed=5)
+    lens = rng.randint(SERVE_SEQ // 2, SERVE_SEQ + 1, 4 * SERVE_REQUESTS)
+    rows["input_mask"][np.arange(SERVE_SEQ)[None, :] >= lens[:, None]] = 0.0
+    sizes = rng.randint(1, 5, SERVE_REQUESTS)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    reqs = [{n: rows[n][s:s + k] for n in feeds}
+            for s, k in zip(starts, sizes)]
+    with tempfile.TemporaryDirectory() as model_dir:
+        with fluid.scope_guard(scope):
+            exe.run(startup, scope=scope)
+            fluid.io.save_inference_model(model_dir, feeds, [enc], exe,
+                                          main_program=main)
+        t0 = time.perf_counter()
+        pred = inference.create_predictor(inference.Config(model_dir))
+        load_s = time.perf_counter() - t0
+    direct = pred.clone()
+    lbl = {"model": "bert_encoder"}
+    occ = monitor.histogram("serving_batch_occupancy", labels=lbl)
+    batches = monitor.counter("serving_batches_total", labels=lbl)
+    results, latency = [None] * len(reqs), [None] * len(reqs)
+    with inference.Server() as srv:
+        t0 = time.perf_counter()
+        ladder = srv.register(
+            "bert_encoder", pred,
+            config=inference.ServeConfig(max_batch_size=32,
+                                         max_queue_delay_ms=2.0),
+            warmup_feed={n: reqs[0][n][:1] for n in feeds})
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        occ0, batches0 = (occ.sum, occ.count), batches.value
+        reset_launches(A)
+        t0 = time.perf_counter()
+
+        def client(c):
+            for i in range(c, len(reqs), SERVE_CLIENTS):
+                ts = time.perf_counter()
+                results[i] = srv.submit("bert_encoder", reqs[i]).result(
+                    timeout=600)
+                latency[i] = time.perf_counter() - ts
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+            if t.is_alive():
+                raise AssertionError("encoder_serving client thread hung")
+        wall = time.perf_counter() - t0
+    served = launches(A, FUSED_KERNELS)
+    n_batches = batches.value - batches0
+    if any(r is None for r in results):
+        raise AssertionError("encoder_serving: unresolved futures")
+    if not (served["fused_attention_fwd_kernel"] ==
+            cfg.n_layers * n_batches > 0 and
+            sum(served.values()) == served["fused_attention_fwd_kernel"]):
+        raise AssertionError("encoder_serving: launches %s over %d batches"
+                             % (served, n_batches))
+    err = ref = 0.0
+    for req, got in zip(reqs, results):
+        want = direct.run(req)[0]
+        if got[0].shape != want.shape or not np.isfinite(got[0]).all():
+            raise AssertionError("encoder_serving: output %s, want %s"
+                                 % (got[0].shape, want.shape))
+        err = max(err, float(np.abs(got[0] - want).max()))
+        ref = max(ref, float(np.abs(want).max()))
+    if not err <= SERVE_ATOL:
+        raise AssertionError("encoder_serving: served vs direct max |err| "
+                             "%g > %g" % (err, SERVE_ATOL))
+    lat = np.array(latency)
+    emit(phase="encoder_serving", config="BertConfig.base encoder, packed",
+         seq_len=SERVE_SEQ, dtype="float32", requests=len(reqs),
+         rows=int(sizes.sum()), clients=SERVE_CLIENTS, max_batch_size=32,
+         max_queue_delay_ms=2.0, ladder=ladder, load_s=load_s,
+         warmup_s=warmup_s, wall_s=wall, batches=n_batches,
+         occupancy_mean=(occ.sum - occ0[0]) / (occ.count - occ0[1]),
+         request_p50_s=float(np.percentile(lat, 50)),
+         request_p99_s=float(np.percentile(lat, 99)),
+         rows_per_s=float(sizes.sum()) / wall,
+         packed_fwd_launches=served["fused_attention_fwd_kernel"],
+         vs_direct_max_abs_err=err, vs_direct_atol=SERVE_ATOL,
+         output_max_abs=ref)
+    return served["fused_attention_fwd_kernel"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1114,6 +1721,8 @@ def main():
     paged_rec = paged_case(A, dev, gen, flush)
     fused_rec = fused_cases(A, dev, gen, flush)
     long_rec, flash_rec = long_cases(A, dev, flush)
+    res_rec, packed_rec = packed_cases(A, dev, flush)
+    packed_equals_per_head(A, dev)
     del flush
     torch.cuda.empty_cache()
 
@@ -1126,6 +1735,10 @@ def main():
     bert_launches = bert_path(A, dev)
     torch.cuda.empty_cache()
     long_launches = bert_long_path(A, dev)
+    torch.cuda.empty_cache()
+    packed_launches = bert_packed_path(A, dev)
+    torch.cuda.empty_cache()
+    encoder_serving_path(A, inference, monitor, dev)
 
     src = "paddle_tpu_torch/kernels/csrc/decode_attention.cu"
     kernels = []
@@ -1163,7 +1776,27 @@ def main():
              "paddle_tpu/kernels/attention.py:650"),
             ("fused_attention_bwd_dkdv, flash tier", flash_rec["dkdv"],
              long_launches["flash"]["fused_attention_bwd_dkdv_kernel"],
-             "paddle_tpu/kernels/attention.py:697")):
+             "paddle_tpu/kernels/attention.py:697"),
+            ("fused_attention_fwd, packed layout, packed tier",
+             packed_rec["fwd"],
+             packed_launches["packed"]["fused_attention_fwd_kernel"],
+             "paddle_tpu/kernels/attention.py:917"),
+            ("fused_attention_bwd (dq + dk/dv kernels), packed layout, "
+             "packed tier", packed_rec["bwd"],
+             packed_launches["packed"]["fused_attention_bwd_dq_kernel"],
+             "paddle_tpu/kernels/attention.py:960"),
+            ("fused_attention_fwd, packed layout, resident tier",
+             res_rec["fwd"],
+             packed_launches["resident"]["fused_attention_fwd_kernel"],
+             "paddle_tpu/kernels/attention.py:1170"),
+            ("fused_attention_bwd_dq, packed layout, resident tier",
+             res_rec["dq"],
+             packed_launches["resident"]["fused_attention_bwd_dq_kernel"],
+             "paddle_tpu/kernels/attention.py:1195"),
+            ("fused_attention_bwd_dkdv, packed layout, resident tier",
+             res_rec["dkdv"],
+             packed_launches["resident"]["fused_attention_bwd_dkdv_kernel"],
+             "paddle_tpu/kernels/attention.py:1228")):
         kernels.append(dict(
             name=name, route="cuda", source=fused_src, replaces=replaces,
             launches=launches, max_abs_err=rec["max_abs_err"],

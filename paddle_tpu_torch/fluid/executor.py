@@ -110,10 +110,13 @@ def copy_scope(src, dst, names, device="cuda"):
 
 class Executor:
     """Runs programs on ``place`` ("cuda" by default; "cpu" runs the
-    kernels' plain versions)."""
+    kernels' plain versions). ``promote_products`` lets mul and matmul
+    take operands of two float types (a Predictor's bf16 weights against
+    fp32 activations); training leaves it off, so a missed cast raises."""
 
-    def __init__(self, place=None):
+    def __init__(self, place=None, promote_products=False):
         self.place = resolve_device("cuda" if place is None else place)
+        self.promote_products = bool(promote_products)
 
     def _feed(self, block, name, value):
         var = block._find_var_recursive(name)
@@ -149,6 +152,7 @@ class Executor:
 
         ctx = LowerCtx(block, env, scope.rng(self.place, program.random_seed),
                        self.place)
+        ctx.promote_products = self.promote_products
         for i, op in enumerate(ops):
             with torch.set_grad_enabled(i <= grad_at < len(ops)):
                 lower_op(ctx, op)

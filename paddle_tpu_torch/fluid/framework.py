@@ -8,9 +8,13 @@ by either package runs in the other. Shapes are inferred by running each
 op's torch lowering on ``meta`` tensors (``shape_inference.py``); the
 executor (``executor.py``) lowers a block eagerly, op by op.
 
-Not carried over yet: the protobuf ``serialize_to_string`` /
-``parse_from_string`` (the plain dicts are the exchange format for now),
-name scopes, ``_prune``, sub-blocks' control flow and the dygraph switch.
+``serialize_to_string`` / ``parse_from_string`` write and read the
+reference's protobuf bytes through the port's own wire codec
+(``core/proto_io.py``); ``_prune`` cuts a program to the ops its fetch
+targets need (``io.save_inference_model``).
+
+Not carried over yet: name scopes, sub-blocks' control flow and the
+dygraph switch.
 """
 
 import contextlib
@@ -330,6 +334,40 @@ class Program:
                                        attrs))
             p.blocks.append(nb)
         return p
+
+    def _prune(self, targets):
+        """A clone in eval mode (``for_test``) that keeps only the ops
+        the ``targets`` (Variables or names) need: walking the global
+        block backwards, an op stays when it writes a needed name, and
+        its inputs become needed. Optimizer updates and the backward drop
+        out unless a target reads them. Every var is kept. (The
+        reference also follows sub-blocks' reads and writes; the port has
+        no control-flow ops yet.)"""
+        needed = set(_as_name_list(targets))
+        p = self.clone(for_test=True)
+        blk = p.global_block()
+        kept = []
+        for op in reversed(blk.ops):
+            if needed & set(op.output_arg_names()):
+                kept.append(op)
+                needed.update(op.input_arg_names())
+        blk.ops = kept[::-1]
+        return p
+
+    def serialize_to_string(self):
+        """The program's ``ProgramDesc`` protobuf bytes, as the
+        reference's ``serialize_to_string`` writes them."""
+        from .core import proto_io
+
+        return proto_io.program_to_bytes(self.to_desc())
+
+    @staticmethod
+    def parse_from_string(data):
+        """The Program of ``ProgramDesc`` bytes, through the load gate
+        (``compat.check_program_compatible``)."""
+        from .core import proto_io
+
+        return Program.from_desc(proto_io.program_from_bytes(data))
 
     def to_desc(self):
         return {

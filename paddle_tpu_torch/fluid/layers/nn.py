@@ -236,6 +236,27 @@ def fused_attention(q, k, v, attn_bias=None, scale=None, dropout_prob=0.0,
     return out
 
 
+def fused_attention_packed(q, k, v, n_heads, attn_bias=None, scale=None,
+                           dropout_prob=0.0, is_test=False, name=None):
+    """Multi-head attention on packed [B, S, H*d] q, k, v, the layout the
+    q/k/v projections write, as one ``fused_multihead_attention_packed``
+    op: the fused CUDA kernels read the heads through their strides, so
+    the program carries no head split or merge (``kernels/attention.py``).
+    Returns [B, S, H*d]."""
+    helper = LayerHelper("fused_multihead_attention_packed", **locals())
+    out = helper.create_variable_for_type_inference(q.dtype)
+    inputs = {"Q": [q], "K": [k], "V": [v]}
+    if attn_bias is not None:
+        inputs["Bias"] = [attn_bias]
+    attrs = {"dropout_prob": float(dropout_prob), "is_test": is_test,
+             "n_heads": int(n_heads)}
+    if scale is not None:
+        attrs["scale"] = float(scale)
+    helper.append_op(type="fused_multihead_attention_packed", inputs=inputs,
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
 def einsum(equation, *operands, name=None):
     helper = LayerHelper("einsum", name=name)
     out = helper.create_variable_for_type_inference(operands[0].dtype)

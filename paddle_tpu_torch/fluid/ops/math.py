@@ -20,7 +20,20 @@ def _mul(ctx, op):
     xs, ys = tuple(x.shape), tuple(y.shape)
     x2 = x.reshape(int(np.prod(xs[:xd])), -1)
     y2 = y.reshape(int(np.prod(ys[:yd])), -1)
+    x2, y2 = _promoted(ctx, x2, y2)
     ctx.set_output(op, "Out", torch.matmul(x2, y2).reshape(xs[:xd] + ys[yd:]))
+
+
+def _promoted(ctx, x, y):
+    """x and y in their promoted type where the executor promotes mixed
+    products (``Executor(promote_products=True)``, which a Predictor under
+    ``inference.Config.enable_bf16`` runs: an fp32 activation against a
+    weight cast to bf16 at load runs in fp32, as jnp.matmul runs it).
+    Elsewhere a mixed product raises, as torch.matmul does."""
+    if x.dtype == y.dtype or not ctx.promote_products:
+        return x, y
+    t = torch.promote_types(x.dtype, y.dtype)
+    return x.to(t), y.to(t)
 
 
 @register("matmul")
@@ -35,7 +48,7 @@ def _matmul(ctx, op):
         x = x.transpose(-1, -2)
     if op.attr("transpose_Y", False):
         y = y.transpose(-1, -2)
-    out = torch.matmul(x, y)
+    out = torch.matmul(*_promoted(ctx, x, y))
     alpha = op.attr("alpha", 1.0)
     if alpha != 1.0:
         out = out * alpha

@@ -1,5 +1,5 @@
-"""NN ops: layer_norm, dropout, softmax and fused_multihead_attention
-(counterparts in ``paddle_tpu/fluid/ops/nn.py``)."""
+"""NN ops: layer_norm, dropout, softmax, fused_multihead_attention and
+its packed-layout form (counterparts in ``paddle_tpu/fluid/ops/nn.py``)."""
 
 import torch
 
@@ -82,3 +82,18 @@ def _fused_multihead_attention(ctx, op):
         ctx.get_input(op, "Q"), ctx.get_input(op, "K"),
         ctx.get_input(op, "V"), ctx.get_input(op, "Bias"),
         scale=op.attr("scale", None), dropout_prob=p, seed=seed))
+
+
+@register("fused_multihead_attention_packed")
+def _fused_multihead_attention_packed(ctx, op):
+    """The packed-layout form: q, k, v [B, S, H*d] as the projections
+    write them, heads read through their strides in the same kernels; the
+    seed drawn as for ``fused_multihead_attention``."""
+    p = 0.0 if op.attr("is_test", False) else float(
+        op.attr("dropout_prob", 0.0))
+    seed = ctx.next_seed() if p > 0.0 else None
+    ctx.set_output(op, "Out", _attention.fused_attention_packed(
+        ctx.get_input(op, "Q"), ctx.get_input(op, "K"),
+        ctx.get_input(op, "V"), ctx.get_input(op, "Bias"),
+        n_heads=int(op.attr("n_heads", 1)), scale=op.attr("scale", None),
+        dropout_prob=p, seed=seed))

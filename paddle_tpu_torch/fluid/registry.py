@@ -53,7 +53,9 @@ class LowerCtx:
       updates), which the executor commits back to the Scope;
     - ``generator``: the torch.Generator random ops draw from, on
       ``device``; None under shape inference, where ``device`` is meta
-      and draws give shapes only.
+      and draws give shapes only;
+    - ``promote_products``: whether mul and matmul promote operands of
+      two float types to their common type (else they raise).
     """
 
     def __init__(self, block, env, generator, device):
@@ -63,6 +65,7 @@ class LowerCtx:
         self.generator = generator
         self.device = torch.device(device)
         self.written = set()
+        self.promote_products = False
 
     def get(self, name):
         if name not in self.env:

@@ -2,7 +2,7 @@
 attention over KV ring caches and paged pools.
 
 Counterpart of ``paddle_tpu/kernels/attention.py``. Hand-written CUDA
-kernels replace nine of its Pallas TPU kernels:
+kernels replace all fourteen of its Pallas TPU kernels:
 
 * training (``csrc/fused_attention.cu``, reached through
   ``fused_attention`` and ``flash_attention`` /
@@ -13,6 +13,13 @@ kernels replace nine of its Pallas TPU kernels:
   ``fused_attention_bwd_dkdv_kernel`` together replace ``_bwd_kernel``
   and ``_bwd_kernel_long``, and one each of the flash tier's split pair,
   ``_flash_dq_kernel`` and ``_flash_dkdv_kernel``;
+* training in the packed [B, S, H*d] layout (``fused_attention_packed``:
+  the same three wrappers on the heads' strided [B, H, S, d] views, no
+  copy): the forward kernel replaces ``_packed_fwd_kernel`` and
+  ``_res_fwd_kernel``; the dq and dk/dv kernels together replace
+  ``_packed_bwd_kernel`` (one pass for dq, dk, dv and dbias on the TPU),
+  and one each of the resident tier's split pair, ``_res_dq_kernel`` (dq
+  and dbias; here dbias comes with dk/dv) and ``_res_dkdv_kernel``;
 * decode (``csrc/decode_attention.cu``): ``decode_attention_kernel``
   replaces ``_decode_fwd_kernel`` (dense ring cache, reached through
   ``attention_with_cache``); ``paged_attention_kernel`` replaces
@@ -159,8 +166,10 @@ def fused_attention(q, k, v, bias=None, scale=None, dropout_prob=0.0,
     [B, H, S, d] in q's dtype, differentiable in q, k, v and bias.
 
     A CPU tensor takes the plain version, a ``meta`` tensor gives the
-    shape only, a CUDA tensor the kernels, at any S."""
-    scale, p = _scalars(q, scale, dropout_prob, seed)
+    shape only, a CUDA tensor the kernels, at any S; operands whose rows
+    of d elements are contiguous reach them without a copy, and the
+    gradients come back in their layouts."""
+    scale, p = _scalars(q.shape[-1], scale, dropout_prob, seed)
     if q.device.type == "meta":
         return torch.empty_like(q)
     if q.device.type == "cpu":
@@ -168,8 +177,8 @@ def fused_attention(q, k, v, bias=None, scale=None, dropout_prob=0.0,
     return _FusedAttention.apply(q, k, v, bias, seed, scale, p)
 
 
-def _scalars(q, scale, dropout_prob, seed):
-    scale = float(1.0 / math.sqrt(q.shape[-1]) if scale is None else scale)
+def _scalars(d, scale, dropout_prob, seed):
+    scale = float(1.0 / math.sqrt(d) if scale is None else scale)
     p = float(dropout_prob)
     if p > 0.0 and seed is None:
         raise ValueError("dropout_prob > 0 needs a seed tensor")
@@ -208,10 +217,10 @@ def flash_attention(q, k, v, bias=None, scale=None, dropout_prob=0.0,
     [B, H, S, 1]). Arguments as ``fused_attention``; not differentiable:
     ``flash_attention_backward`` is its backward. A CPU tensor takes the
     plain version, a CUDA tensor the forward kernel."""
-    scale, p = _scalars(q, scale, dropout_prob, seed)
+    scale, p = _scalars(q.shape[-1], scale, dropout_prob, seed)
     if q.device.type == "cpu":
         return _ref_flash_attention(q, k, v, bias, scale, p, seed)
-    q, k, v = (t.contiguous() for t in (q, k, v))
+    q, k, v = (_rows(t) for t in (q, k, v))
     B, H, S, _ = q.shape
     bias_f, strides = _bias_operand(bias, B, H, S)
     return fused_attention_fwd_kernel(q, k, v, bias_f, strides, seed, scale,
@@ -227,19 +236,26 @@ def flash_attention_backward(q, k, v, bias, seed, do, o, lse, scale=None,
     broadcast shape, or None without a bias or with ``bias_grad``
     False). A CPU tensor takes the plain version (autograd of the plain
     forward), a CUDA tensor the dq kernel and then the dk/dv kernel."""
-    scale, p = _scalars(q, scale, dropout_prob, seed)
+    scale, p = _scalars(q.shape[-1], scale, dropout_prob, seed)
     if q.device.type == "cpu":
         return _ref_flash_attention_backward(q, k, v, bias, seed, do, scale,
                                              p, bias_grad)
-    q, k, v = (t.contiguous() for t in (q, k, v))
+    q, k, v = (_rows(t) for t in (q, k, v))
     B, H, S, _ = q.shape
     bias_f, strides = _bias_operand(bias, B, H, S)
     dq, dk, dv, dbias = fused_attention_backward(
-        q, k, v, bias_f, strides, seed, o.contiguous(), lse,
-        do.contiguous(), scale, p, bias_grad=bias is not None and bias_grad)
+        q, k, v, bias_f, strides, seed, _rows(o), lse, _rows(do), scale, p,
+        bias_grad=bias is not None and bias_grad)
     if dbias is not None and bias.shape[0] == 1 < B:
         dbias = dbias.sum(0, keepdim=True)
     return dq, dk, dv, dbias
+
+
+def _rows(t):
+    """``t`` as the kernels read it: any strides whose rows of d elements
+    are contiguous pass as they are (a packed layout's heads, no copy);
+    anything else is copied contiguous."""
+    return t if t.stride(-1) == 1 else t.contiguous()
 
 
 def _bias_operand(bias, B, H, S):
@@ -280,6 +296,61 @@ class _FusedAttention(torch.autograd.Function):
         if want_db:
             dbias = dbias.to(bias.dtype)
         return dq, dk, dv, dbias, None, None, None
+
+
+# -- packed layout --------------------------------------------------------------
+def _split_heads(t, n_heads):
+    """The [B, H, S, d] view of a packed [B, S, H*d] tensor: no copy, and
+    strides (S*H*d, d, H*d, 1), when ``t`` is contiguous."""
+    B, S, HD = t.shape
+    return t.reshape(B, S, n_heads, HD // n_heads).transpose(1, 2)
+
+
+def _merge_heads(t):
+    """[B, H, S, d] -> packed [B, S, H*d] (a copy unless ``t`` is a
+    ``_split_heads`` view)."""
+    B, H, S, d = t.shape
+    return t.transpose(1, 2).reshape(B, S, H * d)
+
+
+def _ref_fused_attention_packed(q, k, v, bias, n_heads, scale, dropout_prob,
+                                seed):
+    """Plain version of ``fused_attention_packed``, as the reference's
+    ``_packed_fallback``: split the heads, the plain per-head version,
+    merge the heads; differentiated by autograd."""
+    o = _ref_fused_attention(*(_split_heads(t, n_heads) for t in (q, k, v)),
+                             bias, scale, dropout_prob, seed)
+    return _merge_heads(o)
+
+
+def _packed_heads(q, n_heads):
+    if q.dim() != 3:
+        raise ValueError("packed q must be [B, S, H*d], got %s"
+                         % (tuple(q.shape),))
+    n_heads = int(n_heads)
+    if n_heads < 1 or q.shape[2] % n_heads:
+        raise ValueError("H*d = %d is not a multiple of n_heads = %d"
+                         % (q.shape[2], n_heads))
+    return n_heads
+
+
+def fused_attention_packed(q, k, v, bias=None, n_heads=1, scale=None,
+                           dropout_prob=0.0, seed=None):
+    """Multi-head attention on packed q, k, v [B, S, H*d] (the layout the
+    q/k/v projections write): ``fused_attention`` on the heads'
+    [B, H, S, d] views, returned packed [B, S, H*d] in q's dtype. bias
+    additive, broadcastable as [B|1, 1|H, 1|S, S]; ``seed`` as
+    ``fused_attention``, whose Philox mask it draws. Differentiable in q,
+    k, v and bias.
+
+    A CPU tensor takes the plain version, a ``meta`` tensor gives the
+    shape only, a CUDA tensor the kernels through the heads' strides
+    (S*H*d, d, H*d): the views, the kernels' outputs (allocated in their
+    inputs' layout) and the merge back are all copy-free on the card."""
+    n_heads = _packed_heads(q, n_heads)
+    o = fused_attention(*(_split_heads(t, n_heads) for t in (q, k, v)),
+                        bias, scale, dropout_prob, seed)
+    return _merge_heads(o)
 
 
 # -- KV ring cache -----------------------------------------------------------
@@ -560,7 +631,31 @@ def _check_qkv(q, k, v):
         raise ValueError("q must be [B, H, S, d] with d in %s, got %s"
                          % (_HEAD_DIMS, tuple(q.shape)))
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t, q.device, q.dtype, q.shape)
+        _check_operand(name, t, q)
+
+
+def _check_operand(name, t, q):
+    """``t`` a [B, H, S, d] operand in q's device, type and shape whose d
+    elements are contiguous (any batch, head and row strides >= 0)."""
+    if t.device != q.device:
+        raise ValueError("%s is on %s, expected %s" % (name, t.device,
+                                                       q.device))
+    if t.dtype != q.dtype:
+        raise TypeError("%s has dtype %s, expected %s"
+                        % (name, t.dtype, q.dtype))
+    if tuple(t.shape) != tuple(q.shape):
+        raise ValueError("%s has shape %s, expected %s"
+                         % (name, tuple(t.shape), tuple(q.shape)))
+    if t.stride(3) != 1 or min(t.stride()) < 0:
+        raise ValueError("%s must have contiguous rows of d elements, got "
+                         "strides %s" % (name, t.stride()))
+
+
+def _strides(*ts):
+    """The host array of (batch, head, row) element strides of each
+    [B, H, S, d] operand, in order, for the C entries."""
+    flat = [s for t in ts for s in t.stride()[:3]]
+    return (_I64 * len(flat))(*flat)
 
 
 def _check_extras(q, bias, strides, seed, p):
@@ -592,26 +687,28 @@ def _stream(dev):
 def fused_attention_fwd_kernel(q, k, v, bias, strides, seed, scale, p):
     """Launch the forward kernel (replaces ``_fwd_kernel``,
     ``_fwd_kernel_long`` and ``_flash_fwd_kernel``,
-    ``paddle_tpu/kernels/attention.py``): q, k, v [B, H, S, d] contiguous
-    of one type (float32 or bfloat16, d in 16/32/64/128, any S) on one
-    CUDA device; bias None or contiguous float32 read at element strides
-    ``strides`` (batch, head, row; 0 broadcasts); seed int64 [1] when
-    ``p`` > 0. Returns (o [B, H, S, d] in q's type, lse [B, H, S] fp32).
+    ``paddle_tpu/kernels/attention.py``): q, k, v [B, H, S, d] of one type
+    (float32 or bfloat16, d in 16/32/64/128, any S) on one CUDA device,
+    each row of d elements contiguous; bias None or contiguous float32
+    read at element strides ``strides`` (batch, head, row; 0 broadcasts);
+    seed int64 [1] when ``p`` > 0. Returns (o [B, H, S, d] in q's type
+    and memory layout, lse [B, H, S] fp32).
 
     Bound on the card: operations, 4·B·H·S²·d at the peak rate of the
-    input type (design note in ``csrc/fused_attention.cu``)."""
+    input type, from S 256 or so (below that, at d 64 in bf16, the bytes
+    of q, k, v and o; design note in ``csrc/fused_attention.cu``)."""
     _check_qkv(q, k, v)
     _check_extras(q, bias, strides, seed, p)
-    B, H, S, d = q.shape
     o = torch.empty_like(q)
+    B, H, S, d = q.shape
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     fn = _fused_entry("pt_fused_attention_fwd",
-                      "i" "pppp" "lll" "ppp" "iiii" "fff" "p")
+                      "i" "pppp" "lll" "ppp" "p" "iiii" "fff" "p")
     with torch.cuda.device(q.device):
         rc = fn(_BF16[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 _ptr(bias), *strides, _ptr(seed), o.data_ptr(),
-                lse.data_ptr(), B, H, S, d, float(scale), float(p),
-                _keep_scale(p), _stream(q.device))
+                lse.data_ptr(), _strides(q, k, v, o), B, H, S, d,
+                float(scale), float(p), _keep_scale(p), _stream(q.device))
     _raise_on(rc, "fused-attention forward")
     fused_attention_fwd_kernel.launches += 1
     _M_FWD_LAUNCH.inc()
@@ -630,24 +727,25 @@ def fused_attention_bwd_dq_kernel(q, k, v, bias, strides, seed, o, lse,
     """Launch the dq kernel (with the dk/dv kernel it replaces
     ``_bwd_kernel`` and ``_bwd_kernel_long``; alone it replaces
     ``_flash_dq_kernel``): the forward's operands plus o, lse and dout
-    [B, H, S, d] in q's type. Returns (dq in q's type, delta [B, H, S]
-    fp32 = rowsum(dout * o), which the dk/dv kernel reads)."""
+    [B, H, S, d] in q's type. Returns (dq [B, H, S, d] in q's type and
+    layout, delta [B, H, S] fp32 = rowsum(dout * o), which the dk/dv kernel
+    reads)."""
     _check_qkv(q, k, v)
     _check_extras(q, bias, strides, seed, p)
     B, H, S, d = q.shape
-    _check("o", o, q.device, q.dtype, q.shape)
-    _check("dout", dout, q.device, q.dtype, q.shape)
+    for name, t in (("o", o), ("dout", dout)):
+        _check_operand(name, t, q)
     _check("lse", lse, q.device, torch.float32, (B, H, S))
     dq = torch.empty_like(q)
     delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     fn = _fused_entry("pt_fused_attention_bwd_dq",
-                      "i" "pppp" "lll" "pppppp" "iiii" "fff" "p")
+                      "i" "pppp" "lll" "pppppp" "p" "iiii" "fff" "p")
     with torch.cuda.device(q.device):
         rc = fn(_BF16[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 _ptr(bias), *strides, _ptr(seed), o.data_ptr(),
                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                dq.data_ptr(), B, H, S, d, float(scale), float(p),
-                _keep_scale(p), _stream(q.device))
+                dq.data_ptr(), _strides(q, k, v, o, dout, dq), B, H, S, d,
+                float(scale), float(p), _keep_scale(p), _stream(q.device))
     _raise_on(rc, "fused-attention dq")
     fused_attention_bwd_dq_kernel.launches += 1
     _M_BWD_DQ_LAUNCH.inc()
@@ -664,11 +762,12 @@ def fused_attention_bwd_dkdv_kernel(q, k, v, bias, strides, seed, lse,
     ``_flash_dkdv_kernel``). ``dbias_shape`` (B, 1|H, 1|S, S) asks for
     the bias gradient in fp32, reduced over the broadcast heads and rows
     (a head-broadcast bias is summed with fp32 atomics into a zeroed
-    buffer). Returns (dk, dv, dbias or None)."""
+    buffer). Returns (dk, dv [B, H, S, d] in k's and v's layouts, dbias
+    or None)."""
     _check_qkv(q, k, v)
     _check_extras(q, bias, strides, seed, p)
     B, H, S, d = q.shape
-    _check("dout", dout, q.device, q.dtype, q.shape)
+    _check_operand("dout", dout, q)
     _check("lse", lse, q.device, torch.float32, (B, H, S))
     _check("delta", delta, q.device, torch.float32, (B, H, S))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -683,13 +782,14 @@ def fused_attention_bwd_dkdv_kernel(q, k, v, bias, strides, seed, lse,
         dbias = alloc(B, heads, rows, S, dtype=torch.float32,
                       device=q.device)
     fn = _fused_entry("pt_fused_attention_bwd_dkdv",
-                      "i" "pppp" "lll" "ppppppp" "iiiiii" "fff" "p")
+                      "i" "pppp" "lll" "ppppppp" "ii" "p" "iiii" "fff" "p")
     with torch.cuda.device(q.device):
         rc = fn(_BF16[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 _ptr(bias), *strides, _ptr(seed), dout.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), _ptr(dbias), heads, rows, B, H, S, d,
-                float(scale), float(p), _keep_scale(p), _stream(q.device))
+                dv.data_ptr(), _ptr(dbias), heads, rows,
+                _strides(q, k, v, dout, dk, dv), B, H, S, d, float(scale),
+                float(p), _keep_scale(p), _stream(q.device))
     _raise_on(rc, "fused-attention dk/dv")
     fused_attention_bwd_dkdv_kernel.launches += 1
     _M_BWD_DKDV_LAUNCH.inc()
@@ -706,11 +806,15 @@ def fused_attention_backward(q, k, v, bias, strides, seed, o, lse, dout,
     dbias [B, 1|H, 1|S, S] fp32 when ``bias_grad``, else None."""
     dq, delta = fused_attention_bwd_dq_kernel(q, k, v, bias, strides, seed,
                                               o, lse, dout, scale, p)
-    dbias_shape = None
-    if bias_grad:
-        B, H, S, _ = q.shape
-        dbias_shape = (B, H if strides[1] else 1, S if strides[2] else 1, S)
+    B, H, S, _ = q.shape
+    dbias_shape = _dbias_shape(bias_grad, strides, B, H, S)
     dk, dv, dbias = fused_attention_bwd_dkdv_kernel(
         q, k, v, bias, strides, seed, lse, delta, dout, scale, p,
         dbias_shape)
     return dq, dk, dv, dbias
+
+
+def _dbias_shape(bias_grad, strides, B, H, S):
+    if not bias_grad:
+        return None
+    return (B, H if strides[1] else 1, S if strides[2] else 1, S)

@@ -11,7 +11,14 @@
 //   * _fwd_kernel_long, _bwd_kernel_long (1024 < S <= 4096), and
 //     _flash_fwd_kernel, _flash_dq_kernel, _flash_dkdv_kernel (longer):
 //                  the same functions; the flash forward also returns the
-//                  row logsumexp, which attn_fwd writes at every S.
+//                  row logsumexp, which attn_fwd writes at every S;
+//   * _packed_fwd_kernel, _packed_bwd_kernel (S <= 256), and
+//     _res_fwd_kernel, _res_dq_kernel, _res_dkdv_kernel (S <= 1024, heads
+//     in pairs): the same functions on operands in the packed [B, S, H*d]
+//     layout the q/k/v projections write. The TPU kernels split heads in
+//     VMEM; here every operand is read and written through element
+//     strides (batch, head, row), so the packed layout is the strided
+//     view (S*H*d, d, H*d) of the same kernels and costs no transpose.
 //
 // The TPU kernels hold a whole [S, S] score tile of a batch block in VMEM
 // (its long tier a [Qb, S] tile, its flash tier [Tb, Tb] tiles). At S = 512
@@ -38,9 +45,14 @@
 // column contiguous; a stride of 0 broadcasts that dimension, so all four
 // shapes [B, 1|H, 1|S, S] take one code path.
 //
+// Layout: q, k, v, o, dout, dq, dk and dv are each addressed through
+// their own element strides (batch, head, row), the d elements of a row
+// contiguous: [B, H, S, d] contiguous is (H*S*d, S*d, d), the packed
+// [B, S, H*d] layout (S*H*d, d, H*d). lse and delta are [B, H, S] fp32.
+//
 // Any S: nothing in shared memory or registers grows with S (a block
 // loops over S / 64 tiles), and every offset into a tensor is computed in
-// 64 bits (size_t bases, long long bias strides), because a per-row bias
+// 64 bits (long long strides, size_t dbias offsets), because a per-row bias
 // or its gradient passes 2^31 elements at B = 3, H = 12, S = 8192; the
 // Philox counter holds row / 4 and b * H + h, far below 2^32.
 //
@@ -57,7 +69,9 @@
 // Bound on the card: at S = 512, d = 64 a (b, h) pair does 4 * S^2 * d
 // operations on 4 * S * d * sizeof(T) bytes, about 250 operations per
 // fp32 byte, so the operations bound it (67 TFLOP/s fp32 without tensor
-// cores, 989 TFLOP/s bf16 with them). This first version computes
+// cores, 989 TFLOP/s bf16 with them). At BERT's S = 128 in bf16 that is
+// 128 operations per byte, below the H100's 295, so there the bytes of
+// q, k, v and o bound it (the packed layout's case). This first version computes
 // everything in fp32 on the SIMT cores, also for bf16 inputs: tiles are
 // converted to fp32 as they land in shared memory. Each thread holds a
 // 4 x 4 micro-tile of the 64 x 64 score tile (query rows 4ty..4ty+3, key
@@ -73,6 +87,7 @@
 #include <stdint.h>
 
 #include <cmath>
+#include <initializer_list>
 
 namespace {
 
@@ -93,6 +108,18 @@ struct BiasView {
   const float* ptr;      // nullptr: no bias
   long long sb, sh, sr;  // element strides of batch, head, row (0 = bcast)
 };
+
+// element strides of batch, head and row of a [B, H, S, d] operand whose
+// d elements are contiguous
+struct Strides {
+  long long b, h, r;
+};
+
+// the first element of head (b, h) of an operand
+template <typename P>
+__device__ __forceinline__ P* head_of(P* p, Strides s, int b, int h) {
+  return p + b * s.b + h * s.h;
+}
 
 // Philox4x32-10 (Salmon et al., SC'11; Random123's constants).
 __device__ __forceinline__ uint4 philox(uint4 c, uint2 k) {
@@ -124,15 +151,28 @@ __device__ __forceinline__ void keep4(uint2 key, int col, int row4, int bh,
     keep[i] = static_cast<float>(w[i] >> 8) * (1.0f / 16777216.0f) >= p_drop;
 }
 
-// Rows [0, n) of a row-major [*, D] global tile -> fp32 shared [kB][D + 1];
-// rows n..kB-1 are zero.
+// Rows [0, n) of a global tile of D-element rows, ``rs`` elements apart
+// -> fp32 shared [kB][D + 1]; rows n..kB-1 are zero. A thread keeps one
+// column and walks its rows with one pointer, so the runtime row stride
+// costs one 64-bit add a row, not an address register per load.
 template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* s, const T* g, int n) {
-  for (int idx = threadIdx.x; idx < kB * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
-    s[r * (D + 1) + c] = r < n ? to_f32(g[static_cast<size_t>(r) * D + c]) : 0.f;
-  }
+__device__ __forceinline__ void load_tile(float* s, const T* g, long long rs,
+                                          int n) {
+  constexpr int kStep = kThreads / D;  // rows one pass of the block covers
+  const long long stride = rs;         // elements from one row to the next
+  const int c = threadIdx.x % D;
+  const T* p = g + (threadIdx.x / D) * stride + c;
+#pragma unroll 4
+  for (int r = threadIdx.x / D; r < kB; r += kStep, p += kStep * stride)
+    s[r * (D + 1) + c] = r < n ? to_f32(*p) : 0.f;
 }
+
+// Resident blocks per SM each kernel is compiled for (its register cap,
+// 65536 / (256 * blocks)): what its shared memory allows at d <= 64, as
+// the contiguous-only kernels reached with 80 and 126 registers; one at
+// d = 128, whose tiles fill the shared memory.
+template <int D> constexpr int kFwdBlocks = D <= 64 ? 3 : 1;
+template <int D> constexpr int kBwdBlocks = D <= 64 ? 2 : 1;
 
 // s[i][j] = sum_k A[4ty + i][k] * Bt[tx + 16j][k] over two [kB][D + 1] tiles
 template <int D>
@@ -183,12 +223,13 @@ __device__ __forceinline__ const float* bias_row(const BiasView& bv, int b,
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kFwdBlocks<D>)
     attn_fwd(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, BiasView bv,
              const long long* __restrict__ seed, T* __restrict__ o,
-             float* __restrict__ lse, int H, int S, float scale,
-             float p_drop, float keep_scale) {
+             float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
+             Strides so, int H, int S, float scale, float p_drop,
+             float keep_scale) {
   constexpr int LD = D + 1, E = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -198,9 +239,10 @@ __global__ void __launch_bounds__(kThreads)
 
   const int q0 = blockIdx.x * kB, h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h, ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const size_t base = static_cast<size_t>(bh) * S * D;
-  load_tile<T, D>(Qs, q + base + static_cast<size_t>(q0) * D,
-                  min(kB, S - q0));
+  const T* qh = head_of(q, sq, b, h);
+  const T* kh = head_of(k, sk, b, h);
+  const T* vh = head_of(v, sv, b, h);
+  load_tile<T, D>(Qs, qh + q0 * sq.r, sq.r, min(kB, S - q0));
   const bool drop = p_drop > 0.f;
   const uint2 key = drop ? seed_key(seed) : make_uint2(0, 0);
 
@@ -218,8 +260,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int k0 = 0; k0 < S; k0 += kB) {
     const int nk = min(kB, S - k0);
     __syncthreads();  // the previous tile's Ks, Vs and Ps are consumed
-    load_tile<T, D>(Ks, k + base + static_cast<size_t>(k0) * D, nk);
-    load_tile<T, D>(Vs, v + base + static_cast<size_t>(k0) * D, nk);
+    load_tile<T, D>(Ks, kh + k0 * sk.r, sk.r, nk);
+    load_tile<T, D>(Vs, vh + k0 * sv.r, sv.r, nk);
     __syncthreads();
     float s[4][4];
     tile_dot<D>(Qs, Ks, ty, tx, s);
@@ -273,7 +315,7 @@ __global__ void __launch_bounds__(kThreads)
     const int row = q0 + 4 * ty + i;
     if (row >= S) continue;
     const float inv = 1.f / l[i];
-    T* orow = o + base + static_cast<size_t>(row) * D;
+    T* orow = head_of(o, so, b, h) + row * so.r;
 #pragma unroll
     for (int e = 0; e < E; ++e) store(acc[i][e] * inv, orow + tx + 16 * e);
     if (tx == 0) lse[static_cast<size_t>(bh) * S + row] = m[i] + logf(l[i]);
@@ -283,13 +325,15 @@ __global__ void __launch_bounds__(kThreads)
 // Per q-tile: delta = rowsum(dO * O) (also written out), then dq over all
 // k-tiles.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBwdBlocks<D>)
     attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, BiasView bv,
                 const long long* __restrict__ seed, const T* __restrict__ o,
                 const T* __restrict__ dout, const float* __restrict__ lse,
-                float* __restrict__ delta, T* __restrict__ dq, int H, int S,
-                float scale, float p_drop, float keep_scale) {
+                float* __restrict__ delta, T* __restrict__ dq, Strides sq,
+                Strides sk, Strides sv, Strides so, Strides sdo,
+                Strides sdq, int H, int S, float scale, float p_drop,
+                float keep_scale) {
   constexpr int LD = D + 1, E = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -302,16 +346,17 @@ __global__ void __launch_bounds__(kThreads)
 
   const int q0 = blockIdx.x * kB, h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h, tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const size_t base = static_cast<size_t>(bh) * S * D;
+  const T* kh = head_of(k, sk, b, h);
+  const T* vh = head_of(v, sv, b, h);
   const int nq = min(kB, S - q0);
-  load_tile<T, D>(Qs, q + base + static_cast<size_t>(q0) * D, nq);
-  load_tile<T, D>(dOs, dout + base + static_cast<size_t>(q0) * D, nq);
+  load_tile<T, D>(Qs, head_of(q, sq, b, h) + q0 * sq.r, sq.r, nq);
+  load_tile<T, D>(dOs, head_of(dout, sdo, b, h) + q0 * sdo.r, sdo.r, nq);
   __syncthreads();
   {  // four threads per row, lanes 4r..4r+3 of one warp
     const int r = tid >> 2, part = tid & 3;
     float acc = 0.f;
     if (r < nq) {
-      const T* orow = o + base + static_cast<size_t>(q0 + r) * D;
+      const T* orow = head_of(o, so, b, h) + (q0 + r) * so.r;
       for (int e = part; e < D; e += 4)
         acc = fmaf(dOs[r * LD + e], to_f32(orow[e]), acc);
     }
@@ -337,8 +382,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int k0 = 0; k0 < S; k0 += kB) {
     const int nk = min(kB, S - k0);
     __syncthreads();
-    load_tile<T, D>(Ks, k + base + static_cast<size_t>(k0) * D, nk);
-    load_tile<T, D>(Vs, v + base + static_cast<size_t>(k0) * D, nk);
+    load_tile<T, D>(Ks, kh + k0 * sk.r, sk.r, nk);
+    load_tile<T, D>(Vs, vh + k0 * sv.r, sv.r, nk);
     __syncthreads();
     float s[4][4], dp[4][4];
     tile_dot<D>(Qs, Ks, ty, tx, s);
@@ -376,7 +421,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
     if (row >= S) continue;
-    T* drow = dq + base + static_cast<size_t>(row) * D;
+    T* drow = head_of(dq, sdq, b, h) + row * sdq.r;
 #pragma unroll
     for (int e = 0; e < E; ++e) store(acc[i][e] * scale, drow + tx + 16 * e);
   }
@@ -391,14 +436,15 @@ struct DBias {
 
 // Per k-tile: dk, dv (and dbias) over all q-tiles.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBwdBlocks<D>)
     attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, BiasView bv,
                   const long long* __restrict__ seed,
                   const T* __restrict__ dout, const float* __restrict__ lse,
                   const float* __restrict__ delta, T* __restrict__ dk,
-                  T* __restrict__ dv, DBias db, int H, int S, float scale,
-                  float p_drop, float keep_scale) {
+                  T* __restrict__ dv, DBias db, Strides sq, Strides sk,
+                  Strides sv, Strides sdo, Strides sdk, Strides sdv, int H,
+                  int S, float scale, float p_drop, float keep_scale) {
   constexpr int LD = D + 1, E = D / 16;
   extern __shared__ float smem[];
   float* Ks = smem;
@@ -412,10 +458,11 @@ __global__ void __launch_bounds__(kThreads)
 
   const int k0 = blockIdx.x * kB, h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h, tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const size_t base = static_cast<size_t>(bh) * S * D;
+  const T* qh = head_of(q, sq, b, h);
+  const T* doh = head_of(dout, sdo, b, h);
   const int nk = min(kB, S - k0);
-  load_tile<T, D>(Ks, k + base + static_cast<size_t>(k0) * D, nk);
-  load_tile<T, D>(Vs, v + base + static_cast<size_t>(k0) * D, nk);
+  load_tile<T, D>(Ks, head_of(k, sk, b, h) + k0 * sk.r, sk.r, nk);
+  load_tile<T, D>(Vs, head_of(v, sv, b, h) + k0 * sv.r, sv.r, nk);
   const bool drop = p_drop > 0.f;
   const uint2 key = drop ? seed_key(seed) : make_uint2(0, 0);
   const bool acc_heads = db.ptr && db.heads == 1 && H > 1;
@@ -436,8 +483,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int q0 = 0; q0 < S; q0 += kB) {
     const int nq = min(kB, S - q0);
     __syncthreads();
-    load_tile<T, D>(Qs, q + base + static_cast<size_t>(q0) * D, nq);
-    load_tile<T, D>(dOs, dout + base + static_cast<size_t>(q0) * D, nq);
+    load_tile<T, D>(Qs, qh + q0 * sq.r, sq.r, nq);
+    load_tile<T, D>(dOs, doh + q0 * sdo.r, sdo.r, nq);
     if (tid < kB) {
       const bool live = tid < nq;
       Lr[tid] = live ? lse[static_cast<size_t>(bh) * S + q0 + tid] : 0.f;
@@ -505,8 +552,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + 4 * ty + i;
     if (row >= S) continue;
-    T* dkrow = dk + base + static_cast<size_t>(row) * D;
-    T* dvrow = dv + base + static_cast<size_t>(row) * D;
+    T* dkrow = head_of(dk, sdk, b, h) + row * sdk.r;
+    T* dvrow = head_of(dv, sdv, b, h) + row * sdv.r;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       store(adk[i][e] * scale, dkrow + tx + 16 * e);
@@ -552,6 +599,7 @@ int set_smem(K kernel, size_t bytes) {
 struct Args {
   const void *q, *k, *v, *bias, *seed, *o, *dout, *lse;
   long long sb, sh, sr;
+  Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
   void *out, *lse_out, *delta, *dq, *dk, *dv, *dbias;
   int dbias_heads, dbias_rows, B, H, S, d;
   float scale, p_drop, keep_scale;
@@ -568,8 +616,8 @@ int run_fwd(const Args& a) {
       static_cast<const T*>(a.v),
       BiasView{static_cast<const float*>(a.bias), a.sb, a.sh, a.sr},
       static_cast<const long long*>(a.seed), static_cast<T*>(a.out),
-      static_cast<float*>(a.lse_out), a.H, a.S, a.scale, a.p_drop,
-      a.keep_scale);
+      static_cast<float*>(a.lse_out), a.sq, a.sk, a.sv, a.so, a.H, a.S,
+      a.scale, a.p_drop, a.keep_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -584,8 +632,8 @@ int run_dq(const Args& a) {
       BiasView{static_cast<const float*>(a.bias), a.sb, a.sh, a.sr},
       static_cast<const long long*>(a.seed), static_cast<const T*>(a.o),
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<float*>(a.delta), static_cast<T*>(a.dq), a.H, a.S, a.scale,
-      a.p_drop, a.keep_scale);
+      static_cast<float*>(a.delta), static_cast<T*>(a.dq), a.sq, a.sk, a.sv,
+      a.so, a.sdo, a.sdq, a.H, a.S, a.scale, a.p_drop, a.keep_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -601,8 +649,9 @@ int run_dkdv(const Args& a) {
       static_cast<const long long*>(a.seed), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-      DBias{static_cast<float*>(a.dbias), a.dbias_heads, a.dbias_rows}, a.H,
-      a.S, a.scale, a.p_drop, a.keep_scale);
+      DBias{static_cast<float*>(a.dbias), a.dbias_heads, a.dbias_rows},
+      a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.H, a.S, a.scale, a.p_drop,
+      a.keep_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -632,24 +681,37 @@ int run(int which, int bf16, const Args& a) {
 
 // Plain C entry points for ctypes. Each returns cudaGetLastError() after
 // the launch (0 on success); the kernel runs on `stream` and does not
-// synchronise. Pointers are device pointers to contiguous tensors:
-// q, k, v, o, dout, dq, dk, dv [B, H, S, d] of one type (bf16 = 1 for
-// bfloat16, else float32); bias fp32 read as bias[b*sb + h*sh + row*sr +
-// col] (nullptr: none); seed one int64 (read only when p_drop > 0);
-// lse, delta [B, H, S] fp32; dbias [B, dbias_heads, dbias_rows, S] fp32,
-// zeroed by the caller when dbias_heads == 1 < H (atomics), nullptr for
-// none.
+// synchronise. Pointers are device pointers: q, k, v, o, dout, dq, dk, dv
+// [B, H, S, d] operands of one type (bf16 = 1 for bfloat16, else
+// float32), element (b, h, row, c) of each at b*sb + h*sh + row*sr + c
+// for its own (sb, sh, sr), read from the host array `strides`, three
+// int64 per operand in the order of the entry's operands (forward: q, k,
+// v, o; dq: q, k, v, o, dout, dq; dk/dv: q, k, v, dout, dk, dv); bias
+// fp32 read as bias[b*sb + h*sh + row*sr + col] (nullptr: none); seed one
+// int64 (read only when p_drop > 0); lse, delta [B, H, S] fp32 contiguous;
+// dbias [B, dbias_heads, dbias_rows, S] fp32 contiguous, zeroed by the
+// caller when dbias_heads == 1 < H (atomics), nullptr for none.
+namespace {
+void set_strides(const long long* st, std::initializer_list<Strides*> to) {
+  for (Strides* s : to) {
+    *s = Strides{st[0], st[1], st[2]};
+    st += 3;
+  }
+}
+}  // namespace
+
 extern "C" {
 
 int pt_fused_attention_fwd(int bf16, const void* q, const void* k,
                            const void* v, const void* bias, long long sb,
                            long long sh, long long sr, const void* seed,
-                           void* out, void* lse, int B, int H, int S, int d,
-                           float scale, float p_drop, float keep_scale,
-                           void* stream) {
+                           void* out, void* lse, const long long* strides,
+                           int B, int H, int S, int d, float scale,
+                           float p_drop, float keep_scale, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.bias = bias; a.sb = sb; a.sh = sh; a.sr = sr;
   a.seed = seed; a.out = out; a.lse_out = lse;
+  set_strides(strides, {&a.sq, &a.sk, &a.sv, &a.so});
   a.B = B; a.H = H; a.S = S; a.d = d;
   a.scale = scale; a.p_drop = p_drop; a.keep_scale = keep_scale;
   a.stream = static_cast<cudaStream_t>(stream);
@@ -660,12 +722,14 @@ int pt_fused_attention_bwd_dq(int bf16, const void* q, const void* k,
                               const void* v, const void* bias, long long sb,
                               long long sh, long long sr, const void* seed,
                               const void* o, const void* dout,
-                              const void* lse, void* delta, void* dq, int B,
-                              int H, int S, int d, float scale, float p_drop,
+                              const void* lse, void* delta, void* dq,
+                              const long long* strides, int B, int H, int S,
+                              int d, float scale, float p_drop,
                               float keep_scale, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.bias = bias; a.sb = sb; a.sh = sh; a.sr = sr;
   a.seed = seed; a.o = o; a.dout = dout; a.lse = lse; a.delta = delta;
+  set_strides(strides, {&a.sq, &a.sk, &a.sv, &a.so, &a.sdo, &a.sdq});
   a.dq = dq; a.B = B; a.H = H; a.S = S; a.d = d;
   a.scale = scale; a.p_drop = p_drop; a.keep_scale = keep_scale;
   a.stream = static_cast<cudaStream_t>(stream);
@@ -678,12 +742,13 @@ int pt_fused_attention_bwd_dkdv(int bf16, const void* q, const void* k,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dk, void* dv,
                                 void* dbias, int dbias_heads, int dbias_rows,
-                                int B, int H, int S, int d, float scale,
-                                float p_drop, float keep_scale,
-                                void* stream) {
+                                const long long* strides, int B, int H, int S,
+                                int d, float scale, float p_drop,
+                                float keep_scale, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.bias = bias; a.sb = sb; a.sh = sh; a.sr = sr;
   a.seed = seed; a.dout = dout; a.lse = lse;
+  set_strides(strides, {&a.sq, &a.sk, &a.sv, &a.sdo, &a.sdk, &a.sdv});
   a.delta = const_cast<void*>(delta);  // read only by this kernel
   a.dk = dk; a.dv = dv; a.dbias = dbias;
   a.dbias_heads = dbias_heads; a.dbias_rows = dbias_rows;

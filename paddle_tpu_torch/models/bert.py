@@ -10,10 +10,12 @@ and dtypes), and a desc built by either runs in the other.
 S >= 256 it emits one ``fused_multihead_attention`` op per layer (the
 fused CUDA kernels on the card, at any S: set ``BertConfig.max_seq`` to
 the sequence length for long-context runs, such as S 8192), below that
-the einsum chain. The 256 threshold was measured on a TPU (v5e) and is
-still to be measured on the H100. ``use_amp=True`` wraps Adam in
-``mixed_precision.decorate`` (bf16, static loss scale 1.0), as the
-reference does. Not ported yet: the ``"packed"`` layout and
+the einsum chain. The 256 threshold was measured on a TPU (v5e).
+``use_fused_attention="packed"`` emits one
+``fused_multihead_attention_packed`` op per layer on the projections'
+[B, S, H*d] outputs, with no head split or merge in the program.
+``use_amp=True`` wraps Adam in ``mixed_precision.decorate`` (bf16,
+static loss scale 1.0), as the reference does. Not ported yet:
 tensor-parallel layouts (the reference's ``tp_axis``).
 """
 
@@ -65,9 +67,11 @@ def _mha(x, attn_bias, cfg, prefix):
         # below S = 256, the fused kernel from there on
         use_fused = seq >= 256
     if use_fused == "packed":
-        raise NotImplementedError("the packed attention layout is not "
-                                  "ported yet")
-    if use_fused:
+        # q, k, v stay in the projections' [B, S, H*d] layout end to end
+        ctx = layers.fused_attention_packed(
+            q, k, v, n_heads, attn_bias,
+            dropout_prob=cfg.attn_dropout or 0.0)
+    elif use_fused:
         def split_heads(t):
             t = layers.reshape(t, [0, 0, n_heads, d])
             return layers.transpose(t, [0, 2, 1, 3])  # [B, nH, S, d]

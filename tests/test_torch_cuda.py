@@ -442,3 +442,245 @@ def test_amp_bert_tiny_step_on_card_matches_cpu(cuda_device):
             if not rel <= (2 ** -3 if apart else 2 ** -5):
                 over[n] = rel
     assert not over, over
+
+
+# -- the packed layout: the same kernels through the heads' strides --------
+_FUSED_COUNTERS = (A.fused_attention_fwd_kernel,
+                   A.fused_attention_bwd_dq_kernel,
+                   A.fused_attention_bwd_dkdv_kernel)
+
+
+def _packed_inputs(dev, dtype, B, S, H, d, bias_shape, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(B, S, H * d, device=dev, generator=g)
+                   .to(dtype) for _ in range(4))
+    bias = torch.randn(*bias_shape, device=dev, generator=g) * 2.0
+    bias[..., -3:] = -1e4
+    return q, k, v, do, bias
+
+
+def _rel_over(got, want, dtype):
+    """{output: relative error} of the outputs past chip_smoke.py's limit
+    for them (LONG_RTOL: max |kernel - plain| over the plain output's own
+    largest magnitude)."""
+    over = {}
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
+        rel = ((a.float() - b.float()).abs().max() /
+               b.float().abs().max()).item()
+        if not rel <= smoke.LONG_RTOL[dtype][name]:
+            over[name] = rel
+    return over
+
+
+# An odd H fails the TPU's resident gate, H 12 at d 64 passes it; a head
+# stride of d where H*d is needed would pass every case at H 1.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,d,bias_shape,p", [
+    (2, 64, 3, 16, (2, 1, 1, 64), 0.0),        # BERT-tiny's head width
+    (3, 128, 12, 64, (3, 1, 1, 128), 0.1),     # BERT-base, padding mask
+    (3, 128, 12, 64, (3, 12, 1, 128), 0.0),    # per-head bias
+    (2, 130, 5, 64, (2, 5, 1, 130), 0.1),      # odd H, ragged S
+    (2, 256, 3, 32, (1, 1, 1, 256), 0.0),      # batch-broadcast bias
+    (1, 200, 2, 128, (1, 2, 200, 200), 0.0),   # per-row bias, widest head
+])
+def test_packed_kernels_match_plain(cuda_device, dtype, B, S, H, d,
+                                    bias_shape, p):
+    q, k, v, do, bias = _packed_inputs(cuda_device, dtype, B, S, H, d,
+                                       bias_shape, S * H + d)
+    seed = torch.tensor([S * 131 + H], dtype=torch.int64, device=cuda_device)
+    n0 = [w.launches for w in _FUSED_COUNTERS]
+    got = _grads(lambda q_, k_, v_, b_: A.fused_attention_packed(
+        q_, k_, v_, b_, n_heads=H, dropout_prob=p, seed=seed),
+        q, k, v, bias, do)
+    torch.cuda.synchronize()
+    assert [w.launches for w in _FUSED_COUNTERS] == [n + 1 for n in n0]
+    assert got[0].shape == (B, S, H * d) and got[4].shape == bias.shape
+    want = _grads(lambda q_, k_, v_, b_: A._ref_fused_attention_packed(
+        q_, k_, v_, b_, H, d ** -0.5, p, seed), q, k, v, bias, do)
+    torch.cuda.synchronize()
+    over = _rel_over(got, want, dtype)
+    assert not over, over
+
+
+def test_packed_entry_copies_nothing(cuda_device, monkeypatch):
+    """The packed entry hands the kernels the heads' strided views and
+    passes their buffers on as they are: its output is the forward
+    kernel's o, and the gradients of the packed q, k and v are the dq and
+    dk/dv kernels' dq, dk and dv, each in the packed layout."""
+    B, S, H, d = 2, 64, 3, 16
+    q, k, v, do, bias = _packed_inputs(cuda_device, torch.float32, B, S, H,
+                                       d, (B, 1, 1, S), 5)
+    packed = (S * H * d, d, H * d, 1)
+    made = {}
+
+    def spy(name):
+        launch = getattr(A, name)
+
+        def wrapper(*args, **kwargs):
+            out = launch(*args, **kwargs)
+            made[name] = [args[0].stride()] + [
+                (t.data_ptr(), t.stride()) for t in out
+                if t is not None and t.shape == args[0].shape]
+            return out
+
+        wrapper.launches = 0    # the launcher counts on the name it sees
+        monkeypatch.setattr(A, name, wrapper)
+
+    for w in _FUSED_COUNTERS:
+        spy(w.__name__)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = A.fused_attention_packed(*leaves, bias, n_heads=H)
+    dq, dk, dv = torch.autograd.grad(out, leaves, do)
+    fwd = made["fused_attention_fwd_kernel"]
+    bwd = made["fused_attention_bwd_dq_kernel"][1:] + \
+        made["fused_attention_bwd_dkdv_kernel"][1:]
+    assert all(made[w.__name__][0] == packed for w in _FUSED_COUNTERS)
+    assert fwd[1] == (out.data_ptr(), packed), (fwd, out.stride())
+    assert bwd == [(t.data_ptr(), packed) for t in (dq, dk, dv)], bwd
+    assert all(t.is_contiguous() for t in (out, dq, dk, dv))
+
+
+def test_packed_large_shape_both_ends(cuda_device):
+    """Packed [3, 8192, 12 * 64] bf16 with a padding mask: the (batch,
+    head) pairs at both ends of every output match the plain version run
+    on that pair alone, and the head-summed dbias of the last batch row
+    matches the plain per-pair gradients summed over its heads."""
+    B, S, H, d = 3, 8192, 12, 64
+    dtype = torch.bfloat16
+    q, k, v, do, bias = _packed_inputs(cuda_device, dtype, B, S, H, d,
+                                       (B, 1, 1, S), 8192)
+    got = _grads(lambda q_, k_, v_, b_: A.fused_attention_packed(
+        q_, k_, v_, b_, n_heads=H), q, k, v, bias, do)
+    heads = [A._split_heads(t, H) for t in got[:4]]
+    qh, kh, vh, doh = (A._split_heads(t, H) for t in (q, k, v, do))
+    dbias_last = torch.zeros(1, 1, 1, S, device=cuda_device)
+    for b, h in [(0, 0)] + [(B - 1, h) for h in range(H)]:
+        pair = [t[b:b + 1, h:h + 1] for t in (qh, kh, vh, doh)]
+        want = _grads(lambda q_, k_, v_, b_: A._ref_fused_attention(
+            q_, k_, v_, b_, d ** -0.5, 0.0, None), *pair[:3],
+            bias[b:b + 1], pair[3])
+        torch.cuda.synchronize()
+        if b == B - 1:
+            dbias_last += want[4]
+        if (b, h) in ((0, 0), (B - 1, H - 1)):
+            gotp = [t[b:b + 1, h:h + 1] for t in heads]
+            over = _rel_over(gotp, want[:4], dtype)
+            assert not over, (b, h, over)
+    rel = ((got[4][B - 1:] - dbias_last).abs().max() /
+           dbias_last.abs().max()).item()
+    assert rel <= smoke.LONG_RTOL[dtype]["dbias"], rel
+
+
+def test_packed_equals_per_head_with_dropout(cuda_device):
+    """One seed, one Philox mask: the packed entry and fused_attention on
+    contiguous transposed copies of the operands agree to the last bit in
+    out, dq, dk and dv (the same kernels, the same sums; only the
+    addressing differs), and
+    dbias, summed over heads by fp32 atomics in the order the blocks
+    finish, within 1e-6 of its largest magnitude."""
+    B, S, H, d, p = 4, 128, 12, 64, 0.1
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do, bias = _packed_inputs(cuda_device, dtype, B, S, H, d,
+                                           (B, 1, 1, S), 77)
+        seed = torch.tensor([12345], dtype=torch.int64, device=cuda_device)
+        packed = _grads(lambda q_, k_, v_, b_: A.fused_attention_packed(
+            q_, k_, v_, b_, n_heads=H, dropout_prob=p, seed=seed),
+            q, k, v, bias, do)
+
+        def per_head(q_, k_, v_, b_):
+            o = A.fused_attention(*(A._split_heads(t, H).contiguous()
+                                    for t in (q_, k_, v_)), b_,
+                                  dropout_prob=p, seed=seed)
+            return A._merge_heads(o)
+
+        heads = _grads(per_head, q, k, v, bias, do)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("out", "dq", "dk", "dv"), packed, heads):
+            assert torch.equal(a, b), (dtype, name)
+        rel = ((packed[4] - heads[4]).abs().max() /
+               heads[4].abs().max()).item()
+        assert rel <= 1e-6, (dtype, rel)
+
+
+def test_packed_amp_bert_tiny_step_on_card_matches_cpu(cuda_device):
+    """One BERT-tiny AMP step with use_fused_attention="packed" (bf16,
+    dropout 0) on the card through the packed kernels, against the same
+    step on the CPU from one state, to the limits and for the reasons of
+    test_amp_bert_tiny_step_on_card_matches_cpu."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.tiny()
+    cfg.use_fused_attention = "packed"
+    cfg.hidden_dropout = cfg.attn_dropout = 0.0
+    with fluid.unique_name.guard():
+        main, startup, loss = bert.build_pretrain_program(cfg, seq_len=64,
+                                                          use_amp=True)
+    feed = bert.synthetic_batch(cfg, 2, 64, seed=0)
+    cpu = fluid.Scope()
+    fluid.Executor("cpu").run(startup, scope=cpu)
+    card = fluid.Scope()
+    for n in cpu.local_var_names():
+        card.set_var(n, cpu.find_var(n).to(cuda_device))
+    n0 = [w.launches for w in _FUSED_COUNTERS]
+    got = fluid.Executor(cuda_device).run(main, feed=feed, fetch_list=[loss],
+                                          scope=card)
+    torch.cuda.synchronize()
+    assert [w.launches for w in _FUSED_COUNTERS] == [
+        n + cfg.n_layers for n in n0]
+    want = fluid.Executor("cpu").run(main, feed=feed, fetch_list=[loss],
+                                     scope=cpu)
+    np.testing.assert_allclose(got[0], want[0], rtol=4e-3)
+    over = {}
+    for n in cpu.local_var_names():
+        if n.endswith("_moment1_0") and "_attn_k.b_0" not in n:
+            w = cpu.find_var(n)
+            rel = (card.find_var(n).cpu() - w).abs().max().item() / \
+                w.abs().max().item()
+            apart = "_attn_q." in n or "_attn_k.w_0" in n
+            if not rel <= (2 ** -3 if apart else 2 ** -5):
+                over[n] = rel
+    assert not over, over
+
+
+def test_predictor_and_server_on_card(cuda_device, tmp_path):
+    """A BERT-tiny packed encoder saved from the card, loaded by a
+    Predictor on the card and on the CPU: the card's outputs match the
+    CPU's (fp32, atol 1e-4: cuBLAS and the kernels sum in another order),
+    a Server's coalesced batches match direct runs on the card (the
+    kernels treat every row alone; atol 1e-5 for the products), and the
+    forward kernel ran on the packed operands."""
+    from paddle_tpu_torch import fluid, inference
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.tiny()
+    cfg.use_fused_attention = "packed"
+    feeds = ["src_ids", "pos_ids", "sent_ids", "input_mask"]
+    with fluid.unique_name.guard():
+        main, startup, enc = bert.build_encoder_program(cfg, seq_len=64)
+    exe, scope = fluid.Executor(cuda_device), fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup, scope=scope)
+        fluid.io.save_inference_model(str(tmp_path), feeds, [enc], exe,
+                                      main_program=main,
+                                      params_filename="params")
+    batch = bert.synthetic_batch(cfg, 12, 64, seed=3)
+    batch["input_mask"][::2, 40:] = 0.0
+    rows = {n: batch[n] for n in feeds}
+    card = inference.create_predictor(inference.Config(
+        str(tmp_path), params_file="params"))
+    cpu = inference.create_predictor(inference.Config(
+        str(tmp_path), params_file="params", place="cpu"))
+    np.testing.assert_allclose(card.run(rows)[0], cpu.run(rows)[0],
+                               atol=1e-4)
+    n0 = A.fused_attention_fwd_kernel.launches
+    reqs = [{n: rows[n][i:i + 3] for n in feeds} for i in range(0, 12, 3)]
+    with inference.Server() as srv:
+        srv.register("enc", card.clone(),
+                     config=inference.ServeConfig(max_batch_size=8),
+                     warmup_feed={n: rows[n][:1] for n in feeds})
+        futs = [srv.submit("enc", r) for r in reqs]
+        outs = [f.result(timeout=120)[0] for f in futs]
+    assert A.fused_attention_fwd_kernel.launches > n0
+    for r, out in zip(reqs, outs):
+        np.testing.assert_allclose(out, card.run(r)[0], atol=1e-5)

@@ -169,9 +169,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_port_imports_without_jax_triton_or_nvcc():
-    """The port's package imports in a fresh interpreter without pulling
-    in jax, any paddle_tpu module or triton, and without a CUDA compiler
-    on PATH: the kernels build only at their first CUDA launch."""
+    """The port's package and chip_smoke.py import in a fresh interpreter
+    without pulling in jax, any paddle_tpu module or triton, and without
+    a CUDA compiler on PATH: the kernels build only at their first CUDA
+    launch."""
     code = (
         "import sys\n"
         "import paddle_tpu_torch, paddle_tpu_torch.models.transformer\n"
@@ -180,6 +181,10 @@ def test_port_imports_without_jax_triton_or_nvcc():
         "import paddle_tpu_torch.kernels.attention\n"
         "import paddle_tpu_torch.fluid.executor, paddle_tpu_torch.fluid.layers\n"
         "import paddle_tpu_torch.fluid.optimizer, paddle_tpu_torch.models.bert\n"
+        "import paddle_tpu_torch.fluid.io, paddle_tpu_torch.fluid.compat\n"
+        "import paddle_tpu_torch.fluid.core.proto_io\n"
+        "import paddle_tpu_torch.fluid.core.tensor_io\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m in ('jax', 'triton') or\n"
         "       m == 'paddle_tpu' or m.startswith(('paddle_tpu.', 'jax.'))]\n"
         "assert not bad, bad\n"

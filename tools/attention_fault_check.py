@@ -1,5 +1,5 @@
-"""How far the long-sequence attention checks of chip_smoke.py stand from
-the sound kernels and from planted faults.
+"""How far the long-sequence and packed-layout attention checks of
+chip_smoke.py stand from the sound kernels and from planted faults.
 
     python3 tools/attention_fault_check.py
 
@@ -7,15 +7,22 @@ Needs one CUDA card and nvcc. For each fault the port and chip_smoke.py
 are copied into a temporary directory and the fault is planted in the
 copy's ``csrc/fused_attention.cu`` (the checkout is never edited); all
 copies are built at once, then each runs, one after another, every
-kernel case of chip_smoke's ``long_case_list`` (untimed) and the
-bert_long phase's one-step kernel-vs-plain check. Faults:
+kernel case of chip_smoke's ``long_case_list`` and ``packed_case_list``
+(untimed; the sound copy runs each packed case at SOUND_SALTS seeds of
+data and dropout mask, for the spread of the readings the limits must
+clear), the bert_long phase's one-step kernel-vs-plain check and the
+bert_packed phase's. Faults:
 
   sound         no fault: the readings the limits must clear;
   skip_tile     each kernel skips its second tile (keys 64-127 in the
                 forward and dq kernels, query rows 64-127 in dk/dv);
   no_mask       the bias (the padding mask) is ignored;
   pair_by_head  the dropout mask is keyed on the head alone, not on
-                b * H + h, so every batch row draws the first row's mask.
+                b * H + h, so every batch row draws the first row's mask;
+  row_stride_d  tiles are loaded with a row stride of d elements, as if
+                every operand were contiguous [B, H, S, d]: right there,
+                wrong in the packed layout, whose rows are H * d apart
+                (and right at H = 1).
 
 Prints one JSON line per (fault, case): each output's max |kernel -
 plain| over the plain output's largest magnitude, the limit chip_smoke
@@ -35,6 +42,7 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join("paddle_tpu_torch", "kernels", "csrc",
                       "fused_attention.cu")
+SOUND_SALTS = 5
 _K_LOOP = "  for (int k0 = 0; k0 < S; k0 += kB) {\n"
 _Q_LOOP = "  for (int q0 = 0; q0 < S; q0 += kB) {\n"
 # fault: [(text of the sound source, its replacement, occurrences)]
@@ -46,6 +54,8 @@ FAULTS = {
     "no_mask": [("  return s * scale + (brow ? brow[col] : 0.f);",
                  "  return s * scale;", 1)],
     "pair_by_head": [(", bh, p_drop, keep);", ", h, p_drop, keep);", 3)],
+    "row_stride_d": [("const long long stride = rs;",
+                      "const long long stride = D;", 1)],
 }
 
 
@@ -63,9 +73,9 @@ def plant(copy, fault):
 
 
 def run_copy(copy, fault):
-    """In a child process: every long case and the step check on the copy
-    at ``copy``, one JSON line each. Returns whether any limit failed
-    (the child exits 10 then, 0 if none did)."""
+    """In a child process: every long and packed case and the two step
+    checks on the copy at ``copy``, one JSON line each. Returns whether
+    any limit failed (the child exits 10 then, 0 if none did)."""
     sys.path.insert(0, copy)
     import torch
     import chip_smoke as smoke
@@ -75,26 +85,41 @@ def run_copy(copy, fault):
 
     dev = torch.device("cuda")
     failed = False
-    for case in smoke.long_case_list():
-        rec, inputs = smoke.long_check(A, dev, *case)
+    checks = [(smoke.long_check, case, {})
+              for case in smoke.long_case_list()]
+    checks += [(smoke.packed_check, case[:-1], {"salt": salt})
+               for case in smoke.packed_case_list()
+               for salt in range(SOUND_SALTS if fault == "sound" else 1)]
+    for check, case, kwargs in checks:
+        rec, inputs = check(A, dev, *case, **kwargs)
         del inputs
         over = sorted(k for k, r in rec["rel_err"].items()
                       if not r <= rec["rtol"][k])
         failed |= bool(over)
-        print(json.dumps(dict(fault=fault, case=rec["name"],
+        print(json.dumps(dict(fault=fault, case=rec["name"], **kwargs,
                               rel_err=rec["rel_err"], rtol=rec["rtol"],
                               max_abs_err=rec["max_abs_err"],
                               over=over)), flush=True)
         torch.cuda.empty_cache()
-    prog = smoke.long_program(fluid, bert, smoke.LONG_CHECK_SEQ)
-    rec = smoke.long_step_check(A, fluid.Executor(dev), fluid, bert, prog)
-    over = sorted(n for n, r in rec["grad_rel"].items()
-                  if not r <= smoke.LONG_GRAD_RTOL[n])
-    if not rec["loss_rel"] <= smoke.LONG_LOSS_RTOL:
-        over.append("loss")
-    failed |= bool(over)
-    print(json.dumps(dict(fault=fault, check="step_vs_plain", over=over,
-                          **rec)), flush=True)
+    exe = fluid.Executor(dev)
+    for name, step_check, prog, loss_rtol, grad_rtol in (
+            ("bert_long", smoke.long_step_check,
+             smoke.long_program(fluid, bert, smoke.LONG_CHECK_SEQ),
+             smoke.LONG_LOSS_RTOL, smoke.LONG_GRAD_RTOL),
+            ("bert_packed", smoke.packed_step_check,
+             smoke.packed_program(fluid, bert, bert.BertConfig.base(),
+                                  "packed"),
+             smoke.PACKED_LOSS_RTOL, smoke.PACKED_GRAD_RTOL)):
+        rec = step_check(A, exe, fluid, bert, prog)
+        del prog
+        over = sorted(n for n, r in rec["grad_rel"].items()
+                      if not r <= grad_rtol[n])
+        if not rec["loss_rel"] <= loss_rtol:
+            over.append("loss")
+        failed |= bool(over)
+        print(json.dumps(dict(fault=fault, check="step_vs_plain",
+                              phase=name, over=over, **rec)), flush=True)
+        torch.cuda.empty_cache()
     return failed
 
 

@@ -2,13 +2,15 @@
 on the card.
 
     python3 tools/profile_bert.py [--seq 512] [--batch 32] [--amp]
-                                  [--steps 2]
+                                  [--packed] [--steps 2]
 
 Needs one CUDA card. Builds the program of chip_smoke.py's bert phase
 (``build_pretrain_program(BertConfig.base(), seq_len=--seq)``, dropout
 0.1, Adam; fp32, or bf16 mixed precision with ``--amp``, which the
 bert_long phase runs at S 2048/4096/8192 with batch 8/4/2;
-``BertConfig.max_seq`` is raised to ``--seq`` past 512), runs its
+``BertConfig.max_seq`` is raised to ``--seq`` past 512; ``--packed``
+sets ``use_fused_attention="packed"``, the bert_packed phase's layout,
+which that phase runs at S 128, batch 128, with ``--amp``), runs its
 startup program and two warm-up steps on one synthetic batch, times
 ``--steps`` steps on the host clock (ending in a device sync), traces as
 many with torch.profiler, and prints the card's name and power limit,
@@ -58,6 +60,8 @@ def main():
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--amp", action="store_true",
                     help="bf16 mixed precision (use_amp=True)")
+    ap.add_argument("--packed", action="store_true",
+                    help='use_fused_attention="packed"')
     ap.add_argument("--steps", type=int, default=2)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -68,6 +72,8 @@ def main():
                          text=True, check=True).stdout.strip(), flush=True)
     cfg = bert.BertConfig.base()
     cfg.max_seq = max(cfg.max_seq, args.seq)
+    if args.packed:
+        cfg.use_fused_attention = "packed"
     with fluid.unique_name.guard():
         main_prog, startup, loss = bert.build_pretrain_program(
             cfg, seq_len=args.seq, use_amp=args.amp)
@@ -94,6 +100,7 @@ def main():
     kern = _device_kernels(prof)
     rec = dict(phase="profile", path="bert", batch=args.batch,
                seq_len=args.seq, amp="bf16" if args.amp else None,
+               attention="packed" if args.packed else "auto",
                steps=args.steps, wall_ms_per_step=wall_ms,
                tokens_per_s=args.batch * args.seq / wall_ms * 1e3)
     if not kern:
