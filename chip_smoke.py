@@ -7,7 +7,9 @@ port's sources beside this file. It imports nothing of JAX or of the JAX
 package. Phases, each printed as one JSON line; any failure raises and
 the script exits non-zero without its final line:
 
-1. card      nvidia-smi name and power limit; build every CUDA kernel.
+1. card      nvidia-smi name and power limit; build every CUDA kernel;
+             each fused-attention kernel's registers and spills (ptxas)
+             and shared memory a block.
 2. kernels   each kernel against its plain PyTorch version at the main
              paths' shapes and at the edge cases, with its time (CUDA
              events, median of 25 cold-L2 launches), the plain
@@ -17,9 +19,11 @@ the script exits non-zero without its final line:
              out of the timed span. Decode attention: ragged capacity,
              causal window, wrapped ring, paged; fp32 and bf16. Fused
              training attention (forward, and the backward's dq, dk, dv
-             and dbias): BERT-base's shape (batch 32, 12 heads of 64,
-             S 512, padding-mask bias) at dropout 0.1 and 0, every other
-             bias mode, a ragged S and d 128; fp32 and bf16. The same
+             and dbias; the bf16 backward on the tensor cores, its
+             TFLOP/s beside each backward time): BERT-base's shape
+             (batch 32, 12 heads of 64, S 512, padding-mask bias) at
+             dropout 0.1 and 0, every other bias mode, a ragged S and
+             d 128; fp32 and bf16. The same
              kernels past S 1024, where they stand in for the TPU
              package's long and flash tiers: batch 1, 12 heads of 64, at
              S 2048, 4096 and 8192, p = 0, fp32 and bf16, each kernel of
@@ -86,6 +90,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -123,6 +128,40 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
+
+
+def kernel_resources(_build, A):
+    """Each fused-attention kernel's registers and spills, as ptxas
+    reported them when this build compiled it (``-Xptxas -v``, kept in
+    ``_build/fused_attention.log``), and its dynamic shared memory a
+    block, from the library itself."""
+    with open(os.path.join(_build.BUILD_DIR, "fused_attention.log")) as f:
+        log = f.read()
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?(attn_\w+?)I"
+                      r"(f|13__nv_bfloat16)?Li(\d+)E", line)
+        if m:
+            kind = {"f": "float", None: "bf16"}.get(m.group(2), "bf16")
+            cur = dict(kernel="%s<%s, %s>" % (m.group(1), kind, m.group(3)),
+                       d=int(m.group(3)))
+            which = {"attn_fwd": 0, "attn_bwd_dq": 1, "attn_bwd_dkdv": 2,
+                     "attn_bwd_dq_mma": 1, "attn_bwd_dkdv_mma": 2}[m.group(1)]
+            cur["smem_bytes"] = A.fused_attention_smem_bytes(
+                which, kind == "bf16", cur["d"])
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            out.append(cur)
+            cur = None
+    return out
 
 
 def time_ms(fn, flush):
@@ -341,6 +380,7 @@ def fused_case(A, dev, gen, flush, name, B, H, S, d, bias_shape, p, dtype):
                                                scale=scale),
                 lib_leaves, do), flush),
             bound_ms=b_ms, bound_by=b_by))
+    rec["bwd"]["tflops"] = achieved_tflops(q, "bwd", rec["bwd"]["kernel_ms"])
     emit(phase="kernels", kernel="fused_attention", **rec)
     return rec
 
@@ -437,6 +477,19 @@ def long_bound(q, bias, kind):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops * B * H * S * S * d / PEAK_OPS_PER_S[q.dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# the products each backward kernel computes, in units of B*H*S^2*d
+# operations: dq 6 (q.k^T and dO.v^T again, dS.k), dk/dv 8 (q.k^T and
+# dO.v^T again, P^T.dO, dS^T.q), the pair 14
+BWD_UNITS = {"dq": 6, "dkdv": 8, "bwd": 14}
+
+
+def achieved_tflops(q, kind, ms):
+    """TFLOP/s of backward kernel ``kind`` on q [B, H, S, d] in ``ms``,
+    counted on the work it does (BWD_UNITS)."""
+    B, H, S, d = q.shape
+    return BWD_UNITS[kind] * B * H * S * S * d / (ms * 1e-3) / 1e12
 
 
 LONG_OUTPUTS = ("out", "lse", "dq", "dk", "dv", "dbias")
@@ -624,6 +677,8 @@ def long_case(A, dev, flush, case, timed):
                 bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_bwd if kind == "bwd" else None,
                 max_abs_err=max(rec["max_abs_err"][x] for x in errs[kind]))
+            rec[kind]["tflops"] = achieved_tflops(q, kind,
+                                                  rec[kind]["kernel_ms"])
         rec["bwd"]["library_bwd_of_both_halves_ms"] = lib_bwd
         del ref, leaves, lib_out, lib_leaves
     emit(phase="kernels", kernel="long_attention", **rec)
@@ -785,6 +840,8 @@ def packed_case(A, dev, flush, case):
                 bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_bwd if kind == "bwd" else None,
                 max_abs_err=max(rec["max_abs_err"][x] for x in errs[kind]))
+            rec[kind]["tflops"] = achieved_tflops(q, kind,
+                                                  rec[kind]["kernel_ms"])
         rec["bwd"]["library_bwd_of_both_halves_ms"] = lib_bwd
         del ref, leaves, lib_out, lib_leaves, packed
     emit(phase="kernels", kernel="packed_attention", **rec)
@@ -1699,7 +1756,8 @@ def main():
     emit(phase="card", nvidia_smi=card, kind=kind,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, build_s=time.perf_counter() - t0,
-         libraries=sorted(libs))
+         libraries=sorted(libs),
+         fused_attention_resources=kernel_resources(_build, A))
 
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)

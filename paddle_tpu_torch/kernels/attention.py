@@ -253,9 +253,32 @@ def flash_attention_backward(q, k, v, bias, seed, do, o, lse, scale=None,
 
 def _rows(t):
     """``t`` as the kernels read it: any strides whose rows of d elements
-    are contiguous pass as they are (a packed layout's heads, no copy);
-    anything else is copied contiguous."""
-    return t if t.stride(-1) == 1 else t.contiguous()
+    are contiguous pass as they are (a packed layout's heads, no copy),
+    a bfloat16 operand when every row also starts on a 16-byte boundary
+    (``_rows_aligned``); anything else is copied contiguous, into a
+    fresh (aligned) buffer. The copy changes the layout only: every
+    operand goes to the same kernels."""
+    if t.stride(-1) == 1 and _rows_aligned(t):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+# bytes the bf16 backward kernels copy a row in (16-byte cp.async)
+_ROW_ALIGN = 16
+
+
+def _rows_aligned(t):
+    """Whether each row of a bfloat16 [.., d] operand starts on a
+    16-byte boundary, as the bf16 backward kernels' copies need: its
+    first element aligned and every stride of a dimension longer than 1
+    (batch, head, row) a multiple of 8 elements. Other types pass: their
+    kernels read elements one by one."""
+    if t.dtype != torch.bfloat16:
+        return True
+    step = _ROW_ALIGN // t.element_size()
+    return t.data_ptr() % _ROW_ALIGN == 0 and all(
+        st % step == 0 for st, n in zip(t.stride()[:-1], t.shape[:-1])
+        if n > 1)
 
 
 def _bias_operand(bias, B, H, S):
@@ -620,7 +643,7 @@ def _fused_entry(name, signature):
     return fn
 
 
-def _check_qkv(q, k, v):
+def _check_qkv(q, k, v, aligned=False):
     if q.device.type != "cuda":
         raise ValueError("the fused-attention kernels take CUDA tensors, "
                          "got one on %s" % q.device)
@@ -631,12 +654,14 @@ def _check_qkv(q, k, v):
         raise ValueError("q must be [B, H, S, d] with d in %s, got %s"
                          % (_HEAD_DIMS, tuple(q.shape)))
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, t, q)
+        _check_operand(name, t, q, aligned)
 
 
-def _check_operand(name, t, q):
+def _check_operand(name, t, q, aligned=False):
     """``t`` a [B, H, S, d] operand in q's device, type and shape whose d
-    elements are contiguous (any batch, head and row strides >= 0)."""
+    elements are contiguous (any batch, head and row strides >= 0); with
+    ``aligned``, a bfloat16 operand's rows also start on 16-byte
+    boundaries (``_rows_aligned``)."""
     if t.device != q.device:
         raise ValueError("%s is on %s, expected %s" % (name, t.device,
                                                        q.device))
@@ -649,6 +674,10 @@ def _check_operand(name, t, q):
     if t.stride(3) != 1 or min(t.stride()) < 0:
         raise ValueError("%s must have contiguous rows of d elements, got "
                          "strides %s" % (name, t.stride()))
+    if aligned and not _rows_aligned(t):
+        raise ValueError("%s must start every row on a %d-byte boundary, "
+                         "got strides %s at address %d" % (
+                             name, _ROW_ALIGN, t.stride(), t.data_ptr()))
 
 
 def _strides(*ts):
@@ -727,14 +756,22 @@ def fused_attention_bwd_dq_kernel(q, k, v, bias, strides, seed, o, lse,
     """Launch the dq kernel (with the dk/dv kernel it replaces
     ``_bwd_kernel`` and ``_bwd_kernel_long``; alone it replaces
     ``_flash_dq_kernel``): the forward's operands plus o, lse and dout
-    [B, H, S, d] in q's type. Returns (dq [B, H, S, d] in q's type and
-    layout, delta [B, H, S] fp32 = rowsum(dout * o), which the dk/dv kernel
-    reads)."""
-    _check_qkv(q, k, v)
+    [B, H, S, d] in q's type; a bfloat16 operand's rows start on 16-byte
+    boundaries (``_rows`` copies one that does not). Returns (dq
+    [B, H, S, d] in q's type and layout, delta [B, H, S] fp32 =
+    rowsum(dout * o), which the dk/dv kernel reads).
+
+    Bound on the card: operations, 6·B·H·S²·d (q·kᵀ and dO·vᵀ again, then
+    dS·k) at the input type's peak, from S 256 or so at d 64 (below, the
+    bytes). bfloat16 runs on the tensor cores (``mma.sync`` m16n8k16, fp32
+    accumulators; K/V tiles double-buffered by ``cp.async``; dS rounded to
+    bf16 for its product); float32 on the SIMT cores (design note in
+    ``csrc/fused_attention.cu``)."""
+    _check_qkv(q, k, v, aligned=True)
     _check_extras(q, bias, strides, seed, p)
     B, H, S, d = q.shape
     for name, t in (("o", o), ("dout", dout)):
-        _check_operand(name, t, q)
+        _check_operand(name, t, q, aligned=True)
     _check("lse", lse, q.device, torch.float32, (B, H, S))
     dq = torch.empty_like(q)
     delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
@@ -759,15 +796,22 @@ def fused_attention_bwd_dkdv_kernel(q, k, v, bias, strides, seed, lse,
                                     delta, dout, scale, p, dbias_shape=None):
     """Launch the dk/dv kernel (with the dq kernel it replaces
     ``_bwd_kernel`` and ``_bwd_kernel_long``; alone it replaces
-    ``_flash_dkdv_kernel``). ``dbias_shape`` (B, 1|H, 1|S, S) asks for
-    the bias gradient in fp32, reduced over the broadcast heads and rows
-    (a head-broadcast bias is summed with fp32 atomics into a zeroed
-    buffer). Returns (dk, dv [B, H, S, d] in k's and v's layouts, dbias
-    or None)."""
-    _check_qkv(q, k, v)
+    ``_flash_dkdv_kernel``); operands as the dq kernel's, plus its delta.
+    ``dbias_shape`` (B, 1|H, 1|S, S) asks for the bias gradient in fp32,
+    reduced over the broadcast heads and rows (a head-broadcast bias is
+    summed with fp32 atomics into a zeroed buffer). Returns (dk, dv
+    [B, H, S, d] in k's and v's layouts, dbias or None).
+
+    Bound on the card: operations, 8·B·H·S²·d (q·kᵀ and dO·vᵀ again, Pᵀ·dO
+    and dSᵀ·q), as the dq kernel. bfloat16 on the tensor cores: Sᵀ = k·qᵀ
+    and dPᵀ = v·dOᵀ, so Pᵀ and dSᵀ are A operands of the next products in
+    registers (rounded to bf16 there; dbias from the fp32 dS); Q, dO, lse
+    and delta tiles double-buffered by ``cp.async``. float32 on the SIMT
+    cores."""
+    _check_qkv(q, k, v, aligned=True)
     _check_extras(q, bias, strides, seed, p)
     B, H, S, d = q.shape
-    _check_operand("dout", dout, q)
+    _check_operand("dout", dout, q, aligned=True)
     _check("lse", lse, q.device, torch.float32, (B, H, S))
     _check("delta", delta, q.device, torch.float32, (B, H, S))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -812,6 +856,16 @@ def fused_attention_backward(q, k, v, bias, strides, seed, o, lse, dout,
         q, k, v, bias, strides, seed, lse, delta, dout, scale, p,
         dbias_shape)
     return dq, dk, dv, dbias
+
+
+def fused_attention_smem_bytes(which, bf16, d):
+    """Dynamic shared memory a block of the forward (``which`` 0), dq (1)
+    or dk/dv (2) kernel takes at head width ``d``, in bfloat16 or
+    float32, as the library launches it (builds the library)."""
+    fn = getattr(_build.library("fused_attention"),
+                 "pt_fused_attention_smem")
+    fn.argtypes, fn.restype = [_INT, _INT, _INT], _I64
+    return int(fn(int(which), int(bool(bf16)), int(d)))
 
 
 def _dbias_shape(bias_grad, strides, B, H, S):

@@ -71,16 +71,73 @@
 // fp32 byte, so the operations bound it (67 TFLOP/s fp32 without tensor
 // cores, 989 TFLOP/s bf16 with them). At BERT's S = 128 in bf16 that is
 // 128 operations per byte, below the H100's 295, so there the bytes of
-// q, k, v and o bound it (the packed layout's case). This first version computes
-// everything in fp32 on the SIMT cores, also for bf16 inputs: tiles are
-// converted to fp32 as they land in shared memory. Each thread holds a
+// q, k, v and o bound it (the packed layout's case).
+//
+// The forward, and the backward in fp32, compute everything in fp32 on
+// the SIMT cores (the forward also for bf16 inputs: tiles are converted
+// to fp32 as they land in shared memory). 256 threads; each holds a
 // 4 x 4 micro-tile of the 64 x 64 score tile (query rows 4ty..4ty+3, key
 // columns tx + 16j) and a 4 x d/16 slice of its accumulators. Shared
 // tiles keep an odd row stride (d + 1, 65), so every read of a row or of
-// a column across the lanes of a warp is free of bank conflicts. What it
-// does not do yet: tensor cores (wgmma), TMA or a cp.async pipeline, so
-// the bf16 path runs at the fp32 rate and loads are not overlapped with
-// math beyond what two resident blocks per SM give.
+// a column across the lanes of a warp is free of bank conflicts. Loads
+// are synchronous; two or three resident blocks per SM overlap them.
+//
+// The bf16 backward (attn_bwd_dq_mma, attn_bwd_dkdv_mma) runs its
+// products on the tensor cores:
+//   * instruction: mma.sync m16n8k16, bf16 operands, fp32 accumulators,
+//     fed by ldmatrix.x4 from bf16 shared tiles (.trans where the operand
+//     is needed transposed: K in dq += dS . K, dO and Q in dk/dv);
+//   * tiling: 128 threads a block, one block per (64-row tile, head,
+//     batch), each warp owning 16 rows: dq's warps 16 queries against
+//     every 64-key tile (S = Q.K^T, dP = dO.V^T, then dq += dS.K); dk/dv's
+//     warps 16 keys against every 64-query tile, computing S^T = K.Q^T
+//     and dP^T = V.dO^T, so that P^T and dS^T land in the accumulator
+//     layout, which is the A layout of dV += P^T.dO and dK += dS^T.Q (the
+//     flash-attention-2 backward's arrangement): no score tile goes
+//     through shared memory, P and dS are rounded to bf16 in registers;
+//   * shared layout: bf16 tiles with rows padded by 16 bytes (row stride
+//     d + 8 elements), so the eight row addresses of an ldmatrix phase
+//     fall on eight different 16-byte bank groups (d / 8 + 1 is odd for
+//     every d), chosen over an XOR swizzle because the padded address is
+//     one multiply-add and the cp.async writes stay 16-byte aligned. At
+//     d 64 a block holds six 64 x 72 tiles (Q and dO, K and V twice, or
+//     K and V, Q and dO twice), 55 KB, three blocks to an SM; at d 128,
+//     102 KB, two;
+//   * pipeline: the streamed tiles (K, V in dq; Q, dO, lse and delta in
+//     dk/dv) are double-buffered: after the barrier that publishes tile j,
+//     each thread issues 16-byte cp.async copies of tile j + 1 (rows past
+//     S zero-filled by a source size of 0), which run under tile j's
+//     math; one barrier a tile. Each row must start on a 16-byte boundary
+//     (the wrappers copy an operand that does not);
+//   * dropout mask: the same element-keyed Philox mask, but an m16n8
+//     fragment holds rows lane/4 and lane/4 + 8 and columns 2(lane%4) +
+//     {0, 1}, not a call's four rows; so the block draws each 64 x 64 tile
+//     together before its barrier (keep_bits: 1024 calls, eight a thread,
+//     packed by ballots into a 512-byte bitmask, double-buffered) and
+//     each thread reads its bits from shared memory. Both kernels draw
+//     it, as the SIMT kernels did: at p > 0 the draws cost about a third
+//     to a half of a kernel's time;
+//   * dbias comes from the fp32 dS before it is rounded: per element for
+//     a bias row per query; for a row-broadcast bias each thread sums its
+//     query columns, and the four lanes that share a key add theirs by
+//     shuffles in a fixed order (a warp owns its 16 keys whole, so no
+//     shared-memory pass is needed); over heads by fp32 atomics;
+//   * registers: dq holds its 16 x d accumulator, the 16 x 64 S and dP
+//     tiles (d/2 + 64 fp32 a thread); dk/dv its dk and dv accumulators (d
+//     fp32 a thread) and S^T and dP^T over 32 query columns at a time
+//     (64 at d 16), one such chunk live at a time. __launch_bounds__ pins
+//     the resident blocks the shared memory allows: three at d <= 64
+//     (at most 168 registers), two at d = 128 (255). In trials on the
+//     H100, three blocks ran dk/dv clearly faster than two, and at 168
+//     registers dk/dv spilled until its bias and dbias addresses were
+//     formed per chunk (late()) instead of held across the products.
+// What bounds it on the card: the operations, at mma.sync's rate, and
+// the SIMT work per score element (exp, bias, mask, dS: about 20
+// instructions) that runs beside them; dk/dv also the shared-memory
+// reads, since a warp's B fragments each feed two products only.
+// Next: wgmma and TMA (a warpgroup's 64-row products, B from shared
+// memory without ldmatrix), one q.k^T recompute fewer (a fused pass with
+// dq by fp32 atomics).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,6 +145,7 @@
 
 #include <cmath>
 #include <initializer_list>
+#include <type_traits>
 
 namespace {
 
@@ -577,6 +635,504 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocks<D>)
   }
 }
 
+// ---- bf16 backward on the tensor cores ------------------------------------
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaThreads = 128;  // four warps, 16 rows of a 64-row tile each
+constexpr int kPad = 8;           // bf16 elements (16 bytes) after each row
+template <int D> constexpr int kLDS = D + kPad;  // row stride of a bf16 tile
+// Resident blocks per SM (their register cap, 65536 / (128 * blocks)): the
+// double-buffered tiles allow three at d <= 64, two at d = 128.
+template <int D> constexpr int kMmaBlocks = D <= 64 ? 3 : 2;
+// query columns of S^T and dP^T the dk/dv kernel holds in registers at once
+template <int D> constexpr int kDkdvCols = D >= 32 ? 32 : 64;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared without passing through registers;
+// live == false fills the destination with zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* s, const void* g, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(s)),
+               "l"(g), "r"(live ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* s, const void* g, bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(s)),
+               "l"(g), "r"(live ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// four 8 x 8 bf16 matrices from shared memory; lane i names the row
+// address of matrix i / 8, row i % 8; .trans hands each lane a column pair
+__device__ __forceinline__ void ldsm(unsigned r[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_t(unsigned r[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 operands, fp32 accumulators
+__device__ __forceinline__ void mma(float c[4], const unsigned a[4],
+                                    unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// The A operand of the next product from two accumulator tiles of 8
+// columns (c[j], c[j + 1]): the m16n8 accumulator layout is the m16n8k16
+// A layout of those 16 columns, so P and dS never leave the registers.
+__device__ __forceinline__ void a_from_acc(unsigned a[4], const float c0[4],
+                                           const float c1[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// Rows [0, n) of a global tile of D-element bf16 rows, ``rs`` elements
+// apart -> shared [kB][kLDS<D>] by 16-byte cp.async (each row must start
+// on a 16-byte boundary: the wrappers copy an operand that does not);
+// rows n..kB-1 are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile_async(bf16* s, const bf16* g,
+                                                long long rs, int n) {
+  constexpr int kChunks = D / 8;  // 16-byte pieces of a row
+  const long long stride = rs;    // elements from one row to the next
+#pragma unroll
+  for (int j = 0; j < kB * kChunks / kMmaThreads; ++j) {
+    const int i = threadIdx.x + j * kMmaThreads;
+    const int r = i / kChunks, c = 8 * (i % kChunks);
+    const bool live = r < n;
+    cp_async16(s + r * kLDS<D> + c, g + (live ? r : 0) * stride + c, live);
+  }
+}
+
+// Keep flags of the 64 x 64 tile at (row0, col0) as bits: bit c & 31 of
+// keep[2 * r + (c >> 5)] for tile row r, column c. The mask is the
+// SIMT kernels' (one Philox call per key column and four query rows), but
+// a fragment no longer holds a call's four rows, so the block draws the
+// tile together: each warp takes 32 columns of four rows per call, one
+// column a lane, and ballots pack the flags; 1024 calls a tile, eight a
+// thread.
+__device__ __forceinline__ void keep_bits(uint2 key, int row0, int col0,
+                                          int bh, float p_drop,
+                                          unsigned* keep) {
+  const int lane = threadIdx.x & 31;
+  for (int t = threadIdx.x >> 5; t < 32; t += kMmaThreads / 32) {
+    const int r4 = t >> 1, half = t & 1;
+    const uint4 r = philox(
+        make_uint4(col0 + 32 * half + lane, (row0 >> 2) + r4, bh, 0), key);
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const unsigned m = __ballot_sync(
+          0xffffffffu,
+          static_cast<float>(w[i] >> 8) * (1.0f / 16777216.0f) >= p_drop);
+      if (lane == i) keep[2 * (4 * r4 + i) + half] = m;
+    }
+  }
+}
+
+// v, as a value the compiler must take to depend on ``dep``: what is
+// derived from it is recomputed in the loop over dep where it is used,
+// not held in registers across the loop's other work
+__device__ __forceinline__ int late(int v, int dep) {
+  asm("mov.b32 %0, %1;\n" : "=r"(v) : "r"(v), "r"(dep));
+  return v;
+}
+
+// the additive bias at key column col of one bias row (nullptr: none);
+// -inf past the last key column
+__device__ __forceinline__ float bias_term(const float* brow, int col,
+                                           int S) {
+  if (col >= S) return -INFINITY;
+  return brow ? brow[col] : 0.f;
+}
+
+// Lane offsets (elements) into a [kB][LDS] tile for ldmatrix.x4: A (and
+// a transposed B) of a 16 x 16 block, rows r0 + lane % 16, columns
+// c0 + 8 * (lane / 16); B of two 8-row n-tiles of 16 columns, rows
+// n0 + lane % 8 + 8 * (lane / 16), columns c0 + 8 * (lane / 8 % 2).
+template <int LDS>
+__device__ __forceinline__ int a_offset(int lane) {
+  return (lane & 15) * LDS + (lane >> 4) * 8;
+}
+template <int LDS>
+__device__ __forceinline__ int b_offset(int lane) {
+  return ((lane & 7) + ((lane >> 4) << 3)) * LDS + ((lane >> 3) & 1) * 8;
+}
+
+// Per 64-row q-tile: delta = rowsum(dO * O) (also written out), then dq
+// over all k-tiles; warp w owns query rows 16w..16w+15 of the tile.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
+    attn_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, BiasView bv,
+                    const long long* __restrict__ seed,
+                    const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ delta,
+                    bf16* __restrict__ dq, Strides sq, Strides sk, Strides sv,
+                    Strides so, Strides sdo, Strides sdq, int H, int S,
+                    float scale, float p_drop, float keep_scale) {
+  constexpr int LDS = kLDS<D>, T = kB * LDS;
+  extern __shared__ __align__(16) unsigned char smem16[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem16);
+  bf16* dOs = Qs + T;
+  bf16* Ks = dOs + T;                              // [2][kB][LDS]
+  bf16* Vs = Ks + 2 * T;                           // [2][kB][LDS]
+  float* Ct = reinterpret_cast<float*>(Vs + 2 * T);  // [2][kB] bias by column
+  float* Dr = Ct + 2 * kB;                         // [kB] delta of the rows
+  unsigned* Keep = reinterpret_cast<unsigned*>(Dr + kB);  // [2][kB][2]
+
+  const int q0 = blockIdx.x * kB, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h, tid = threadIdx.x, lane = tid & 31;
+  const int w = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const bf16* kh = head_of(k, sk, b, h);
+  const bf16* vh = head_of(v, sv, b, h);
+  const int nq = min(kB, S - q0);
+  load_tile_async<D>(Qs, head_of(q, sq, b, h) + q0 * sq.r, sq.r, nq);
+  load_tile_async<D>(dOs, head_of(dout, sdo, b, h) + q0 * sdo.r, sdo.r, nq);
+  load_tile_async<D>(Ks, kh, sk.r, min(kB, S));
+  load_tile_async<D>(Vs, vh, sv.r, min(kB, S));
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  {  // two threads per row, lanes 2r and 2r + 1 of one warp
+    const int r = tid >> 1, part = tid & 1;
+    float acc = 0.f;
+    if (r < nq) {
+      const bf16* orow = head_of(o, so, b, h) + (q0 + r) * so.r;
+      for (int e = 2 * part; e < D; e += 4) {
+        const float2 of = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(orow + e));
+        const float2 df = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(dOs + r * LDS + e));
+        acc = fmaf(df.y, of.y, fmaf(df.x, of.x, acc));
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (part == 0) {
+      Dr[r] = acc;
+      if (r < nq) delta[static_cast<size_t>(bh) * S + q0 + r] = acc;
+    }
+  }
+  const bool drop = p_drop > 0.f;
+  const uint2 key = drop ? seed_key(seed) : make_uint2(0, 0);
+  // a bias with a row per query is read per element; a row-broadcast one
+  // once per tile into Ct, with -inf past the last key (no bias: 0)
+  const bool rowwise = bv.ptr && bv.sr != 0;
+  const float* bcast = rowwise ? nullptr : bias_row(bv, b, h, 0);
+  __syncthreads();  // Dr
+  int rl[2];        // the thread's two tile rows
+  float lse_r[2], delta_r[2];
+  const float* brow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rl[i] = 16 * w + g + 8 * i;
+    const int row = q0 + rl[i];
+    lse_r[i] = row < S ? lse[static_cast<size_t>(bh) * S + row] : 0.f;
+    delta_r[i] = Dr[rl[i]];
+    brow[i] = rowwise ? bias_row(bv, b, h, min(row, S - 1)) : nullptr;
+  }
+  const int a_off = 16 * w * LDS + a_offset<LDS>(lane);
+  const int b_off = b_offset<LDS>(lane), bt_off = a_offset<LDS>(lane);
+  float acc[D / 8][4] = {};
+
+  for (int k0 = 0; k0 < S; k0 += kB) {
+    const int buf = (k0 / kB) & 1;
+    const bf16* Kt = Ks + buf * T;
+    const bf16* Vt = Vs + buf * T;
+    float* ct = Ct + buf * kB;
+    unsigned* const keep = Keep + buf * 2 * kB;
+    if (tid < kB) ct[tid] = bias_term(bcast, k0 + tid, S);
+    if (drop) keep_bits(key, q0, k0, bh, p_drop, keep);
+    cp_async_wait_all();
+    __syncthreads();  // tile k0 has landed; tile k0 - kB is consumed
+    if (k0 + kB < S) {  // the next tile's copies overlap this tile's math
+      const int nk = min(kB, S - k0 - kB);
+      load_tile_async<D>(Ks + (buf ^ 1) * T, kh + (k0 + kB) * sk.r, sk.r, nk);
+      load_tile_async<D>(Vs + (buf ^ 1) * T, vh + (k0 + kB) * sv.r, sv.r, nk);
+      cp_async_commit();
+    }
+    // S = Q . K^T and dP = dO . V^T, 16 x 64 per warp
+    float s[kB / 8][4] = {}, dp[kB / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 16) {
+      unsigned qa[4], da[4];
+      ldsm(qa, Qs + a_off + kk);
+      ldsm(da, dOs + a_off + kk);
+#pragma unroll
+      for (int n = 0; n < kB; n += 16) {
+        unsigned kb[4], vb[4];
+        ldsm(kb, Kt + n * LDS + b_off + kk);
+        ldsm(vb, Vt + n * LDS + b_off + kk);
+        mma(s[n / 8], qa, kb[0], kb[1]);
+        mma(s[n / 8 + 1], qa, kb[2], kb[3]);
+        mma(dp[n / 8], da, vb[0], vb[1]);
+        mma(dp[n / 8 + 1], da, vb[2], vb[3]);
+      }
+    }
+    // dS = P * (dP * keep * keep_scale - delta), in place of S, fp32
+    unsigned kw[2][2] = {};
+    if (drop) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          kw[i][half] = keep[2 * rl[i] + half];
+    }
+#pragma unroll
+    for (int j = 0; j < kB / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, c = 8 * j + 2 * t4 + (e & 1);
+        const float bias = rowwise ? bias_term(brow[i], k0 + c, S) : ct[c];
+        const float p = q0 + rl[i] < S
+            ? expf(s[j][e] * scale + bias - lse_r[i]) : 0.f;
+        float d = dp[j][e];
+        if (drop) d = (kw[i][j >> 2] >> (c & 31)) & 1 ? d * keep_scale : 0.f;
+        s[j][e] = p * (d - delta_r[i]);
+      }
+    // dq += dS . K, dS rounded to bf16 in registers, K read transposed
+#pragma unroll
+    for (int c = 0; c < kB; c += 16) {
+      unsigned a[4];
+      a_from_acc(a, s[c / 8], s[c / 8 + 1]);
+#pragma unroll
+      for (int n = 0; n < D; n += 16) {
+        unsigned kb[4];
+        ldsm_t(kb, Kt + c * LDS + bt_off + n);
+        mma(acc[n / 8], a, kb[0], kb[1]);
+        mma(acc[n / 8 + 1], a, kb[2], kb[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + rl[i];
+    if (row >= S) continue;
+    bf16* drow = head_of(dq, sdq, b, h) + row * sdq.r;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(drow + 8 * j + 2 * t4) =
+          __floats2bfloat162_rn(acc[j][2 * i] * scale,
+                                acc[j][2 * i + 1] * scale);
+  }
+}
+
+// Per 64-key tile: dk, dv (and dbias) over all q-tiles; warp w owns keys
+// 16w..16w+15 of the tile and computes S^T = K . Q^T and dP^T = V . dO^T,
+// so that P^T and dS^T land in the accumulator layout, which is the A
+// layout of dV += P^T . dO and dK += dS^T . Q.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
+    attn_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, BiasView bv,
+                      const long long* __restrict__ seed,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, DBias db, Strides sq, Strides sk,
+                      Strides sv, Strides sdo, Strides sdk, Strides sdv,
+                      int H, int S, float scale, float p_drop,
+                      float keep_scale) {
+  constexpr int LDS = kLDS<D>, T = kB * LDS, NC = kDkdvCols<D>;
+  extern __shared__ __align__(16) unsigned char smem16[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem16);
+  bf16* Vs = Ks + T;
+  bf16* Qs = Vs + T;                               // [2][kB][LDS]
+  bf16* dOs = Qs + 2 * T;                          // [2][kB][LDS]
+  float* Lr = reinterpret_cast<float*>(dOs + 2 * T);  // [2][kB] lse
+  float* Dr = Lr + 2 * kB;                         // [2][kB] delta
+  unsigned* Keep = reinterpret_cast<unsigned*>(Dr + 2 * kB);  // [2][kB][2]
+
+  const int k0 = blockIdx.x * kB, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h, tid = threadIdx.x, lane = tid & 31;
+  const int w = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const int nk = min(kB, S - k0);
+  // q-tile q0 (its Q, dO, lse and delta rows) into buffer buf
+  auto load_q_tile = [&](int q0, int buf) {
+    const int nq = min(kB, S - q0), bb = late(b, q0), hh = late(h, q0);
+    load_tile_async<D>(Qs + buf * T, head_of(q, sq, bb, hh) + q0 * sq.r,
+                       sq.r, nq);
+    load_tile_async<D>(dOs + buf * T, head_of(dout, sdo, bb, hh) + q0 * sdo.r,
+                       sdo.r, nq);
+    if (tid < kB) {
+      const bool live = tid < nq;
+      const size_t at = static_cast<size_t>(bh) * S + q0 + (live ? tid : 0);
+      cp_async4(Lr + buf * kB + tid, lse + at, live);
+      cp_async4(Dr + buf * kB + tid, delta + at, live);
+    }
+    cp_async_commit();
+  };
+  load_tile_async<D>(Ks, head_of(k, sk, b, h) + k0 * sk.r, sk.r, nk);
+  load_tile_async<D>(Vs, head_of(v, sv, b, h) + k0 * sv.r, sv.r, nk);
+  load_q_tile(0, 0);
+  const bool drop = p_drop > 0.f;
+  const bool acc_heads = db.ptr && db.heads == 1 && H > 1;
+  const bool reduce_rows = db.ptr && db.rows == 1;
+  const bool rowwise = bv.ptr && bv.sr != 0;  // a bias row per query
+  const int key0 = k0 + 16 * w + g;  // the thread's keys: key0, key0 + 8
+  float colsum[2] = {0.f, 0.f};
+  const int a_off = 16 * w * LDS + a_offset<LDS>(lane);
+  const int b_off = b_offset<LDS>(lane);
+  float adk[D / 8][4] = {}, adv[D / 8][4] = {};
+
+  for (int q0 = 0; q0 < S; q0 += kB) {
+    const int buf = (q0 / kB) & 1;
+    const bf16* Qt = Qs + buf * T;
+    const bf16* dOt = dOs + buf * T;
+    const float* lt = Lr + buf * kB;
+    const float* dt = Dr + buf * kB;
+    unsigned* const keep = Keep + buf * 2 * kB;
+    if (drop) keep_bits(seed_key(seed), q0, k0, bh, p_drop, keep);
+    cp_async_wait_all();
+    __syncthreads();  // tile q0 has landed; tile q0 - kB is consumed
+    if (q0 + kB < S) load_q_tile(q0 + kB, buf ^ 1);
+#pragma unroll 1  // one chunk's fragments live at a time
+    for (int c0 = 0; c0 < kB; c0 += NC) {
+      // S^T = K . Q^T and dP^T = V . dO^T, 16 keys x NC queries per warp
+      float s[NC / 8][4] = {}, dp[NC / 8][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < D; kk += 16) {
+        unsigned ka[4], va[4];
+        ldsm(ka, Ks + a_off + kk);
+        ldsm(va, Vs + a_off + kk);
+#pragma unroll
+        for (int n = 0; n < NC; n += 16) {
+          unsigned qb[4], ob[4];
+          ldsm(qb, Qt + (c0 + n) * LDS + b_off + kk);
+          ldsm(ob, dOt + (c0 + n) * LDS + b_off + kk);
+          mma(s[n / 8], ka, qb[0], qb[1]);
+          mma(s[n / 8 + 1], ka, qb[2], qb[3]);
+          mma(dp[n / 8], va, ob[0], ob[1]);
+          mma(dp[n / 8 + 1], va, ob[2], ob[3]);
+        }
+      }
+      // P^T (dropped) in place of S^T, dS^T in place of dP^T, fp32; dbias
+      // from the fp32 dS. The bias and dbias addresses are formed here
+      // from late() copies of b and h, not kept live across the products:
+      // that keeps dk/dv within the 168 registers of three blocks an SM.
+      const int bb = late(b, c0), hh = late(h, c0);
+      const float* brow0 = bias_row(bv, bb, hh, 0);
+      // a row-broadcast bias at the thread's two keys, read before any
+      // dbias store (which the compiler must assume may alias it)
+      const float bkey[2] = {bias_term(brow0, key0, S),
+                             bias_term(brow0, key0 + 8, S)};
+      float* db_base =
+          db.ptr ? db.ptr + (static_cast<size_t>(bb) * db.heads +
+                             (db.heads == 1 ? 0 : hh)) * db.rows * S
+                 : nullptr;
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, c = c0 + 8 * j + 2 * t4 + (e & 1);
+          const int row = q0 + c, key = key0 + 8 * i;
+          const float bias = rowwise
+              ? bias_term(brow0 + min(row, S - 1) * bv.sr, key, S)
+              : bkey[i];
+          const float p = row < S
+              ? expf(s[j][e] * scale + bias - lt[c]) : 0.f;
+          float pd = p, d = dp[j][e];
+          if (drop) {
+            const bool kept = (keep[2 * c + (w >> 1)] >> (key & 31)) & 1;
+            pd = kept ? p * keep_scale : 0.f;
+            d = kept ? d * keep_scale : 0.f;
+          }
+          const float ds = p * (d - dt[c]);
+          if (db.ptr && row < S && key < S) {
+            if (reduce_rows) {
+              colsum[i] += ds;
+            } else if (acc_heads) {
+              atomicAdd(db_base + static_cast<size_t>(row) * S + key, ds);
+            } else {
+              db_base[static_cast<size_t>(row) * S + key] = ds;
+            }
+          }
+          s[j][e] = pd;
+          dp[j][e] = ds;
+        }
+      // P^T and dS^T as bf16 A operands, half the registers of the fp32
+      unsigned pa[NC / 16][4], sa[NC / 16][4];
+#pragma unroll
+      for (int c = 0; c < NC; c += 16) {
+        a_from_acc(pa[c / 16], s[c / 8], s[c / 8 + 1]);
+        a_from_acc(sa[c / 16], dp[c / 8], dp[c / 8 + 1]);
+      }
+      // dV += P^T . dO and dK += dS^T . Q, dO and Q read transposed
+#pragma unroll
+      for (int c = 0; c < NC; c += 16) {
+#pragma unroll
+        for (int n = 0; n < D; n += 16) {
+          unsigned ob[4], qb[4];
+          ldsm_t(ob, dOt + (c0 + c) * LDS + a_offset<LDS>(lane) + n);
+          mma(adv[n / 8], pa[c / 16], ob[0], ob[1]);
+          mma(adv[n / 8 + 1], pa[c / 16], ob[2], ob[3]);
+          ldsm_t(qb, Qt + (c0 + c) * LDS + a_offset<LDS>(lane) + n);
+          mma(adk[n / 8], sa[c / 16], qb[0], qb[1]);
+          mma(adk[n / 8 + 1], sa[c / 16], qb[2], qb[3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 8 * i;
+    if (key >= S) continue;
+    bf16* dkrow = head_of(dk, sdk, b, h) + key * sdk.r;
+    bf16* dvrow = head_of(dv, sdv, b, h) + key * sdv.r;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dkrow + 8 * j + 2 * t4) =
+          __floats2bfloat162_rn(adk[j][2 * i] * scale,
+                                adk[j][2 * i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvrow + 8 * j + 2 * t4) =
+          __floats2bfloat162_rn(adv[j][2 * i], adv[j][2 * i + 1]);
+    }
+  }
+  if (reduce_rows) {  // over the four lanes that share a key, fixed order
+    float* db_base = db.ptr + (static_cast<size_t>(b) * db.heads +
+                               (db.heads == 1 ? 0 : h)) * S;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      colsum[i] += __shfl_xor_sync(0xffffffffu, colsum[i], 1);
+      colsum[i] += __shfl_xor_sync(0xffffffffu, colsum[i], 2);
+      const int key = key0 + 8 * i;
+      if (t4 == 0 && key < S) {
+        if (acc_heads)
+          atomicAdd(db_base + key, colsum[i]);
+        else
+          db_base[key] = colsum[i];
+      }
+    }
+  }
+}
+
 template <int D>
 constexpr size_t smem_fwd() { return sizeof(float) * (3 * kB * (D + 1) + kB * kLP); }
 template <int D>
@@ -586,6 +1142,17 @@ constexpr size_t smem_dq() {
 template <int D>
 constexpr size_t smem_dkdv() {
   return sizeof(float) * (4 * kB * (D + 1) + 2 * kB * kLP + 2 * kB);
+}
+
+template <int D>
+constexpr size_t smem_dq_mma() {
+  return sizeof(bf16) * 6 * kB * kLDS<D> + sizeof(float) * 3 * kB +
+         sizeof(unsigned) * 4 * kB;
+}
+template <int D>
+constexpr size_t smem_dkdv_mma() {
+  return sizeof(bf16) * 6 * kB * kLDS<D> + sizeof(float) * 4 * kB +
+         sizeof(unsigned) * 4 * kB;
 }
 
 template <typename K>
@@ -621,8 +1188,43 @@ int run_fwd(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int run_dq(const Args& a) {
+template <int D>
+int run_dq_mma(const Args& a) {
+  auto kernel = attn_bwd_dq_mma<D>;
+  if (int e = set_smem(kernel, smem_dq_mma<D>())) return e;
+  const dim3 grid((a.S + kB - 1) / kB, a.H, a.B);
+  kernel<<<grid, kMmaThreads, smem_dq_mma<D>(), a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v),
+      BiasView{static_cast<const float*>(a.bias), a.sb, a.sh, a.sr},
+      static_cast<const long long*>(a.seed), static_cast<const bf16*>(a.o),
+      static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<float*>(a.delta), static_cast<bf16*>(a.dq), a.sq, a.sk,
+      a.sv, a.so, a.sdo, a.sdq, a.H, a.S, a.scale, a.p_drop, a.keep_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int run_dkdv_mma(const Args& a) {
+  auto kernel = attn_bwd_dkdv_mma<D>;
+  if (int e = set_smem(kernel, smem_dkdv_mma<D>())) return e;
+  const dim3 grid((a.S + kB - 1) / kB, a.H, a.B);
+  kernel<<<grid, kMmaThreads, smem_dkdv_mma<D>(), a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v),
+      BiasView{static_cast<const float*>(a.bias), a.sb, a.sh, a.sr},
+      static_cast<const long long*>(a.seed), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+      DBias{static_cast<float*>(a.dbias), a.dbias_heads, a.dbias_rows},
+      a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.H, a.S, a.scale, a.p_drop,
+      a.keep_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int run_dq_simt(const Args& a) {
+  using T = float;
   auto kernel = attn_bwd_dq<T, D>;
   if (int e = set_smem(kernel, smem_dq<D>())) return e;
   const dim3 grid((a.S + kB - 1) / kB, a.H, a.B);
@@ -637,8 +1239,9 @@ int run_dq(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int run_dkdv(const Args& a) {
+template <int D>
+int run_dkdv_simt(const Args& a) {
+  using T = float;
   auto kernel = attn_bwd_dkdv<T, D>;
   if (int e = set_smem(kernel, smem_dkdv<D>())) return e;
   const dim3 grid((a.S + kB - 1) / kB, a.H, a.B);
@@ -653,6 +1256,25 @@ int run_dkdv(const Args& a) {
       a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.H, a.S, a.scale, a.p_drop,
       a.keep_scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The backward: bf16 on the tensor cores, fp32 on the SIMT kernels.
+template <typename T, int D>
+int run_dq(const Args& a) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    return run_dq_mma<D>(a);
+  } else {
+    return run_dq_simt<D>(a);
+  }
+}
+
+template <typename T, int D>
+int run_dkdv(const Args& a) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    return run_dkdv_mma<D>(a);
+  } else {
+    return run_dkdv_simt<D>(a);
+  }
 }
 
 // which: 0 forward, 1 dq (+ delta), 2 dk/dv (+ dbias); head width d in
@@ -671,6 +1293,24 @@ int dispatch(int which, const Args& a) {
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef PT_RUN
+}
+
+// dynamic shared memory a block of kernel ``which`` takes
+template <typename T>
+size_t smem_of(int which, int d) {
+  constexpr bool kMma = std::is_same<T, bf16>::value;
+#define PT_SMEM(D)                                                   \
+  return which == 0 ? smem_fwd<D>()                                 \
+       : which == 1 ? (kMma ? smem_dq_mma<D>() : smem_dq<D>())      \
+                    : (kMma ? smem_dkdv_mma<D>() : smem_dkdv<D>())
+  switch (d) {
+    case 16: PT_SMEM(16);
+    case 32: PT_SMEM(32);
+    case 64: PT_SMEM(64);
+    case 128: PT_SMEM(128);
+    default: return 0;
+  }
+#undef PT_SMEM
 }
 
 int run(int which, int bf16, const Args& a) {
@@ -756,6 +1396,13 @@ int pt_fused_attention_bwd_dkdv(int bf16, const void* q, const void* k,
   a.scale = scale; a.p_drop = p_drop; a.keep_scale = keep_scale;
   a.stream = static_cast<cudaStream_t>(stream);
   return run(2, bf16, a);
+}
+
+// bytes of dynamic shared memory a block of the forward (which 0), dq (1)
+// or dk/dv (2) kernel takes at head width d (0 for a width not built)
+long long pt_fused_attention_smem(int which, int bf16, int d) {
+  return static_cast<long long>(bf16 ? smem_of<__nv_bfloat16>(which, d)
+                                     : smem_of<float>(which, d));
 }
 
 }  // extern "C"

@@ -1,0 +1,129 @@
+"""What keeps the card-side checks of the fused-attention kernels in step
+with their source, checked on the CPU:
+
+* every planted fault of ``tools/attention_fault_check.py`` plants into a
+  copy of the current ``csrc/fused_attention.cu`` (each text it replaces
+  occurs the stated number of times), so an edit of the kernels that
+  would leave a fault unplanted fails here, not after a chip run;
+* the wrappers' row-alignment rule (``_rows``): a bfloat16 operand whose
+  rows do not all start on a 16-byte boundary, which the bf16 backward
+  kernels copy with 16-byte ``cp.async``, is copied contiguous, and no
+  other operand is.
+"""
+
+import importlib.util
+import os
+import shutil
+
+import pytest
+import torch
+
+from paddle_tpu_torch.kernels import attention as A
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _fault_check():
+    spec = importlib.util.spec_from_file_location(
+        "attention_fault_check",
+        os.path.join(ROOT, "tools", "attention_fault_check.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+FC = _fault_check()
+
+
+@pytest.mark.parametrize("fault", sorted(FC.FAULTS))
+def test_fault_plants_into_current_source(tmp_path, fault):
+    src = os.path.join(ROOT, FC.SOURCE)
+    dst = os.path.join(str(tmp_path), FC.SOURCE)
+    os.makedirs(os.path.dirname(dst))
+    shutil.copy(src, dst)
+    FC.plant(str(tmp_path), fault)
+    with open(src) as f:
+        sound = f.read()
+    with open(dst) as f:
+        planted = f.read()
+    assert (planted == sound) == (fault == "sound")
+    for old, new, count in FC.FAULTS[fault]:
+        assert sound.count(old) == count, (old, count)
+        assert planted.count(new) >= count, new
+
+
+def test_every_fault_reaches_both_backward_routes():
+    """Each fault but the tensor-core one changes a line of the fp32
+    SIMT kernels and one of the bf16 tensor-core kernels."""
+    with open(os.path.join(ROOT, FC.SOURCE)) as f:
+        text = f.read()
+    mma_start = text.index("// ---- bf16 backward on the tensor cores")
+    for fault, subs in FC.FAULTS.items():
+        at = [i for old, _, _ in subs for i in _find_all(text, old)]
+        if fault == "sound":
+            assert not at
+        elif fault == "k_not_transposed":
+            assert at and all(i > mma_start for i in at)
+        else:
+            assert any(i < mma_start for i in at), fault
+            assert any(i > mma_start for i in at), fault
+
+
+def _find_all(text, sub):
+    i = text.find(sub)
+    while i >= 0:
+        yield i
+        i = text.find(sub, i + 1)
+
+
+def _bf16(*shape):
+    g = torch.Generator().manual_seed(len(shape))
+    return torch.randn(*shape, generator=g).to(torch.bfloat16)
+
+
+def _views():
+    """(name, operand, copied?) on CPU bfloat16 and float32 tensors."""
+    B, S, H, d = 2, 6, 3, 16
+    flat = _bf16(B * H * S * d + 1)
+    qkv = _bf16(B, S, 3 * H * d)
+    wide = _bf16(B, H, S, d + 4)
+    one = _bf16(1, 1, 1, 8 * S * d + 3)
+    return [
+        ("contiguous", _bf16(B, H, S, d), False),
+        ("packed_heads", A._split_heads(_bf16(B, S, H * d), H), False),
+        ("qkv_slice", A._split_heads(qkv[..., H * d:2 * H * d], H), False),
+        ("offset_one_element", flat[1:].view(B, H, S, d), True),
+        ("row_stride_d_plus_4", wide[..., :d], True),
+        ("rows_not_contiguous", _bf16(B, H, d, S).transpose(2, 3), True),
+        # a dimension of size 1 takes any stride
+        ("odd_stride_of_size_one", one[..., :S * d].view(1, 1, S, d)
+         .as_strided((1, 1, S, d), (3, 5, d, 1)), False),
+        ("float32_offset", torch.zeros(B * H * S * d + 1)[1:]
+         .view(B, H, S, d), False),
+    ]
+
+
+@pytest.mark.parametrize("name,t,copied", _views(),
+                         ids=[v[0] for v in _views()])
+def test_rows_copies_exactly_the_misaligned_operands(name, t, copied):
+    got = A._rows(t)
+    assert (got.data_ptr() != t.data_ptr()) == copied, name
+    assert torch.equal(got, t)
+    assert A._rows_aligned(got)
+    if copied:
+        assert got.is_contiguous() and got.data_ptr() % 16 == 0
+
+
+def test_backward_wrappers_refuse_a_misaligned_bf16_operand():
+    """The dq and dk/dv wrappers check what ``_rows`` ensures: a
+    bfloat16 operand whose rows are not 16-byte aligned is refused, one
+    that is passes, and float32 takes any row address."""
+    B, H, S, d = 1, 2, 4, 16
+    q = _bf16(B, H, S, d)
+    bad = _bf16(B * H * S * d + 1)[1:].view(B, H, S, d)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        A._check_operand("k", bad, q, aligned=True)
+    A._check_operand("k", A._rows(bad), q, aligned=True)
+    A._check_operand("k", bad, q)
+    f32 = torch.zeros(B * H * S * d + 1)[1:].view(B, H, S, d)
+    A._check_operand("k", f32, f32, aligned=True)

@@ -602,6 +602,90 @@ def test_packed_equals_per_head_with_dropout(cuda_device):
         assert rel <= 1e-6, (dtype, rel)
 
 
+# The bf16 backward on the tensor cores (mma.sync, cp.async tiles) against
+# the plain version, under chip_smoke.py's LONG_RTOL: every head width,
+# ragged S, H 1 and an odd H in the packed layout, every bias shape (and
+# none), dropout on and off.
+@pytest.mark.parametrize("B,H,S,d,bias_shape,p,packed", [
+    (2, 3, 128, 16, (2, 1, 1, 128), 0.1, False),     # padding-mask shape
+    (2, 3, 77, 32, (2, 3, 77, 77), 0.0, False),      # per-row, ragged S
+    (2, 3, 1000, 64, (2, 1, 1000, 1000), 0.1, False),  # dbias by atomics
+    (1, 2, 200, 128, (1, 2, 1, 200), 0.1, False),    # per-head, widest
+    (1, 2, 1000, 16, None, 0.1, False),              # no bias, ragged
+    (2, 1, 77, 64, (2, 1, 1, 77), 0.0, True),        # H 1, ragged
+    (2, 5, 130, 64, (2, 5, 1, 130), 0.1, True),      # odd H, ragged
+    (2, 3, 256, 128, (1, 1, 1, 256), 0.0, True),     # batch-broadcast
+    (3, 4, 128, 16, (3, 4, 128, 128), 0.1, True),    # BERT-tiny heads
+])
+def test_bf16_backward_matches_plain(cuda_device, B, H, S, d, bias_shape, p,
+                                     packed):
+    dtype = torch.bfloat16
+    if packed:
+        q, k, v, do, bias = _packed_inputs(cuda_device, dtype, B, S, H, d,
+                                           bias_shape, S * H + d)
+        run = A.fused_attention_packed
+        plain = A._ref_fused_attention_packed
+        extra = {"n_heads": H}
+    else:
+        q, k, v, do, bias = _attn_inputs(cuda_device, dtype, B, H, S, d,
+                                         bias_shape, S * H + d)
+        run, plain, extra = A.fused_attention, A._ref_fused_attention, {}
+    seed = torch.tensor([S * 17 + d], dtype=torch.int64, device=cuda_device)
+    n0 = [w.launches for w in _FUSED_COUNTERS]
+    got = _grads(lambda q_, k_, v_, b_: run(
+        q_, k_, v_, b_, dropout_prob=p, seed=seed, **extra), q, k, v, bias,
+        do)
+    torch.cuda.synchronize()
+    assert [w.launches for w in _FUSED_COUNTERS] == [n + 1 for n in n0]
+    want = _grads(lambda q_, k_, v_, b_: plain(
+        q_, k_, v_, b_, *([H] if packed else []), d ** -0.5, p, seed),
+        q, k, v, bias, do)
+    torch.cuda.synchronize()
+    over = _rel_over(got, want, dtype)
+    assert not over, over
+
+
+def test_bf16_backward_copies_only_the_misaligned_operand(cuda_device,
+                                                          monkeypatch):
+    """q a view one element past a 16-byte boundary: the wrappers hand
+    the bf16 kernels a 16-byte-aligned contiguous copy of it, and k and
+    v as they are; the gradients match the plain version's."""
+    B, H, S, d = 2, 3, 96, 64
+    dtype = torch.bfloat16
+    q0, k, v, do, bias = _attn_inputs(cuda_device, dtype, B, H, S, d,
+                                      (B, 1, 1, S), 31)
+    flat = torch.empty(q0.numel() + 1, dtype=dtype, device=cuda_device)
+    q = flat[1:].view(B, H, S, d)
+    q.copy_(q0)
+    seen = {}
+    launch = A.fused_attention_bwd_dq_kernel
+
+    def spy(*args, **kwargs):
+        seen["ptrs"] = [t.data_ptr() for t in args[:3]]
+        return launch(*args, **kwargs)
+
+    spy.launches = 0
+    monkeypatch.setattr(A, "fused_attention_bwd_dq_kernel", spy)
+    n0 = A.fused_attention_bwd_dkdv_kernel.launches
+    leaves = [q.detach().requires_grad_(True)] + [
+        t.detach().clone().requires_grad_(True) for t in (k, v)]
+    out = A.fused_attention(*leaves, bias)
+    got = [out.detach()] + [g.float() for g in torch.autograd.grad(
+        out, leaves, do)]
+    torch.cuda.synchronize()
+    # the launcher counts on the name it sees: the spy
+    assert spy.launches == 1 and \
+        A.fused_attention_bwd_dkdv_kernel.launches == n0 + 1
+    qp, kp, vp = seen["ptrs"]
+    assert qp != q.data_ptr() and qp % 16 == 0
+    assert (kp, vp) == (leaves[1].data_ptr(), leaves[2].data_ptr())
+    want = _grads(lambda q_, k_, v_, b_: A._ref_fused_attention(
+        q_, k_, v_, b_, d ** -0.5, 0.0, None), q0, k, v, bias, do)
+    torch.cuda.synchronize()
+    over = _rel_over(got, want, dtype)
+    assert not over, over
+
+
 def test_packed_amp_bert_tiny_step_on_card_matches_cpu(cuda_device):
     """One BERT-tiny AMP step with use_fused_attention="packed" (bf16,
     dropout 0) on the card through the packed kernels, against the same

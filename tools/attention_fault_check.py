@@ -15,14 +15,23 @@ bert_packed phase's. Faults:
 
   sound         no fault: the readings the limits must clear;
   skip_tile     each kernel skips its second tile (keys 64-127 in the
-                forward and dq kernels, query rows 64-127 in dk/dv);
+                forward and dq kernels, query rows 64-127 in dk/dv; in
+                the bf16 tensor-core kernels the double-buffered copy of
+                the tile after it is skipped too);
   no_mask       the bias (the padding mask) is ignored;
   pair_by_head  the dropout mask is keyed on the head alone, not on
                 b * H + h, so every batch row draws the first row's mask;
-  row_stride_d  tiles are loaded with a row stride of d elements, as if
+  row_stride_d  tiles are loaded with a row stride of d elements (the
+                SIMT loads and the bf16 kernels' cp.async copies), as if
                 every operand were contiguous [B, H, S, d]: right there,
                 wrong in the packed layout, whose rows are H * d apart
-                (and right at H = 1).
+                (and right at H = 1);
+  k_not_transposed  the bf16 dq kernel reads K for dq += dS . K with
+                ldmatrix without .trans, so each 8 x 8 block of K enters
+                the product transposed.
+
+Every fault but k_not_transposed is planted in both the fp32 SIMT kernels
+and the bf16 tensor-core kernels.
 
 Prints one JSON line per (fault, case): each output's max |kernel -
 plain| over the plain output's largest magnitude, the limit chip_smoke
@@ -49,13 +58,16 @@ _Q_LOOP = "  for (int q0 = 0; q0 < S; q0 += kB) {\n"
 FAULTS = {
     "sound": [],
     "skip_tile": [
-        (_K_LOOP, _K_LOOP + "    if (k0 == kB) continue;\n", 2),
-        (_Q_LOOP, _Q_LOOP + "    if (q0 == kB) continue;\n", 1)],
+        (_K_LOOP, _K_LOOP + "    if (k0 == kB) continue;\n", 3),
+        (_Q_LOOP, _Q_LOOP + "    if (q0 == kB) continue;\n", 2)],
     "no_mask": [("  return s * scale + (brow ? brow[col] : 0.f);",
-                 "  return s * scale;", 1)],
-    "pair_by_head": [(", bh, p_drop, keep);", ", h, p_drop, keep);", 3)],
+                 "  return s * scale;", 1),
+                ("  return brow ? brow[col] : 0.f;", "  return 0.f;", 1)],
+    "pair_by_head": [(", bh, p_drop, keep);", ", h, p_drop, keep);", 5)],
     "row_stride_d": [("const long long stride = rs;",
-                      "const long long stride = D;", 1)],
+                      "const long long stride = D;", 2)],
+    "k_not_transposed": [("ldsm_t(kb, Kt + c * LDS + bt_off + n);",
+                          "ldsm(kb, Kt + c * LDS + bt_off + n);", 1)],
 }
 
 
