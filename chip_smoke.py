@@ -17,13 +17,17 @@ the script exits non-zero without its final line:
              same function, and the least time the card could take. The
              times are device time: the host's launch overhead is kept
              out of the timed span. Decode attention: ragged capacity,
-             causal window, wrapped ring, paged; fp32 and bf16. Fused
-             training attention (forward, and the backward's dq, dk, dv
-             and dbias; the bf16 backward on the tensor cores, its
-             TFLOP/s beside each backward time): BERT-base's shape
+             causal window, wrapped ring, paged; fp32 and bf16; untimed,
+             key rows of 16 and 192 bytes (bf16 d 8, fp32 d 48, bf16
+             d 96) and fp16. Fused training attention (forward, and the
+             backward's dq, dk, dv and dbias; the bf16 and fp16
+             backward on the tensor cores; TFLOP/s beside each time):
+             BERT-base's shape
              (batch 32, 12 heads of 64, S 512, padding-mask bias) at
              dropout 0.1 and 0, every other bias mode, a ragged S and
-             d 128; fp32 and bf16. The same
+             d 128; fp32 and bf16; untimed, head widths 48 and 80
+             (zero-padded to 64 and 128) in fp32, bf16 and fp16, and
+             fp16 at BERT-base's shape. The same
              kernels past S 1024, where they stand in for the TPU
              package's long and flash tiers: batch 1, 12 heads of 64, at
              S 2048, 4096 and 8192, p = 0, fp32 and bf16, each kernel of
@@ -104,14 +108,17 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS_PER_S = {torch.float32: 67e12,      # fp32, no tensor cores
-                  torch.bfloat16: 989e12}    # bf16 tensor cores, dense
+                  torch.bfloat16: 989e12,    # bf16 tensor cores, dense
+                  torch.float16: 989e12}     # fp16 the same
 REPS, WARMUP = 25, 3
 HOLD_CYCLES = 2_000_000            # about 1 ms of SM clock
 FP32_ATOL, BF16_ATOL = 2e-5, 2e-2
 # fused training attention, kernel vs plain, as a share of max(1, the
 # plain result's largest magnitude): fp32 sums in another order; bf16
-# outputs are rounded to bf16 by both, at different points
-FUSED_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# outputs are rounded to bf16 by both, at different points (fp16, with
+# three more mantissa bits, is held to bf16's limit)
+FUSED_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2,
+              torch.float16: 3e-2}
 PAGED_VS_DENSE_ATOL = 1e-6
 # whole-model fp32 step, kernel vs plain: about ten times the 1.1e-6 to
 # 1.3e-6 read on the H100 (PERF.md), so a wrong live window in one layer
@@ -134,21 +141,25 @@ def kernel_resources(_build, A):
     """Each fused-attention kernel's registers and spills, as ptxas
     reported them when this build compiled it (``-Xptxas -v``, kept in
     ``_build/fused_attention.log``), and its dynamic shared memory a
-    block, from the library itself."""
+    block, from the library itself; one record per kernel, head width
+    and type."""
     with open(os.path.join(_build.BUILD_DIR, "fused_attention.log")) as f:
         log = f.read()
+    types = {"f": ("float", torch.float32),
+             "13__nv_bfloat16": ("bf16", torch.bfloat16),
+             "6__half": ("f16", torch.float16)}
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?(attn_\w+?)I"
-                      r"(f|13__nv_bfloat16)?Li(\d+)E", line)
+                      r"(f|13__nv_bfloat16|6__half)Li(\d+)E", line)
         if m:
-            kind = {"f": "float", None: "bf16"}.get(m.group(2), "bf16")
+            kind, dtype = types[m.group(2)]
             cur = dict(kernel="%s<%s, %s>" % (m.group(1), kind, m.group(3)),
                        d=int(m.group(3)))
             which = {"attn_fwd": 0, "attn_bwd_dq": 1, "attn_bwd_dkdv": 2,
                      "attn_bwd_dq_mma": 1, "attn_bwd_dkdv_mma": 2}[m.group(1)]
             cur["smem_bytes"] = A.fused_attention_smem_bytes(
-                which, kind == "bf16", cur["d"])
+                which, dtype, cur["d"])
             continue
         if cur is None:
             continue
@@ -234,6 +245,30 @@ def dense_case(A, dev, gen, flush, name, B, H, Q, C, d, lens, dtype,
         bound_ms=b_ms, bound_by=b_by)
     emit(phase="kernels", kernel="decode_attention", **rec)
     return rec
+
+
+def decode_width_check(A, dev, gen, dtype, d):
+    """Untimed: the dense decode kernel at a key row of d * itemsize
+    bytes that is not a power of two of 16-byte pieces (or a 16-byte
+    row, one lane), against the plain version; ragged lengths, a wrapped
+    ring."""
+    B, H, C = 8, 4, 300
+    q, k, v = (torch.randn(*s, device=dev, generator=gen).to(dtype)
+               for s in ((B, H, 1, d), (B, H, C, d), (B, H, C, d)))
+    cache_len = torch.tensor([1, 2, 63, 64, 65, 299, 300, 777],
+                             dtype=torch.int32, device=dev)
+    got = A.attention_with_cache(q, k, v, cache_len)
+    want = A._ref_attention_cache(q, k, v, cache_len, d ** -0.5)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    atol = FP32_ATOL if dtype == torch.float32 else BF16_ATOL
+    if not err <= atol:
+        raise AssertionError("decode d %d %s: kernel vs plain max |err| %g "
+                             "> %g" % (d, dtype, err, atol))
+    emit(phase="kernels", kernel="decode_attention_width", d=d,
+         dtype=str(dtype), row_bytes=d * q.element_size(),
+         lanes=A.decode_lanes(d * q.element_size()), max_abs_err=err,
+         atol=atol)
 
 
 def paged_case(A, dev, gen, flush):
@@ -380,7 +415,8 @@ def fused_case(A, dev, gen, flush, name, B, H, S, d, bias_shape, p, dtype):
                                                scale=scale),
                 lib_leaves, do), flush),
             bound_ms=b_ms, bound_by=b_by))
-    rec["bwd"]["tflops"] = achieved_tflops(q, "bwd", rec["bwd"]["kernel_ms"])
+    for kind in ("fwd", "bwd"):
+        rec[kind]["tflops"] = achieved_tflops(q, kind, rec[kind]["kernel_ms"])
     emit(phase="kernels", kernel="fused_attention", **rec)
     return rec
 
@@ -479,17 +515,17 @@ def long_bound(q, bias, kind):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# the products each backward kernel computes, in units of B*H*S^2*d
-# operations: dq 6 (q.k^T and dO.v^T again, dS.k), dk/dv 8 (q.k^T and
-# dO.v^T again, P^T.dO, dS^T.q), the pair 14
-BWD_UNITS = {"dq": 6, "dkdv": 8, "bwd": 14}
+# the products each kernel computes, in units of B*H*S^2*d operations:
+# the forward 4 (q.k^T, p.v), dq 6 (q.k^T and dO.v^T again, dS.k), dk/dv
+# 8 (q.k^T and dO.v^T again, P^T.dO, dS^T.q), the backward pair 14
+KERNEL_UNITS = {"fwd": 4, "dq": 6, "dkdv": 8, "bwd": 14}
 
 
 def achieved_tflops(q, kind, ms):
-    """TFLOP/s of backward kernel ``kind`` on q [B, H, S, d] in ``ms``,
-    counted on the work it does (BWD_UNITS)."""
+    """TFLOP/s of kernel ``kind`` on q [B, H, S, d] in ``ms``, counted
+    on the work it does (KERNEL_UNITS)."""
     B, H, S, d = q.shape
-    return BWD_UNITS[kind] * B * H * S * S * d / (ms * 1e-3) / 1e12
+    return KERNEL_UNITS[kind] * B * H * S * S * d / (ms * 1e-3) / 1e12
 
 
 LONG_OUTPUTS = ("out", "lse", "dq", "dk", "dv", "dbias")
@@ -508,6 +544,9 @@ LONG_RTOL = {
                         dbias=1e-4),
     torch.bfloat16: dict(out=1e-2, lse=1e-5, dq=1e-2, dk=1e-2, dv=1e-2,
                          dbias=1e-2)}
+# float16 runs the same kernels as bfloat16 with three more mantissa
+# bits: bf16's limits hold it
+LONG_RTOL[torch.float16] = LONG_RTOL[torch.bfloat16]
 
 
 def long_case_list():
@@ -646,6 +685,8 @@ def long_case(A, dev, flush, case, timed):
                 q, k, v, attn_mask=bias.to(dtype), scale=scale), flush),
             bound_ms=f_ms, bound_by=f_by,
             max_abs_err=max(rec["max_abs_err"][x] for x in ("out", "lse")))
+        rec["fwd"]["tflops"] = achieved_tflops(q, "fwd",
+                                               rec["fwd"]["kernel_ms"])
     if timed and backward:
         leaves = [t.detach().clone().requires_grad_(True)
                   for t in (q, k, v, bias)]
@@ -809,6 +850,8 @@ def packed_case(A, dev, flush, case):
             library_ms=time_ms(lambda: library(*packed), flush),
             bound_ms=f_ms, bound_by=f_by,
             max_abs_err=max(rec["max_abs_err"][x] for x in ("out", "lse")))
+        rec["fwd"]["tflops"] = achieved_tflops(q, "fwd",
+                                               rec["fwd"]["kernel_ms"])
         leaves = [t.detach().clone().requires_grad_(True)
                   for t in packed + [bias]]
         ref = A._ref_fused_attention_packed(*leaves, H, scale, p, seed)
@@ -900,9 +943,47 @@ def packed_equals_per_head(A, dev):
          dropout=p, bit_equal=equal, dbias_rel=dbias_rel)
 
 
+def width_case(A, dev, name, B, H, S, d, p, dtype):
+    """Untimed: ``fused_attention`` (the entry every route takes, which
+    zero-pads a head width the kernels are not built for) forward and
+    backward against the plain version, padding mask, each output held
+    to LONG_RTOL relative to the plain output's largest magnitude."""
+    gen = torch.Generator(device=dev).manual_seed(zlib.crc32(name.encode()))
+    q, k, v, do = (torch.randn(B, H, S, d, device=dev, generator=gen)
+                   .to(dtype) for _ in range(4))
+    lens = torch.randint(S // 2, S + 1, (B, 1), device=dev, generator=gen)
+    bias = torch.where(torch.arange(S, device=dev)[None] < lens, 0.0,
+                       -1e4).view(B, 1, 1, S)
+    seed = torch.tensor([7919 * S + d], dtype=torch.int64, device=dev)
+    got, want = [], []
+    for fn, out in ((lambda *t: A.fused_attention(
+            *t, dropout_prob=p, seed=seed), got),
+            (lambda *t: A._ref_fused_attention(*t, d ** -0.5, p, seed),
+             want)):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (q, k, v, bias)]
+        o = fn(*leaves)
+        out.extend([o.detach()] + list(torch.autograd.grad(o, leaves, do)))
+    torch.cuda.synchronize()
+    rtol = LONG_RTOL[dtype]
+    rel = {}
+    for key, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
+        rel[key] = ((a.float() - b.float()).abs().max() /
+                    b.float().abs().max()).item()
+        if not rel[key] <= rtol[key]:
+            raise AssertionError("%s: fused attention %s kernel vs plain "
+                                 "%g of the plain's largest magnitude > %g"
+                                 % (name, key, rel[key], rtol[key]))
+    emit(phase="kernels", kernel="fused_attention_width", name=name, B=B,
+         H=H, S=S, d=d, built_width=A.built_width(d), dtype=str(dtype),
+         dropout=p, rel_err=rel, rtol=rtol)
+
+
 def fused_cases(A, dev, gen, flush):
     """Every case of the fused kernels; returns the BERT path's fp32
-    record (dropout 0.1), the one the summary line reports."""
+    record (dropout 0.1), the one the summary line reports. Untimed,
+    head widths the kernels reach zero-padded (48, 80) in fp32, bf16 and
+    fp16, and fp16 at the BERT path's shape."""
     path = None
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
@@ -920,6 +1001,13 @@ def fused_cases(A, dev, gen, flush):
                    "padding", 0.1, dtype)
         fused_case(A, dev, gen, flush, "d128_" + tag, 8, 8, 512, 128,
                    "padding", 0.1, dtype)
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16"),
+                       (torch.float16, "f16")):
+        width_case(A, dev, "d48_" + tag, 4, 16, 512, 48, 0.1, dtype)
+        width_case(A, dev, "d80_" + tag, 4, 8, 384, 80, 0.0, dtype)
+    for p in (0.0, 0.1):
+        width_case(A, dev, "path_f16_p%g" % p, 32, 12, 512, 64, p,
+                   torch.float16)
     return path
 
 
@@ -1289,17 +1377,18 @@ def long_program(fluid, bert, S):
     return cfg, main, startup, loss, time.perf_counter() - t0
 
 
-def long_step_check(A, exe, fluid, bert, prog):
+def long_step_check(A, exe, fluid, bert, prog, data_seed=0):
     """One bf16 AMP step of ``prog`` (``long_program`` at LONG_CHECK_SEQ)
     on a batch of LONG_CHECK_BATCH with the kernels, and one with the
     plain attention, from one cloned scope and generator. Returns the
     record: the loss's relative difference and each watched tensor's
     first-moment difference as a share of its largest magnitude, beside
     their limits. Raises here only if a route launched the wrong
-    kernels."""
+    kernels. ``data_seed`` seeds the synthetic batch (the check's own
+    is 0; tools/step_check_spread.py reads others)."""
     cfg, main, startup, loss, _ = prog
     feed = bert.synthetic_batch(cfg, LONG_CHECK_BATCH, LONG_CHECK_SEQ,
-                                seed=0)
+                                seed=data_seed)
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
     res = {}
@@ -1462,14 +1551,15 @@ def plain_packed_attention(A):
         A.fused_attention_packed = saved
 
 
-def packed_step_check(A, exe, fluid, bert, prog):
+def packed_step_check(A, exe, fluid, bert, prog, data_seed=0):
     """One bf16 AMP step of ``prog`` (``packed_program``, BERT-base) on a
     batch of PACKED_CHECK_BATCH at S 128 with the packed kernels, and one
     with the plain packed attention, from one cloned scope and generator.
     Returns the record (as ``long_step_check``); raises here only if a
     route launched the wrong kernels."""
     cfg, main, startup, loss, _ = prog
-    feed = bert.synthetic_batch(cfg, PACKED_CHECK_BATCH, PACKED_SEQ, seed=0)
+    feed = bert.synthetic_batch(cfg, PACKED_CHECK_BATCH, PACKED_SEQ,
+                                seed=data_seed)
     # padding: the second row keeps 96 of its 128 tokens
     feed["input_mask"][1, 96:] = 0.0
     scope = fluid.Scope()
@@ -1776,6 +1866,9 @@ def main():
                    causal=True)
         dense_case(A, dev, gen, flush, "wrapped_" + tag, 64, 16, 1, 1024, 64,
                    list(range(1025, 1025 + 64 * 37, 37)), dtype)
+    for dtype, d in ((torch.bfloat16, 8), (torch.float32, 48),
+                     (torch.bfloat16, 96), (torch.float16, 64)):
+        decode_width_check(A, dev, gen, dtype, d)
     paged_rec = paged_case(A, dev, gen, flush)
     fused_rec = fused_cases(A, dev, gen, flush)
     long_rec, flash_rec = long_cases(A, dev, flush)

@@ -38,6 +38,12 @@ TPU tiers draw differently from one another.
 
 Each public function takes the plain PyTorch version for tensors on the
 CPU and the kernel for tensors on a CUDA device; anything else raises.
+The training kernels take float32, bfloat16 and float16 (the 16-bit
+backward on the tensor cores) and head widths 16, 32, 64 and 128;
+``flash_attention`` and ``flash_attention_backward``, which every route
+reaches, zero-pad any other d up to 128 to the next of these. The decode
+kernels take the same three types and key rows of any multiple of 16
+bytes up to 512.
 Every decode capacity goes to the kernel: the TPU package's capacity
 threshold for its kernel tier is not carried over.
 
@@ -52,6 +58,7 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..fluid import monitor as _monitor
 from . import _build
@@ -76,6 +83,8 @@ _M_BWD_DKDV_LAUNCH = _monitor.counter(
 
 
 # -- fused training attention -----------------------------------------------
+# the head widths the fused kernels are built for; ``flash_attention`` and
+# ``flash_attention_backward`` zero-pad any other d up to the next one
 _HEAD_DIMS = (16, 32, 64, 128)
 
 
@@ -193,10 +202,11 @@ def _ref_flash_attention(q, k, v, bias, scale, dropout_prob, seed):
                                 seed), lse
 
 
-def _ref_flash_attention_backward(q, k, v, bias, seed, do, scale,
+def _ref_flash_attention_backward(q, k, v, bias, seed, do, o, lse, scale,
                                   dropout_prob, bias_grad):
     """Plain version of ``flash_attention_backward``: autograd of the
-    plain forward (which recomputes what o and lse hold)."""
+    plain forward, which recomputes what ``o`` and ``lse`` hold (they are
+    not read)."""
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     want_db = bias is not None and bias_grad
     if want_db:
@@ -216,10 +226,17 @@ def flash_attention(q, k, v, bias=None, scale=None, dropout_prob=0.0,
     row logsumexp of the biased scores; the TPU package's lse is
     [B, H, S, 1]). Arguments as ``fused_attention``; not differentiable:
     ``flash_attention_backward`` is its backward. A CPU tensor takes the
-    plain version, a CUDA tensor the forward kernel."""
+    plain version, a CUDA tensor the forward kernel; a head width the
+    kernels are not built for is zero-padded (``padded_forward``), any d
+    up to 128."""
     scale, p = _scalars(q.shape[-1], scale, dropout_prob, seed)
     if q.device.type == "cpu":
         return _ref_flash_attention(q, k, v, bias, scale, p, seed)
+    return padded_forward(_launch_forward, q, k, v, bias, scale, p, seed)
+
+
+def _launch_forward(q, k, v, bias, scale, p, seed):
+    """The forward kernel on operands of a built head width."""
     q, k, v = (_rows(t) for t in (q, k, v))
     B, H, S, _ = q.shape
     bias_f, strides = _bias_operand(bias, B, H, S)
@@ -235,11 +252,19 @@ def flash_attention_backward(q, k, v, bias, seed, do, o, lse, scale=None,
     (dq, dk, dv in q's type, dbias fp32 reduced to the bias's own
     broadcast shape, or None without a bias or with ``bias_grad``
     False). A CPU tensor takes the plain version (autograd of the plain
-    forward), a CUDA tensor the dq kernel and then the dk/dv kernel."""
+    forward), a CUDA tensor the dq kernel and then the dk/dv kernel, on
+    operands zero-padded as the forward's (``padded_backward``)."""
     scale, p = _scalars(q.shape[-1], scale, dropout_prob, seed)
     if q.device.type == "cpu":
-        return _ref_flash_attention_backward(q, k, v, bias, seed, do, scale,
-                                             p, bias_grad)
+        return _ref_flash_attention_backward(q, k, v, bias, seed, do, o, lse,
+                                             scale, p, bias_grad)
+    return padded_backward(_launch_backward, q, k, v, bias, seed, do, o, lse,
+                           scale, p, bias_grad)
+
+
+def _launch_backward(q, k, v, bias, seed, do, o, lse, scale, p, bias_grad):
+    """The dq and dk/dv kernels on operands of a built head width; dbias
+    summed over a batch-broadcast bias's batch."""
     q, k, v = (_rows(t) for t in (q, k, v))
     B, H, S, _ = q.shape
     bias_f, strides = _bias_operand(bias, B, H, S)
@@ -251,10 +276,56 @@ def flash_attention_backward(q, k, v, bias, seed, do, o, lse, scale=None,
     return dq, dk, dv, dbias
 
 
+def built_width(d):
+    """The narrowest head width the fused kernels are built for
+    (``_HEAD_DIMS``) that holds ``d``; a d past 128 raises."""
+    for width in _HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError("the fused-attention kernels take head widths up to "
+                     "%d, got d = %d" % (_HEAD_DIMS[-1], d))
+
+
+def _pad_heads(t, width):
+    """``t`` [.., d] with zero columns appended up to ``width`` (``t``
+    itself, with its strides, when d is ``width`` already)."""
+    d = t.shape[-1]
+    return t if d == width else F.pad(t, (0, width - d))
+
+
+def padded_forward(forward, q, k, v, bias, scale, p, seed):
+    """``forward`` (q, k, v, bias, scale, p, seed) -> (o, lse), the
+    forward kernel's launch or the plain version, on q, k and v
+    zero-padded along d to ``built_width(d)``; o comes back sliced to d.
+    Zero columns add nothing to q·kᵀ, so lse is the true one, and v's
+    zero columns give o zero columns; ``scale`` is the true d's, fixed
+    before the padding."""
+    d = q.shape[-1]
+    width = built_width(d)
+    o, lse = forward(*(_pad_heads(t, width) for t in (q, k, v)), bias,
+                     scale, p, seed)
+    return o[..., :d], lse
+
+
+def padded_backward(backward, q, k, v, bias, seed, do, o, lse, scale, p,
+                    bias_grad):
+    """``backward`` (q, k, v, bias, seed, do, o, lse, scale, p, bias_grad)
+    -> (dq, dk, dv, dbias) on q, k, v, do and o zero-padded along d as
+    ``padded_forward``'s; dq, dk and dv come back sliced to d. The padded
+    columns of dq, dk and dv are zero (products with the zero columns of
+    k, q and do), and delta = rowsum(do·o) and dbias are unchanged."""
+    d = q.shape[-1]
+    width = built_width(d)
+    q, k, v, do, o = (_pad_heads(t, width) for t in (q, k, v, do, o))
+    dq, dk, dv, dbias = backward(q, k, v, bias, seed, do, o, lse, scale, p,
+                                 bias_grad)
+    return dq[..., :d], dk[..., :d], dv[..., :d], dbias
+
+
 def _rows(t):
     """``t`` as the kernels read it: any strides whose rows of d elements
     are contiguous pass as they are (a packed layout's heads, no copy),
-    a bfloat16 operand when every row also starts on a 16-byte boundary
+    a 16-bit operand when every row also starts on a 16-byte boundary
     (``_rows_aligned``); anything else is copied contiguous, into a
     fresh (aligned) buffer. The copy changes the layout only: every
     operand goes to the same kernels."""
@@ -263,17 +334,17 @@ def _rows(t):
     return t.clone(memory_format=torch.contiguous_format)
 
 
-# bytes the bf16 backward kernels copy a row in (16-byte cp.async)
+# bytes the tensor-core kernels copy a row in (16-byte cp.async)
 _ROW_ALIGN = 16
 
 
 def _rows_aligned(t):
-    """Whether each row of a bfloat16 [.., d] operand starts on a
-    16-byte boundary, as the bf16 backward kernels' copies need: its
-    first element aligned and every stride of a dimension longer than 1
-    (batch, head, row) a multiple of 8 elements. Other types pass: their
-    kernels read elements one by one."""
-    if t.dtype != torch.bfloat16:
+    """Whether each row of a 16-bit (bfloat16, float16) [.., d] operand
+    starts on a 16-byte boundary, as the tensor-core kernels' copies
+    need: its first element aligned and every stride of a dimension
+    longer than 1 (batch, head, row) a multiple of 8 elements. float32
+    passes: its kernels read elements one by one."""
+    if t.dtype not in _TENSOR_CORE_TYPES:
         return True
     step = _ROW_ALIGN // t.element_size()
     return t.data_ptr() % _ROW_ALIGN == 0 and all(
@@ -496,11 +567,27 @@ def paged_attention_cache(q, k_pool, v_pool, page_table, cache_len,
 
 
 # -- CUDA kernels -------------------------------------------------------------
-_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# a key row is copied in 16-byte pieces by a group of 2..32 lanes
-# (csrc/decode_attention.cu), so its bytes must be one of these
-_ROW_BYTES = (32, 64, 128, 256, 512)
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+           torch.float16: "f16"}
 _VOIDP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def decode_lanes(row_bytes):
+    """The lanes of a warp that cover one key row of ``row_bytes`` bytes
+    in the decode kernels (csrc/decode_attention.cu): the row's 16-byte
+    pieces rounded up to a power of two, 1 to 32; the lanes past the row
+    stay idle. A row that is not a multiple of 16 bytes from 16 to 512
+    raises."""
+    if row_bytes % 16:
+        raise ValueError("a decode key row must be a multiple of 16 bytes "
+                         "(d * itemsize), got %d" % row_bytes)
+    if not 16 <= row_bytes <= 512:
+        raise ValueError("a decode key row must span 16 to 512 bytes "
+                         "(d * itemsize), got %d" % row_bytes)
+    lanes = 1
+    while 16 * lanes < row_bytes:
+        lanes *= 2
+    return lanes
 
 
 def _entry(name, n_ptrs, n_ints):
@@ -534,13 +621,12 @@ def _check_q(q):
         raise ValueError("the decode-attention kernels take CUDA tensors, "
                          "got one on %s" % q.device)
     if q.dtype not in _DTYPES:
-        raise TypeError("the decode-attention kernels take float32 or "
-                        "bfloat16, got %s" % q.dtype)
-    if q.dim() != 4 or min(q.shape) < 1 or \
-            q.shape[3] * q.element_size() not in _ROW_BYTES:
-        raise ValueError("q must be [B, H, Q, d] with d * itemsize one of "
-                         "%s bytes, got %s %s" % (_ROW_BYTES, tuple(q.shape),
-                                                  q.dtype))
+        raise TypeError("the decode-attention kernels take float32, "
+                        "bfloat16 or float16, got %s" % q.dtype)
+    if q.dim() != 4 or min(q.shape) < 1:
+        raise ValueError("q must be [B, H, Q, d], got %s"
+                         % (tuple(q.shape),))
+    decode_lanes(q.shape[3] * q.element_size())
 
 
 def _raise_on(rc, what):
@@ -553,10 +639,11 @@ def decode_attention_kernel(q, k_cache, v_cache, cache_len, scale,
                             causal_window=False):
     """Launch the dense decode kernel (replaces ``_decode_fwd_kernel``,
     ``paddle_tpu/kernels/attention.py``): q [B, H, Q, d], k/v caches
-    [B, H, C, d] in q's dtype (float32 or bfloat16), cache_len [B] int32,
-    all contiguous on one CUDA device; a key row of d elements spans 32 to
-    512 bytes (a power of two) and the caches start 16-byte aligned, as
-    fresh allocations do. Returns a new [B, H, Q, d] tensor in q's dtype.
+    [B, H, C, d] in q's dtype (float32, bfloat16 or float16), cache_len
+    [B] int32, all contiguous on one CUDA device; a key row of d elements
+    spans a multiple of 16 bytes from 16 to 512 (``decode_lanes``) and
+    the caches start 16-byte aligned, as fresh allocations do. Returns a
+    new [B, H, Q, d] tensor in q's dtype.
 
     Bound on the card: the bytes of the live K and V rows over the HBM
     rate (3.35 TB/s on the H100 SXM); the kernel reads only live rows
@@ -627,7 +714,10 @@ paged_attention_kernel.launches = 0
 
 
 # -- fused training-attention CUDA kernels -----------------------------------
-_BF16 = {torch.float32: 0, torch.bfloat16: 1}
+# the type code of the C entries: float32 on the SIMT kernels, bfloat16
+# and float16 on the SIMT forward and the tensor-core backward
+_TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_TENSOR_CORE_TYPES = (torch.bfloat16, torch.float16)
 _I64 = ctypes.c_longlong
 
 
@@ -647,9 +737,9 @@ def _check_qkv(q, k, v, aligned=False):
     if q.device.type != "cuda":
         raise ValueError("the fused-attention kernels take CUDA tensors, "
                          "got one on %s" % q.device)
-    if q.dtype not in _BF16:
-        raise TypeError("the fused-attention kernels take float32 or "
-                        "bfloat16, got %s" % q.dtype)
+    if q.dtype not in _TYPE_CODES:
+        raise TypeError("the fused-attention kernels take float32, "
+                        "bfloat16 or float16, got %s" % q.dtype)
     if q.dim() != 4 or min(q.shape) < 1 or q.shape[3] not in _HEAD_DIMS:
         raise ValueError("q must be [B, H, S, d] with d in %s, got %s"
                          % (_HEAD_DIMS, tuple(q.shape)))
@@ -660,7 +750,7 @@ def _check_qkv(q, k, v, aligned=False):
 def _check_operand(name, t, q, aligned=False):
     """``t`` a [B, H, S, d] operand in q's device, type and shape whose d
     elements are contiguous (any batch, head and row strides >= 0); with
-    ``aligned``, a bfloat16 operand's rows also start on 16-byte
+    ``aligned``, a 16-bit operand's rows also start on 16-byte
     boundaries (``_rows_aligned``)."""
     if t.device != q.device:
         raise ValueError("%s is on %s, expected %s" % (name, t.device,
@@ -715,17 +805,20 @@ def _stream(dev):
 
 def fused_attention_fwd_kernel(q, k, v, bias, strides, seed, scale, p):
     """Launch the forward kernel (replaces ``_fwd_kernel``,
-    ``_fwd_kernel_long`` and ``_flash_fwd_kernel``,
-    ``paddle_tpu/kernels/attention.py``): q, k, v [B, H, S, d] of one type
-    (float32 or bfloat16, d in 16/32/64/128, any S) on one CUDA device,
-    each row of d elements contiguous; bias None or contiguous float32
-    read at element strides ``strides`` (batch, head, row; 0 broadcasts);
-    seed int64 [1] when ``p`` > 0. Returns (o [B, H, S, d] in q's type
-    and memory layout, lse [B, H, S] fp32).
+    ``_fwd_kernel_long``, ``_flash_fwd_kernel``, ``_packed_fwd_kernel``
+    and ``_res_fwd_kernel``, ``paddle_tpu/kernels/attention.py``): q, k, v
+    [B, H, S, d] of one type (float32, bfloat16 or float16, d in
+    16/32/64/128, any S) on one CUDA device, each row of d elements
+    contiguous; bias None or contiguous float32 read at element strides
+    ``strides`` (batch, head, row; 0 broadcasts); seed int64 [1] when
+    ``p`` > 0. Returns (o [B, H, S, d] in q's type and memory layout, lse
+    [B, H, S] fp32).
 
-    Bound on the card: operations, 4·B·H·S²·d at the peak rate of the
-    input type, from S 256 or so (below that, at d 64 in bf16, the bytes
-    of q, k, v and o; design note in ``csrc/fused_attention.cu``)."""
+    Bound on the card: 4·B·H·S²·d operations on the bytes of q, k, v and
+    o, S / itemsize operations a byte: in bf16 and fp16 the bytes up to
+    S 590, the tensor cores' rate above (fp32: the SIMT rate from S 80).
+    Every type runs on the SIMT cores in fp32 (design note in
+    ``csrc/fused_attention.cu``)."""
     _check_qkv(q, k, v)
     _check_extras(q, bias, strides, seed, p)
     o = torch.empty_like(q)
@@ -734,8 +827,8 @@ def fused_attention_fwd_kernel(q, k, v, bias, strides, seed, scale, p):
     fn = _fused_entry("pt_fused_attention_fwd",
                       "i" "pppp" "lll" "ppp" "p" "iiii" "fff" "p")
     with torch.cuda.device(q.device):
-        rc = fn(_BF16[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                _ptr(bias), *strides, _ptr(seed), o.data_ptr(),
+        rc = fn(_TYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), _ptr(bias), *strides, _ptr(seed), o.data_ptr(),
                 lse.data_ptr(), _strides(q, k, v, o), B, H, S, d,
                 float(scale), float(p), _keep_scale(p), _stream(q.device))
     _raise_on(rc, "fused-attention forward")
@@ -756,17 +849,17 @@ def fused_attention_bwd_dq_kernel(q, k, v, bias, strides, seed, o, lse,
     """Launch the dq kernel (with the dk/dv kernel it replaces
     ``_bwd_kernel`` and ``_bwd_kernel_long``; alone it replaces
     ``_flash_dq_kernel``): the forward's operands plus o, lse and dout
-    [B, H, S, d] in q's type; a bfloat16 operand's rows start on 16-byte
+    [B, H, S, d] in q's type; a 16-bit operand's rows start on 16-byte
     boundaries (``_rows`` copies one that does not). Returns (dq
     [B, H, S, d] in q's type and layout, delta [B, H, S] fp32 =
     rowsum(dout * o), which the dk/dv kernel reads).
 
     Bound on the card: operations, 6·B·H·S²·d (q·kᵀ and dO·vᵀ again, then
     dS·k) at the input type's peak, from S 256 or so at d 64 (below, the
-    bytes). bfloat16 runs on the tensor cores (``mma.sync`` m16n8k16, fp32
-    accumulators; K/V tiles double-buffered by ``cp.async``; dS rounded to
-    bf16 for its product); float32 on the SIMT cores (design note in
-    ``csrc/fused_attention.cu``)."""
+    bytes). bfloat16 and float16 run on the tensor cores (``mma.sync``
+    m16n8k16, fp32 accumulators; K/V tiles double-buffered by
+    ``cp.async``; dS rounded to q's type for its product); float32 on the
+    SIMT cores (design note in ``csrc/fused_attention.cu``)."""
     _check_qkv(q, k, v, aligned=True)
     _check_extras(q, bias, strides, seed, p)
     B, H, S, d = q.shape
@@ -778,8 +871,8 @@ def fused_attention_bwd_dq_kernel(q, k, v, bias, strides, seed, o, lse,
     fn = _fused_entry("pt_fused_attention_bwd_dq",
                       "i" "pppp" "lll" "pppppp" "p" "iiii" "fff" "p")
     with torch.cuda.device(q.device):
-        rc = fn(_BF16[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                _ptr(bias), *strides, _ptr(seed), o.data_ptr(),
+        rc = fn(_TYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), _ptr(bias), *strides, _ptr(seed), o.data_ptr(),
                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), _strides(q, k, v, o, dout, dq), B, H, S, d,
                 float(scale), float(p), _keep_scale(p), _stream(q.device))
@@ -803,9 +896,10 @@ def fused_attention_bwd_dkdv_kernel(q, k, v, bias, strides, seed, lse,
     [B, H, S, d] in k's and v's layouts, dbias or None).
 
     Bound on the card: operations, 8·B·H·S²·d (q·kᵀ and dO·vᵀ again, Pᵀ·dO
-    and dSᵀ·q), as the dq kernel. bfloat16 on the tensor cores: Sᵀ = k·qᵀ
-    and dPᵀ = v·dOᵀ, so Pᵀ and dSᵀ are A operands of the next products in
-    registers (rounded to bf16 there; dbias from the fp32 dS); Q, dO, lse
+    and dSᵀ·q), as the dq kernel. bfloat16 and float16 on the tensor
+    cores: Sᵀ = k·qᵀ and dPᵀ = v·dOᵀ, so Pᵀ and dSᵀ are A operands of the
+    next products in registers (rounded to q's type there; dbias from the
+    fp32 dS); Q, dO, lse
     and delta tiles double-buffered by ``cp.async``. float32 on the SIMT
     cores."""
     _check_qkv(q, k, v, aligned=True)
@@ -828,8 +922,8 @@ def fused_attention_bwd_dkdv_kernel(q, k, v, bias, strides, seed, lse,
     fn = _fused_entry("pt_fused_attention_bwd_dkdv",
                       "i" "pppp" "lll" "ppppppp" "ii" "p" "iiii" "fff" "p")
     with torch.cuda.device(q.device):
-        rc = fn(_BF16[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                _ptr(bias), *strides, _ptr(seed), dout.data_ptr(),
+        rc = fn(_TYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), _ptr(bias), *strides, _ptr(seed), dout.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), _ptr(dbias), heads, rows,
                 _strides(q, k, v, dout, dk, dv), B, H, S, d, float(scale),
@@ -858,14 +952,14 @@ def fused_attention_backward(q, k, v, bias, strides, seed, o, lse, dout,
     return dq, dk, dv, dbias
 
 
-def fused_attention_smem_bytes(which, bf16, d):
+def fused_attention_smem_bytes(which, dtype, d):
     """Dynamic shared memory a block of the forward (``which`` 0), dq (1)
-    or dk/dv (2) kernel takes at head width ``d``, in bfloat16 or
-    float32, as the library launches it (builds the library)."""
+    or dk/dv (2) kernel takes at head width ``d`` for operands of
+    ``dtype``, as the library launches it (builds the library)."""
     fn = getattr(_build.library("fused_attention"),
                  "pt_fused_attention_smem")
     fn.argtypes, fn.restype = [_INT, _INT, _INT], _I64
-    return int(fn(int(which), int(bool(bf16)), int(d)))
+    return int(fn(int(which), _TYPE_CODES[dtype], int(d)))
 
 
 def _dbias_shape(bias_grad, strides, B, H, S):

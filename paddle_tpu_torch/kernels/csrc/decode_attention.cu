@@ -22,9 +22,13 @@
 //     kStages - 1 tiles are in flight while the block does the math of the
 //     current one (K and V of a tile travel together);
 //   * the math reads rows with 16-byte shared loads: a group of L lanes
-//     covers one row (L = d * sizeof(T) / 16, a template parameter), each
-//     lane holding its slice of q in registers; a group's partial dot
-//     products meet by shuffles, those of a thread's rows interleaved;
+//     covers one row of d * sizeof(T) bytes, any multiple of 16 from 16
+//     to 512, each lane holding its 16-byte slice of q in registers; L is
+//     the row's 16-byte pieces rounded up to a power of two (1 to 32, a
+//     template parameter), and the lanes past the row (at 48, 96, 192 ...
+//     bytes) stay idle in loads and add zeros to the shuffles; a group's
+//     partial dot products meet by shuffles, those of a thread's rows
+//     interleaved;
 //   * the running max is block-wide, so every group rescales its share of
 //     the sum and of the accumulator by the same factor, and the groups'
 //     shares are added once at the end.
@@ -40,6 +44,7 @@
 // the gathered cache see identical tiles and agree bit for bit.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,9 +62,13 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store_f32(float v, float* p) { *p = v; }
 __device__ __forceinline__ void store_f32(float v, __nv_bfloat16* p) {
   *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store_f32(float v, __half* p) {
+  *p = __float2half(v);
 }
 
 // 16 bytes of shared memory -> kVec fp32 values.
@@ -74,6 +83,16 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* x) {
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(
         *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load16(const __half* p, float* x) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
     x[2 * i] = f.x;
     x[2 * i + 1] = f.y;
   }
@@ -130,35 +149,37 @@ struct PagedKV {
   }
 };
 
-// Start the copies of `n` key and value rows from logical column `col0`
-// into the stage buffers sk / sv ([kTile][D] each, rows packed), one
-// 16-byte piece per thread per step.
-template <typename T, int L, typename KV>
+// Start the copies of `n` key and value rows of D elements (`pieces`
+// 16-byte pieces) from logical column `col0` into the stage buffers sk /
+// sv ([kTile][D] each, rows packed), one piece per thread per step.
+template <typename T, typename KV>
 __device__ __forceinline__ void issue_tile(const KV& kv, const T* k,
                                            const T* v, int b, int h,
-                                           int col0, int n, T* sk, T* sv) {
-  constexpr int kVec = 16 / sizeof(T), D = L * kVec;
-  for (int c = threadIdx.x; c < n * L; c += kThreads) {
-    const int row = c / L, off = (c % L) * kVec;
+                                           int col0, int n, int pieces,
+                                           T* sk, T* sv) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int D = pieces * kVec;
+  for (int c = threadIdx.x; c < n * pieces; c += kThreads) {
+    const int row = c / pieces, off = (c % pieces) * kVec;
     const size_t src = kv.offset(b, h, col0 + row) + off;
     cp_async16(sk + row * D + off, k + src);
     cp_async16(sv + row * D + off, v + src);
   }
 }
 
-// L lanes cover one key row of D = L * 16 / sizeof(T) elements; the block
-// holds G = kThreads / L row groups, each taking R = kTile / G rows of a
-// tile (rows g, g + G, ...), so the R dot products of a thread are
-// independent and their shuffles interleave.
+// L lanes cover one key row of D elements (D * sizeof(T) / 16 <= L
+// pieces; lanes past them idle); the block holds G = kThreads / L row
+// groups, each taking R rows of a tile (rows g, g + G, ...; at L = 1 the
+// groups past the tile's 64 rows take none), so the R dot products of a
+// thread are independent and their shuffles interleave.
 template <typename T, int L, typename KV>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const T* __restrict__ q, const T* k, const T* v,
                             T* __restrict__ out, const int* __restrict__ lens,
-                            KV kv, int H, int Q, int capacity, float scale,
-                            int causal_window) {
-  constexpr int kVec = 16 / sizeof(T), D = L * kVec;
-  constexpr int G = kThreads / L, R = kTile / G;
-  static_assert(R >= 1 && kTile % G == 0, "tile rows must split over groups");
+                            KV kv, int H, int Q, int D, int capacity,
+                            float scale, int causal_window) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int G = kThreads / L, R = (kTile + G - 1) / G;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s_tiles = reinterpret_cast<T*>(smem_raw);  // [kStages][2][kTile][D]
   float* s_acc = reinterpret_cast<float*>(s_tiles + kStages * 2 * kTile * D);
@@ -169,6 +190,8 @@ __global__ void __launch_bounds__(kThreads)
   const int r = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31;
   const int g = tid / L, piece = tid % L;  // row group, 16-byte slice
+  const int pieces = D / kVec;
+  const bool live_lane = piece < pieces;   // lanes past the row idle
   const size_t qoff = ((static_cast<size_t>(b) * H + h) * Q + r) * D;
 
   const int valid = min(lens[b], capacity);
@@ -183,8 +206,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_tiles) {
       T* sk = s_tiles + s * 2 * kTile * D;
-      issue_tile<T, L>(src, k, v, b, h, s * kTile,
-                       min(kTile, n_cols - s * kTile), sk, sk + kTile * D);
+      issue_tile<T>(src, k, v, b, h, s * kTile,
+                    min(kTile, n_cols - s * kTile), pieces, sk,
+                    sk + kTile * D);
     }
     cp_async_commit();  // empty groups keep the count per tile uniform
   }
@@ -192,7 +216,7 @@ __global__ void __launch_bounds__(kThreads)
   float qv[kVec], acc[kVec];
 #pragma unroll
   for (int e = 0; e < kVec; ++e) {
-    qv[e] = to_f32(q[qoff + piece * kVec + e]);
+    qv[e] = live_lane ? to_f32(q[qoff + piece * kVec + e]) : 0.f;
     acc[e] = 0.f;
   }
   float m = kMasked, l = 0.f;
@@ -205,8 +229,9 @@ __global__ void __launch_bounds__(kThreads)
     const int nxt = i + kStages - 1;
     if (nxt < n_tiles) {
       T* sk = s_tiles + (nxt % kStages) * 2 * kTile * D;
-      issue_tile<T, L>(src, k, v, b, h, nxt * kTile,
-                       min(kTile, n_cols - nxt * kTile), sk, sk + kTile * D);
+      issue_tile<T>(src, k, v, b, h, nxt * kTile,
+                    min(kTile, n_cols - nxt * kTile), pieces, sk,
+                    sk + kTile * D);
     }
     cp_async_commit();
 
@@ -218,7 +243,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int rr = 0; rr < R; ++rr) {
       const int j = g + rr * G;
       float dot = 0.f;
-      if (j < n) {
+      if (j < n && live_lane) {
         float kx[kVec];
         load16(sk + j * D + piece * kVec, kx);
 #pragma unroll
@@ -256,18 +281,22 @@ __global__ void __launch_bounds__(kThreads)
       const int j = g + rr * G;
       if (j < n) {
         const float p = expf(sc[rr] - m_new);
-        float vx[kVec];
-        load16(sv + j * D + piece * kVec, vx);
         l += p;
+        if (live_lane) {
+          float vx[kVec];
+          load16(sv + j * D + piece * kVec, vx);
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) acc[e] = fmaf(p, vx[e], acc[e]);
+          for (int e = 0; e < kVec; ++e) acc[e] = fmaf(p, vx[e], acc[e]);
+        }
       }
     }
     m = m_new;
   }
 
+  if (live_lane) {
 #pragma unroll
-  for (int e = 0; e < kVec; ++e) s_acc[g * D + piece * kVec + e] = acc[e];
+    for (int e = 0; e < kVec; ++e) s_acc[g * D + piece * kVec + e] = acc[e];
+  }
   if (piece == 0) s_l[g] = l;
   __syncthreads();
   for (int t = tid; t < D; t += kThreads) {
@@ -282,9 +311,10 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int L, typename KV>
 int launch_rows(const T* q, const T* k, const T* v, T* out, const int* lens,
-                KV kv, int table_ints, int B, int H, int Q, int capacity,
-                float scale, int causal_window, cudaStream_t stream) {
-  constexpr int D = L * 16 / sizeof(T), G = kThreads / L;
+                KV kv, int table_ints, int B, int H, int Q, int D,
+                int capacity, float scale, int causal_window,
+                cudaStream_t stream) {
+  constexpr int G = kThreads / L;
   const size_t smem = sizeof(T) * kStages * 2 * kTile * D +
                       sizeof(float) * (G * D + G + kWarps) +
                       sizeof(int) * table_ints;
@@ -296,29 +326,34 @@ int launch_rows(const T* q, const T* k, const T* v, T* out, const int* lens,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(Q, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, out, lens, kv, H, Q,
+  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, out, lens, kv, H, Q, D,
                                            capacity, scale, causal_window);
   return static_cast<int>(cudaGetLastError());
 }
 
-// d * sizeof(T) must be 16 << k for k in 1..5 (2 to 32 lanes per row):
-// float32 d in {8, ..., 128}, bfloat16 d in {16, ..., 256}.
+// d * sizeof(T) must be a multiple of 16 from 16 to 512 bytes: float32
+// d in {4, 8, ..., 128}, bfloat16 and float16 d in {8, 16, ..., 256}. The
+// lanes a row takes: its 16-byte pieces rounded up to a power of two.
 template <typename T, typename KV>
 int launch(const T* q, const T* k, const T* v, T* out, const int* lens,
            KV kv, int table_ints, int B, int H, int Q, int d, int capacity,
            float scale, int causal_window, cudaStream_t stream) {
-  if (B < 1 || H < 1 || Q < 1 || capacity < 1)
+  const int row_bytes = d * static_cast<int>(sizeof(T));
+  if (B < 1 || H < 1 || Q < 1 || capacity < 1 || row_bytes < 16 ||
+      row_bytes > 512 || row_bytes % 16)
     return static_cast<int>(cudaErrorInvalidValue);
+  int lanes = 1;
+  while (lanes * 16 < row_bytes) lanes *= 2;
 #define PT_ROWS(L)                                                         \
-  launch_rows<T, L, KV>(q, k, v, out, lens, kv, table_ints, B, H, Q,       \
+  launch_rows<T, L, KV>(q, k, v, out, lens, kv, table_ints, B, H, Q, d,    \
                         capacity, scale, causal_window, stream)
-  switch (d * static_cast<int>(sizeof(T))) {
-    case 32: return PT_ROWS(2);
-    case 64: return PT_ROWS(4);
-    case 128: return PT_ROWS(8);
-    case 256: return PT_ROWS(16);
-    case 512: return PT_ROWS(32);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  switch (lanes) {
+    case 1: return PT_ROWS(1);
+    case 2: return PT_ROWS(2);
+    case 4: return PT_ROWS(4);
+    case 8: return PT_ROWS(8);
+    case 16: return PT_ROWS(16);
+    default: return PT_ROWS(32);
   }
 #undef PT_ROWS
 }
@@ -352,7 +387,8 @@ int paged(const void* q, const void* k_pool, const void* v_pool,
 // the launch (0 on success); the kernel runs on `stream` and does not
 // synchronise. All pointers are device pointers to contiguous tensors:
 // q/out [B, H, Q, d], k/v [B, H, C, d] or pools [P, H, ptok, d] (16-byte
-// aligned), lens [B] int32, table [B, npages] int32.
+// aligned), lens [B] int32, table [B, npages] int32; one entry per type
+// (f32, bf16, f16) and source.
 extern "C" {
 
 int pt_decode_attention_f32(const void* q, const void* k, const void* v,
@@ -387,6 +423,23 @@ int pt_paged_attention_bf16(const void* q, const void* k_pool,
                             void* stream) {
   return paged<__nv_bfloat16>(q, k_pool, v_pool, table, lens, out, B, H, Q,
                               d, ptok, npages, scale, stream);
+}
+
+int pt_decode_attention_f16(const void* q, const void* k, const void* v,
+                            const void* lens, void* out, int B, int H, int Q,
+                            int d, int C, int causal_window, float scale,
+                            void* stream) {
+  return dense<__half>(q, k, v, lens, out, B, H, Q, d, C, scale,
+                       causal_window, stream);
+}
+
+int pt_paged_attention_f16(const void* q, const void* k_pool,
+                           const void* v_pool, const void* table,
+                           const void* lens, void* out, int B, int H, int Q,
+                           int d, int ptok, int npages, float scale,
+                           void* stream) {
+  return paged<__half>(q, k_pool, v_pool, table, lens, out, B, H, Q, d, ptok,
+                       npages, scale, stream);
 }
 
 }  // extern "C"

@@ -2,7 +2,10 @@
 // Hopper (sm_90a).
 //
 // Replaces the training-attention Pallas TPU kernels of
-// paddle_tpu/kernels/attention.py, of all three of its tiers:
+// paddle_tpu/kernels/attention.py, of all its tiers. The forward
+// (attn_fwd) replaces _fwd_kernel (:294), _fwd_kernel_long (:362),
+// _flash_fwd_kernel (:602), _packed_fwd_kernel (:917) and
+// _res_fwd_kernel (:1170); the backward pair the others:
 //   * _fwd_kernel  (via _pallas_attention):      o = softmax(q.k^T*scale +
 //                  bias) . v per (batch block, head), dropout on the
 //                  normalised weights with a 1/(1-p) upscale;
@@ -66,27 +69,38 @@
 // 1/(1-p), as in _attn_block_fwd. The softmax denominator uses the
 // undropped weights; only the accumulation is masked.
 //
-// Bound on the card: at S = 512, d = 64 a (b, h) pair does 4 * S^2 * d
-// operations on 4 * S * d * sizeof(T) bytes, about 250 operations per
-// fp32 byte, so the operations bound it (67 TFLOP/s fp32 without tensor
-// cores, 989 TFLOP/s bf16 with them). At BERT's S = 128 in bf16 that is
-// 128 operations per byte, below the H100's 295, so there the bytes of
-// q, k, v and o bound it (the packed layout's case).
+// Head widths: d 16, 32, 64 and 128 are built; the wrappers zero-pad
+// any other d up to 128 to the next of these (zero columns leave q.k^T
+// unchanged and come out of P.V as zero columns) and slice the outputs
+// back. Types: float32, bfloat16 and float16.
 //
-// The forward, and the backward in fp32, compute everything in fp32 on
-// the SIMT cores (the forward also for bf16 inputs: tiles are converted
-// to fp32 as they land in shared memory). 256 threads; each holds a
-// 4 x 4 micro-tile of the 64 x 64 score tile (query rows 4ty..4ty+3, key
+// Bound on the card, per (b, h) pair: 4 * S^2 * d operations (q.k^T and
+// p.v) on 4 * S * d * sizeof(T) bytes of q, k, v and o, S / sizeof(T)
+// operations a byte at any d. In fp32 (67 TFLOP/s without tensor cores
+// against 3.35 TB/s, 20 a byte) the operations bound it from S = 80. In
+// bf16 and fp16 (989 TFLOP/s on the tensor cores, 295 a byte) they bound
+// it from S = 590: the long and flash shapes (S 2048 to 8192) are bound by
+// the tensor cores' rate, BERT's S = 128 (config 3, the packed layout) by
+// the bytes of q, k, v and o. The backward does 10 units of S^2 * d.
+//
+// The forward, in every type, and the backward in fp32 compute
+// everything in fp32 on the SIMT cores (16-bit tiles are converted to
+// fp32 as they land in shared memory). 256 threads; each holds a 4 x 4
+// micro-tile of the 64 x 64 score tile (query rows 4ty..4ty+3, key
 // columns tx + 16j) and a 4 x d/16 slice of its accumulators. Shared
 // tiles keep an odd row stride (d + 1, 65), so every read of a row or of
 // a column across the lanes of a warp is free of bank conflicts. Loads
-// are synchronous; two or three resident blocks per SM overlap them.
+// are synchronous; two or three resident blocks per SM overlap them. A
+// forward on the tensor cores is ROADMAP.md's queue 2 item 1: tried, it
+// ran faster but failed the smoke run's one-step loss checks, whose
+// limit this SIMT forward meets at the checks' own data only (PERF.md).
 //
-// The bf16 backward (attn_bwd_dq_mma, attn_bwd_dkdv_mma) runs its
-// products on the tensor cores:
-//   * instruction: mma.sync m16n8k16, bf16 operands, fp32 accumulators,
-//     fed by ldmatrix.x4 from bf16 shared tiles (.trans where the operand
-//     is needed transposed: K in dq += dS . K, dO and Q in dk/dv);
+// The 16-bit backward (attn_bwd_dq_mma, attn_bwd_dkdv_mma, templates on
+// bf16 and fp16: only the mma.sync type suffix and the fp32 -> 16-bit
+// rounding differ) runs its products on the tensor cores:
+//   * instruction: mma.sync m16n8k16, 16-bit operands, fp32 accumulators,
+//     fed by ldmatrix.x4 from 16-bit shared tiles (.trans where the
+//     operand is needed transposed: K in dq += dS . K, dO and Q in dk/dv);
 //   * tiling: 128 threads a block, one block per (64-row tile, head,
 //     batch), each warp owning 16 rows: dq's warps 16 queries against
 //     every 64-key tile (S = Q.K^T, dP = dO.V^T, then dq += dS.K); dk/dv's
@@ -94,12 +108,13 @@
 //     and dP^T = V.dO^T, so that P^T and dS^T land in the accumulator
 //     layout, which is the A layout of dV += P^T.dO and dK += dS^T.Q (the
 //     flash-attention-2 backward's arrangement): no score tile goes
-//     through shared memory, P and dS are rounded to bf16 in registers;
-//   * shared layout: bf16 tiles with rows padded by 16 bytes (row stride
-//     d + 8 elements), so the eight row addresses of an ldmatrix phase
-//     fall on eight different 16-byte bank groups (d / 8 + 1 is odd for
-//     every d), chosen over an XOR swizzle because the padded address is
-//     one multiply-add and the cp.async writes stay 16-byte aligned. At
+//     through shared memory, P and dS are rounded to the 16-bit type in
+//     registers;
+//   * shared layout: 16-bit tiles with rows padded by 16 bytes (row
+//     stride d + 8 elements), so the eight row addresses of an ldmatrix
+//     phase fall on eight different 16-byte bank groups (d / 8 + 1 is odd
+//     for every d), chosen over an XOR swizzle because the padded address
+//     is one multiply-add and the cp.async writes stay 16-byte aligned. At
 //     d 64 a block holds six 64 x 72 tiles (Q and dO, K and V twice, or
 //     K and V, Q and dO twice), 55 KB, three blocks to an SM; at d 128,
 //     102 KB, two;
@@ -126,9 +141,9 @@
 //     tiles (d/2 + 64 fp32 a thread); dk/dv its dk and dv accumulators (d
 //     fp32 a thread) and S^T and dP^T over 32 query columns at a time
 //     (64 at d 16), one such chunk live at a time. __launch_bounds__ pins
-//     the resident blocks the shared memory allows: three at d <= 64
-//     (at most 168 registers), two at d = 128 (255). In trials on the
-//     H100, three blocks ran dk/dv clearly faster than two, and at 168
+//     the resident blocks the shared memory allows: three at d <= 64 (at
+//     most 168 registers), two at d = 128 (255). In trials on the H100,
+//     three blocks ran dk/dv clearly faster than two, and at 168
 //     registers dk/dv spilled until its bias and dbias addresses were
 //     formed per chunk (late()) instead of held across the products.
 // What bounds it on the card: the operations, at mma.sync's rate, and
@@ -140,6 +155,7 @@
 // dq by fp32 atomics).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -157,9 +173,13 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float v, float* p) { *p = v; }
 __device__ __forceinline__ void store(float v, __nv_bfloat16* p) {
   *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store(float v, __half* p) {
+  *p = __float2half(v);
 }
 
 struct BiasView {
@@ -635,14 +655,20 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocks<D>)
   }
 }
 
-// ---- bf16 backward on the tensor cores ------------------------------------
+// ---- bf16 and fp16 backward on the tensor cores ----------------------------
 using bf16 = __nv_bfloat16;
+using f16 = __half;
+
+template <typename T>
+constexpr bool kHalf16 =
+    std::is_same<T, bf16>::value || std::is_same<T, f16>::value;
 
 constexpr int kMmaThreads = 128;  // four warps, 16 rows of a 64-row tile each
-constexpr int kPad = 8;           // bf16 elements (16 bytes) after each row
-template <int D> constexpr int kLDS = D + kPad;  // row stride of a bf16 tile
-// Resident blocks per SM (their register cap, 65536 / (128 * blocks)): the
-// double-buffered tiles allow three at d <= 64, two at d = 128.
+constexpr int kPad = 8;           // 16-bit elements (16 bytes) after each row
+template <int D> constexpr int kLDS = D + kPad;  // row stride of a tile
+// Resident blocks per SM of the backward (their register cap, 65536 /
+// (128 * blocks)): the double-buffered tiles allow three at d <= 64, two
+// at d = 128.
 template <int D> constexpr int kMmaBlocks = D <= 64 ? 3 : 2;
 // query columns of S^T and dP^T the dk/dv kernel holds in registers at once
 template <int D> constexpr int kDkdvCols = D >= 32 ? 32 : 64;
@@ -670,15 +696,15 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// four 8 x 8 bf16 matrices from shared memory; lane i names the row
+// four 8 x 8 16-bit matrices from shared memory; lane i names the row
 // address of matrix i / 8, row i % 8; .trans hands each lane a column pair
-__device__ __forceinline__ void ldsm(unsigned r[4], const bf16* p) {
+__device__ __forceinline__ void ldsm(unsigned r[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
 }
-__device__ __forceinline__ void ldsm_t(unsigned r[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_t(unsigned r[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
@@ -686,37 +712,72 @@ __device__ __forceinline__ void ldsm_t(unsigned r[4], const bf16* p) {
       : "r"(smem_addr(p)));
 }
 
-// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 operands, fp32 accumulators
+// c[16 x 8] += a[16 x 16] . b[16 x 8], operands of the 16-bit type T,
+// fp32 accumulators
+template <typename T>
 __device__ __forceinline__ void mma(float c[4], const unsigned a[4],
-                                    unsigned b0, unsigned b1) {
+                                    unsigned b0, unsigned b1);
+template <>
+__device__ __forceinline__ void mma<bf16>(float c[4], const unsigned a[4],
+                                          unsigned b0, unsigned b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+template <>
+__device__ __forceinline__ void mma<f16>(float c[4], const unsigned a[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+// two fp32 values rounded to T in one register (lo at the lower address),
+// and two T values of one register back to fp32
+template <typename T>
+__device__ __forceinline__ unsigned pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ unsigned pack2<bf16>(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
 }
-
-// The A operand of the next product from two accumulator tiles of 8
-// columns (c[j], c[j + 1]): the m16n8 accumulator layout is the m16n8k16
-// A layout of those 16 columns, so P and dS never leave the registers.
-__device__ __forceinline__ void a_from_acc(unsigned a[4], const float c0[4],
-                                           const float c1[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
+template <>
+__device__ __forceinline__ unsigned pack2<f16>(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+template <typename T>
+__device__ __forceinline__ float2 unpack2(unsigned v);
+template <>
+__device__ __forceinline__ float2 unpack2<bf16>(unsigned v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+template <>
+__device__ __forceinline__ float2 unpack2<f16>(unsigned v) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&v));
 }
 
-// Rows [0, n) of a global tile of D-element bf16 rows, ``rs`` elements
+// The A operand of the next product from two accumulator tiles of 8
+// columns (c[j], c[j + 1]), rounded to T: the m16n8 accumulator layout is
+// the m16n8k16 A layout of those 16 columns, so P and dS never leave the
+// registers.
+template <typename T>
+__device__ __forceinline__ void a_from_acc(unsigned a[4], const float c0[4],
+                                           const float c1[4]) {
+  a[0] = pack2<T>(c0[0], c0[1]);
+  a[1] = pack2<T>(c0[2], c0[3]);
+  a[2] = pack2<T>(c1[0], c1[1]);
+  a[3] = pack2<T>(c1[2], c1[3]);
+}
+
+// Rows [0, n) of a global tile of D-element 16-bit rows, ``rs`` elements
 // apart -> shared [kB][kLDS<D>] by 16-byte cp.async (each row must start
 // on a 16-byte boundary: the wrappers copy an operand that does not);
 // rows n..kB-1 are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile_async(bf16* s, const bf16* g,
+template <int D, typename T>
+__device__ __forceinline__ void load_tile_async(T* s, const T* g,
                                                 long long rs, int n) {
   constexpr int kChunks = D / 8;  // 16-byte pieces of a row
   const long long stride = rs;    // elements from one row to the next
@@ -786,31 +847,31 @@ __device__ __forceinline__ int b_offset(int lane) {
 
 // Per 64-row q-tile: delta = rowsum(dO * O) (also written out), then dq
 // over all k-tiles; warp w owns query rows 16w..16w+15 of the tile.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
-    attn_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, BiasView bv,
+    attn_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, BiasView bv,
                     const long long* __restrict__ seed,
-                    const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                    const T* __restrict__ o, const T* __restrict__ dout,
                     const float* __restrict__ lse, float* __restrict__ delta,
-                    bf16* __restrict__ dq, Strides sq, Strides sk, Strides sv,
+                    T* __restrict__ dq, Strides sq, Strides sk, Strides sv,
                     Strides so, Strides sdo, Strides sdq, int H, int S,
                     float scale, float p_drop, float keep_scale) {
-  constexpr int LDS = kLDS<D>, T = kB * LDS;
+  constexpr int LDS = kLDS<D>, TS = kB * LDS;
   extern __shared__ __align__(16) unsigned char smem16[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem16);
-  bf16* dOs = Qs + T;
-  bf16* Ks = dOs + T;                              // [2][kB][LDS]
-  bf16* Vs = Ks + 2 * T;                           // [2][kB][LDS]
-  float* Ct = reinterpret_cast<float*>(Vs + 2 * T);  // [2][kB] bias by column
+  T* Qs = reinterpret_cast<T*>(smem16);
+  T* dOs = Qs + TS;
+  T* Ks = dOs + TS;                                 // [2][kB][LDS]
+  T* Vs = Ks + 2 * TS;                              // [2][kB][LDS]
+  float* Ct = reinterpret_cast<float*>(Vs + 2 * TS);  // [2][kB] bias by column
   float* Dr = Ct + 2 * kB;                         // [kB] delta of the rows
   unsigned* Keep = reinterpret_cast<unsigned*>(Dr + kB);  // [2][kB][2]
 
   const int q0 = blockIdx.x * kB, h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h, tid = threadIdx.x, lane = tid & 31;
   const int w = tid >> 5, g = lane >> 2, t4 = lane & 3;
-  const bf16* kh = head_of(k, sk, b, h);
-  const bf16* vh = head_of(v, sv, b, h);
+  const T* kh = head_of(k, sk, b, h);
+  const T* vh = head_of(v, sv, b, h);
   const int nq = min(kB, S - q0);
   load_tile_async<D>(Qs, head_of(q, sq, b, h) + q0 * sq.r, sq.r, nq);
   load_tile_async<D>(dOs, head_of(dout, sdo, b, h) + q0 * sdo.r, sdo.r, nq);
@@ -823,12 +884,12 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
     const int r = tid >> 1, part = tid & 1;
     float acc = 0.f;
     if (r < nq) {
-      const bf16* orow = head_of(o, so, b, h) + (q0 + r) * so.r;
+      const T* orow = head_of(o, so, b, h) + (q0 + r) * so.r;
       for (int e = 2 * part; e < D; e += 4) {
-        const float2 of = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(orow + e));
-        const float2 df = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(dOs + r * LDS + e));
+        const float2 of =
+            unpack2<T>(*reinterpret_cast<const unsigned*>(orow + e));
+        const float2 df =
+            unpack2<T>(*reinterpret_cast<const unsigned*>(dOs + r * LDS + e));
         acc = fmaf(df.y, of.y, fmaf(df.x, of.x, acc));
       }
     }
@@ -862,8 +923,8 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
 
   for (int k0 = 0; k0 < S; k0 += kB) {
     const int buf = (k0 / kB) & 1;
-    const bf16* Kt = Ks + buf * T;
-    const bf16* Vt = Vs + buf * T;
+    const T* Kt = Ks + buf * TS;
+    const T* Vt = Vs + buf * TS;
     float* ct = Ct + buf * kB;
     unsigned* const keep = Keep + buf * 2 * kB;
     if (tid < kB) ct[tid] = bias_term(bcast, k0 + tid, S);
@@ -872,8 +933,10 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
     __syncthreads();  // tile k0 has landed; tile k0 - kB is consumed
     if (k0 + kB < S) {  // the next tile's copies overlap this tile's math
       const int nk = min(kB, S - k0 - kB);
-      load_tile_async<D>(Ks + (buf ^ 1) * T, kh + (k0 + kB) * sk.r, sk.r, nk);
-      load_tile_async<D>(Vs + (buf ^ 1) * T, vh + (k0 + kB) * sv.r, sv.r, nk);
+      load_tile_async<D>(Ks + (buf ^ 1) * TS, kh + (k0 + kB) * sk.r, sk.r,
+                         nk);
+      load_tile_async<D>(Vs + (buf ^ 1) * TS, vh + (k0 + kB) * sv.r, sv.r,
+                         nk);
       cp_async_commit();
     }
     // S = Q . K^T and dP = dO . V^T, 16 x 64 per warp
@@ -888,10 +951,10 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
         unsigned kb[4], vb[4];
         ldsm(kb, Kt + n * LDS + b_off + kk);
         ldsm(vb, Vt + n * LDS + b_off + kk);
-        mma(s[n / 8], qa, kb[0], kb[1]);
-        mma(s[n / 8 + 1], qa, kb[2], kb[3]);
-        mma(dp[n / 8], da, vb[0], vb[1]);
-        mma(dp[n / 8 + 1], da, vb[2], vb[3]);
+        mma<T>(s[n / 8], qa, kb[0], kb[1]);
+        mma<T>(s[n / 8 + 1], qa, kb[2], kb[3]);
+        mma<T>(dp[n / 8], da, vb[0], vb[1]);
+        mma<T>(dp[n / 8 + 1], da, vb[2], vb[3]);
       }
     }
     // dS = P * (dP * keep * keep_scale - delta), in place of S, fp32
@@ -915,17 +978,17 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
         if (drop) d = (kw[i][j >> 2] >> (c & 31)) & 1 ? d * keep_scale : 0.f;
         s[j][e] = p * (d - delta_r[i]);
       }
-    // dq += dS . K, dS rounded to bf16 in registers, K read transposed
+    // dq += dS . K, dS rounded to T in registers, K read transposed
 #pragma unroll
     for (int c = 0; c < kB; c += 16) {
       unsigned a[4];
-      a_from_acc(a, s[c / 8], s[c / 8 + 1]);
+      a_from_acc<T>(a, s[c / 8], s[c / 8 + 1]);
 #pragma unroll
       for (int n = 0; n < D; n += 16) {
         unsigned kb[4];
         ldsm_t(kb, Kt + c * LDS + bt_off + n);
-        mma(acc[n / 8], a, kb[0], kb[1]);
-        mma(acc[n / 8 + 1], a, kb[2], kb[3]);
+        mma<T>(acc[n / 8], a, kb[0], kb[1]);
+        mma<T>(acc[n / 8 + 1], a, kb[2], kb[3]);
       }
     }
   }
@@ -934,12 +997,11 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + rl[i];
     if (row >= S) continue;
-    bf16* drow = head_of(dq, sdq, b, h) + row * sdq.r;
+    T* drow = head_of(dq, sdq, b, h) + row * sdq.r;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(drow + 8 * j + 2 * t4) =
-          __floats2bfloat162_rn(acc[j][2 * i] * scale,
-                                acc[j][2 * i + 1] * scale);
+      *reinterpret_cast<unsigned*>(drow + 8 * j + 2 * t4) =
+          pack2<T>(acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
   }
 }
 
@@ -947,25 +1009,25 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
 // 16w..16w+15 of the tile and computes S^T = K . Q^T and dP^T = V . dO^T,
 // so that P^T and dS^T land in the accumulator layout, which is the A
 // layout of dV += P^T . dO and dK += dS^T . Q.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
-    attn_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, BiasView bv,
+    attn_bwd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, BiasView bv,
                       const long long* __restrict__ seed,
-                      const bf16* __restrict__ dout,
+                      const T* __restrict__ dout,
                       const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, DBias db, Strides sq, Strides sk,
+                      const float* __restrict__ delta, T* __restrict__ dk,
+                      T* __restrict__ dv, DBias db, Strides sq, Strides sk,
                       Strides sv, Strides sdo, Strides sdk, Strides sdv,
                       int H, int S, float scale, float p_drop,
                       float keep_scale) {
-  constexpr int LDS = kLDS<D>, T = kB * LDS, NC = kDkdvCols<D>;
+  constexpr int LDS = kLDS<D>, TS = kB * LDS, NC = kDkdvCols<D>;
   extern __shared__ __align__(16) unsigned char smem16[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem16);
-  bf16* Vs = Ks + T;
-  bf16* Qs = Vs + T;                               // [2][kB][LDS]
-  bf16* dOs = Qs + 2 * T;                          // [2][kB][LDS]
-  float* Lr = reinterpret_cast<float*>(dOs + 2 * T);  // [2][kB] lse
+  T* Ks = reinterpret_cast<T*>(smem16);
+  T* Vs = Ks + TS;
+  T* Qs = Vs + TS;                                  // [2][kB][LDS]
+  T* dOs = Qs + 2 * TS;                             // [2][kB][LDS]
+  float* Lr = reinterpret_cast<float*>(dOs + 2 * TS);  // [2][kB] lse
   float* Dr = Lr + 2 * kB;                         // [2][kB] delta
   unsigned* Keep = reinterpret_cast<unsigned*>(Dr + 2 * kB);  // [2][kB][2]
 
@@ -976,10 +1038,10 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
   // q-tile q0 (its Q, dO, lse and delta rows) into buffer buf
   auto load_q_tile = [&](int q0, int buf) {
     const int nq = min(kB, S - q0), bb = late(b, q0), hh = late(h, q0);
-    load_tile_async<D>(Qs + buf * T, head_of(q, sq, bb, hh) + q0 * sq.r,
+    load_tile_async<D>(Qs + buf * TS, head_of(q, sq, bb, hh) + q0 * sq.r,
                        sq.r, nq);
-    load_tile_async<D>(dOs + buf * T, head_of(dout, sdo, bb, hh) + q0 * sdo.r,
-                       sdo.r, nq);
+    load_tile_async<D>(dOs + buf * TS,
+                       head_of(dout, sdo, bb, hh) + q0 * sdo.r, sdo.r, nq);
     if (tid < kB) {
       const bool live = tid < nq;
       const size_t at = static_cast<size_t>(bh) * S + q0 + (live ? tid : 0);
@@ -1003,8 +1065,8 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
 
   for (int q0 = 0; q0 < S; q0 += kB) {
     const int buf = (q0 / kB) & 1;
-    const bf16* Qt = Qs + buf * T;
-    const bf16* dOt = dOs + buf * T;
+    const T* Qt = Qs + buf * TS;
+    const T* dOt = dOs + buf * TS;
     const float* lt = Lr + buf * kB;
     const float* dt = Dr + buf * kB;
     unsigned* const keep = Keep + buf * 2 * kB;
@@ -1026,10 +1088,10 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
           unsigned qb[4], ob[4];
           ldsm(qb, Qt + (c0 + n) * LDS + b_off + kk);
           ldsm(ob, dOt + (c0 + n) * LDS + b_off + kk);
-          mma(s[n / 8], ka, qb[0], qb[1]);
-          mma(s[n / 8 + 1], ka, qb[2], qb[3]);
-          mma(dp[n / 8], va, ob[0], ob[1]);
-          mma(dp[n / 8 + 1], va, ob[2], ob[3]);
+          mma<T>(s[n / 8], ka, qb[0], qb[1]);
+          mma<T>(s[n / 8 + 1], ka, qb[2], qb[3]);
+          mma<T>(dp[n / 8], va, ob[0], ob[1]);
+          mma<T>(dp[n / 8 + 1], va, ob[2], ob[3]);
         }
       }
       // P^T (dropped) in place of S^T, dS^T in place of dP^T, fp32; dbias
@@ -1076,12 +1138,12 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
           s[j][e] = pd;
           dp[j][e] = ds;
         }
-      // P^T and dS^T as bf16 A operands, half the registers of the fp32
+      // P^T and dS^T as 16-bit A operands, half the registers of the fp32
       unsigned pa[NC / 16][4], sa[NC / 16][4];
 #pragma unroll
       for (int c = 0; c < NC; c += 16) {
-        a_from_acc(pa[c / 16], s[c / 8], s[c / 8 + 1]);
-        a_from_acc(sa[c / 16], dp[c / 8], dp[c / 8 + 1]);
+        a_from_acc<T>(pa[c / 16], s[c / 8], s[c / 8 + 1]);
+        a_from_acc<T>(sa[c / 16], dp[c / 8], dp[c / 8 + 1]);
       }
       // dV += P^T . dO and dK += dS^T . Q, dO and Q read transposed
 #pragma unroll
@@ -1090,11 +1152,11 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
         for (int n = 0; n < D; n += 16) {
           unsigned ob[4], qb[4];
           ldsm_t(ob, dOt + (c0 + c) * LDS + a_offset<LDS>(lane) + n);
-          mma(adv[n / 8], pa[c / 16], ob[0], ob[1]);
-          mma(adv[n / 8 + 1], pa[c / 16], ob[2], ob[3]);
+          mma<T>(adv[n / 8], pa[c / 16], ob[0], ob[1]);
+          mma<T>(adv[n / 8 + 1], pa[c / 16], ob[2], ob[3]);
           ldsm_t(qb, Qt + (c0 + c) * LDS + a_offset<LDS>(lane) + n);
-          mma(adk[n / 8], sa[c / 16], qb[0], qb[1]);
-          mma(adk[n / 8 + 1], sa[c / 16], qb[2], qb[3]);
+          mma<T>(adk[n / 8], sa[c / 16], qb[0], qb[1]);
+          mma<T>(adk[n / 8 + 1], sa[c / 16], qb[2], qb[3]);
         }
       }
     }
@@ -1104,15 +1166,14 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
   for (int i = 0; i < 2; ++i) {
     const int key = key0 + 8 * i;
     if (key >= S) continue;
-    bf16* dkrow = head_of(dk, sdk, b, h) + key * sdk.r;
-    bf16* dvrow = head_of(dv, sdv, b, h) + key * sdv.r;
+    T* dkrow = head_of(dk, sdk, b, h) + key * sdk.r;
+    T* dvrow = head_of(dv, sdv, b, h) + key * sdv.r;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dkrow + 8 * j + 2 * t4) =
-          __floats2bfloat162_rn(adk[j][2 * i] * scale,
-                                adk[j][2 * i + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvrow + 8 * j + 2 * t4) =
-          __floats2bfloat162_rn(adv[j][2 * i], adv[j][2 * i + 1]);
+      *reinterpret_cast<unsigned*>(dkrow + 8 * j + 2 * t4) =
+          pack2<T>(adk[j][2 * i] * scale, adk[j][2 * i + 1] * scale);
+      *reinterpret_cast<unsigned*>(dvrow + 8 * j + 2 * t4) =
+          pack2<T>(adv[j][2 * i], adv[j][2 * i + 1]);
     }
   }
   if (reduce_rows) {  // over the four lanes that share a key, fixed order
@@ -1144,6 +1205,8 @@ constexpr size_t smem_dkdv() {
   return sizeof(float) * (4 * kB * (D + 1) + 2 * kB * kLP + 2 * kB);
 }
 
+// the tensor-core kernels' (the same for bf16 and fp16: two bytes an
+// element)
 template <int D>
 constexpr size_t smem_dq_mma() {
   return sizeof(bf16) * 6 * kB * kLDS<D> + sizeof(float) * 3 * kB +
@@ -1174,6 +1237,41 @@ struct Args {
 };
 
 template <typename T, int D>
+int run_dq_mma(const Args& a) {
+  auto kernel = attn_bwd_dq_mma<T, D>;
+  if (int e = set_smem(kernel, smem_dq_mma<D>())) return e;
+  const dim3 grid((a.S + kB - 1) / kB, a.H, a.B);
+  kernel<<<grid, kMmaThreads, smem_dq_mma<D>(), a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v),
+      BiasView{static_cast<const float*>(a.bias), a.sb, a.sh, a.sr},
+      static_cast<const long long*>(a.seed), static_cast<const T*>(a.o),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<float*>(a.delta), static_cast<T*>(a.dq), a.sq, a.sk,
+      a.sv, a.so, a.sdo, a.sdq, a.H, a.S, a.scale, a.p_drop, a.keep_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int run_dkdv_mma(const Args& a) {
+  auto kernel = attn_bwd_dkdv_mma<T, D>;
+  if (int e = set_smem(kernel, smem_dkdv_mma<D>())) return e;
+  const dim3 grid((a.S + kB - 1) / kB, a.H, a.B);
+  kernel<<<grid, kMmaThreads, smem_dkdv_mma<D>(), a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v),
+      BiasView{static_cast<const float*>(a.bias), a.sb, a.sh, a.sr},
+      static_cast<const long long*>(a.seed), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+      DBias{static_cast<float*>(a.dbias), a.dbias_heads, a.dbias_rows},
+      a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.H, a.S, a.scale, a.p_drop,
+      a.keep_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the forward: every type on the SIMT cores
+template <typename T, int D>
 int run_fwd(const Args& a) {
   auto kernel = attn_fwd<T, D>;
   if (int e = set_smem(kernel, smem_fwd<D>())) return e;
@@ -1185,40 +1283,6 @@ int run_fwd(const Args& a) {
       static_cast<const long long*>(a.seed), static_cast<T*>(a.out),
       static_cast<float*>(a.lse_out), a.sq, a.sk, a.sv, a.so, a.H, a.S,
       a.scale, a.p_drop, a.keep_scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
-int run_dq_mma(const Args& a) {
-  auto kernel = attn_bwd_dq_mma<D>;
-  if (int e = set_smem(kernel, smem_dq_mma<D>())) return e;
-  const dim3 grid((a.S + kB - 1) / kB, a.H, a.B);
-  kernel<<<grid, kMmaThreads, smem_dq_mma<D>(), a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v),
-      BiasView{static_cast<const float*>(a.bias), a.sb, a.sh, a.sr},
-      static_cast<const long long*>(a.seed), static_cast<const bf16*>(a.o),
-      static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<float*>(a.delta), static_cast<bf16*>(a.dq), a.sq, a.sk,
-      a.sv, a.so, a.sdo, a.sdq, a.H, a.S, a.scale, a.p_drop, a.keep_scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
-int run_dkdv_mma(const Args& a) {
-  auto kernel = attn_bwd_dkdv_mma<D>;
-  if (int e = set_smem(kernel, smem_dkdv_mma<D>())) return e;
-  const dim3 grid((a.S + kB - 1) / kB, a.H, a.B);
-  kernel<<<grid, kMmaThreads, smem_dkdv_mma<D>(), a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v),
-      BiasView{static_cast<const float*>(a.bias), a.sb, a.sh, a.sr},
-      static_cast<const long long*>(a.seed), static_cast<const bf16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
-      DBias{static_cast<float*>(a.dbias), a.dbias_heads, a.dbias_rows},
-      a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.H, a.S, a.scale, a.p_drop,
-      a.keep_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1258,11 +1322,11 @@ int run_dkdv_simt(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward: bf16 on the tensor cores, fp32 on the SIMT kernels.
+// the backward: bf16 and fp16 on the tensor cores, fp32 on the SIMT kernels
 template <typename T, int D>
 int run_dq(const Args& a) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    return run_dq_mma<D>(a);
+  if constexpr (kHalf16<T>) {
+    return run_dq_mma<T, D>(a);
   } else {
     return run_dq_simt<D>(a);
   }
@@ -1270,8 +1334,8 @@ int run_dq(const Args& a) {
 
 template <typename T, int D>
 int run_dkdv(const Args& a) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    return run_dkdv_mma<D>(a);
+  if constexpr (kHalf16<T>) {
+    return run_dkdv_mma<T, D>(a);
   } else {
     return run_dkdv_simt<D>(a);
   }
@@ -1298,7 +1362,7 @@ int dispatch(int which, const Args& a) {
 // dynamic shared memory a block of kernel ``which`` takes
 template <typename T>
 size_t smem_of(int which, int d) {
-  constexpr bool kMma = std::is_same<T, bf16>::value;
+  constexpr bool kMma = kHalf16<T>;
 #define PT_SMEM(D)                                                   \
   return which == 0 ? smem_fwd<D>()                                 \
        : which == 1 ? (kMma ? smem_dq_mma<D>() : smem_dq<D>())      \
@@ -1313,8 +1377,14 @@ size_t smem_of(int which, int d) {
 #undef PT_SMEM
 }
 
-int run(int which, int bf16, const Args& a) {
-  return bf16 ? dispatch<__nv_bfloat16>(which, a) : dispatch<float>(which, a);
+// type: 0 float32, 1 bfloat16, 2 float16
+int run(int which, int type, const Args& a) {
+  switch (type) {
+    case 0: return dispatch<float>(which, a);
+    case 1: return dispatch<bf16>(which, a);
+    case 2: return dispatch<f16>(which, a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -1322,8 +1392,8 @@ int run(int which, int bf16, const Args& a) {
 // Plain C entry points for ctypes. Each returns cudaGetLastError() after
 // the launch (0 on success); the kernel runs on `stream` and does not
 // synchronise. Pointers are device pointers: q, k, v, o, dout, dq, dk, dv
-// [B, H, S, d] operands of one type (bf16 = 1 for bfloat16, else
-// float32), element (b, h, row, c) of each at b*sb + h*sh + row*sr + c
+// [B, H, S, d] operands of one type (type 0 float32, 1 bfloat16, 2
+// float16), element (b, h, row, c) of each at b*sb + h*sh + row*sr + c
 // for its own (sb, sh, sr), read from the host array `strides`, three
 // int64 per operand in the order of the entry's operands (forward: q, k,
 // v, o; dq: q, k, v, o, dout, dq; dk/dv: q, k, v, dout, dk, dv); bias
@@ -1342,7 +1412,7 @@ void set_strides(const long long* st, std::initializer_list<Strides*> to) {
 
 extern "C" {
 
-int pt_fused_attention_fwd(int bf16, const void* q, const void* k,
+int pt_fused_attention_fwd(int type, const void* q, const void* k,
                            const void* v, const void* bias, long long sb,
                            long long sh, long long sr, const void* seed,
                            void* out, void* lse, const long long* strides,
@@ -1355,10 +1425,10 @@ int pt_fused_attention_fwd(int bf16, const void* q, const void* k,
   a.B = B; a.H = H; a.S = S; a.d = d;
   a.scale = scale; a.p_drop = p_drop; a.keep_scale = keep_scale;
   a.stream = static_cast<cudaStream_t>(stream);
-  return run(0, bf16, a);
+  return run(0, type, a);
 }
 
-int pt_fused_attention_bwd_dq(int bf16, const void* q, const void* k,
+int pt_fused_attention_bwd_dq(int type, const void* q, const void* k,
                               const void* v, const void* bias, long long sb,
                               long long sh, long long sr, const void* seed,
                               const void* o, const void* dout,
@@ -1373,10 +1443,10 @@ int pt_fused_attention_bwd_dq(int bf16, const void* q, const void* k,
   a.dq = dq; a.B = B; a.H = H; a.S = S; a.d = d;
   a.scale = scale; a.p_drop = p_drop; a.keep_scale = keep_scale;
   a.stream = static_cast<cudaStream_t>(stream);
-  return run(1, bf16, a);
+  return run(1, type, a);
 }
 
-int pt_fused_attention_bwd_dkdv(int bf16, const void* q, const void* k,
+int pt_fused_attention_bwd_dkdv(int type, const void* q, const void* k,
                                 const void* v, const void* bias, long long sb,
                                 long long sh, long long sr, const void* seed,
                                 const void* dout, const void* lse,
@@ -1395,14 +1465,15 @@ int pt_fused_attention_bwd_dkdv(int bf16, const void* q, const void* k,
   a.B = B; a.H = H; a.S = S; a.d = d;
   a.scale = scale; a.p_drop = p_drop; a.keep_scale = keep_scale;
   a.stream = static_cast<cudaStream_t>(stream);
-  return run(2, bf16, a);
+  return run(2, type, a);
 }
 
 // bytes of dynamic shared memory a block of the forward (which 0), dq (1)
-// or dk/dv (2) kernel takes at head width d (0 for a width not built)
-long long pt_fused_attention_smem(int which, int bf16, int d) {
-  return static_cast<long long>(bf16 ? smem_of<__nv_bfloat16>(which, d)
-                                     : smem_of<float>(which, d));
+// or dk/dv (2) kernel takes at head width d for the type code ``type``
+// (0 for a width not built)
+long long pt_fused_attention_smem(int which, int type, int d) {
+  return static_cast<long long>(type == 0 ? smem_of<float>(which, d)
+                                          : smem_of<bf16>(which, d));
 }
 
 }  // extern "C"

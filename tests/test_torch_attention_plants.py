@@ -4,15 +4,18 @@ with their source, checked on the CPU:
 * every planted fault of ``tools/attention_fault_check.py`` plants into a
   copy of the current ``csrc/fused_attention.cu`` (each text it replaces
   occurs the stated number of times), so an edit of the kernels that
-  would leave a fault unplanted fails here, not after a chip run;
-* the wrappers' row-alignment rule (``_rows``): a bfloat16 operand whose
-  rows do not all start on a 16-byte boundary, which the bf16 backward
+  would leave a fault unplanted fails here, not after a chip run; and
+  each reaches the routes it is meant for (the SIMT kernels and the
+  tensor-core backward);
+* the wrappers' row-alignment rule (``_rows``): a 16-bit operand whose
+  rows do not all start on a 16-byte boundary, which the tensor-core
   kernels copy with 16-byte ``cp.async``, is copied contiguous, and no
   other operand is.
 """
 
 import importlib.util
 import os
+import re
 import shutil
 
 import pytest
@@ -23,16 +26,15 @@ from paddle_tpu_torch.kernels import attention as A
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _fault_check():
+def _tool(name):
     spec = importlib.util.spec_from_file_location(
-        "attention_fault_check",
-        os.path.join(ROOT, "tools", "attention_fault_check.py"))
+        name, os.path.join(ROOT, "tools", name + ".py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
-FC = _fault_check()
+FC = _tool("attention_fault_check")
 
 
 @pytest.mark.parametrize("fault", sorted(FC.FAULTS))
@@ -52,21 +54,65 @@ def test_fault_plants_into_current_source(tmp_path, fault):
         assert planted.count(new) >= count, new
 
 
+# the kernels of each route in csrc/fused_attention.cu
+SIMT = ("attn_fwd", "attn_bwd_dq", "attn_bwd_dkdv")
+MMA_BACKWARD = ("attn_bwd_dq_mma", "attn_bwd_dkdv_mma")
+
+
+def _functions(text):
+    """{name: [(start, end), ...]}: the spans of the source's functions
+    (comments blanked out). Each ends at a ``}`` alone on a line; its
+    name is the first one called before the ``) {`` that opens its
+    body."""
+    spans, start = {}, 0
+    for m in re.finditer(r"\n}\n", text):
+        head = re.split(r"\)\s*\{\n", text[start:m.end()], 1)[0]
+        names = [n for n in re.findall(r"(\w+)(?:<[^<>()]*>)?\(", head)
+                 if n != "__launch_bounds__"]
+        if names:
+            spans.setdefault(names[0], []).append((start, m.end()))
+        start = m.end()
+    return spans
+
+
+def _reached(text, spans, kernel):
+    """The spans of ``kernel`` and of every function it calls, at any
+    depth."""
+    todo, seen = [kernel], set()
+    while todo:
+        name = todo.pop()
+        if name in seen or name not in spans:
+            continue
+        seen.add(name)
+        for a, b in spans[name]:
+            todo += re.findall(r"(\w+)(?:<[^<>()]*>)?\(", text[a:b])
+    return [span for name in seen for span in spans[name]]
+
+
 def test_every_fault_reaches_both_backward_routes():
-    """Each fault but the tensor-core one changes a line of the fp32
-    SIMT kernels and one of the bf16 tensor-core kernels."""
+    """Each fault but the transposed K changes a line that the SIMT
+    kernels run and one that the tensor-core backward runs (in the kernel
+    or in a function it calls); k_not_transposed reaches the tensor-core
+    dq kernel alone."""
     with open(os.path.join(ROOT, FC.SOURCE)) as f:
-        text = f.read()
-    mma_start = text.index("// ---- bf16 backward on the tensor cores")
+        text = re.sub(r"//[^\n]*", lambda m: " " * len(m.group()), f.read())
+    spans = _functions(text)
+    assert set(SIMT + MMA_BACKWARD) <= set(spans)
+
+    def reaches(at, kernels):
+        return any(a <= i < b for kernel in kernels
+                   for a, b in _reached(text, spans, kernel) for i in at)
+
     for fault, subs in FC.FAULTS.items():
         at = [i for old, _, _ in subs for i in _find_all(text, old)]
+        routes = [reaches(at, kernels) for kernels in (SIMT, MMA_BACKWARD)]
         if fault == "sound":
             assert not at
         elif fault == "k_not_transposed":
-            assert at and all(i > mma_start for i in at)
+            assert routes == [False, True]
+            assert reaches(at, ("attn_bwd_dq_mma",))
         else:
-            assert any(i < mma_start for i in at), fault
-            assert any(i > mma_start for i in at), fault
+            assert routes == [True, True], (fault, routes)
 
 
 def _find_all(text, sub):

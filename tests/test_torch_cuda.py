@@ -7,8 +7,9 @@ machine without them, skipping the suite's conftest (which imports jax):
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances: fp32 atol 2e-5 (fp32 accumulation in another order), bf16
-atol 2e-2 (inputs rounded to bf16, fp32 accumulation; 3e-2 of the
-largest magnitude for the fused attention's gradients); the paged kernel
+and fp16 atol 2e-2 (inputs rounded to 16 bits, fp32 accumulation; 3e-2
+of the largest magnitude for the fused attention's gradients, or
+chip_smoke.py's LONG_RTOL relative to it); the paged kernel
 equals the dense kernel on the gathered cache to 1e-6; greedy tokens of
 the fp32 sessions (TF32 off) are identical on both devices."""
 
@@ -96,6 +97,9 @@ def test_paged_kernel_matches_plain_and_dense(cuda_device):
 
 
 def test_kernel_wrapper_refuses_what_it_cannot_take(cuda_device):
+    """What the decode wrapper refuses, and the float16 rows and the
+    192-byte rows (fp32 d 48: twelve 16-byte pieces on sixteen lanes) it
+    used to refuse, which now match the plain version."""
     q = torch.zeros(1, 1, 1, 64, device=cuda_device)
     lens = torch.ones(1, dtype=torch.int32, device=cuda_device)
     with pytest.raises(TypeError, match="cache_len"):
@@ -103,14 +107,66 @@ def test_kernel_wrapper_refuses_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         kc = torch.zeros(1, 1, 64, 2, device=cuda_device).transpose(2, 3)
         A.decode_attention_kernel(q, kc, kc, lens, 1.0)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        A.decode_attention_kernel(q.half(), q.half(), q.half(), lens, 1.0)
-    with pytest.raises(ValueError, match="itemsize"):
-        q48 = torch.zeros(1, 1, 1, 48, device=cuda_device)
-        A.decode_attention_kernel(q48, q48, q48, lens, 1.0)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        A.decode_attention_kernel(q.double(), q.double(), q.double(), lens,
+                                  1.0)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        q6 = torch.zeros(1, 1, 1, 6, device=cuda_device)
+        A.decode_attention_kernel(q6, q6, q6, lens, 1.0)
+    with pytest.raises(ValueError, match="16 to 512 bytes"):
+        q256 = torch.zeros(1, 1, 1, 256, device=cuda_device)
+        A.decode_attention_kernel(q256, q256, q256, lens, 1.0)
     with pytest.raises(ValueError, match="16-byte boundary"):
         kc = torch.zeros(65, device=cuda_device)[1:].view(1, 1, 1, 64)
         A.decode_attention_kernel(q, kc, q, lens, 1.0)
+    g = torch.Generator(device=cuda_device).manual_seed(48)
+    lens = torch.tensor([1, 70], dtype=torch.int32, device=cuda_device)
+    for dtype, d, atol in ((torch.float16, 64, 2e-2),
+                           (torch.float32, 48, 2e-5)):
+        q, k, v = (torch.randn(*s, device=cuda_device, generator=g)
+                   .to(dtype) for s in ((2, 3, 1, d), (2, 3, 80, d),
+                                        (2, 3, 80, d)))
+        got = A.decode_attention_kernel(q, k, v, lens, d ** -0.5)
+        want = A._ref_attention_cache(q, k, v, lens, d ** -0.5)
+        torch.cuda.synchronize()
+        assert (got.float() - want.float()).abs().max().item() <= atol
+
+
+# rows the decode kernels take since their lanes round up to a power of
+# two: 16 bytes on one lane (bf16 d 8), 48 bytes on four (bf16 d 24:
+# three pieces), 192 bytes on sixteen (fp32 d 48, bf16 d 96: twelve
+# pieces), and float16
+@pytest.mark.parametrize("dtype,atol,d", [(torch.bfloat16, 2e-2, 8),
+                                          (torch.bfloat16, 2e-2, 24),
+                                          (torch.float32, 2e-5, 48),
+                                          (torch.bfloat16, 2e-2, 96),
+                                          (torch.float16, 2e-2, 64)])
+def test_decode_kernels_take_any_16_byte_row(cuda_device, dtype, atol, d):
+    """The dense and paged kernels at row widths that are not a power of
+    two of 16-byte pieces, against the plain version, over tails of 1
+    and 63 columns and a wrapped ring; the paged kernel equals the dense
+    one on the gathered cache."""
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    B, H, C = 4, 2, 320
+    q, k, v = (torch.randn(*s, device=cuda_device, generator=g).to(dtype)
+               for s in ((B, H, 1, d), (B, H, C, d), (B, H, C, d)))
+    cache_len = torch.tensor([1, 65, 319, 700], dtype=torch.int32,
+                             device=cuda_device)
+    n0 = (A.decode_attention_kernel.launches,
+          A.paged_attention_kernel.launches)
+    got = A.attention_with_cache(q, k, v, cache_len)
+    want = A._ref_attention_cache(q, k, v, cache_len, d ** -0.5)
+    ptok = 64
+    table = torch.arange(B * C // ptok, dtype=torch.int32,
+                         device=cuda_device).view(B, C // ptok)
+    pool = [t.view(B, H, C // ptok, ptok, d).permute(0, 2, 1, 3, 4)
+            .reshape(B * C // ptok, H, ptok, d).contiguous() for t in (k, v)]
+    paged = A.paged_attention_cache(q, *pool, table, cache_len)
+    torch.cuda.synchronize()
+    assert (A.decode_attention_kernel.launches,
+            A.paged_attention_kernel.launches) == (n0[0] + 1, n0[1] + 1)
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    assert (paged.float() - got.float()).abs().max().item() <= 1e-6
 
 
 def test_sessions_on_card_match_cpu(cuda_device):
@@ -226,13 +282,24 @@ def test_fused_attention_dropout_on_card(cuda_device):
 
 
 def test_fused_attention_refuses_long_sequences(cuda_device):
-    """What the kernels still refuse past S 1024: a head width they were
-    not built for. The S 1040 call that was refused before the long and
-    flash tiers were ported now runs through the kernels and matches the
+    """What the kernels still refuse past S 1024: a head width past 128.
+    The S 2048, d 48 call that was refused before the head widths were
+    padded, and the S 1040 call that was refused before the long and
+    flash tiers were ported, now run through the kernels and match the
     plain version."""
-    q = torch.zeros(1, 1, 2048, 48, device=cuda_device)
-    with pytest.raises(ValueError, match="d in"):
+    q = torch.zeros(1, 1, 2048, 160, device=cuda_device)
+    with pytest.raises(ValueError, match="up to 128, got d = 160"):
         A.fused_attention(q, q, q)
+    g = torch.Generator(device=cuda_device).manual_seed(2048)
+    q, k, v = (torch.randn(1, 2, 2048, 48, device=cuda_device, generator=g)
+               for _ in range(3))
+    n0 = A.fused_attention_fwd_kernel.launches
+    got = A.fused_attention(q, k, v)
+    want = A._ref_fused_attention(q, k, v, None, 48 ** -0.5, 0.0, None)
+    torch.cuda.synchronize()
+    assert A.fused_attention_fwd_kernel.launches == n0 + 1
+    assert got.shape == q.shape
+    assert (got - want).abs().max().item() <= 2e-5
     g = torch.Generator(device=cuda_device).manual_seed(1040)
     q, k, v = (torch.randn(1, 2, 1040, 64, device=cuda_device, generator=g)
                for _ in range(3))
@@ -684,6 +751,103 @@ def test_bf16_backward_copies_only_the_misaligned_operand(cuda_device,
     torch.cuda.synchronize()
     over = _rel_over(got, want, dtype)
     assert not over, over
+
+
+# Head widths the kernels are not built for reach them zero-padded to the
+# next built width, forward and backward, per head and packed, in every
+# type, held to chip_smoke.py's LONG_RTOL.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("B,H,S,d,bias_shape,p,packed", [
+    (2, 3, 130, 48, (2, 1, 1, 130), 0.1, False),
+    (2, 3, 200, 80, (2, 3, 200, 200), 0.0, False),
+    (2, 2, 77, 100, (2, 2, 1, 77), 0.1, False),
+    (2, 16, 128, 48, (2, 1, 1, 128), 0.1, True),     # hidden 768, 16 heads
+    (2, 3, 96, 80, (2, 3, 1, 96), 0.0, True),
+])
+def test_fused_attention_pads_other_head_widths(cuda_device, dtype, B, H, S,
+                                                d, bias_shape, p, packed):
+    if packed:
+        q, k, v, do, bias = _packed_inputs(cuda_device, dtype, B, S, H, d,
+                                           bias_shape, S * H + d)
+        run = A.fused_attention_packed
+        plain = A._ref_fused_attention_packed
+        extra = {"n_heads": H}
+    else:
+        q, k, v, do, bias = _attn_inputs(cuda_device, dtype, B, H, S, d,
+                                         bias_shape, S * H + d)
+        run, plain, extra = A.fused_attention, A._ref_fused_attention, {}
+    seed = torch.tensor([S * 13 + d], dtype=torch.int64, device=cuda_device)
+    n0 = [w.launches for w in _FUSED_COUNTERS]
+    got = _grads(lambda q_, k_, v_, b_: run(
+        q_, k_, v_, b_, dropout_prob=p, seed=seed, **extra), q, k, v, bias,
+        do)
+    torch.cuda.synchronize()
+    assert [w.launches for w in _FUSED_COUNTERS] == [n + 1 for n in n0]
+    assert got[0].shape == q.shape and got[0].dtype == dtype
+    want = _grads(lambda q_, k_, v_, b_: plain(
+        q_, k_, v_, b_, *([H] if packed else []), d ** -0.5, p, seed),
+        q, k, v, bias, do)
+    torch.cuda.synchronize()
+    over = _rel_over(got, want, dtype)
+    assert not over, over
+
+
+# The forward in the 16-bit types against the plain version: every built
+# head width, every bias shape (and none), ragged S, dropout on and off,
+# bf16 and fp16; out and the row logsumexp under chip_smoke.py's
+# LONG_RTOL.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,H,S,d,bias_shape,p", [
+    (2, 3, 500, 16, None, 0.1),
+    (2, 3, 500, 32, (2, 1, 1, 500), 0.0),              # padding-mask shape
+    (2, 3, 1040, 64, (2, 3, 1, 1040), 0.1),            # per-head
+    (1, 2, 1040, 128, (1, 1, 1040, 1040), 0.0),        # head-broadcast rows
+    (2, 2, 500, 64, (2, 2, 500, 500), 0.1),            # per-row
+    (1, 3, 1040, 16, (1, 3, 1040, 1040), 0.0),
+    (2, 3, 500, 128, (1, 1, 1, 500), 0.1),             # batch-broadcast
+    (2, 2, 1040, 32, (2, 1, 1, 1040), 0.1),
+])
+def test_16bit_forward_matches_plain(cuda_device, dtype, B, H, S, d,
+                                    bias_shape, p):
+    q, k, v, _, bias = _attn_inputs(cuda_device, dtype, B, H, S, d,
+                                    bias_shape, S + d)
+    seed = torch.tensor([S * 29 + d], dtype=torch.int64, device=cuda_device)
+    n0 = A.fused_attention_fwd_kernel.launches
+    o, lse = A.flash_attention(q, k, v, bias, dropout_prob=p, seed=seed)
+    want_o, want_lse = A._ref_flash_attention(q, k, v, bias, d ** -0.5, p,
+                                              seed)
+    torch.cuda.synchronize()
+    assert A.fused_attention_fwd_kernel.launches == n0 + 1
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    rtol = smoke.LONG_RTOL[dtype]
+    for name, a, b in (("out", o, want_o), ("lse", lse, want_lse)):
+        rel = ((a.float() - b.float()).abs().max() /
+               b.float().abs().max()).item()
+        assert rel <= rtol[name], (name, rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_16bit_forward_draws_the_plain_mask(cuda_device, dtype):
+    """q = k = 0 gives every key the weight 1/S, and a one-hot v (key
+    128 t + c on column c) makes o[.., r, c] = keep[r, 128 t + c] / (S (1
+    - p)), exact in 16 bits: the forward's dropout mask equals
+    dropout_keep_mask bit for bit over two q-tiles, four k-tiles, three
+    heads and two batch rows."""
+    B, H, S, d, p = 2, 3, 256, 128, 0.3
+    q = torch.zeros(B, H, S, d, dtype=dtype, device=cuda_device)
+    seed = torch.tensor([31337], dtype=torch.int64, device=cuda_device)
+    keep = A.dropout_keep_mask(B, H, S, p, seed)
+    cols = torch.arange(d, device=cuda_device)
+    for t in range(S // d):
+        v = torch.zeros_like(q)
+        v[:, :, t * d + cols, cols] = 1
+        o = A.fused_attention(q, q, v, dropout_prob=p, seed=seed)
+        torch.cuda.synchronize()
+        assert torch.equal(o != 0, keep[..., t * d:(t + 1) * d]), t
+        torch.testing.assert_close(
+            o.float(), keep[..., t * d:(t + 1) * d].float() / (S * (1 - p)),
+            rtol=2 ** -7, atol=0)
 
 
 def test_packed_amp_bert_tiny_step_on_card_matches_cpu(cuda_device):

@@ -16,22 +16,24 @@ bert_packed phase's. Faults:
   sound         no fault: the readings the limits must clear;
   skip_tile     each kernel skips its second tile (keys 64-127 in the
                 forward and dq kernels, query rows 64-127 in dk/dv; in
-                the bf16 tensor-core kernels the double-buffered copy of
-                the tile after it is skipped too);
+                the tensor-core kernels the double-buffered copy of the
+                tile after it is skipped too);
   no_mask       the bias (the padding mask) is ignored;
   pair_by_head  the dropout mask is keyed on the head alone, not on
                 b * H + h, so every batch row draws the first row's mask;
   row_stride_d  tiles are loaded with a row stride of d elements (the
-                SIMT loads and the bf16 kernels' cp.async copies), as if
-                every operand were contiguous [B, H, S, d]: right there,
-                wrong in the packed layout, whose rows are H * d apart
-                (and right at H = 1);
-  k_not_transposed  the bf16 dq kernel reads K for dq += dS . K with
-                ldmatrix without .trans, so each 8 x 8 block of K enters
-                the product transposed.
+                SIMT loads and the tensor-core kernels' cp.async copies),
+                as if every operand were contiguous [B, H, S, d]: right
+                there, wrong in the packed layout, whose rows are H * d
+                apart (and right at H = 1);
+  k_not_transposed  the tensor-core dq kernel reads K for dq += dS . K
+                with ldmatrix without .trans, so each 8 x 8 block of K
+                enters the product transposed.
 
-Every fault but k_not_transposed is planted in both the fp32 SIMT kernels
-and the bf16 tensor-core kernels.
+Every fault but k_not_transposed is planted in both the SIMT kernels
+(the forward in every type, the fp32 backward) and the tensor-core
+backward; tests/test_torch_attention_plants.py checks that it reaches
+each.
 
 Prints one JSON line per (fault, case): each output's max |kernel -
 plain| over the plain output's largest magnitude, the limit chip_smoke

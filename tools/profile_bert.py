@@ -38,7 +38,7 @@ from paddle_tpu_torch import fluid  # noqa: E402
 from paddle_tpu_torch.models import bert  # noqa: E402
 
 # the fused-attention kernels (csrc/fused_attention.cu): the forward, the
-# fp32 SIMT backward and the bf16 tensor-core backward
+# fp32 SIMT backward and the bf16/fp16 tensor-core backward
 ATTENTION_KERNELS = ("attn_fwd", "attn_bwd_dq", "attn_bwd_dkdv",
                      "attn_bwd_dq_mma", "attn_bwd_dkdv_mma")
 
