@@ -39,11 +39,14 @@ TPU tiers draw differently from one another.
 Each public function takes the plain PyTorch version for tensors on the
 CPU and the kernel for tensors on a CUDA device; anything else raises.
 The training kernels take float32, bfloat16 and float16 (the 16-bit
-backward on the tensor cores) and head widths 16, 32, 64 and 128;
-``flash_attention`` and ``flash_attention_backward``, which every route
-reaches, zero-pad any other d up to 128 to the next of these. The decode
-kernels take the same three types and key rows of any multiple of 16
-bytes up to 512.
+forward up to d 128 and the 16-bit backward on the tensor cores) and
+head widths 16, 32, 64, 128 and 256; ``flash_attention`` and
+``flash_attention_backward``, which every route reaches, zero-pad any
+other d up to 256 to the next of these. The decode kernels take the
+same three types and key rows of any width up to 2048 bytes; the decode
+sessions pad their caches' rows to a multiple of 16 bytes
+(``decode_row_width``), which ``attention_with_cache`` and
+``paged_attention_cache`` read with q zero-padded to match.
 Every decode capacity goes to the kernel: the TPU package's capacity
 threshold for its kernel tier is not carried over.
 
@@ -85,7 +88,7 @@ _M_BWD_DKDV_LAUNCH = _monitor.counter(
 # -- fused training attention -----------------------------------------------
 # the head widths the fused kernels are built for; ``flash_attention`` and
 # ``flash_attention_backward`` zero-pad any other d up to the next one
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 # Philox4x32-10 (Random123's constants), the generator of the kernels'
@@ -228,7 +231,7 @@ def flash_attention(q, k, v, bias=None, scale=None, dropout_prob=0.0,
     ``flash_attention_backward`` is its backward. A CPU tensor takes the
     plain version, a CUDA tensor the forward kernel; a head width the
     kernels are not built for is zero-padded (``padded_forward``), any d
-    up to 128."""
+    up to 256."""
     scale, p = _scalars(q.shape[-1], scale, dropout_prob, seed)
     if q.device.type == "cpu":
         return _ref_flash_attention(q, k, v, bias, scale, p, seed)
@@ -278,12 +281,13 @@ def _launch_backward(q, k, v, bias, seed, do, o, lse, scale, p, bias_grad):
 
 def built_width(d):
     """The narrowest head width the fused kernels are built for
-    (``_HEAD_DIMS``) that holds ``d``; a d past 128 raises."""
+    (``_HEAD_DIMS``) that holds ``d``; a d past 256 raises."""
     for width in _HEAD_DIMS:
         if d <= width:
             return width
     raise ValueError("the fused-attention kernels take head widths up to "
-                     "%d, got d = %d" % (_HEAD_DIMS[-1], d))
+                     "%d (no d past it is built, none of the model presets "
+                     "has one), got d = %d" % (_HEAD_DIMS[-1], d))
 
 
 def _pad_heads(t, width):
@@ -448,23 +452,33 @@ def fused_attention_packed(q, k, v, bias=None, n_heads=1, scale=None,
 
 
 # -- KV ring cache -----------------------------------------------------------
+def decode_row_width(d, dtype):
+    """Elements of a KV-cache row that holds d elements of ``dtype``,
+    rounded up to a multiple of 16 bytes: the width the decode sessions
+    allocate their caches and pools at, so that every row travels by
+    16-byte copies (the columns past d stay zero)."""
+    step = 16 // torch.empty((), dtype=dtype).element_size()
+    return -(-int(d) // step) * step
+
+
 def kv_cache_update(cache, new, cache_len):
     """Write ``new`` [B, H, T, d] into the ring buffer ``cache``
-    [B, H, C, d] at per-sequence slot ``cache_len % C`` (in place) and
-    return ``(cache, cache_len + T)``.
+    [B, H, C, d'] (d' >= d: a cache whose rows are padded takes ``new``
+    in its first d columns) at per-sequence slot ``cache_len % C`` (in
+    place) and return ``(cache, cache_len + T)``.
 
     ``cache_len`` [B] int32 counts every token ever written (not clamped
     to C). One write must not cross the ring boundary; where it would,
     the start slot is clamped to C - T, as the reference's
     ``dynamic_update_slice`` clamps it."""
-    B, H, C, d = cache.shape
-    T = new.shape[2]
+    B, H, C, _ = cache.shape
+    T, d = new.shape[2], new.shape[3]
     lens = cache_len.reshape(B).to(torch.int32)
     pos = torch.clamp(torch.remainder(lens, C), max=C - T).long()
     slots = pos[:, None] + torch.arange(T, device=cache.device)[None, :]
     rows = torch.arange(B, device=cache.device)[:, None].expand(B, T)
     # advanced indices around a slice put their dims first: [B, T, H, d]
-    cache[rows, :, slots, :] = new.to(cache.dtype).permute(0, 2, 1, 3)
+    cache[rows, :, slots, :d] = new.to(cache.dtype).permute(0, 2, 1, 3)
     return cache, lens + T
 
 
@@ -489,25 +503,41 @@ def _ref_attention_cache(q, k_cache, v_cache, cache_len, scale,
     return torch.einsum("bhqk,bhkd->bhqd", p, v_cache.float()).to(q.dtype)
 
 
+def _pad_to_rows(q, cache):
+    """q zero-padded along d to the width of the cache's rows (q itself
+    when they match): a session's cache rows are padded to 16 bytes
+    (``decode_row_width``), and zero columns add nothing to q·kᵀ."""
+    d, width = q.shape[-1], cache.shape[-1]
+    if width < d:
+        raise ValueError("the cache rows hold %d elements, q has %d"
+                         % (width, d))
+    return q if width == d else F.pad(q, (0, width - d))
+
+
 def attention_with_cache(q, k_cache, v_cache, cache_len, scale=None,
                          causal_window=False):
     """Decode-step attention against a KV ring buffer.
 
     q [B, H, Q, d] (Q=1 for incremental decode), k_cache/v_cache
-    [B, H, C, d], cache_len [B] int32 = tokens written so far, after the
-    update (so the current token sees itself). Only the first
-    min(cache_len, C) slots take part; slot order does not matter, so a
-    wrapped ring needs no unscrambling. ``causal_window=True``
-    (speculative verify, Q > 1): row r masks the columns written after
-    it, which assumes the ring has not wrapped. Returns [B, H, Q, d] in
-    q's dtype, accumulated in fp32."""
+    [B, H, C, d'] with d' = d, or the session's rows padded to 16 bytes
+    (d' = ``decode_row_width(d)``: q is zero-padded to d' and the output
+    sliced back; the scale keeps the true d), cache_len [B] int32 =
+    tokens written so far, after the update (so the current token sees
+    itself). Only the first min(cache_len, C) slots take part; slot order
+    does not matter, so a wrapped ring needs no unscrambling.
+    ``causal_window=True`` (speculative verify, Q > 1): row r masks the
+    columns written after it, which assumes the ring has not wrapped.
+    Returns [B, H, Q, d] in q's dtype, accumulated in fp32."""
     d = q.shape[-1]
     scale = float(1.0 / math.sqrt(d) if scale is None else scale)
+    q = _pad_to_rows(q, k_cache)
     if q.device.type == "cpu":
-        return _ref_attention_cache(q, k_cache, v_cache, cache_len, scale,
-                                    causal_window=causal_window)
-    return decode_attention_kernel(q, k_cache, v_cache, cache_len, scale,
+        out = _ref_attention_cache(q, k_cache, v_cache, cache_len, scale,
                                    causal_window=causal_window)
+    else:
+        out = decode_attention_kernel(q, k_cache, v_cache, cache_len, scale,
+                                      causal_window=causal_window)
+    return out[..., :d]
 
 
 # -- paged KV pool -----------------------------------------------------------
@@ -521,12 +551,12 @@ def attention_with_cache(q, k_cache, v_cache, cache_len, scale=None,
 
 def paged_kv_cache_update(pool, new, page_table, cache_len):
     """Write ``new`` [B, H, T, d] through ``page_table`` [B, npages] into
-    the shared pool [P, H, ptok, d] (in place) and return
-    ``(pool, cache_len + T)``. Token t of slot b lands at logical ring
-    position (cache_len[b] + t) % (npages * ptok); unlike the dense ring
-    a write may cross page and ring boundaries."""
-    P, H, ptok, d = pool.shape
-    B, _, T, _ = new.shape
+    the shared pool [P, H, ptok, d'] (d' >= d, as ``kv_cache_update``;
+    in place) and return ``(pool, cache_len + T)``. Token t of slot b
+    lands at logical ring position (cache_len[b] + t) % (npages * ptok);
+    unlike the dense ring a write may cross page and ring boundaries."""
+    P, H, ptok, _ = pool.shape
+    B, _, T, d = new.shape
     cap = page_table.shape[1] * ptok
     lens = cache_len.reshape(B).to(torch.int32)
     pos = torch.remainder(
@@ -534,7 +564,7 @@ def paged_kv_cache_update(pool, new, page_table, cache_len):
         cap)                                                   # [B, T]
     page = torch.gather(page_table.long(), 1, pos // ptok)     # [B, T]
     vals = new.to(pool.dtype).permute(0, 2, 1, 3).reshape(B * T, H, d)
-    pool[page.reshape(-1), :, (pos % ptok).reshape(-1), :] = vals
+    pool[page.reshape(-1), :, (pos % ptok).reshape(-1), :d] = vals
     return pool, lens + T
 
 
@@ -552,18 +582,22 @@ def paged_attention_cache(q, k_pool, v_pool, page_table, cache_len,
                           scale=None):
     """Decode-step attention against a PAGED KV cache.
 
-    q [B, H, Q, d], pools [P, H, ptok, d], page_table [B, npages] int32,
+    q [B, H, Q, d], pools [P, H, ptok, d'] (d' = d, or padded rows as
+    ``attention_with_cache`` takes them), page_table [B, npages] int32,
     cache_len [B] int32 (after the update). Live slots are the first
     min(cache_len, npages * ptok) logical positions in table order; the
     result equals ``attention_with_cache`` of the gathered cache."""
     d = q.shape[-1]
     scale = float(1.0 / math.sqrt(d) if scale is None else scale)
+    q = _pad_to_rows(q, k_pool)
     if q.device.type == "cpu":
-        return _ref_attention_cache(q, gather_paged_cache(k_pool, page_table),
-                                    gather_paged_cache(v_pool, page_table),
-                                    cache_len, scale)
-    return paged_attention_kernel(q, k_pool, v_pool, page_table, cache_len,
-                                  scale)
+        out = _ref_attention_cache(q, gather_paged_cache(k_pool, page_table),
+                                   gather_paged_cache(v_pool, page_table),
+                                   cache_len, scale)
+    else:
+        out = paged_attention_kernel(q, k_pool, v_pool, page_table,
+                                     cache_len, scale)
+    return out[..., :d]
 
 
 # -- CUDA kernels -------------------------------------------------------------
@@ -572,22 +606,29 @@ _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
 _VOIDP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+# the longest key row the decode kernels take: 32 lanes of four 16-byte
+# pieces (fp32 d 512, bfloat16 and float16 d 1024)
+_DECODE_MAX_ROW_BYTES = 2048
+
+
 def decode_lanes(row_bytes):
-    """The lanes of a warp that cover one key row of ``row_bytes`` bytes
-    in the decode kernels (csrc/decode_attention.cu): the row's 16-byte
-    pieces rounded up to a power of two, 1 to 32; the lanes past the row
-    stay idle. A row that is not a multiple of 16 bytes from 16 to 512
-    raises."""
-    if row_bytes % 16:
-        raise ValueError("a decode key row must be a multiple of 16 bytes "
-                         "(d * itemsize), got %d" % row_bytes)
-    if not 16 <= row_bytes <= 512:
-        raise ValueError("a decode key row must span 16 to 512 bytes "
-                         "(d * itemsize), got %d" % row_bytes)
+    """(lanes, pieces a lane) that cover one key row of ``row_bytes``
+    bytes in the decode kernels (csrc/decode_attention.cu): the row
+    rounded up to 16-byte pieces; up to 512 bytes one piece a lane, the
+    pieces rounded up to a power of two of lanes (1 to 32; the lanes past
+    the row stay idle), past that 32 lanes of 2 or 4 pieces. A row of no
+    bytes or past 2048 raises."""
+    if not 1 <= row_bytes <= _DECODE_MAX_ROW_BYTES:
+        raise ValueError("a decode key row must span 1 to %d bytes "
+                         "(d * itemsize), got %d"
+                         % (_DECODE_MAX_ROW_BYTES, row_bytes))
+    pieces = -(-row_bytes // 16)
+    if pieces > 32:
+        return 32, 2 if pieces <= 64 else 4
     lanes = 1
-    while 16 * lanes < row_bytes:
+    while lanes < pieces:
         lanes *= 2
-    return lanes
+    return lanes, 1
 
 
 def _entry(name, n_ptrs, n_ints):
@@ -641,9 +682,10 @@ def decode_attention_kernel(q, k_cache, v_cache, cache_len, scale,
     ``paddle_tpu/kernels/attention.py``): q [B, H, Q, d], k/v caches
     [B, H, C, d] in q's dtype (float32, bfloat16 or float16), cache_len
     [B] int32, all contiguous on one CUDA device; a key row of d elements
-    spans a multiple of 16 bytes from 16 to 512 (``decode_lanes``) and
-    the caches start 16-byte aligned, as fresh allocations do. Returns a
-    new [B, H, Q, d] tensor in q's dtype.
+    spans up to 2048 bytes (``decode_lanes``). Rows of a multiple of 16
+    bytes in caches that start 16-byte aligned (the sessions' padded
+    caches) travel by 16-byte asynchronous copies, others element by
+    element. Returns a new [B, H, Q, d] tensor in q's dtype.
 
     Bound on the card: the bytes of the live K and V rows over the HBM
     rate (3.35 TB/s on the H100 SXM); the kernel reads only live rows
@@ -653,8 +695,8 @@ def decode_attention_kernel(q, k_cache, v_cache, cache_len, scale,
     _check_q(q)
     B, H, Q, d = q.shape
     C = k_cache.shape[2] if k_cache.dim() == 4 else 0
-    _check("k_cache", k_cache, q.device, q.dtype, (B, H, C, d), 16)
-    _check("v_cache", v_cache, q.device, q.dtype, (B, H, C, d), 16)
+    _check("k_cache", k_cache, q.device, q.dtype, (B, H, C, d))
+    _check("v_cache", v_cache, q.device, q.dtype, (B, H, C, d))
     _check("cache_len", cache_len, q.device, torch.int32, (B,))
     if C < 1:
         raise ValueError("k_cache must hold at least one slot")
@@ -678,21 +720,20 @@ def paged_attention_kernel(q, k_pool, v_pool, page_table, cache_len, scale):
     """Launch the paged decode kernel (replaces
     ``_paged_decode_fwd_kernel``, ``paddle_tpu/kernels/attention.py``;
     same bound and design as ``decode_attention_kernel``, whose template
-    it shares): q [B, H, Q, d], pools [P, H, ptok, d]
-    in q's dtype, page_table [B, npages] int32, cache_len [B] int32, all
-    contiguous on one CUDA device, with the same head-width and alignment
-    terms. Each block reads its own page indices
-    from the table; the dense cache is never materialised. Table entries
-    must index the pool (the sessions guarantee it; checking here would
-    sync the host every step). Returns a new [B, H, Q, d] tensor in q's
-    dtype."""
+    it shares): q [B, H, Q, d], pools [P, H, ptok, d] in q's dtype,
+    page_table [B, npages] int32, cache_len [B] int32, all contiguous on
+    one CUDA device, with the same row terms. Each block reads its own
+    page indices from the table; the dense cache is never materialised.
+    Table entries must index the pool (the sessions guarantee it;
+    checking here would sync the host every step). Returns a new
+    [B, H, Q, d] tensor in q's dtype."""
     _check_q(q)
     B, H, Q, d = q.shape
     P, ptok = (k_pool.shape[0], k_pool.shape[2]) if k_pool.dim() == 4 \
         else (0, 0)
     npages = page_table.shape[1] if page_table.dim() == 2 else 0
-    _check("k_pool", k_pool, q.device, q.dtype, (P, H, ptok, d), 16)
-    _check("v_pool", v_pool, q.device, q.dtype, (P, H, ptok, d), 16)
+    _check("k_pool", k_pool, q.device, q.dtype, (P, H, ptok, d))
+    _check("v_pool", v_pool, q.device, q.dtype, (P, H, ptok, d))
     _check("page_table", page_table, q.device, torch.int32, (B, npages))
     _check("cache_len", cache_len, q.device, torch.int32, (B,))
     if P < 1 or ptok < 1 or npages < 1:
@@ -715,7 +756,8 @@ paged_attention_kernel.launches = 0
 
 # -- fused training-attention CUDA kernels -----------------------------------
 # the type code of the C entries: float32 on the SIMT kernels, bfloat16
-# and float16 on the SIMT forward and the tensor-core backward
+# and float16 on the tensor cores (the forward up to d 128; at d 256 it
+# runs on the SIMT kernel)
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _TENSOR_CORE_TYPES = (torch.bfloat16, torch.float16)
 _I64 = ctypes.c_longlong
@@ -808,18 +850,23 @@ def fused_attention_fwd_kernel(q, k, v, bias, strides, seed, scale, p):
     ``_fwd_kernel_long``, ``_flash_fwd_kernel``, ``_packed_fwd_kernel``
     and ``_res_fwd_kernel``, ``paddle_tpu/kernels/attention.py``): q, k, v
     [B, H, S, d] of one type (float32, bfloat16 or float16, d in
-    16/32/64/128, any S) on one CUDA device, each row of d elements
-    contiguous; bias None or contiguous float32 read at element strides
-    ``strides`` (batch, head, row; 0 broadcasts); seed int64 [1] when
-    ``p`` > 0. Returns (o [B, H, S, d] in q's type and memory layout, lse
-    [B, H, S] fp32).
+    16/32/64/128/256, any S) on one CUDA device, each row of d elements
+    contiguous (a 16-bit operand's rows on 16-byte boundaries: ``_rows``);
+    bias None or contiguous float32 read at element strides ``strides``
+    (batch, head, row; 0 broadcasts); seed int64 [1] when ``p`` > 0.
+    Returns (o [B, H, S, d] in q's type and memory layout, lse [B, H, S]
+    fp32).
 
     Bound on the card: 4·B·H·S²·d operations on the bytes of q, k, v and
     o, S / itemsize operations a byte: in bf16 and fp16 the bytes up to
     S 590, the tensor cores' rate above (fp32: the SIMT rate from S 80).
-    Every type runs on the SIMT cores in fp32 (design note in
-    ``csrc/fused_attention.cu``)."""
-    _check_qkv(q, k, v)
+    bfloat16 and float16 up to d 128 run on the tensor cores
+    (``attn_fwd_mma``: ``mma.sync`` m16n8k16, P in pieces of the input
+    type, each tile's P·V joined to O in fp32), float32 and d 256 on the
+    SIMT cores in fp32 (design note in ``csrc/fused_attention.cu``).
+    ``launches`` counts every launch, ``tensor_core_launches`` those of
+    ``attn_fwd_mma``."""
+    _check_qkv(q, k, v, aligned=True)
     _check_extras(q, bias, strides, seed, p)
     o = torch.empty_like(q)
     B, H, S, d = q.shape
@@ -834,10 +881,13 @@ def fused_attention_fwd_kernel(q, k, v, bias, strides, seed, scale, p):
     _raise_on(rc, "fused-attention forward")
     fused_attention_fwd_kernel.launches += 1
     _M_FWD_LAUNCH.inc()
+    if on_tensor_cores(0, q.dtype, d):
+        fused_attention_fwd_kernel.tensor_core_launches += 1
     return o, lse
 
 
 fused_attention_fwd_kernel.launches = 0
+fused_attention_fwd_kernel.tensor_core_launches = 0
 
 
 def _keep_scale(p):
@@ -960,6 +1010,17 @@ def fused_attention_smem_bytes(which, dtype, d):
                  "pt_fused_attention_smem")
     fn.argtypes, fn.restype = [_INT, _INT, _INT], _I64
     return int(fn(int(which), _TYPE_CODES[dtype], int(d)))
+
+
+@functools.lru_cache(maxsize=None)
+def on_tensor_cores(which, dtype, d):
+    """Whether the forward (``which`` 0), dq (1) or dk/dv (2) kernel runs
+    on the tensor cores for operands of ``dtype`` at head width ``d``, as
+    the library itself dispatches it (builds the library)."""
+    fn = getattr(_build.library("fused_attention"),
+                 "pt_fused_attention_tensor_cores")
+    fn.argtypes, fn.restype = [_INT, _INT, _INT], _INT
+    return bool(fn(int(which), _TYPE_CODES[dtype], int(d)))
 
 
 def _dbias_shape(bias_grad, strides, B, H, S):

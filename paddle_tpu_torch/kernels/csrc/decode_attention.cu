@@ -22,13 +22,23 @@
 //     kStages - 1 tiles are in flight while the block does the math of the
 //     current one (K and V of a tile travel together);
 //   * the math reads rows with 16-byte shared loads: a group of L lanes
-//     covers one row of d * sizeof(T) bytes, any multiple of 16 from 16
-//     to 512, each lane holding its 16-byte slice of q in registers; L is
-//     the row's 16-byte pieces rounded up to a power of two (1 to 32, a
-//     template parameter), and the lanes past the row (at 48, 96, 192 ...
-//     bytes) stay idle in loads and add zeros to the shuffles; a group's
-//     partial dot products meet by shuffles, those of a thread's rows
-//     interleaved;
+//     covers one row of Dp elements, d rounded up to a multiple of 16
+//     bytes, each lane holding NP 16-byte slices of q in registers
+//     (slices piece, piece + L, ...); up to 512 bytes NP is 1 and L the
+//     row's 16-byte pieces rounded up to a power of two (1 to 32), past
+//     that L is 32 and NP 2 or 4 (rows up to 2048 bytes: fp32 d 512,
+//     16-bit d 1024), with tiles of 64 / NP keys so that a stage stays
+//     within 32 KB; both are template parameters, and the lanes past the
+//     row (at 48, 96, 192 ... bytes) stay idle in loads and add zeros to
+//     the shuffles; a group's partial dot products meet by shuffles,
+//     those of a thread's rows interleaved;
+//   * a row that is not a multiple of 16 bytes (fp32 d 6, bf16 d 12), or
+//     a cache that does not start on a 16-byte boundary, cannot travel by
+//     16-byte cp.async: its tiles are copied element by element with
+//     ordinary loads into the same padded shared rows, zeros up to Dp
+//     (zero key columns add nothing to q.k^T); the decode sessions pad
+//     their caches' rows to 16 bytes, so this narrow copy serves only a
+//     cache a caller passes in unpadded;
 //   * the running max is block-wide, so every group rescales its share of
 //     the sum and of the accumulator by the same factor, and the groups'
 //     shares are added once at the end.
@@ -54,7 +64,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;     // logical key columns per tile
+constexpr int kTile = 64;     // key columns per tile of rows up to 512 bytes
 constexpr int kStages = 3;    // shared-memory tile buffers in the ring
 constexpr float kMasked = -1e30f;
 
@@ -149,49 +159,69 @@ struct PagedKV {
   }
 };
 
-// Start the copies of `n` key and value rows of D elements (`pieces`
-// 16-byte pieces) from logical column `col0` into the stage buffers sk /
-// sv ([kTile][D] each, rows packed), one piece per thread per step.
+// Start the copies of `n` key and value rows of D elements from logical
+// column `col0` into the stage buffers sk / sv ([rows][Dp] each, Dp = D
+// rounded up to 16 bytes): 16-byte cp.async pieces, one per thread per
+// step, or with ``narrow`` element by element through registers, with
+// zeros from D to Dp.
 template <typename T, typename KV>
 __device__ __forceinline__ void issue_tile(const KV& kv, const T* k,
                                            const T* v, int b, int h,
-                                           int col0, int n, int pieces,
-                                           T* sk, T* sv) {
+                                           int col0, int n, int D, int Dp,
+                                           bool narrow, T* sk, T* sv) {
   constexpr int kVec = 16 / sizeof(T);
-  const int D = pieces * kVec;
-  for (int c = threadIdx.x; c < n * pieces; c += kThreads) {
-    const int row = c / pieces, off = (c % pieces) * kVec;
-    const size_t src = kv.offset(b, h, col0 + row) + off;
-    cp_async16(sk + row * D + off, k + src);
-    cp_async16(sv + row * D + off, v + src);
+  if (!narrow) {
+    const int pieces = D / kVec;
+    for (int c = threadIdx.x; c < n * pieces; c += kThreads) {
+      const int row = c / pieces, off = (c % pieces) * kVec;
+      const size_t src = kv.offset(b, h, col0 + row) + off;
+      cp_async16(sk + row * D + off, k + src);
+      cp_async16(sv + row * D + off, v + src);
+    }
+    return;
+  }
+  for (int c = threadIdx.x; c < n * Dp; c += kThreads) {
+    const int row = c / Dp, e = c % Dp;
+    if (e < D) {
+      const size_t src = kv.offset(b, h, col0 + row) + e;
+      sk[c] = k[src];
+      sv[c] = v[src];
+    } else {
+      store_f32(0.f, sk + c);
+      store_f32(0.f, sv + c);
+    }
   }
 }
 
-// L lanes cover one key row of D elements (D * sizeof(T) / 16 <= L
-// pieces; lanes past them idle); the block holds G = kThreads / L row
+// L lanes cover one key row of Dp elements, NP 16-byte pieces a lane
+// (Dp * sizeof(T) / 16 <= L * NP pieces; lanes past them idle); a tile
+// holds TR = kTile / NP rows; the block holds G = kThreads / L row
 // groups, each taking R rows of a tile (rows g, g + G, ...; at L = 1 the
 // groups past the tile's 64 rows take none), so the R dot products of a
 // thread are independent and their shuffles interleave.
-template <typename T, int L, typename KV>
+template <typename T, int L, int NP, typename KV>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const T* __restrict__ q, const T* k, const T* v,
                             T* __restrict__ out, const int* __restrict__ lens,
-                            KV kv, int H, int Q, int D, int capacity,
-                            float scale, int causal_window) {
+                            KV kv, int H, int Q, int D, int Dp, int narrow,
+                            int capacity, float scale, int causal_window) {
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int G = kThreads / L, R = (kTile + G - 1) / G;
+  constexpr int TR = kTile / NP;
+  constexpr int G = kThreads / L, R = (TR + G - 1) / G;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_tiles = reinterpret_cast<T*>(smem_raw);  // [kStages][2][kTile][D]
-  float* s_acc = reinterpret_cast<float*>(s_tiles + kStages * 2 * kTile * D);
-  float* s_l = s_acc + G * D;                   // s_acc [G][D], s_l [G]
+  T* s_tiles = reinterpret_cast<T*>(smem_raw);  // [kStages][2][TR][Dp]
+  float* s_acc = reinterpret_cast<float*>(s_tiles + kStages * 2 * TR * Dp);
+  float* s_l = s_acc + G * Dp;                  // s_acc [G][Dp], s_l [G]
   float* s_red = s_l + G;                       // [kWarps]
   int* s_table = reinterpret_cast<int*>(s_red + kWarps);  // paged: [npages]
 
   const int r = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31;
-  const int g = tid / L, piece = tid % L;  // row group, 16-byte slice
-  const int pieces = D / kVec;
-  const bool live_lane = piece < pieces;   // lanes past the row idle
+  const int g = tid / L, piece = tid % L;  // row group, first 16-byte slice
+  const int pieces = Dp / kVec;
+  bool live[NP];                           // lanes past the row idle
+#pragma unroll
+  for (int j = 0; j < NP; ++j) live[j] = piece + j * L < pieces;
   const size_t qoff = ((static_cast<size_t>(b) * H + h) * Q + r) * D;
 
   const int valid = min(lens[b], capacity);
@@ -199,26 +229,28 @@ __global__ void __launch_bounds__(kThreads)
   // every column < limit is live; an empty window walks the whole
   // capacity with every score masked, which makes the softmax uniform
   const int n_cols = limit > 0 ? limit : capacity;
-  const int n_tiles = (n_cols + kTile - 1) / kTile;
+  const int n_tiles = (n_cols + TR - 1) / TR;
 
   const KV src = kv.bind(b, s_table);
   if (KV::kHasTable) __syncthreads();
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_tiles) {
-      T* sk = s_tiles + s * 2 * kTile * D;
-      issue_tile<T>(src, k, v, b, h, s * kTile,
-                    min(kTile, n_cols - s * kTile), pieces, sk,
-                    sk + kTile * D);
+      T* sk = s_tiles + s * 2 * TR * Dp;
+      issue_tile<T>(src, k, v, b, h, s * TR, min(TR, n_cols - s * TR), D,
+                    Dp, narrow, sk, sk + TR * Dp);
     }
     cp_async_commit();  // empty groups keep the count per tile uniform
   }
 
-  float qv[kVec], acc[kVec];
+  float qv[NP][kVec], acc[NP][kVec];
 #pragma unroll
-  for (int e = 0; e < kVec; ++e) {
-    qv[e] = live_lane ? to_f32(q[qoff + piece * kVec + e]) : 0.f;
-    acc[e] = 0.f;
-  }
+  for (int j = 0; j < NP; ++j)
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      const int at = (piece + j * L) * kVec + e;
+      qv[j][e] = live[j] && at < D ? to_f32(q[qoff + at]) : 0.f;
+      acc[j][e] = 0.f;
+    }
   float m = kMasked, l = 0.f;
 
   for (int i = 0; i < n_tiles; ++i) {
@@ -228,26 +260,29 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     const int nxt = i + kStages - 1;
     if (nxt < n_tiles) {
-      T* sk = s_tiles + (nxt % kStages) * 2 * kTile * D;
-      issue_tile<T>(src, k, v, b, h, nxt * kTile,
-                    min(kTile, n_cols - nxt * kTile), pieces, sk,
-                    sk + kTile * D);
+      T* sk = s_tiles + (nxt % kStages) * 2 * TR * Dp;
+      issue_tile<T>(src, k, v, b, h, nxt * TR, min(TR, n_cols - nxt * TR),
+                    D, Dp, narrow, sk, sk + TR * Dp);
     }
     cp_async_commit();
 
-    const int col0 = i * kTile, n = min(kTile, n_cols - col0);
-    const T* sk = s_tiles + (i % kStages) * 2 * kTile * D;
-    const T* sv = sk + kTile * D;
+    const int col0 = i * TR, n = min(TR, n_cols - col0);
+    const T* sk = s_tiles + (i % kStages) * 2 * TR * Dp;
+    const T* sv = sk + TR * Dp;
     float sc[R];
 #pragma unroll
     for (int rr = 0; rr < R; ++rr) {
       const int j = g + rr * G;
       float dot = 0.f;
-      if (j < n && live_lane) {
-        float kx[kVec];
-        load16(sk + j * D + piece * kVec, kx);
+      if (j < n) {
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) dot = fmaf(qv[e], kx[e], dot);
+        for (int p = 0; p < NP; ++p) {
+          if (!live[p]) continue;
+          float kx[kVec];
+          load16(sk + j * Dp + (piece + p * L) * kVec, kx);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) dot = fmaf(qv[p][e], kx[e], dot);
+        }
       }
       sc[rr] = dot;
     }
@@ -275,50 +310,58 @@ __global__ void __launch_bounds__(kThreads)
     const float corr = expf(m - m_new);
     l *= corr;
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) acc[e] *= corr;
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc[p][e] *= corr;
 #pragma unroll
     for (int rr = 0; rr < R; ++rr) {
       const int j = g + rr * G;
       if (j < n) {
-        const float p = expf(sc[rr] - m_new);
-        l += p;
-        if (live_lane) {
-          float vx[kVec];
-          load16(sv + j * D + piece * kVec, vx);
+        const float pr = expf(sc[rr] - m_new);
+        l += pr;
 #pragma unroll
-          for (int e = 0; e < kVec; ++e) acc[e] = fmaf(p, vx[e], acc[e]);
+        for (int p = 0; p < NP; ++p) {
+          if (!live[p]) continue;
+          float vx[kVec];
+          load16(sv + j * Dp + (piece + p * L) * kVec, vx);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e)
+            acc[p][e] = fmaf(pr, vx[e], acc[p][e]);
         }
       }
     }
     m = m_new;
   }
 
-  if (live_lane) {
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) s_acc[g * D + piece * kVec + e] = acc[e];
+  for (int p = 0; p < NP; ++p) {
+    if (!live[p]) continue;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e)
+      s_acc[g * Dp + (piece + p * L) * kVec + e] = acc[p][e];
   }
   if (piece == 0) s_l[g] = l;
   __syncthreads();
   for (int t = tid; t < D; t += kThreads) {
     float o = 0.f, sum = 0.f;
     for (int gg = 0; gg < G; ++gg) {
-      o += s_acc[gg * D + t];
+      o += s_acc[gg * Dp + t];
       sum += s_l[gg];
     }
     store_f32(o / sum, out + qoff + t);
   }
 }
 
-template <typename T, int L, typename KV>
+template <typename T, int L, int NP, typename KV>
 int launch_rows(const T* q, const T* k, const T* v, T* out, const int* lens,
-                KV kv, int table_ints, int B, int H, int Q, int D,
-                int capacity, float scale, int causal_window,
+                KV kv, int table_ints, int B, int H, int Q, int D, int Dp,
+                int narrow, int capacity, float scale, int causal_window,
                 cudaStream_t stream) {
-  constexpr int G = kThreads / L;
-  const size_t smem = sizeof(T) * kStages * 2 * kTile * D +
-                      sizeof(float) * (G * D + G + kWarps) +
+  constexpr int G = kThreads / L, TR = kTile / NP;
+  const size_t smem = sizeof(T) * kStages * 2 * TR * Dp +
+                      sizeof(float) * (G * Dp + G + kWarps) +
                       sizeof(int) * table_ints;
-  auto kernel = decode_attention_kernel<T, L, KV>;
+  auto kernel = decode_attention_kernel<T, L, NP, KV>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -327,33 +370,42 @@ int launch_rows(const T* q, const T* k, const T* v, T* out, const int* lens,
   }
   const dim3 grid(Q, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(q, k, v, out, lens, kv, H, Q, D,
-                                           capacity, scale, causal_window);
+                                           Dp, narrow, capacity, scale,
+                                           causal_window);
   return static_cast<int>(cudaGetLastError());
 }
 
-// d * sizeof(T) must be a multiple of 16 from 16 to 512 bytes: float32
-// d in {4, 8, ..., 128}, bfloat16 and float16 d in {8, 16, ..., 256}. The
-// lanes a row takes: its 16-byte pieces rounded up to a power of two.
+// Rows of any d up to 2048 bytes: Dp is d rounded up to 16 bytes; the
+// lanes a row takes are its 16-byte pieces rounded up to a power of two,
+// at most 32, with 2 or 4 pieces a lane past 512 bytes. The copies are
+// narrow (element by element) when a row is not a multiple of 16 bytes or
+// a cache does not start on a 16-byte boundary.
 template <typename T, typename KV>
 int launch(const T* q, const T* k, const T* v, T* out, const int* lens,
            KV kv, int table_ints, int B, int H, int Q, int d, int capacity,
            float scale, int causal_window, cudaStream_t stream) {
-  const int row_bytes = d * static_cast<int>(sizeof(T));
-  if (B < 1 || H < 1 || Q < 1 || capacity < 1 || row_bytes < 16 ||
-      row_bytes > 512 || row_bytes % 16)
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  const int pieces = (d + kVec - 1) / kVec, Dp = pieces * kVec;
+  if (B < 1 || H < 1 || Q < 1 || capacity < 1 || d < 1 || pieces > 4 * 32)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int narrow = d % kVec != 0 ||
+                     reinterpret_cast<uintptr_t>(k) % 16 != 0 ||
+                     reinterpret_cast<uintptr_t>(v) % 16 != 0;
   int lanes = 1;
-  while (lanes * 16 < row_bytes) lanes *= 2;
-#define PT_ROWS(L)                                                         \
-  launch_rows<T, L, KV>(q, k, v, out, lens, kv, table_ints, B, H, Q, d,    \
-                        capacity, scale, causal_window, stream)
+  while (lanes < pieces && lanes < 32) lanes *= 2;
+#define PT_ROWS(L, NP)                                                     \
+  launch_rows<T, L, NP, KV>(q, k, v, out, lens, kv, table_ints, B, H, Q,   \
+                            d, Dp, narrow, capacity, scale, causal_window, \
+                            stream)
+  if (pieces > 2 * 32) return PT_ROWS(32, 4);
+  if (pieces > 32) return PT_ROWS(32, 2);
   switch (lanes) {
-    case 1: return PT_ROWS(1);
-    case 2: return PT_ROWS(2);
-    case 4: return PT_ROWS(4);
-    case 8: return PT_ROWS(8);
-    case 16: return PT_ROWS(16);
-    default: return PT_ROWS(32);
+    case 1: return PT_ROWS(1, 1);
+    case 2: return PT_ROWS(2, 1);
+    case 4: return PT_ROWS(4, 1);
+    case 8: return PT_ROWS(8, 1);
+    case 16: return PT_ROWS(16, 1);
+    default: return PT_ROWS(32, 1);
   }
 #undef PT_ROWS
 }
@@ -386,9 +438,10 @@ int paged(const void* q, const void* k_pool, const void* v_pool,
 // Plain C entry points for ctypes. Each returns cudaGetLastError() after
 // the launch (0 on success); the kernel runs on `stream` and does not
 // synchronise. All pointers are device pointers to contiguous tensors:
-// q/out [B, H, Q, d], k/v [B, H, C, d] or pools [P, H, ptok, d] (16-byte
-// aligned), lens [B] int32, table [B, npages] int32; one entry per type
-// (f32, bf16, f16) and source.
+// q/out [B, H, Q, d], k/v [B, H, C, d] or pools [P, H, ptok, d] (any d up
+// to 2048 bytes a row; 16-byte rows on 16-byte boundaries take the
+// asynchronous copies), lens [B] int32, table [B, npages] int32; one
+// entry per type (f32, bf16, f16) and source.
 extern "C" {
 
 int pt_decode_attention_f32(const void* q, const void* k, const void* v,

@@ -69,10 +69,14 @@
 // 1/(1-p), as in _attn_block_fwd. The softmax denominator uses the
 // undropped weights; only the accumulation is masked.
 //
-// Head widths: d 16, 32, 64 and 128 are built; the wrappers zero-pad
-// any other d up to 128 to the next of these (zero columns leave q.k^T
-// unchanged and come out of P.V as zero columns) and slice the outputs
-// back. Types: float32, bfloat16 and float16.
+// Head widths: d 16, 32, 64, 128 and 256 are built; the wrappers
+// zero-pad any other d up to 256 to the next of these (zero columns leave
+// q.k^T unchanged and come out of P.V as zero columns) and slice the
+// outputs back. Types: float32, bfloat16 and float16. At d 256 the SIMT
+// forward holds its 64-row tiles at one block an SM in every type, the
+// fp32 backward tiles 32 rows (kBwdRows), and the tensor-core backward
+// splits dq, dk and dv into two 128-column halves, one per block
+// (kHalves): each block computes S and dP over the whole d.
 //
 // Bound on the card, per (b, h) pair: 4 * S^2 * d operations (q.k^T and
 // p.v) on 4 * S * d * sizeof(T) bytes of q, k, v and o, S / sizeof(T)
@@ -83,21 +87,23 @@
 // the tensor cores' rate, BERT's S = 128 (config 3, the packed layout) by
 // the bytes of q, k, v and o. The backward does 10 units of S^2 * d.
 //
-// The forward, in every type, and the backward in fp32 compute
-// everything in fp32 on the SIMT cores (16-bit tiles are converted to
-// fp32 as they land in shared memory). 256 threads; each holds a 4 x 4
-// micro-tile of the 64 x 64 score tile (query rows 4ty..4ty+3, key
-// columns tx + 16j) and a 4 x d/16 slice of its accumulators. Shared
-// tiles keep an odd row stride (d + 1, 65), so every read of a row or of
-// a column across the lanes of a warp is free of bank conflicts. Loads
-// are synchronous; two or three resident blocks per SM overlap them. A
-// forward on the tensor cores is ROADMAP.md's queue 2 item 1: tried, it
-// ran faster but failed the smoke run's one-step loss checks, whose
-// limit this SIMT forward meets at the checks' own data only (PERF.md).
+// The forward in fp32 (and in every type at d 256) and the backward in
+// fp32 compute everything in fp32 on the SIMT cores (16-bit tiles are
+// converted to fp32 as they land in shared memory). 256 threads; each
+// holds a 4 x 4 micro-tile of the 64 x 64 score tile (query rows
+// 4ty..4ty+3, key columns tx + 16j; 2 x 2 of a 32 x 32 tile in the d 256
+// backward) and a 4 x d/16 slice of its accumulators. Shared tiles keep
+// an odd row stride (d + 1, 65), so every read of a row or of a column
+// across the lanes of a warp is free of bank conflicts. Loads are
+// synchronous; two or three resident blocks per SM overlap them. The
+// 16-bit forward up to d 128 runs on the tensor cores (attn_fwd_mma,
+// below).
 //
 // The 16-bit backward (attn_bwd_dq_mma, attn_bwd_dkdv_mma, templates on
 // bf16 and fp16: only the mma.sync type suffix and the fp32 -> 16-bit
-// rounding differ) runs its products on the tensor cores:
+// rounding differ) runs its products on the tensor cores (the forward,
+// attn_fwd_mma, shares its instruction, tiles and mask; its own note is
+// beside it):
 //   * instruction: mma.sync m16n8k16, 16-bit operands, fp32 accumulators,
 //     fed by ldmatrix.x4 from 16-bit shared tiles (.trans where the
 //     operand is needed transposed: K in dq += dS . K, dO and Q in dk/dv);
@@ -117,7 +123,7 @@
 //     is one multiply-add and the cp.async writes stay 16-byte aligned. At
 //     d 64 a block holds six 64 x 72 tiles (Q and dO, K and V twice, or
 //     K and V, Q and dO twice), 55 KB, three blocks to an SM; at d 128,
-//     102 KB, two;
+//     102 KB, two; at d 256, 204 KB, one;
 //   * pipeline: the streamed tiles (K, V in dq; Q, dO, lse and delta in
 //     dk/dv) are double-buffered: after the barrier that publishes tile j,
 //     each thread issues 16-byte cp.async copies of tile j + 1 (rows past
@@ -219,59 +225,76 @@ __device__ __forceinline__ uint2 seed_key(const long long* seed) {
   return make_uint2(static_cast<unsigned>(s), static_cast<unsigned>(s >> 32));
 }
 
-// keep flags of a thread's four rows (4 * row4 + i) at key column col
-__device__ __forceinline__ void keep4(uint2 key, int col, int row4, int bh,
-                                      float p_drop, bool keep[4]) {
-  const uint4 r = philox(make_uint4(col, row4, bh, 0), key);
-  const unsigned w[4] = {r.x, r.y, r.z, r.w};
+// keep flags of a thread's R rows row0 .. row0 + R - 1 at key column col:
+// words (row0 & 3) + i of one Philox call (R 4 with row0 % 4 == 0, or R 2
+// with row0 even)
+template <int R>
+__device__ __forceinline__ void keep_rows(uint2 key, int col, int row0,
+                                          int bh, float p_drop,
+                                          bool keep[R]) {
+  static_assert(R == 2 || R == 4, "a thread keeps 2 or 4 rows");
+  const uint4 r = philox(make_uint4(col, row0 >> 2, bh, 0), key);
+  const bool up = R == 2 && (row0 & 2);
+  const unsigned w[4] = {up ? r.z : r.x, up ? r.w : r.y, r.z, r.w};
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
     keep[i] = static_cast<float>(w[i] >> 8) * (1.0f / 16777216.0f) >= p_drop;
 }
 
 // Rows [0, n) of a global tile of D-element rows, ``rs`` elements apart
-// -> fp32 shared [kB][D + 1]; rows n..kB-1 are zero. A thread keeps one
-// column and walks its rows with one pointer, so the runtime row stride
-// costs one 64-bit add a row, not an address register per load.
-template <typename T, int D>
+// -> fp32 shared [Rows][D + 1]; rows n..Rows-1 are zero. A thread keeps
+// one column and walks its rows with one pointer, so the runtime row
+// stride costs one 64-bit add a row, not an address register per load.
+// At D 256 a pass of the block covers one row.
+template <typename T, int D, int Rows = kB>
 __device__ __forceinline__ void load_tile(float* s, const T* g, long long rs,
                                           int n) {
-  constexpr int kStep = kThreads / D;  // rows one pass of the block covers
+  constexpr int kCols = D < kThreads ? D : kThreads;
+  constexpr int kStep = kThreads / kCols;  // rows one pass covers
   const long long stride = rs;         // elements from one row to the next
-  const int c = threadIdx.x % D;
-  const T* p = g + (threadIdx.x / D) * stride + c;
+  const int c = threadIdx.x % kCols;
+  const T* p = g + (threadIdx.x / kCols) * stride + c;
 #pragma unroll 4
-  for (int r = threadIdx.x / D; r < kB; r += kStep, p += kStep * stride)
-    s[r * (D + 1) + c] = r < n ? to_f32(*p) : 0.f;
+  for (int r = threadIdx.x / kCols; r < Rows; r += kStep,
+       p += kStep * stride) {
+#pragma unroll
+    for (int e = 0; e < D; e += kCols)
+      s[r * (D + 1) + c + e] = r < n ? to_f32(p[e]) : 0.f;
+  }
 }
 
 // Resident blocks per SM each kernel is compiled for (its register cap,
 // 65536 / (256 * blocks)): what its shared memory allows at d <= 64, as
 // the contiguous-only kernels reached with 80 and 126 registers; one at
-// d = 128, whose tiles fill the shared memory.
+// d >= 128, whose tiles fill the shared memory.
 template <int D> constexpr int kFwdBlocks = D <= 64 ? 3 : 1;
 template <int D> constexpr int kBwdBlocks = D <= 64 ? 2 : 1;
+// Rows of a q-tile and of a k-tile of the fp32 backward: 64, and 32 at
+// d 256, where four 64-row fp32 tiles (263 KB) would pass the 227 KB of
+// shared memory a block can have; a thread then holds a 2 x 2 micro-tile.
+template <int D> constexpr int kBwdRows = D > 128 ? 32 : 64;
 
-// s[i][j] = sum_k A[4ty + i][k] * Bt[tx + 16j][k] over two [kB][D + 1] tiles
-template <int D>
+// s[i][j] = sum_k A[R ty + i][k] * Bt[tx + 16j][k] over two [.][D + 1]
+// tiles: the thread's R x R micro-tile of a 16R x 16R score tile
+template <int D, int R = 4>
 __device__ __forceinline__ void tile_dot(const float* A, const float* Bt,
-                                         int ty, int tx, float s[4][4]) {
+                                         int ty, int tx, float s[R][R]) {
   constexpr int LD = D + 1;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int j = 0; j < R; ++j) s[i][j] = 0.f;
 #pragma unroll 8
   for (int kk = 0; kk < D; ++kk) {
-    float a[4], b[4];
+    float a[R], b[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(4 * ty + i) * LD + kk];
+    for (int i = 0; i < R; ++i) a[i] = A[(R * ty + i) * LD + kk];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = Bt[(tx + 16 * j) * LD + kk];
+    for (int j = 0; j < R; ++j) b[j] = Bt[(tx + 16 * j) * LD + kk];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+      for (int j = 0; j < R; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
   }
 }
 
@@ -368,7 +391,8 @@ __global__ void __launch_bounds__(kThreads, kFwdBlocks<D>)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       bool keep[4] = {true, true, true, true};
-      if (drop) keep4(key, k0 + tx + 16 * j, (q0 >> 2) + ty, bh, p_drop, keep);
+      if (drop)
+        keep_rows<4>(key, k0 + tx + 16 * j, q0 + 4 * ty, bh, p_drop, keep);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         Ps[(4 * ty + i) * kLP + tx + 16 * j] =
@@ -400,8 +424,8 @@ __global__ void __launch_bounds__(kThreads, kFwdBlocks<D>)
   }
 }
 
-// Per q-tile: delta = rowsum(dO * O) (also written out), then dq over all
-// k-tiles.
+// Per q-tile of TB rows: delta = rowsum(dO * O) (also written out), then
+// dq over all k-tiles of TB keys.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, kBwdBlocks<D>)
     attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
@@ -412,34 +436,38 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocks<D>)
                 Strides sk, Strides sv, Strides so, Strides sdo,
                 Strides sdq, int H, int S, float scale, float p_drop,
                 float keep_scale) {
+  constexpr int TB = kBwdRows<D>, R = TB / 16, LP = TB + 1;
   constexpr int LD = D + 1, E = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* dOs = Qs + kB * LD;
-  float* Ks = dOs + kB * LD;
-  float* Vs = Ks + kB * LD;
-  float* dSs = Vs + kB * LD;     // [kB][kLP]
-  float* Lr = dSs + kB * kLP;    // [kB] lse of the tile's rows
-  float* Dr = Lr + kB;           // [kB] delta of the tile's rows
+  float* dOs = Qs + TB * LD;
+  float* Ks = dOs + TB * LD;
+  float* Vs = Ks + TB * LD;
+  float* dSs = Vs + TB * LD;     // [TB][LP]
+  float* Lr = dSs + TB * LP;     // [TB] lse of the tile's rows
+  float* Dr = Lr + TB;           // [TB] delta of the tile's rows
 
-  const int q0 = blockIdx.x * kB, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * TB, h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h, tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const T* kh = head_of(k, sk, b, h);
   const T* vh = head_of(v, sv, b, h);
-  const int nq = min(kB, S - q0);
-  load_tile<T, D>(Qs, head_of(q, sq, b, h) + q0 * sq.r, sq.r, nq);
-  load_tile<T, D>(dOs, head_of(dout, sdo, b, h) + q0 * sdo.r, sdo.r, nq);
+  const int nq = min(TB, S - q0);
+  load_tile<T, D, TB>(Qs, head_of(q, sq, b, h) + q0 * sq.r, sq.r, nq);
+  load_tile<T, D, TB>(dOs, head_of(dout, sdo, b, h) + q0 * sdo.r, sdo.r,
+                      nq);
   __syncthreads();
-  {  // four threads per row, lanes 4r..4r+3 of one warp
-    const int r = tid >> 2, part = tid & 3;
+  {  // kThreads / TB threads per row, neighbouring lanes of one warp
+    constexpr int kParts = kThreads / TB;
+    const int r = tid / kParts, part = tid % kParts;
     float acc = 0.f;
     if (r < nq) {
       const T* orow = head_of(o, so, b, h) + (q0 + r) * so.r;
-      for (int e = part; e < D; e += 4)
+      for (int e = part; e < D; e += kParts)
         acc = fmaf(dOs[r * LD + e], to_f32(orow[e]), acc);
     }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+#pragma unroll
+    for (int x = 1; x < kParts; x <<= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, x);
     if (part == 0) {
       Dr[r] = acc;
       Lr[r] = r < nq ? lse[static_cast<size_t>(bh) * S + q0 + r] : 0.f;
@@ -448,37 +476,39 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocks<D>)
   }
   const bool drop = p_drop > 0.f;
   const uint2 key = drop ? seed_key(seed) : make_uint2(0, 0);
-  const float* brow[4];
-  float acc[4][E];
+  const float* brow[R];
+  float acc[R][E];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    brow[i] = bias_row(bv, b, h, min(q0 + 4 * ty + i, S - 1));
+  for (int i = 0; i < R; ++i) {
+    brow[i] = bias_row(bv, b, h, min(q0 + R * ty + i, S - 1));
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
   }
 
-  for (int k0 = 0; k0 < S; k0 += kB) {
-    const int nk = min(kB, S - k0);
+  for (int k0 = 0; k0 < S; k0 += TB) {
+    const int nk = min(TB, S - k0);
     __syncthreads();
-    load_tile<T, D>(Ks, kh + k0 * sk.r, sk.r, nk);
-    load_tile<T, D>(Vs, vh + k0 * sv.r, sv.r, nk);
+    load_tile<T, D, TB>(Ks, kh + k0 * sk.r, sk.r, nk);
+    load_tile<T, D, TB>(Vs, vh + k0 * sv.r, sv.r, nk);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<D>(Qs, Ks, ty, tx, s);
-    tile_dot<D>(dOs, Vs, ty, tx, dp);
+    float s[R][R], dp[R][R];
+    tile_dot<D, R>(Qs, Ks, ty, tx, s);
+    tile_dot<D, R>(dOs, Vs, ty, tx, dp);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < R; ++j) {
       const int col = k0 + tx + 16 * j;
-      bool keep[4] = {true, true, true, true};
-      if (drop) keep4(key, col, (q0 >> 2) + ty, bh, p_drop, keep);
+      bool keep[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = 4 * ty + i;
+      for (int i = 0; i < R; ++i) keep[i] = true;
+      if (drop) keep_rows<R>(key, col, q0 + R * ty, bh, p_drop, keep);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = R * ty + i;
         const float p = q0 + r < S
             ? expf(biased(s[i][j], scale, brow[i], col, S) - Lr[r]) : 0.f;
         const float d = drop ? (keep[i] ? dp[i][j] * keep_scale : 0.f)
                              : dp[i][j];
-        dSs[r * kLP + tx + 16 * j] = p * (d - Dr[r]);
+        dSs[r * LP + tx + 16 * j] = p * (d - Dr[r]);
       }
     }
     __syncthreads();
@@ -487,8 +517,8 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocks<D>)
 #pragma unroll
       for (int e = 0; e < E; ++e) kv[e] = Ks[c * LD + tx + 16 * e];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ds = dSs[(4 * ty + i) * kLP + c];
+      for (int i = 0; i < R; ++i) {
+        const float ds = dSs[(R * ty + i) * LP + c];
 #pragma unroll
         for (int e = 0; e < E; ++e) acc[i][e] = fmaf(ds, kv[e], acc[i][e]);
       }
@@ -496,8 +526,8 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocks<D>)
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + R * ty + i;
     if (row >= S) continue;
     T* drow = head_of(dq, sdq, b, h) + row * sdq.r;
 #pragma unroll
@@ -512,7 +542,7 @@ struct DBias {
   int heads, rows;
 };
 
-// Per k-tile: dk, dv (and dbias) over all q-tiles.
+// Per k-tile of TB keys: dk, dv (and dbias) over all q-tiles of TB rows.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, kBwdBlocks<D>)
     attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
@@ -523,24 +553,25 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocks<D>)
                   T* __restrict__ dv, DBias db, Strides sq, Strides sk,
                   Strides sv, Strides sdo, Strides sdk, Strides sdv, int H,
                   int S, float scale, float p_drop, float keep_scale) {
+  constexpr int TB = kBwdRows<D>, R = TB / 16, LP = TB + 1;
   constexpr int LD = D + 1, E = D / 16;
   extern __shared__ float smem[];
   float* Ks = smem;
-  float* Vs = Ks + kB * LD;
-  float* Qs = Vs + kB * LD;
-  float* dOs = Qs + kB * LD;
-  float* Ps = dOs + kB * LD;     // [kB][kLP] dropped weights
-  float* dSs = Ps + kB * kLP;    // [kB][kLP]
-  float* Lr = dSs + kB * kLP;
-  float* Dr = Lr + kB;
+  float* Vs = Ks + TB * LD;
+  float* Qs = Vs + TB * LD;
+  float* dOs = Qs + TB * LD;
+  float* Ps = dOs + TB * LD;     // [TB][LP] dropped weights
+  float* dSs = Ps + TB * LP;     // [TB][LP]
+  float* Lr = dSs + TB * LP;
+  float* Dr = Lr + TB;
 
-  const int k0 = blockIdx.x * kB, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * TB, h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h, tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const T* qh = head_of(q, sq, b, h);
   const T* doh = head_of(dout, sdo, b, h);
-  const int nk = min(kB, S - k0);
-  load_tile<T, D>(Ks, head_of(k, sk, b, h) + k0 * sk.r, sk.r, nk);
-  load_tile<T, D>(Vs, head_of(v, sv, b, h) + k0 * sv.r, sv.r, nk);
+  const int nk = min(TB, S - k0);
+  load_tile<T, D, TB>(Ks, head_of(k, sk, b, h) + k0 * sk.r, sk.r, nk);
+  load_tile<T, D, TB>(Vs, head_of(v, sv, b, h) + k0 * sv.r, sv.r, nk);
   const bool drop = p_drop > 0.f;
   const uint2 key = drop ? seed_key(seed) : make_uint2(0, 0);
   const bool acc_heads = db.ptr && db.heads == 1 && H > 1;
@@ -550,40 +581,42 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocks<D>)
                                          db.rows * S
                           : nullptr;
 
-  float adk[4][E], adv[4][E], colsum[4];
+  float adk[R][E], adv[R][E], colsum[R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     colsum[i] = 0.f;
 #pragma unroll
     for (int e = 0; e < E; ++e) adk[i][e] = adv[i][e] = 0.f;
   }
 
-  for (int q0 = 0; q0 < S; q0 += kB) {
-    const int nq = min(kB, S - q0);
+  for (int q0 = 0; q0 < S; q0 += TB) {
+    const int nq = min(TB, S - q0);
     __syncthreads();
-    load_tile<T, D>(Qs, qh + q0 * sq.r, sq.r, nq);
-    load_tile<T, D>(dOs, doh + q0 * sdo.r, sdo.r, nq);
-    if (tid < kB) {
+    load_tile<T, D, TB>(Qs, qh + q0 * sq.r, sq.r, nq);
+    load_tile<T, D, TB>(dOs, doh + q0 * sdo.r, sdo.r, nq);
+    if (tid < TB) {
       const bool live = tid < nq;
       Lr[tid] = live ? lse[static_cast<size_t>(bh) * S + q0 + tid] : 0.f;
       Dr[tid] = live ? delta[static_cast<size_t>(bh) * S + q0 + tid] : 0.f;
     }
     __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<D>(Qs, Ks, ty, tx, s);
-    tile_dot<D>(dOs, Vs, ty, tx, dp);
-    const float* brow[4];
+    float s[R][R], dp[R][R];
+    tile_dot<D, R>(Qs, Ks, ty, tx, s);
+    tile_dot<D, R>(dOs, Vs, ty, tx, dp);
+    const float* brow[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      brow[i] = bias_row(bv, b, h, min(q0 + 4 * ty + i, S - 1));
+    for (int i = 0; i < R; ++i)
+      brow[i] = bias_row(bv, b, h, min(q0 + R * ty + i, S - 1));
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < R; ++j) {
       const int col = k0 + tx + 16 * j;
-      bool keep[4] = {true, true, true, true};
-      if (drop) keep4(key, col, (q0 >> 2) + ty, bh, p_drop, keep);
+      bool keep[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = 4 * ty + i, row = q0 + r;
+      for (int i = 0; i < R; ++i) keep[i] = true;
+      if (drop) keep_rows<R>(key, col, q0 + R * ty, bh, p_drop, keep);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = R * ty + i, row = q0 + r;
         const float p = row < S
             ? expf(biased(s[i][j], scale, brow[i], col, S) - Lr[r]) : 0.f;
         float pd = p, d = dp[i][j];
@@ -592,8 +625,8 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocks<D>)
           d = keep[i] ? d * keep_scale : 0.f;
         }
         const float ds = p * (d - Dr[r]);
-        Ps[r * kLP + tx + 16 * j] = pd;
-        dSs[r * kLP + tx + 16 * j] = ds;
+        Ps[r * LP + tx + 16 * j] = pd;
+        dSs[r * LP + tx + 16 * j] = ds;
         if (db.ptr && row < S && col < S) {
           if (reduce_rows) {
             colsum[j] += ds;
@@ -614,9 +647,9 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocks<D>)
         qv[e] = Qs[r * LD + tx + 16 * e];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pd = Ps[r * kLP + 4 * ty + i];
-        const float ds = dSs[r * kLP + 4 * ty + i];
+      for (int i = 0; i < R; ++i) {
+        const float pd = Ps[r * LP + R * ty + i];
+        const float ds = dSs[r * LP + R * ty + i];
 #pragma unroll
         for (int e = 0; e < E; ++e) {
           adv[i][e] = fmaf(pd, dov[e], adv[i][e]);
@@ -627,8 +660,8 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocks<D>)
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + 4 * ty + i;
+  for (int i = 0; i < R; ++i) {
+    const int row = k0 + R * ty + i;
     if (row >= S) continue;
     T* dkrow = head_of(dk, sdk, b, h) + row * sdk.r;
     T* dvrow = head_of(dv, sdv, b, h) + row * sdv.r;
@@ -639,14 +672,14 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocks<D>)
     }
   }
   if (reduce_rows) {  // column sums over the 16 row groups, in a fixed order
-    float* red = Ps;    // [16][kB], Ps is free once the loop has ended
+    float* red = Ps;    // [16][TB], Ps is free once the loop has ended
     __syncthreads();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) red[ty * kB + tx + 16 * j] = colsum[j];
+    for (int j = 0; j < R; ++j) red[ty * TB + tx + 16 * j] = colsum[j];
     __syncthreads();
     if (tid < nk) {
       float sum = 0.f;
-      for (int t = 0; t < 16; ++t) sum += red[t * kB + tid];
+      for (int t = 0; t < 16; ++t) sum += red[t * TB + tid];
       if (acc_heads)
         atomicAdd(db_base + k0 + tid, sum);
       else
@@ -666,10 +699,15 @@ constexpr bool kHalf16 =
 constexpr int kMmaThreads = 128;  // four warps, 16 rows of a 64-row tile each
 constexpr int kPad = 8;           // 16-bit elements (16 bytes) after each row
 template <int D> constexpr int kLDS = D + kPad;  // row stride of a tile
-// Resident blocks per SM of the backward (their register cap, 65536 /
-// (128 * blocks)): the double-buffered tiles allow three at d <= 64, two
-// at d = 128.
-template <int D> constexpr int kMmaBlocks = D <= 64 ? 3 : 2;
+// Resident blocks per SM of the tensor-core kernels (their register cap,
+// 65536 / (128 * blocks)): the double-buffered tiles allow three at
+// d <= 64, two at d = 128, one at d = 256.
+template <int D> constexpr int kMmaBlocks = D <= 64 ? 3 : D <= 128 ? 2 : 1;
+// Blocks that share a tile of the backward, each writing d / kHalves
+// columns of dq (or of dk and dv): two at d 256, whose 256 fp32
+// accumulators a thread (dk and dv) would pass the 255 registers a thread
+// can have. Each block still computes S and dP over the whole d.
+template <int D> constexpr int kHalves = D > 128 ? 2 : 1;
 // query columns of S^T and dP^T the dk/dv kernel holds in registers at once
 template <int D> constexpr int kDkdvCols = D >= 32 ? 32 : 64;
 
@@ -846,7 +884,8 @@ __device__ __forceinline__ int b_offset(int lane) {
 }
 
 // Per 64-row q-tile: delta = rowsum(dO * O) (also written out), then dq
-// over all k-tiles; warp w owns query rows 16w..16w+15 of the tile.
+// over all k-tiles; warp w owns query rows 16w..16w+15 of the tile. At
+// d 256 two blocks share the tile, each writing half of dq's columns.
 template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
     attn_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
@@ -867,7 +906,9 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
   float* Dr = Ct + 2 * kB;                         // [kB] delta of the rows
   unsigned* Keep = reinterpret_cast<unsigned*>(Dr + kB);  // [2][kB][2]
 
-  const int q0 = blockIdx.x * kB, h = blockIdx.y, b = blockIdx.z;
+  constexpr int DH = D / kHalves<D>;  // the columns of dq this block writes
+  const int q0 = blockIdx.x / kHalves<D> * kB, h = blockIdx.y, b = blockIdx.z;
+  const int n0 = blockIdx.x % kHalves<D> * DH;
   const int bh = b * H + h, tid = threadIdx.x, lane = tid & 31;
   const int w = tid >> 5, g = lane >> 2, t4 = lane & 3;
   const T* kh = head_of(k, sk, b, h);
@@ -896,7 +937,8 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     if (part == 0) {
       Dr[r] = acc;
-      if (r < nq) delta[static_cast<size_t>(bh) * S + q0 + r] = acc;
+      if (r < nq && n0 == 0)
+        delta[static_cast<size_t>(bh) * S + q0 + r] = acc;
     }
   }
   const bool drop = p_drop > 0.f;
@@ -918,8 +960,8 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
     brow[i] = rowwise ? bias_row(bv, b, h, min(row, S - 1)) : nullptr;
   }
   const int a_off = 16 * w * LDS + a_offset<LDS>(lane);
-  const int b_off = b_offset<LDS>(lane), bt_off = a_offset<LDS>(lane);
-  float acc[D / 8][4] = {};
+  const int b_off = b_offset<LDS>(lane), bt_off = a_offset<LDS>(lane) + n0;
+  float acc[DH / 8][4] = {};
 
   for (int k0 = 0; k0 < S; k0 += kB) {
     const int buf = (k0 / kB) & 1;
@@ -978,13 +1020,14 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
         if (drop) d = (kw[i][j >> 2] >> (c & 31)) & 1 ? d * keep_scale : 0.f;
         s[j][e] = p * (d - delta_r[i]);
       }
-    // dq += dS . K, dS rounded to T in registers, K read transposed
+    // dq += dS . K over the block's columns, dS rounded to T in
+    // registers, K read transposed
 #pragma unroll
     for (int c = 0; c < kB; c += 16) {
       unsigned a[4];
       a_from_acc<T>(a, s[c / 8], s[c / 8 + 1]);
 #pragma unroll
-      for (int n = 0; n < D; n += 16) {
+      for (int n = 0; n < DH; n += 16) {
         unsigned kb[4];
         ldsm_t(kb, Kt + c * LDS + bt_off + n);
         mma<T>(acc[n / 8], a, kb[0], kb[1]);
@@ -997,9 +1040,9 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + rl[i];
     if (row >= S) continue;
-    T* drow = head_of(dq, sdq, b, h) + row * sdq.r;
+    T* drow = head_of(dq, sdq, b, h) + row * sdq.r + n0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DH / 8; ++j)
       *reinterpret_cast<unsigned*>(drow + 8 * j + 2 * t4) =
           pack2<T>(acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
   }
@@ -1008,7 +1051,9 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
 // Per 64-key tile: dk, dv (and dbias) over all q-tiles; warp w owns keys
 // 16w..16w+15 of the tile and computes S^T = K . Q^T and dP^T = V . dO^T,
 // so that P^T and dS^T land in the accumulator layout, which is the A
-// layout of dV += P^T . dO and dK += dS^T . Q.
+// layout of dV += P^T . dO and dK += dS^T . Q. At d 256 two blocks share
+// the tile, each writing half of dk's and dv's columns (the first also
+// dbias).
 template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
     attn_bwd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k,
@@ -1031,7 +1076,10 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
   float* Dr = Lr + 2 * kB;                         // [2][kB] delta
   unsigned* Keep = reinterpret_cast<unsigned*>(Dr + 2 * kB);  // [2][kB][2]
 
-  const int k0 = blockIdx.x * kB, h = blockIdx.y, b = blockIdx.z;
+  constexpr int DH = D / kHalves<D>;  // the columns of dk, dv it writes
+  const int k0 = blockIdx.x / kHalves<D> * kB, h = blockIdx.y, b = blockIdx.z;
+  const int n0 = blockIdx.x % kHalves<D> * DH;
+  if (n0 != 0) db.ptr = nullptr;      // the first half writes dbias
   const int bh = b * H + h, tid = threadIdx.x, lane = tid & 31;
   const int w = tid >> 5, g = lane >> 2, t4 = lane & 3;
   const int nk = min(kB, S - k0);
@@ -1061,7 +1109,7 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
   float colsum[2] = {0.f, 0.f};
   const int a_off = 16 * w * LDS + a_offset<LDS>(lane);
   const int b_off = b_offset<LDS>(lane);
-  float adk[D / 8][4] = {}, adv[D / 8][4] = {};
+  float adk[DH / 8][4] = {}, adv[DH / 8][4] = {};
 
   for (int q0 = 0; q0 < S; q0 += kB) {
     const int buf = (q0 / kB) & 1;
@@ -1145,16 +1193,17 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
         a_from_acc<T>(pa[c / 16], s[c / 8], s[c / 8 + 1]);
         a_from_acc<T>(sa[c / 16], dp[c / 8], dp[c / 8 + 1]);
       }
-      // dV += P^T . dO and dK += dS^T . Q, dO and Q read transposed
+      // dV += P^T . dO and dK += dS^T . Q over the block's columns, dO
+      // and Q read transposed
 #pragma unroll
       for (int c = 0; c < NC; c += 16) {
 #pragma unroll
-        for (int n = 0; n < D; n += 16) {
+        for (int n = 0; n < DH; n += 16) {
           unsigned ob[4], qb[4];
-          ldsm_t(ob, dOt + (c0 + c) * LDS + a_offset<LDS>(lane) + n);
+          ldsm_t(ob, dOt + (c0 + c) * LDS + a_offset<LDS>(lane) + n0 + n);
           mma<T>(adv[n / 8], pa[c / 16], ob[0], ob[1]);
           mma<T>(adv[n / 8 + 1], pa[c / 16], ob[2], ob[3]);
-          ldsm_t(qb, Qt + (c0 + c) * LDS + a_offset<LDS>(lane) + n);
+          ldsm_t(qb, Qt + (c0 + c) * LDS + a_offset<LDS>(lane) + n0 + n);
           mma<T>(adk[n / 8], sa[c / 16], qb[0], qb[1]);
           mma<T>(adk[n / 8 + 1], sa[c / 16], qb[2], qb[3]);
         }
@@ -1166,10 +1215,10 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
   for (int i = 0; i < 2; ++i) {
     const int key = key0 + 8 * i;
     if (key >= S) continue;
-    T* dkrow = head_of(dk, sdk, b, h) + key * sdk.r;
-    T* dvrow = head_of(dv, sdv, b, h) + key * sdv.r;
+    T* dkrow = head_of(dk, sdk, b, h) + key * sdk.r + n0;
+    T* dvrow = head_of(dv, sdv, b, h) + key * sdv.r + n0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DH / 8; ++j) {
       *reinterpret_cast<unsigned*>(dkrow + 8 * j + 2 * t4) =
           pack2<T>(adk[j][2 * i] * scale, adk[j][2 * i + 1] * scale);
       *reinterpret_cast<unsigned*>(dvrow + 8 * j + 2 * t4) =
@@ -1194,15 +1243,246 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
   }
 }
 
+// ---- bf16 and fp16 forward on the tensor cores ----------------------------
+// Replaces, in the 16-bit types, the TPU forward kernels of
+// paddle_tpu/kernels/attention.py: _fwd_kernel (:294), _fwd_kernel_long
+// (:362), _flash_fwd_kernel (:602), _packed_fwd_kernel (:917) and
+// _res_fwd_kernel (:1170). Bound on the card: 4 S^2 d operations per
+// (b, h) at the tensor cores' 989 TFLOP/s from S 590 (the long and flash
+// shapes), the bytes of q, k, v and o below (BERT's S 128). Design:
+//   * one block per (64-row q-tile, head, batch), four warps of 16 query
+//     rows; the warp's Q fragments stay in registers (loaded once by
+//     ldmatrix); K and V tiles of 64 keys are double-buffered by 16-byte
+//     cp.async (rows past S zero-filled), so tile j + 1 lands under tile
+//     j's math; one barrier a tile;
+//   * S = Q . K^T by mma.sync m16n8k16 (fp32 accumulators); the online
+//     softmax runs in the accumulator layout, in log2 units (one fma and
+//     one exp2 a score), each row's max and sum over the four lanes of a
+//     quad by shuffles; l sums the unrounded, undropped weights;
+//   * P . V: P is fed to the tensor cores in kPPieces pieces of T, each
+//     the rounded remainder the ones before leave (two: 16 of fp32's 24
+//     bits in bf16, 22 in fp16), and each tile's P . V starts from a zero
+//     accumulator and joins O in fp32, O = O * corr + P . V. Two pieces
+//     are the fewest that pass the smoke run's multi-seed step check: P
+//     in one bf16 piece flips the rounding of about 40% of the outputs
+//     against the plain version and moves bert_long's first moment of the
+//     output bias past its limit; three pieces cost 17% more time at
+//     S 8192 (PERF.md); the remainder piece costs products, not
+//     bytes;
+//   * dropout: the block draws each 64 x 64 tile's mask into a bitmask
+//     (keep_bits, the backward's and the plain version's mask, bit for
+//     bit) before the tile's barrier; o = O * keep_scale / l;
+//   * lse = m + log(l) per row, for the backward.
+// What bounds it at the long shapes: mma.sync's rate (products of 1 + 2
+// units, Q.K^T and the pieces of P.V, against the 2 units the function
+// needs) and the SIMT softmax work beside it; wgmma and TMA are the next
+// step.
+constexpr int kPPieces = 2;
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+// the largest head width the forward runs on the tensor cores; d 256 takes
+// the SIMT forward, whose one block an SM holds its 64-row tiles
+constexpr int kMmaFwdMaxD = 128;
+
+// P's A fragments of 16 keys (two accumulator tiles of 8 columns) in N
+// pieces of T: piece i is what pieces 0 .. i - 1 leave, rounded to T
+template <typename T, int N>
+__device__ __forceinline__ void a_pieces(unsigned a[N][4], const float c0[4],
+                                         const float c1[4]) {
+  const float r[8] = {c0[0], c0[1], c0[2], c0[3],
+                      c1[0], c1[1], c1[2], c1[3]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float lo = r[2 * i], hi = r[2 * i + 1];
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      a[n][i] = pack2<T>(lo, hi);
+      const float2 f = unpack2<T>(a[n][i]);
+      lo -= f.x;
+      hi -= f.y;
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
+    attn_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, BiasView bv,
+                 const long long* __restrict__ seed, T* __restrict__ o,
+                 float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
+                 Strides so, int H, int S, float scale, float p_drop,
+                 float keep_scale) {
+  constexpr int LDS = kLDS<D>, TS = kB * LDS, NP = kPPieces;
+  extern __shared__ __align__(16) unsigned char smem16[];
+  T* Qs = reinterpret_cast<T*>(smem16);
+  T* Ks = Qs + TS;                                   // [2][kB][LDS]
+  T* Vs = Ks + 2 * TS;                               // [2][kB][LDS]
+  float* Ct = reinterpret_cast<float*>(Vs + 2 * TS);  // [2][kB] bias by column
+  unsigned* Keep = reinterpret_cast<unsigned*>(Ct + 2 * kB);  // [2][kB][2]
+
+  const int q0 = blockIdx.x * kB, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h, tid = threadIdx.x, lane = tid & 31;
+  const int w = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const T* kh = head_of(k, sk, b, h);
+  const T* vh = head_of(v, sv, b, h);
+  load_tile_async<D>(Qs, head_of(q, sq, b, h) + q0 * sq.r, sq.r,
+                     min(kB, S - q0));
+  load_tile_async<D>(Ks, kh, sk.r, min(kB, S));
+  load_tile_async<D>(Vs, vh, sv.r, min(kB, S));
+  cp_async_commit();
+  const bool drop = p_drop > 0.f;
+  const uint2 key = drop ? seed_key(seed) : make_uint2(0, 0);
+  // a bias with a row per query is read per element; a row-broadcast one
+  // once per tile into Ct, with -inf past the last key (no bias: 0)
+  const bool rowwise = bv.ptr && bv.sr != 0;
+  const float* bcast = rowwise ? nullptr : bias_row(bv, b, h, 0);
+  int rl[2];  // the thread's two tile rows
+  const float* brow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rl[i] = 16 * w + g + 8 * i;
+    brow[i] = rowwise ? bias_row(bv, b, h, min(q0 + rl[i], S - 1)) : nullptr;
+  }
+  const int a_off = 16 * w * LDS + a_offset<LDS>(lane);
+  const int b_off = b_offset<LDS>(lane), bt_off = a_offset<LDS>(lane);
+  const float scale2 = scale * kLog2e;
+  unsigned qa[D / 16][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // log2 units
+  float acc[D / 8][4] = {};
+
+  for (int k0 = 0; k0 < S; k0 += kB) {
+    const int buf = (k0 / kB) & 1;
+    const T* Kt = Ks + buf * TS;
+    const T* Vt = Vs + buf * TS;
+    float* ct = Ct + buf * kB;
+    unsigned* const keep = Keep + buf * 2 * kB;
+    if (tid < kB) ct[tid] = bias_term(bcast, k0 + tid, S);
+    if (drop) keep_bits(key, q0, k0, bh, p_drop, keep);
+    cp_async_wait_all();
+    __syncthreads();  // tile k0 has landed; tile k0 - kB is consumed
+    if (k0 == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D; kk += 16) ldsm(qa[kk / 16], Qs + a_off + kk);
+    }
+    if (k0 + kB < S) {  // the next tile's copies overlap this tile's math
+      const int nk = min(kB, S - k0 - kB);
+      load_tile_async<D>(Ks + (buf ^ 1) * TS, kh + (k0 + kB) * sk.r, sk.r,
+                         nk);
+      load_tile_async<D>(Vs + (buf ^ 1) * TS, vh + (k0 + kB) * sv.r, sv.r,
+                         nk);
+      cp_async_commit();
+    }
+    // S = Q . K^T, 16 x 64 per warp
+    float s[kB / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 16) {
+#pragma unroll
+      for (int n = 0; n < kB; n += 16) {
+        unsigned kb[4];
+        ldsm(kb, Kt + n * LDS + b_off + kk);
+        mma<T>(s[n / 8], qa[kk / 16], kb[0], kb[1]);
+        mma<T>(s[n / 8 + 1], qa[kk / 16], kb[2], kb[3]);
+      }
+    }
+    // (s * scale + bias) * log2(e); -inf past the last key
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kB / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, c = 8 * j + 2 * t4 + (e & 1);
+        const float bias = rowwise ? bias_term(brow[i], k0 + c, S) : ct[c];
+        s[j][e] = fmaf(s[j][e], scale2, bias * kLog2e);
+        mx[i] = fmaxf(mx[i], s[j][e]);
+      }
+    // every tile holds a live column, so each new max is finite
+    float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      corr[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < kB / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - m[e >> 1]);
+        rs[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+      l[i] = l[i] * corr[i] + rs[i];
+    }
+    if (drop) {  // dropped weights leave P . V, not l
+      unsigned kw[2][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          kw[i][half] = keep[2 * rl[i] + half];
+#pragma unroll
+      for (int j = 0; j < kB / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t4 + (e & 1);
+          if (!((kw[e >> 1][j >> 2] >> (c & 31)) & 1)) s[j][e] = 0.f;
+        }
+    }
+    // O = O * corr + P . V, the tile's P . V from a zero accumulator, P in
+    // NP pieces of T (the smallest first), V read transposed
+    float pv[D / 8][4] = {};
+#pragma unroll
+    for (int c = 0; c < kB; c += 16) {
+      unsigned pa[NP][4];
+      a_pieces<T, NP>(pa, s[c / 8], s[c / 8 + 1]);
+#pragma unroll
+      for (int n = 0; n < D; n += 16) {
+        unsigned vb[4];
+        ldsm_t(vb, Vt + c * LDS + bt_off + n);
+#pragma unroll
+        for (int piece = NP - 1; piece >= 0; --piece) {
+          mma<T>(pv[n / 8], pa[piece], vb[0], vb[1]);
+          mma<T>(pv[n / 8 + 1], pa[piece], vb[2], vb[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[j][e] = fmaf(acc[j][e], corr[e >> 1], pv[j][e]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + rl[i];
+    if (row >= S) continue;
+    const float inv = keep_scale / l[i];
+    T* orow = head_of(o, so, b, h) + row * so.r;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<unsigned*>(orow + 8 * j + 2 * t4) =
+          pack2<T>(acc[j][2 * i] * inv, acc[j][2 * i + 1] * inv);
+    if (t4 == 0)
+      lse[static_cast<size_t>(bh) * S + row] = m[i] * kLn2 + logf(l[i]);
+  }
+}
+
 template <int D>
 constexpr size_t smem_fwd() { return sizeof(float) * (3 * kB * (D + 1) + kB * kLP); }
 template <int D>
 constexpr size_t smem_dq() {
-  return sizeof(float) * (4 * kB * (D + 1) + kB * kLP + 2 * kB);
+  constexpr int TB = kBwdRows<D>;
+  return sizeof(float) * (4 * TB * (D + 1) + TB * (TB + 1) + 2 * TB);
 }
 template <int D>
 constexpr size_t smem_dkdv() {
-  return sizeof(float) * (4 * kB * (D + 1) + 2 * kB * kLP + 2 * kB);
+  constexpr int TB = kBwdRows<D>;
+  return sizeof(float) * (4 * TB * (D + 1) + 2 * TB * (TB + 1) + 2 * TB);
 }
 
 // the tensor-core kernels' (the same for bf16 and fp16: two bytes an
@@ -1215,6 +1495,11 @@ constexpr size_t smem_dq_mma() {
 template <int D>
 constexpr size_t smem_dkdv_mma() {
   return sizeof(bf16) * 6 * kB * kLDS<D> + sizeof(float) * 4 * kB +
+         sizeof(unsigned) * 4 * kB;
+}
+template <int D>
+constexpr size_t smem_fwd_mma() {
+  return sizeof(bf16) * 5 * kB * kLDS<D> + sizeof(float) * 2 * kB +
          sizeof(unsigned) * 4 * kB;
 }
 
@@ -1240,7 +1525,7 @@ template <typename T, int D>
 int run_dq_mma(const Args& a) {
   auto kernel = attn_bwd_dq_mma<T, D>;
   if (int e = set_smem(kernel, smem_dq_mma<D>())) return e;
-  const dim3 grid((a.S + kB - 1) / kB, a.H, a.B);
+  const dim3 grid((a.S + kB - 1) / kB * kHalves<D>, a.H, a.B);
   kernel<<<grid, kMmaThreads, smem_dq_mma<D>(), a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v),
@@ -1256,7 +1541,7 @@ template <typename T, int D>
 int run_dkdv_mma(const Args& a) {
   auto kernel = attn_bwd_dkdv_mma<T, D>;
   if (int e = set_smem(kernel, smem_dkdv_mma<D>())) return e;
-  const dim3 grid((a.S + kB - 1) / kB, a.H, a.B);
+  const dim3 grid((a.S + kB - 1) / kB * kHalves<D>, a.H, a.B);
   kernel<<<grid, kMmaThreads, smem_dkdv_mma<D>(), a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v),
@@ -1270,9 +1555,24 @@ int run_dkdv_mma(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the forward: every type on the SIMT cores
 template <typename T, int D>
-int run_fwd(const Args& a) {
+int run_fwd_mma(const Args& a) {
+  auto kernel = attn_fwd_mma<T, D>;
+  if (int e = set_smem(kernel, smem_fwd_mma<D>())) return e;
+  const dim3 grid((a.S + kB - 1) / kB, a.H, a.B);
+  kernel<<<grid, kMmaThreads, smem_fwd_mma<D>(), a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v),
+      BiasView{static_cast<const float*>(a.bias), a.sb, a.sh, a.sr},
+      static_cast<const long long*>(a.seed), static_cast<T*>(a.out),
+      static_cast<float*>(a.lse_out), a.sq, a.sk, a.sv, a.so, a.H, a.S,
+      a.scale, a.p_drop, a.keep_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the forward on the SIMT cores: fp32, and the 16-bit types at d 256
+template <typename T, int D>
+int run_fwd_simt(const Args& a) {
   auto kernel = attn_fwd<T, D>;
   if (int e = set_smem(kernel, smem_fwd<D>())) return e;
   const dim3 grid((a.S + kB - 1) / kB, a.H, a.B);
@@ -1286,12 +1586,29 @@ int run_fwd(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// whether kernel ``which`` (0 forward, 1 dq, 2 dk/dv) runs on the tensor
+// cores for operands of T at head width D
+template <typename T, int D>
+constexpr bool kOnTensorCores(int which) {
+  return kHalf16<T> && (which != 0 || D <= kMmaFwdMaxD);
+}
+
+// the forward: bf16 and fp16 on the tensor cores up to d 128, else SIMT
+template <typename T, int D>
+int run_fwd(const Args& a) {
+  if constexpr (kOnTensorCores<T, D>(0)) {
+    return run_fwd_mma<T, D>(a);
+  } else {
+    return run_fwd_simt<T, D>(a);
+  }
+}
+
 template <int D>
 int run_dq_simt(const Args& a) {
   using T = float;
   auto kernel = attn_bwd_dq<T, D>;
   if (int e = set_smem(kernel, smem_dq<D>())) return e;
-  const dim3 grid((a.S + kB - 1) / kB, a.H, a.B);
+  const dim3 grid((a.S + kBwdRows<D> - 1) / kBwdRows<D>, a.H, a.B);
   kernel<<<grid, kThreads, smem_dq<D>(), a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v),
@@ -1308,7 +1625,7 @@ int run_dkdv_simt(const Args& a) {
   using T = float;
   auto kernel = attn_bwd_dkdv<T, D>;
   if (int e = set_smem(kernel, smem_dkdv<D>())) return e;
-  const dim3 grid((a.S + kB - 1) / kB, a.H, a.B);
+  const dim3 grid((a.S + kBwdRows<D> - 1) / kBwdRows<D>, a.H, a.B);
   kernel<<<grid, kThreads, smem_dkdv<D>(), a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v),
@@ -1342,7 +1659,7 @@ int run_dkdv(const Args& a) {
 }
 
 // which: 0 forward, 1 dq (+ delta), 2 dk/dv (+ dbias); head width d in
-// {16, 32, 64, 128}
+// {16, 32, 64, 128, 256}
 template <typename T>
 int dispatch(int which, const Args& a) {
   if (a.B < 1 || a.H < 1 || a.S < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -1354,6 +1671,7 @@ int dispatch(int which, const Args& a) {
     case 32: PT_RUN(32);
     case 64: PT_RUN(64);
     case 128: PT_RUN(128);
+    case 256: PT_RUN(256);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef PT_RUN
@@ -1362,19 +1680,35 @@ int dispatch(int which, const Args& a) {
 // dynamic shared memory a block of kernel ``which`` takes
 template <typename T>
 size_t smem_of(int which, int d) {
-  constexpr bool kMma = kHalf16<T>;
-#define PT_SMEM(D)                                                   \
-  return which == 0 ? smem_fwd<D>()                                 \
-       : which == 1 ? (kMma ? smem_dq_mma<D>() : smem_dq<D>())      \
-                    : (kMma ? smem_dkdv_mma<D>() : smem_dkdv<D>())
+#define PT_SMEM(D)                                                       \
+  if (!kOnTensorCores<T, D>(which))                                     \
+    return which == 0 ? smem_fwd<D>()                                   \
+         : which == 1 ? smem_dq<D>() : smem_dkdv<D>();                  \
+  return which == 0 ? smem_fwd_mma<D>()                                 \
+       : which == 1 ? smem_dq_mma<D>() : smem_dkdv_mma<D>()
   switch (d) {
     case 16: PT_SMEM(16);
     case 32: PT_SMEM(32);
     case 64: PT_SMEM(64);
     case 128: PT_SMEM(128);
+    case 256: PT_SMEM(256);
     default: return 0;
   }
 #undef PT_SMEM
+}
+
+// whether kernel ``which`` runs on the tensor cores for the type code
+// ``type`` at head width d (false for a width not built)
+template <typename T>
+bool tensor_cores_of(int which, int d) {
+  switch (d) {
+    case 16: return kOnTensorCores<T, 16>(which);
+    case 32: return kOnTensorCores<T, 32>(which);
+    case 64: return kOnTensorCores<T, 64>(which);
+    case 128: return kOnTensorCores<T, 128>(which);
+    case 256: return kOnTensorCores<T, 256>(which);
+    default: return false;
+  }
 }
 
 // type: 0 float32, 1 bfloat16, 2 float16
@@ -1474,6 +1808,14 @@ int pt_fused_attention_bwd_dkdv(int type, const void* q, const void* k,
 long long pt_fused_attention_smem(int which, int type, int d) {
   return static_cast<long long>(type == 0 ? smem_of<float>(which, d)
                                           : smem_of<bf16>(which, d));
+}
+
+// 1 when the forward (which 0), dq (1) or dk/dv (2) kernel runs on the
+// tensor cores (attn_fwd_mma, attn_bwd_dq_mma, attn_bwd_dkdv_mma) for the
+// type code ``type`` at head width d, else 0 (the SIMT kernels)
+int pt_fused_attention_tensor_cores(int which, int type, int d) {
+  return type == 0 ? tensor_cores_of<float>(which, d)
+                   : tensor_cores_of<bf16>(which, d);
 }
 
 }  // extern "C"

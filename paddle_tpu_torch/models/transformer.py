@@ -32,8 +32,8 @@ from .. import resolve_device
 from ..fluid import monitor
 from ..fluid.dygraph.nn import Embedding, LayerNorm, Linear
 from ..fluid.resilience import Overloaded
-from ..kernels.attention import (attention_with_cache, kv_cache_update,
-                                 paged_attention_cache,
+from ..kernels.attention import (attention_with_cache, decode_row_width,
+                                 kv_cache_update, paged_attention_cache,
                                  paged_kv_cache_update)
 
 # The port is held to the reference in fp32 (tests compare logits and
@@ -476,9 +476,11 @@ def build_decode_session(model, batch_size, src_len, prompt_len,
 
 class DecodeSession:
     """Batched greedy autoregressive decoding with per-layer KV ring
-    caches [B, H, C, d] that stay on the device. Tokens, lengths and the
-    finished mask feed back as device tensors, so a generation syncs the
-    host once, after the last step."""
+    caches [B, H, C, d'] that stay on the device, d' the head width d
+    rounded up to 16 bytes (``decode_row_width``; columns past d stay
+    zero), so the decode kernel copies every row in 16-byte pieces.
+    Tokens, lengths and the finished mask feed back as device tensors,
+    so a generation syncs the host once, after the last step."""
 
     def __init__(self, model, batch_size, src_len, prompt_len,
                  cache_capacity, end_id=1):
@@ -491,7 +493,8 @@ class DecodeSession:
         self.cache_capacity = C = int(cache_capacity)
         self.end_id = int(end_id)
         self.n_heads = H = model.n_heads
-        self.d_key = d = model.d_model // model.n_heads
+        self.d_key = model.d_model // model.n_heads
+        d = decode_row_width(self.d_key, torch.float32)
         self._caches = [torch.zeros(B, H, C, d, device=dev)
                         for _ in range(2 * L)]
         self._pos_src = torch.arange(src_len, device=dev).repeat(B, 1)
@@ -737,7 +740,8 @@ class PagedDecodeSession:
     """Continuous-batching greedy decode over PAGED KV state.
 
     * Self-attention K/V of all slots lives in 2L shared pools
-      [P, H, page_tokens, d]; each slot owns pages through a
+      [P, H, page_tokens, d'] (d' as ``DecodeSession``'s rows: d rounded
+      up to 16 bytes); each slot owns pages through a
       [B, n_pages] int32 table sent to the decode step every step
       (host-authoritative, like the token/length state). Retiring a slot
       returns its pages to the free list, with no device work.
@@ -766,6 +770,7 @@ class PagedDecodeSession:
         self.end_id = int(end_id)
         self.n_heads = H = model.n_heads
         self.d_key = d = model.d_model // model.n_heads
+        dp = decode_row_width(d, torch.float32)   # rows of the pools
         self.page_tokens = ptok = int(page_tokens)
         self.n_pages = C // ptok
         self.pool_pages = P = int(pool_pages)
@@ -776,15 +781,15 @@ class PagedDecodeSession:
         self._fin = np.ones((B, 1), bool)
         self._len = np.ones((B,), np.int32)
         self._table = np.zeros((B, self.n_pages), np.int32)
-        self._kpool = [torch.zeros(P, H, ptok, d, device=dev)
+        self._kpool = [torch.zeros(P, H, ptok, dp, device=dev)
                        for _ in range(L)]
-        self._vpool = [torch.zeros(P, H, ptok, d, device=dev)
+        self._vpool = [torch.zeros(P, H, ptok, dp, device=dev)
                        for _ in range(L)]
         self._cross = [torch.zeros(B, H, self.src_len, d, device=dev)
                        for _ in range(2 * L)]
         self._slots = [None] * B
         self._owned = [[] for _ in range(B)]  # pages each slot refs
-        self._caches1 = [torch.zeros(1, H, C, d, device=dev)
+        self._caches1 = [torch.zeros(1, H, C, dp, device=dev)
                          for _ in range(2 * L)]
         self._pos_src1 = torch.arange(src_len, device=dev).reshape(1, -1)
         self._pos_tgt1 = torch.arange(prompt_len, device=dev).reshape(1, -1)

@@ -1,12 +1,12 @@
 """What keeps the card-side checks of the fused-attention kernels in step
 with their source, checked on the CPU:
 
-* every planted fault of ``tools/attention_fault_check.py`` plants into a
-  copy of the current ``csrc/fused_attention.cu`` (each text it replaces
-  occurs the stated number of times), so an edit of the kernels that
-  would leave a fault unplanted fails here, not after a chip run; and
-  each reaches the routes it is meant for (the SIMT kernels and the
-  tensor-core backward);
+* every planted fault and variant of ``tools/attention_fault_check.py``
+  plants into a copy of the current ``csrc/fused_attention.cu`` (each
+  text it replaces occurs the stated number of times), so an edit of the
+  kernels that would leave one unplanted fails here, not after a chip
+  run; and each fault reaches the routes it is meant for (the SIMT
+  kernels, the tensor-core forward and the tensor-core backward);
 * the wrappers' row-alignment rule (``_rows``): a 16-bit operand whose
   rows do not all start on a 16-byte boundary, which the tensor-core
   kernels copy with 16-byte ``cp.async``, is copied contiguous, and no
@@ -37,7 +37,7 @@ def _tool(name):
 FC = _tool("attention_fault_check")
 
 
-@pytest.mark.parametrize("fault", sorted(FC.FAULTS))
+@pytest.mark.parametrize("fault", sorted(FC.PLANTS))
 def test_fault_plants_into_current_source(tmp_path, fault):
     src = os.path.join(ROOT, FC.SOURCE)
     dst = os.path.join(str(tmp_path), FC.SOURCE)
@@ -49,13 +49,14 @@ def test_fault_plants_into_current_source(tmp_path, fault):
     with open(dst) as f:
         planted = f.read()
     assert (planted == sound) == (fault == "sound")
-    for old, new, count in FC.FAULTS[fault]:
+    for old, new, count in FC.PLANTS[fault]:
         assert sound.count(old) == count, (old, count)
         assert planted.count(new) >= count, new
 
 
 # the kernels of each route in csrc/fused_attention.cu
 SIMT = ("attn_fwd", "attn_bwd_dq", "attn_bwd_dkdv")
+MMA_FORWARD = ("attn_fwd_mma",)
 MMA_BACKWARD = ("attn_bwd_dq_mma", "attn_bwd_dkdv_mma")
 
 
@@ -90,29 +91,36 @@ def _reached(text, spans, kernel):
 
 
 def test_every_fault_reaches_both_backward_routes():
-    """Each fault but the transposed K changes a line that the SIMT
-    kernels run and one that the tensor-core backward runs (in the kernel
-    or in a function it calls); k_not_transposed reaches the tensor-core
-    dq kernel alone."""
+    """Each fault but the transposed K and V changes a line that the SIMT
+    kernels run, one that the tensor-core forward runs and one that the
+    tensor-core backward runs (in the kernel or in a function it calls);
+    k_not_transposed reaches the tensor-core dq kernel alone,
+    v_not_transposed the tensor-core forward alone. The variants reach
+    the tensor-core forward alone (forward_simt its route's width limit,
+    defined beside it)."""
     with open(os.path.join(ROOT, FC.SOURCE)) as f:
         text = re.sub(r"//[^\n]*", lambda m: " " * len(m.group()), f.read())
     spans = _functions(text)
-    assert set(SIMT + MMA_BACKWARD) <= set(spans)
+    assert set(SIMT + MMA_FORWARD + MMA_BACKWARD) <= set(spans)
 
     def reaches(at, kernels):
         return any(a <= i < b for kernel in kernels
                    for a, b in _reached(text, spans, kernel) for i in at)
 
-    for fault, subs in FC.FAULTS.items():
+    alone = {"k_not_transposed": [False, False, True],
+             "v_not_transposed": [False, True, False]}
+    for name, subs in FC.PLANTS.items():
         at = [i for old, _, _ in subs for i in _find_all(text, old)]
-        routes = [reaches(at, kernels) for kernels in (SIMT, MMA_BACKWARD)]
-        if fault == "sound":
+        routes = [reaches(at, kernels)
+                  for kernels in (SIMT, MMA_FORWARD, MMA_BACKWARD)]
+        if name == "sound":
             assert not at
-        elif fault == "k_not_transposed":
-            assert routes == [False, True]
-            assert reaches(at, ("attn_bwd_dq_mma",))
+        elif name in alone:
+            assert routes == alone[name], (name, routes)
+        elif name in FC.VARIANTS:
+            assert routes == [False, True, False], (name, routes)
         else:
-            assert routes == [True, True], (fault, routes)
+            assert routes == [True, True, True], (name, routes)
 
 
 def _find_all(text, sub):

@@ -97,9 +97,12 @@ def test_paged_kernel_matches_plain_and_dense(cuda_device):
 
 
 def test_kernel_wrapper_refuses_what_it_cannot_take(cuda_device):
-    """What the decode wrapper refuses, and the float16 rows and the
-    192-byte rows (fp32 d 48: twelve 16-byte pieces on sixteen lanes) it
-    used to refuse, which now match the plain version."""
+    """What the decode wrapper refuses (a row past 2048 bytes), and what
+    it used to refuse and now takes, matching the plain version: float16
+    rows, 192-byte rows (fp32 d 48: twelve 16-byte pieces on sixteen
+    lanes), a 24-byte row (fp32 d 6, copied element by element), a
+    1024-byte row (fp32 d 256: two pieces a lane) and a cache that starts
+    off a 16-byte boundary (element by element)."""
     q = torch.zeros(1, 1, 1, 64, device=cuda_device)
     lens = torch.ones(1, dtype=torch.int32, device=cuda_device)
     with pytest.raises(TypeError, match="cache_len"):
@@ -110,19 +113,22 @@ def test_kernel_wrapper_refuses_what_it_cannot_take(cuda_device):
     with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
         A.decode_attention_kernel(q.double(), q.double(), q.double(), lens,
                                   1.0)
-    with pytest.raises(ValueError, match="multiple of 16 bytes"):
-        q6 = torch.zeros(1, 1, 1, 6, device=cuda_device)
-        A.decode_attention_kernel(q6, q6, q6, lens, 1.0)
-    with pytest.raises(ValueError, match="16 to 512 bytes"):
-        q256 = torch.zeros(1, 1, 1, 256, device=cuda_device)
-        A.decode_attention_kernel(q256, q256, q256, lens, 1.0)
-    with pytest.raises(ValueError, match="16-byte boundary"):
-        kc = torch.zeros(65, device=cuda_device)[1:].view(1, 1, 1, 64)
-        A.decode_attention_kernel(q, kc, q, lens, 1.0)
+    with pytest.raises(ValueError, match="1 to 2048 bytes"):
+        q513 = torch.zeros(1, 1, 1, 513, device=cuda_device)
+        A.decode_attention_kernel(q513, q513, q513, lens, 1.0)
     g = torch.Generator(device=cuda_device).manual_seed(48)
+    kc = torch.randn(80 * 64 + 1, device=cuda_device,
+                     generator=g)[1:].view(1, 1, 80, 64)
+    lens = torch.tensor([70], dtype=torch.int32, device=cuda_device)
+    got = A.decode_attention_kernel(q + 1, kc, kc, lens, 0.125)
+    want = A._ref_attention_cache(q + 1, kc, kc, lens, 0.125)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 2e-5
     lens = torch.tensor([1, 70], dtype=torch.int32, device=cuda_device)
     for dtype, d, atol in ((torch.float16, 64, 2e-2),
-                           (torch.float32, 48, 2e-5)):
+                           (torch.float32, 48, 2e-5),
+                           (torch.float32, 6, 2e-5),
+                           (torch.float32, 256, 2e-5)):
         q, k, v = (torch.randn(*s, device=cuda_device, generator=g)
                    .to(dtype) for s in ((2, 3, 1, d), (2, 3, 80, d),
                                         (2, 3, 80, d)))
@@ -135,12 +141,20 @@ def test_kernel_wrapper_refuses_what_it_cannot_take(cuda_device):
 # rows the decode kernels take since their lanes round up to a power of
 # two: 16 bytes on one lane (bf16 d 8), 48 bytes on four (bf16 d 24:
 # three pieces), 192 bytes on sixteen (fp32 d 48, bf16 d 96: twelve
-# pieces), and float16
+# pieces), and float16; rows that are not a multiple of 16 bytes (fp32 d
+# 6, bf16 d 12, fp16 d 300: element-by-element copies) and rows past 512
+# bytes (fp32 d 192 and 512, bf16 d 512: 32 lanes of 2 or 4 pieces)
 @pytest.mark.parametrize("dtype,atol,d", [(torch.bfloat16, 2e-2, 8),
                                           (torch.bfloat16, 2e-2, 24),
                                           (torch.float32, 2e-5, 48),
                                           (torch.bfloat16, 2e-2, 96),
-                                          (torch.float16, 2e-2, 64)])
+                                          (torch.float16, 2e-2, 64),
+                                          (torch.float32, 2e-5, 6),
+                                          (torch.bfloat16, 2e-2, 12),
+                                          (torch.float16, 2e-2, 300),
+                                          (torch.float32, 2e-5, 192),
+                                          (torch.float32, 2e-5, 512),
+                                          (torch.bfloat16, 2e-2, 512)])
 def test_decode_kernels_take_any_16_byte_row(cuda_device, dtype, atol, d):
     """The dense and paged kernels at row widths that are not a power of
     two of 16-byte pieces, against the plain version, over tails of 1
@@ -167,6 +181,42 @@ def test_decode_kernels_take_any_16_byte_row(cuda_device, dtype, atol, d):
             A.paged_attention_kernel.launches) == (n0[0] + 1, n0[1] + 1)
     assert (got.float() - want.float()).abs().max().item() <= atol
     assert (paged.float() - got.float()).abs().max().item() <= 1e-6
+
+
+def test_padded_session_rows_on_card_match_cpu(cuda_device):
+    """A model of head width 6 (fp32, 24-byte rows): the dense and paged
+    sessions pad their caches' rows to 8 elements (32 bytes) and give
+    the same greedy tokens on the card as on the CPU; the caches' padded
+    columns stay zero."""
+    rng = np.random.RandomState(6)
+    B, S, P, C = 2, 6, 4, 16
+    src = rng.randint(2, 512, (B, S))
+    prompt = rng.randint(2, 512, (B, P))
+    plens = np.array([4, 2])
+    out = {}
+    for name, dev in (("cpu", "cpu"), ("card", cuda_device)):
+        model = T.Transformer(512, 512, d_model=24, n_heads=4, d_inner=48,
+                              n_layers=2, max_len=64, device="cpu",
+                              seed=6).to(dev)
+        sess = T.build_decode_session(model, B, S, P, C)
+        assert sess._caches[0].shape[-1] == 8
+        dense, _ = sess.generate(src, prompt, plens, 8)
+        assert not any(c[..., 6:].any() for c in sess._caches)
+        paged = T.build_paged_decode_session(model, B, S, P, C,
+                                             page_tokens=4)
+        done = {}
+        for b in range(B):
+            slot, ready = paged.join(src[b], prompt[b],
+                                     prompt_len=int(plens[b]),
+                                     max_new_tokens=8)
+            if ready is not None:
+                done[slot] = ready[0]
+        while paged.active_count:
+            for slot, toks, _ in paged.step():
+                done[slot] = toks
+        out[name] = (dense, [list(done[b]) for b in range(B)])
+    np.testing.assert_array_equal(out["card"][0], out["cpu"][0])
+    assert out["card"][1] == out["cpu"][1]
 
 
 def test_sessions_on_card_match_cpu(cuda_device):
@@ -282,13 +332,13 @@ def test_fused_attention_dropout_on_card(cuda_device):
 
 
 def test_fused_attention_refuses_long_sequences(cuda_device):
-    """What the kernels still refuse past S 1024: a head width past 128.
+    """What the kernels still refuse past S 1024: a head width past 256.
     The S 2048, d 48 call that was refused before the head widths were
     padded, and the S 1040 call that was refused before the long and
     flash tiers were ported, now run through the kernels and match the
     plain version."""
-    q = torch.zeros(1, 1, 2048, 160, device=cuda_device)
-    with pytest.raises(ValueError, match="up to 128, got d = 160"):
+    q = torch.zeros(1, 1, 2048, 300, device=cuda_device)
+    with pytest.raises(ValueError, match="up to 256 .*got d = 300"):
         A.fused_attention(q, q, q)
     g = torch.Generator(device=cuda_device).manual_seed(2048)
     q, k, v = (torch.randn(1, 2, 2048, 48, device=cuda_device, generator=g)
@@ -764,6 +814,12 @@ def test_bf16_backward_copies_only_the_misaligned_operand(cuda_device,
     (2, 2, 77, 100, (2, 2, 1, 77), 0.1, False),
     (2, 16, 128, 48, (2, 1, 1, 128), 0.1, True),     # hidden 768, 16 heads
     (2, 3, 96, 80, (2, 3, 1, 96), 0.0, True),
+    # d 256 built: the backward's outputs in two column halves on the
+    # tensor cores, 32-row tiles in fp32, the SIMT forward in every type
+    (2, 3, 200, 160, (2, 1, 200, 200), 0.1, False),
+    (1, 2, 300, 256, (1, 2, 1, 300), 0.0, False),
+    (2, 2, 130, 256, (2, 1, 1, 130), 0.1, True),
+    (2, 3, 77, 200, (2, 3, 77, 77), 0.0, True),
 ])
 def test_fused_attention_pads_other_head_widths(cuda_device, dtype, B, H, S,
                                                 d, bias_shape, p, packed):
@@ -793,33 +849,48 @@ def test_fused_attention_pads_other_head_widths(cuda_device, dtype, B, H, S,
     assert not over, over
 
 
-# The forward in the 16-bit types against the plain version: every built
-# head width, every bias shape (and none), ragged S, dropout on and off,
-# bf16 and fp16; out and the row logsumexp under chip_smoke.py's
-# LONG_RTOL.
+# The forward in the 16-bit types against the plain version: the
+# tensor-core forward (attn_fwd_mma) at every built head width up to 128,
+# every bias shape (and none), ragged S, dropout on and off, contiguous
+# and strided packed operands, bf16 and fp16, and the SIMT forward at
+# d 256; out and the row logsumexp under chip_smoke.py's LONG_RTOL.
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("B,H,S,d,bias_shape,p", [
-    (2, 3, 500, 16, None, 0.1),
-    (2, 3, 500, 32, (2, 1, 1, 500), 0.0),              # padding-mask shape
-    (2, 3, 1040, 64, (2, 3, 1, 1040), 0.1),            # per-head
-    (1, 2, 1040, 128, (1, 1, 1040, 1040), 0.0),        # head-broadcast rows
-    (2, 2, 500, 64, (2, 2, 500, 500), 0.1),            # per-row
-    (1, 3, 1040, 16, (1, 3, 1040, 1040), 0.0),
-    (2, 3, 500, 128, (1, 1, 1, 500), 0.1),             # batch-broadcast
-    (2, 2, 1040, 32, (2, 1, 1, 1040), 0.1),
+@pytest.mark.parametrize("B,H,S,d,bias_shape,p,packed", [
+    (2, 3, 500, 16, None, 0.1, False),
+    (2, 3, 500, 32, (2, 1, 1, 500), 0.0, False),       # padding-mask shape
+    (2, 3, 1040, 64, (2, 3, 1, 1040), 0.1, False),     # per-head
+    (1, 2, 1040, 128, (1, 1, 1040, 1040), 0.0, False),  # head-bcast rows
+    (2, 2, 500, 64, (2, 2, 500, 500), 0.1, False),     # per-row
+    (1, 3, 1040, 16, (1, 3, 1040, 1040), 0.0, False),
+    (2, 3, 500, 128, (1, 1, 1, 500), 0.1, False),      # batch-broadcast
+    (2, 2, 1040, 32, (2, 1, 1, 1040), 0.1, False),
+    (3, 12, 128, 64, (3, 1, 1, 128), 0.1, True),       # config 3's heads
+    (2, 5, 130, 16, (2, 5, 1, 130), 0.0, True),        # odd H, ragged S
+    (2, 3, 77, 128, (2, 3, 77, 77), 0.1, True),
+    (1, 2, 300, 256, (1, 2, 1, 300), 0.1, False),      # SIMT at d 256
 ])
 def test_16bit_forward_matches_plain(cuda_device, dtype, B, H, S, d,
-                                    bias_shape, p):
-    q, k, v, _, bias = _attn_inputs(cuda_device, dtype, B, H, S, d,
-                                    bias_shape, S + d)
+                                     bias_shape, p, packed):
+    if packed:
+        q, k, v, _, bias = _packed_inputs(cuda_device, dtype, B, S, H, d,
+                                          bias_shape, S + d)
+        q, k, v = (A._split_heads(t, H) for t in (q, k, v))
+    else:
+        q, k, v, _, bias = _attn_inputs(cuda_device, dtype, B, H, S, d,
+                                        bias_shape, S + d)
     seed = torch.tensor([S * 29 + d], dtype=torch.int64, device=cuda_device)
-    n0 = A.fused_attention_fwd_kernel.launches
+    n0 = (A.fused_attention_fwd_kernel.launches,
+          A.fused_attention_fwd_kernel.tensor_core_launches)
     o, lse = A.flash_attention(q, k, v, bias, dropout_prob=p, seed=seed)
     want_o, want_lse = A._ref_flash_attention(q, k, v, bias, d ** -0.5, p,
                                               seed)
     torch.cuda.synchronize()
-    assert A.fused_attention_fwd_kernel.launches == n0 + 1
+    assert (A.fused_attention_fwd_kernel.launches,
+            A.fused_attention_fwd_kernel.tensor_core_launches) == (
+                n0[0] + 1, n0[1] + (d <= 128))
     assert o.dtype == dtype and lse.dtype == torch.float32
+    if packed:
+        assert o.stride() == q.stride()
     rtol = smoke.LONG_RTOL[dtype]
     for name, a, b in (("out", o, want_o), ("lse", lse, want_lse)):
         rel = ((a.float() - b.float()).abs().max() /
@@ -848,6 +919,27 @@ def test_16bit_forward_draws_the_plain_mask(cuda_device, dtype):
         torch.testing.assert_close(
             o.float(), keep[..., t * d:(t + 1) * d].float() / (S * (1 - p)),
             rtol=2 ** -7, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_16bit_dropout_mask_bit_equal_forward_backward(cuda_device, dtype):
+    """S = d = 128, q = k = 0 (every weight 1/S): with v the identity the
+    forward's o[r, c] is keep[r, c] / (S (1 - p)), and with dO the
+    identity the backward's dv[c, r] is the same dropped weight, so both
+    kernels' masks equal dropout_keep_mask bit for bit, over three heads
+    and two batch rows."""
+    B, H, S, p = 2, 3, 128, 0.3
+    eye = torch.eye(S, dtype=dtype, device=cuda_device).expand(
+        B, H, S, S).contiguous()
+    q = torch.zeros(B, H, S, S, dtype=dtype, device=cuda_device)
+    seed = torch.tensor([4711], dtype=torch.int64, device=cuda_device)
+    keep = A.dropout_keep_mask(B, H, S, p, seed)
+    v = eye.clone().requires_grad_(True)
+    o = A.fused_attention(q, q, v, dropout_prob=p, seed=seed)
+    (dv,) = torch.autograd.grad(o, v, eye)
+    torch.cuda.synchronize()
+    assert torch.equal(o != 0, keep)
+    assert torch.equal(dv.transpose(2, 3) != 0, keep)
 
 
 def test_packed_amp_bert_tiny_step_on_card_matches_cpu(cuda_device):

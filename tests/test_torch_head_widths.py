@@ -1,16 +1,17 @@
 """Head widths and row sizes the port's attention kernels are not built
 for, checked on the CPU.
 
-- Fused training attention: the kernels are built for d 16, 32, 64 and
-  128; ``flash_attention`` and ``flash_attention_backward`` zero-pad any
-  other d up to 128 to the next of these (``padded_forward``,
+- Fused training attention: the kernels are built for d 16, 32, 64, 128
+  and 256; ``flash_attention`` and ``flash_attention_backward`` zero-pad
+  any other d up to 256 to the next of these (``padded_forward``,
   ``padded_backward``) and slice o, dq, dk and dv back. The padding
   functions drive the plain version here: plain on the padded operands
   against plain at the true d, forward (o, lse) and backward (dq, dk, dv,
   dbias), fp32 at rtol 1e-5 (atol 1e-6: the padded columns add exact
   zeros, so the two differ only in the order of the sums).
-- Decode: a key row of any multiple of 16 bytes up to 512 is covered by
-  its 16-byte pieces rounded up to a power of two of lanes
+- Decode: a key row of any width up to 2048 bytes is covered by its
+  16-byte pieces (the row rounded up to 16 bytes), rounded up to a power
+  of two of lanes, with 2 or 4 pieces a lane past 512 bytes
   (``decode_lanes``, the rule of ``csrc/decode_attention.cu``).
 - A BERT program at d 48 (hidden 96, 2 heads), which the kernels take
   only through the padding, with ``use_fused_attention=True`` and
@@ -44,7 +45,7 @@ def _inputs(B, H, S, d, bias_shape, seed):
 @pytest.mark.parametrize("bias_shape,p", [((2, 1, 1, 37), 0.0),
                                           ((2, 3, 37, 37), 0.1)],
                          ids=["padding_mask", "per_row_dropout"])
-@pytest.mark.parametrize("d", [8, 24, 48, 80, 100])
+@pytest.mark.parametrize("d", [8, 24, 48, 80, 100, 160, 200])
 def test_padding_holds_plain_on_padded_to_plain(d, bias_shape, p):
     B, H, S = 2, 3, 37
     q, k, v, do, bias = _inputs(B, H, S, d, bias_shape, d)
@@ -68,10 +69,11 @@ def test_padding_holds_plain_on_padded_to_plain(d, bias_shape, p):
 
 
 def test_built_widths_and_the_limit():
-    widths = [A.built_width(d) for d in range(1, 129)]
-    assert widths == [16] * 16 + [32] * 16 + [64] * 32 + [128] * 64
-    with pytest.raises(ValueError, match="up to 128, got d = 129"):
-        A.built_width(129)
+    widths = [A.built_width(d) for d in range(1, 257)]
+    assert widths == [16] * 16 + [32] * 16 + [64] * 32 + [128] * 64 + \
+        [256] * 128
+    with pytest.raises(ValueError, match="up to 256 .*got d = 257"):
+        A.built_width(257)
 
 
 def test_padding_leaves_a_built_width_as_it_is():
@@ -87,15 +89,17 @@ def test_padding_leaves_a_built_width_as_it_is():
 
 
 @pytest.mark.parametrize("row_bytes,lanes", [
-    (16, 1), (32, 2), (48, 4), (64, 4), (96, 8), (128, 8), (192, 16),
-    (256, 16), (384, 32), (512, 32)])
+    (16, (1, 1)), (32, (2, 1)), (48, (4, 1)), (64, (4, 1)), (96, (8, 1)),
+    (128, (8, 1)), (192, (16, 1)), (256, (16, 1)), (384, (32, 1)),
+    (512, (32, 1)), (8, (1, 1)), (24, (2, 1)), (100, (8, 1)),
+    (528, (32, 2)), (768, (32, 2)), (1024, (32, 2)), (1040, (32, 4)),
+    (2048, (32, 4))])
 def test_decode_lanes_round_up_to_a_power_of_two(row_bytes, lanes):
     assert A.decode_lanes(row_bytes) == lanes
 
 
 @pytest.mark.parametrize("row_bytes,match", [
-    (8, "multiple of 16"), (24, "multiple of 16"), (100, "multiple of 16"),
-    (0, "16 to 512"), (528, "16 to 512"), (1024, "16 to 512")])
+    (0, "1 to 2048"), (2049, "1 to 2048"), (4096, "1 to 2048")])
 def test_decode_lanes_refuse_other_rows(row_bytes, match):
     with pytest.raises(ValueError, match=match):
         A.decode_lanes(row_bytes)

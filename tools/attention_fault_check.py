@@ -1,7 +1,8 @@
 """How far the long-sequence and packed-layout attention checks of
 chip_smoke.py stand from the sound kernels and from planted faults.
 
-    python3 tools/attention_fault_check.py
+    python3 tools/attention_fault_check.py [--forward simt] [--variants]
+        [--only NAME ...]
 
 Needs one CUDA card and nvcc. For each fault the port and chip_smoke.py
 are copied into a temporary directory and the fault is planted in the
@@ -10,8 +11,9 @@ copies are built at once, then each runs, one after another, every
 kernel case of chip_smoke's ``long_case_list`` and ``packed_case_list``
 (untimed; the sound copy runs each packed case at SOUND_SALTS seeds of
 data and dropout mask, for the spread of the readings the limits must
-clear), the bert_long phase's one-step kernel-vs-plain check and the
-bert_packed phase's. Faults:
+clear), and the bert_long and bert_packed phases' one-step
+kernel-vs-plain checks at every data seed of chip_smoke's STEP_SEEDS,
+judged by chip_smoke's ``step_verdict``. Faults:
 
   sound         no fault: the readings the limits must clear;
   skip_tile     each kernel skips its second tile (keys 64-127 in the
@@ -28,18 +30,37 @@ bert_packed phase's. Faults:
                 apart (and right at H = 1);
   k_not_transposed  the tensor-core dq kernel reads K for dq += dS . K
                 with ldmatrix without .trans, so each 8 x 8 block of K
-                enters the product transposed.
+                enters the product transposed;
+  v_not_transposed  the tensor-core forward reads V for P . V likewise.
 
-Every fault but k_not_transposed is planted in both the SIMT kernels
-(the forward in every type, the fp32 backward) and the tensor-core
-backward; tests/test_torch_attention_plants.py checks that it reaches
-each.
+The first four are planted in the SIMT kernels (the forward in fp32 and
+at d 256, the fp32 backward), the tensor-core forward and the
+tensor-core backward; tests/test_torch_attention_plants.py checks that
+each reaches them.
 
-Prints one JSON line per (fault, case): each output's max |kernel -
-plain| over the plain output's largest magnitude, the limit chip_smoke
-holds it to, and the outputs over their limits; then one per fault for
-the step check. Exits 0 when the sound copy passes every limit and each
-planted fault is caught by at least one.
+Variants (with --variants; reported, not judged: each is a forward
+that could have shipped):
+
+  forward_simt     the bf16 and fp16 forward on the SIMT kernel, as it
+                   ran before the tensor-core forward;
+  pieces_1, pieces_3
+                   the tensor-core forward with P in one or three pieces
+                   of the input type, not two;
+  single_chain     its P . V as one mma chain over every key (O rescaled,
+                   then accumulated into), not a zero accumulator a tile.
+
+--forward simt plants forward_simt into every copy, faults included:
+the readings the multi-seed limits were set from. Each copy that runs
+with --variants also times the forward at chip_smoke's long, flash and
+resident shapes (bf16, p 0).
+
+Prints the card's name and power limit, then one JSON line per (copy,
+case): each output's max |kernel - plain| over the plain output's
+largest magnitude, the limit chip_smoke holds it to, and the outputs
+over their limits; one per (copy, phase, data seed) of the step check
+and one per (copy, phase) with its verdict; then a summary. Exits 0
+when the sound copy passes every limit and each planted fault is caught
+by at least one.
 """
 
 import argparse
@@ -56,40 +77,92 @@ SOURCE = os.path.join("paddle_tpu_torch", "kernels", "csrc",
 SOUND_SALTS = 5
 _K_LOOP = "  for (int k0 = 0; k0 < S; k0 += kB) {\n"
 _Q_LOOP = "  for (int q0 = 0; q0 < S; q0 += kB) {\n"
-# fault: [(text of the sound source, its replacement, occurrences)]
+# the fp32 backward's loops, over tiles of kBwdRows<D> rows
+_K_LOOP_TB = "  for (int k0 = 0; k0 < S; k0 += TB) {\n"
+_Q_LOOP_TB = "  for (int q0 = 0; q0 < S; q0 += TB) {\n"
+_SKIP_K = "    if (k0 == kB) continue;\n"
+_SKIP_Q = "    if (q0 == kB) continue;\n"
+# name: [(text of the sound source, its replacement, occurrences)]
 FAULTS = {
     "sound": [],
-    "skip_tile": [
-        (_K_LOOP, _K_LOOP + "    if (k0 == kB) continue;\n", 3),
-        (_Q_LOOP, _Q_LOOP + "    if (q0 == kB) continue;\n", 2)],
+    "skip_tile": [(_K_LOOP, _K_LOOP + _SKIP_K, 3),
+                  (_K_LOOP_TB, _K_LOOP_TB + _SKIP_K, 1),
+                  (_Q_LOOP, _Q_LOOP + _SKIP_Q, 1),
+                  (_Q_LOOP_TB, _Q_LOOP_TB + _SKIP_Q, 1)],
     "no_mask": [("  return s * scale + (brow ? brow[col] : 0.f);",
                  "  return s * scale;", 1),
                 ("  return brow ? brow[col] : 0.f;", "  return 0.f;", 1)],
-    "pair_by_head": [(", bh, p_drop, keep);", ", h, p_drop, keep);", 5)],
+    "pair_by_head": [(", bh, p_drop, keep);", ", h, p_drop, keep);", 6)],
     "row_stride_d": [("const long long stride = rs;",
                       "const long long stride = D;", 2)],
     "k_not_transposed": [("ldsm_t(kb, Kt + c * LDS + bt_off + n);",
                           "ldsm(kb, Kt + c * LDS + bt_off + n);", 1)],
+    "v_not_transposed": [("ldsm_t(vb, Vt + c * LDS + bt_off + n);",
+                          "ldsm(vb, Vt + c * LDS + bt_off + n);", 1)],
 }
+_PIECES = "constexpr int kPPieces = 2;"
+VARIANTS = {
+    "forward_simt": [("constexpr int kMmaFwdMaxD = 128;",
+                      "constexpr int kMmaFwdMaxD = 0;", 1)],
+    "pieces_1": [(_PIECES, _PIECES.replace("2", "1"), 1)],
+    "pieces_3": [(_PIECES, _PIECES.replace("2", "3"), 1)],
+    "single_chain": [
+        ("    float pv[D / 8][4] = {};\n",
+         "    for (int j = 0; j < D / 8; ++j)\n"
+         "      for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];\n"
+         "    float (&pv)[D / 8][4] = acc;\n", 1),
+        ("        acc[j][e] = fmaf(acc[j][e], corr[e >> 1], pv[j][e]);\n",
+         "        (void)pv[j][e];\n", 1)],
+}
+PLANTS = dict(FAULTS, **VARIANTS)
+# the forward's timed shapes (chip_smoke's long_case_list and
+# packed_case_list): (name, B, H, S, d, packed)
+TIMED = (("long_S2048", 1, 12, 2048, 64, False),
+         ("flash_S8192", 1, 12, 8192, 64, False),
+         ("resident_config3", 128, 12, 128, 64, True))
 
 
-def plant(copy, fault):
+def plant(copy, name):
     path = os.path.join(copy, SOURCE)
     with open(path) as f:
         text = f.read()
-    for old, new, count in FAULTS[fault]:
+    for old, new, count in PLANTS[name]:
         if text.count(old) != count:
             raise RuntimeError("%s: %r occurs %d times in %s, expected %d"
-                               % (fault, old, text.count(old), SOURCE, count))
+                               % (name, old, text.count(old), SOURCE, count))
         text = text.replace(old, new)
     with open(path, "w") as f:
         f.write(text)
 
 
-def run_copy(copy, fault):
+def time_forward(A, smoke, dev, flush):
+    """{shape: ms} of the forward kernel at TIMED, bf16, p 0, padding
+    mask (chip_smoke's time_ms)."""
+    import torch
+    out = {}
+    for name, B, H, S, d, packed in TIMED:
+        gen = torch.Generator(device=dev).manual_seed(S)
+        if packed:
+            q, k, v = (A._split_heads(torch.randn(
+                B, S, H * d, device=dev, generator=gen).bfloat16(), H)
+                for _ in range(3))
+        else:
+            q, k, v = (torch.randn(B, H, S, d, device=dev,
+                                   generator=gen).bfloat16()
+                       for _ in range(3))
+        bias = torch.zeros(B, 1, 1, S, device=dev)
+        bias_f, strides = A._bias_operand(bias, B, H, S)
+        out[name] = smoke.time_ms(lambda: A.fused_attention_fwd_kernel(
+            q, k, v, bias_f, strides, None, d ** -0.5, 0.0), flush)
+        del q, k, v
+    return out
+
+
+def run_copy(copy, name, timed):
     """In a child process: every long and packed case and the two step
-    checks on the copy at ``copy``, one JSON line each. Returns whether
-    any limit failed (the child exits 10 then, 0 if none did)."""
+    checks at every data seed on the copy at ``copy``, one JSON line
+    each. Returns whether any limit failed (the child exits 10 then, 0 if
+    none did)."""
     sys.path.insert(0, copy)
     import torch
     import chip_smoke as smoke
@@ -99,68 +172,89 @@ def run_copy(copy, fault):
 
     dev = torch.device("cuda")
     failed = False
+    if timed:
+        flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+        print(json.dumps(dict(copy=name, fwd_ms=time_forward(
+            A, smoke, dev, flush))), flush=True)
+        del flush
     checks = [(smoke.long_check, case, {})
               for case in smoke.long_case_list()]
     checks += [(smoke.packed_check, case[:-1], {"salt": salt})
                for case in smoke.packed_case_list()
-               for salt in range(SOUND_SALTS if fault == "sound" else 1)]
+               for salt in range(SOUND_SALTS if name == "sound" else 1)]
     for check, case, kwargs in checks:
         rec, inputs = check(A, dev, *case, **kwargs)
         del inputs
         over = sorted(k for k, r in rec["rel_err"].items()
                       if not r <= rec["rtol"][k])
         failed |= bool(over)
-        print(json.dumps(dict(fault=fault, case=rec["name"], **kwargs,
+        print(json.dumps(dict(copy=name, case=rec["name"], **kwargs,
                               rel_err=rec["rel_err"], rtol=rec["rtol"],
                               max_abs_err=rec["max_abs_err"],
                               over=over)), flush=True)
         torch.cuda.empty_cache()
     exe = fluid.Executor(dev)
-    for name, step_check, prog, loss_rtol, grad_rtol in (
+    for phase, step_check, prog, grad_rtol in (
             ("bert_long", smoke.long_step_check,
              smoke.long_program(fluid, bert, smoke.LONG_CHECK_SEQ),
-             smoke.LONG_LOSS_RTOL, smoke.LONG_GRAD_RTOL),
+             smoke.LONG_GRAD_RTOL),
             ("bert_packed", smoke.packed_step_check,
              smoke.packed_program(fluid, bert, bert.BertConfig.base(),
                                   "packed"),
-             smoke.PACKED_LOSS_RTOL, smoke.PACKED_GRAD_RTOL)):
-        rec = step_check(A, exe, fluid, bert, prog)
+             smoke.PACKED_GRAD_RTOL)):
+        recs = smoke.step_check_seeds(A, exe, fluid, bert, prog, step_check)
         del prog
-        over = sorted(n for n, r in rec["grad_rel"].items()
-                      if not r <= grad_rtol[n])
-        if not rec["loss_rel"] <= loss_rtol:
-            over.append("loss")
-        failed |= bool(over)
-        print(json.dumps(dict(fault=fault, check="step_vs_plain",
-                              phase=name, over=over, **rec)), flush=True)
+        for rec in recs:
+            print(json.dumps(dict(copy=name, check="step_vs_plain",
+                                  phase=phase, **rec)), flush=True)
+        verdict = smoke.step_verdict(recs, grad_rtol,
+                                     smoke.STEP_LOSS_MEAN[phase])
+        failed |= not verdict["passes"]
+        print(json.dumps(dict(copy=name, check="step_verdict", phase=phase,
+                              **verdict)), flush=True)
         torch.cuda.empty_cache()
     return failed
 
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--forward", choices=("simt",),
+                    help="plant forward_simt into every copy")
+    ap.add_argument("--variants", action="store_true",
+                    help="also run the VARIANTS copies, timed")
+    ap.add_argument("--only", nargs="+", help="run these copies alone")
     ap.add_argument("--copy", help=argparse.SUPPRESS)
-    ap.add_argument("--fault", help=argparse.SUPPRESS)
+    ap.add_argument("--name", help=argparse.SUPPRESS)
+    ap.add_argument("--timed", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.copy:
-        return 10 if run_copy(args.copy, args.fault) else 0
+        return 10 if run_copy(args.copy, args.name, args.timed) else 0
 
     import torch
     if not torch.cuda.is_available():
         print("attention_fault_check: torch sees no CUDA device",
               file=sys.stderr)
         return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    names = list(FAULTS) + (list(VARIANTS) if args.variants else [])
+    if args.only:
+        names = [n for n in names if n in args.only]
     tmp = tempfile.mkdtemp(prefix="attention_faults_")
     try:
         copies = {}
-        for fault in FAULTS:
-            copies[fault] = os.path.join(tmp, fault)
+        for name in names:
+            copies[name] = os.path.join(tmp, name)
             shutil.copytree(os.path.join(ROOT, "paddle_tpu_torch"),
-                            os.path.join(copies[fault], "paddle_tpu_torch"),
+                            os.path.join(copies[name], "paddle_tpu_torch"),
                             ignore=shutil.ignore_patterns("_build",
                                                           "__pycache__"))
-            shutil.copy(os.path.join(ROOT, "chip_smoke.py"), copies[fault])
-            plant(copies[fault], fault)
+            shutil.copy(os.path.join(ROOT, "chip_smoke.py"), copies[name])
+            if args.forward == "simt":
+                plant(copies[name], "forward_simt")
+            if name != "forward_simt" or args.forward != "simt":
+                plant(copies[name], name)
         build = ("import sys; sys.path.insert(0, sys.argv[1]); "
                  "from paddle_tpu_torch.kernels import _build; "
                  "_build.build_all()")
@@ -168,18 +262,20 @@ def main():
                  for c in copies.values()]
         if any([p.wait() for p in procs]):
             raise RuntimeError("a copy failed to build")
-        caught = {}
-        for fault, copy in copies.items():
-            rc = subprocess.call([sys.executable, os.path.abspath(__file__),
-                                  "--copy", copy, "--fault", fault])
+        failed = {}
+        for name, copy in copies.items():
+            cmd = [sys.executable, os.path.abspath(__file__), "--copy", copy,
+                   "--name", name]
+            rc = subprocess.call(cmd + (["--timed"] if args.variants
+                                        else []))
             if rc not in (0, 10):
-                raise RuntimeError("%s: the check exited %d" % (fault, rc))
-            caught[fault] = rc == 10
+                raise RuntimeError("%s: the check exited %d" % (name, rc))
+            failed[name] = rc == 10
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    ok = all(caught[f] == (f != "sound") for f in caught)
-    print(json.dumps(dict(summary="faults", failed_a_limit=caught, ok=ok)),
-          flush=True)
+    ok = all(failed[n] == (n != "sound") for n in failed if n in FAULTS)
+    print(json.dumps(dict(summary="faults", forward=args.forward or "as built",
+                          failed_a_limit=failed, ok=ok)), flush=True)
     return 0 if ok else 1
 
 

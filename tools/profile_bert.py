@@ -37,10 +37,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from paddle_tpu_torch import fluid  # noqa: E402
 from paddle_tpu_torch.models import bert  # noqa: E402
 
-# the fused-attention kernels (csrc/fused_attention.cu): the forward, the
-# fp32 SIMT backward and the bf16/fp16 tensor-core backward
+# the fused-attention kernels (csrc/fused_attention.cu): the fp32 SIMT
+# forward and backward and the bf16/fp16 tensor-core forward and backward
 ATTENTION_KERNELS = ("attn_fwd", "attn_bwd_dq", "attn_bwd_dkdv",
-                     "attn_bwd_dq_mma", "attn_bwd_dkdv_mma")
+                     "attn_fwd_mma", "attn_bwd_dq_mma", "attn_bwd_dkdv_mma")
 
 
 def _device_kernels(prof):

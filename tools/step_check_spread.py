@@ -1,21 +1,22 @@
-"""How far the smoke run's one-step checks of the fused attention
-(chip_smoke.py's bert_long and bert_packed ``step_vs_plain``) stand from
-their limits when only the synthetic batch's seed changes.
+"""The smoke run's one-step checks of the fused attention (chip_smoke.py's
+bert_long and bert_packed ``step_vs_plain``) at each data seed, and
+their verdict.
 
     python3 tools/step_check_spread.py [--seeds 6]
 
 Needs one CUDA card. For data seeds 0 .. --seeds - 1 (chip_smoke checks
-seed 0), runs chip_smoke's ``long_step_check`` (BERT-base AMP, S 2048,
-batch 1) and ``packed_step_check`` (S 128, batch 2, packed), each one
-step with the kernels and one with the plain attention from one cloned
-scope and generator, and prints the card's name and power limit, one
-JSON line per (phase, seed): the loss's signed relative difference
-(kernel - plain) and each watched first moment's difference as a share
-of its largest magnitude, beside chip_smoke's limits; then one summary
-line per phase: the readings and how many pass every limit. Both routes
-round the attention output to bf16, so a reading is set by which outputs
-land on either side of a rounding boundary: the spread over seeds is
-what a limit on one seed has to clear.
+STEP_SEEDS, 0-5), runs chip_smoke's ``long_step_check`` (BERT-base AMP,
+S 2048, batch 1) and ``packed_step_check`` (S 128, batch 2, packed),
+each one step with the kernels and one with the plain attention from one
+cloned scope and generator, through ``step_check_seeds``, and prints the
+card's name and power limit, one JSON line per (phase, seed): the loss's
+signed relative difference (kernel - plain) and each watched first
+moment's difference as a share of its largest magnitude; then one line
+per phase with chip_smoke's ``step_verdict`` on them (the same function
+the smoke run judges by). Both routes round the attention output to
+bf16, so a reading is set by which outputs land on either side of a
+rounding boundary: the spread over seeds is what the limits have to
+clear.
 """
 
 import argparse
@@ -34,7 +35,7 @@ import chip_smoke as smoke  # noqa: E402
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--seeds", type=int, default=6)
+    ap.add_argument("--seeds", type=int, default=len(smoke.STEP_SEEDS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("step_check_spread: torch sees no CUDA device",
@@ -48,31 +49,20 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     exe = fluid.Executor(torch.device("cuda"))
-    for phase, check, prog, loss_rtol, grad_rtol in (
+    for phase, check, prog, grad_rtol in (
             ("bert_long", smoke.long_step_check,
              smoke.long_program(fluid, bert, smoke.LONG_CHECK_SEQ),
-             smoke.LONG_LOSS_RTOL, smoke.LONG_GRAD_RTOL),
+             smoke.LONG_GRAD_RTOL),
             ("bert_packed", smoke.packed_step_check,
              smoke.packed_program(fluid, bert, bert.BertConfig.base(),
                                   "packed"),
-             smoke.PACKED_LOSS_RTOL, smoke.PACKED_GRAD_RTOL)):
-        signed, passed = [], 0
-        for seed in range(args.seeds):
-            rec = check(A, exe, fluid, bert, prog, data_seed=seed)
-            signed.append((rec["loss_kernel"] - rec["loss_plain"]) /
-                          rec["loss_plain"])
-            ok = rec["loss_rel"] <= loss_rtol and all(
-                r <= grad_rtol[n] for n, r in rec["grad_rel"].items())
-            passed += ok
-            print(json.dumps(dict(phase=phase, data_seed=seed,
-                                  loss_signed_rel=signed[-1],
-                                  loss_rtol=loss_rtol,
-                                  grad_rel=rec["grad_rel"],
-                                  grad_rtol=grad_rtol, passes=ok)),
-                  flush=True)
-        print(json.dumps(dict(summary=phase, loss_signed_rel=signed,
-                              loss_rtol=loss_rtol, seeds=args.seeds,
-                              passing_seeds=passed)), flush=True)
+             smoke.PACKED_GRAD_RTOL)):
+        recs = smoke.step_check_seeds(A, exe, fluid, bert, prog, check,
+                                      seeds=range(args.seeds))
+        for rec in recs:
+            print(json.dumps(dict(phase=phase, **rec)), flush=True)
+        print(json.dumps(dict(summary=phase, **smoke.step_verdict(
+            recs, grad_rtol, smoke.STEP_LOSS_MEAN[phase]))), flush=True)
         del prog
         torch.cuda.empty_cache()
     return 0
