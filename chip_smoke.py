@@ -20,17 +20,22 @@ the script exits non-zero without its final line:
              causal window, wrapped ring, paged; fp32 and bf16; untimed,
              dense and paged, key rows of 16 and 192 bytes (bf16 d 8,
              fp32 d 48, bf16 d 96), fp16, rows that are not a multiple
-             of 16 bytes (fp32 d 6, bf16 d 12) and rows past 512 bytes
-             (fp32 d 192 and 512, bf16 d 512), also padded to 16 bytes
-             as the sessions hold them. Fused training attention
-             (forward, and the backward's dq, dk, dv and dbias; the bf16
-             and fp16 forward, up to d 128, and backward on the tensor
-             cores; TFLOP/s beside each time): BERT-base's shape
+             of 16 bytes (fp32 d 6, bf16 d 12), rows past 512 bytes
+             (fp32 d 192 and 512, bf16 d 512) and past 2048 bytes,
+             split across blocks (fp32 d 640, bf16 d 1536), also padded
+             to 16 bytes as the sessions hold them. Fused training
+             attention (forward, and the backward's dq, dk, dv and
+             dbias; up to d 128 on the tensor cores, fp32 as 3xTF32
+             with its backward up to d 64; TFLOP/s beside each time):
+             BERT-base's shape
              (batch 32, 12 heads of 64, S 512, padding-mask bias) at
              dropout 0.1 and 0, every other bias mode, a ragged S and
-             d 128; fp32 and bf16; untimed, head widths 48, 80 and 160
-             (zero-padded to 64, 128 and 256) and 256 in fp32, bf16 and
-             fp16, and fp16 at BERT-base's shape. The same
+             d 128; fp32 and bf16 (fp32 also with its bound at the SIMT
+             rate and the kernels SDPA ran, by the profiler's names);
+             untimed, head widths 48, 80 and 160 (zero-padded to 64, 128
+             and 256), 256, 320 and 512 (past 256 the outputs' columns
+             split across blocks) in fp32, bf16 and fp16, and fp16 at
+             BERT-base's shape. The same
              kernels past S 1024, where they stand in for the TPU
              package's long and flash tiers: batch 1, 12 heads of 64, at
              S 2048, 4096 and 8192, p = 0, fp32 and bf16, each kernel of
@@ -61,9 +66,10 @@ the script exits non-zero without its final line:
              build_pretrain_program -> Executor.run (startup, then train
              steps) on one synthetic batch of 32. One step with the fused
              kernels agrees with the same step on the plain attention from
-             a cloned scope and generator; then 6 timed steps, each
-             through 12 forward and 12 + 12 backward kernel launches,
-             with finite losses that fall (the batch is memorised).
+             a cloned scope and generator (``bert_step_check``); then 6
+             timed steps, each through 12 forward and 12 + 12 backward
+             kernel launches, all on the tensor cores (3xTF32), with
+             finite losses that fall (the batch is memorised).
 6. bert_long BERT-base long-context pretraining in bf16 AMP
              (use_amp=True, dropout 0.1, max_seq = S), the reference's
              long-sequence run: first one step with the kernels against
@@ -116,6 +122,13 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS_PER_S = {torch.float32: 67e12,      # fp32, no tensor cores
                   torch.bfloat16: 989e12,    # bf16 tensor cores, dense
                   torch.float16: 989e12}     # fp16 the same
+# The fused attention's least time: fp32-accurate products on the tensor
+# cores take three TF32 products each (3xTF32, 494.7 TFLOP/s dense), so
+# about 165 TFLOP/s, which beats the SIMT cores' 67; the 16-bit types at
+# the tensor cores' rate. Decode, bound by bytes, keeps PEAK_OPS_PER_S.
+TF32_OPS_PER_S = 494.7e12
+FUSED_PEAK_OPS_PER_S = dict(PEAK_OPS_PER_S)
+FUSED_PEAK_OPS_PER_S[torch.float32] = TF32_OPS_PER_S / 3
 REPS, WARMUP = 25, 3
 HOLD_CYCLES = 2_000_000            # about 1 ms of SM clock
 FP32_ATOL, BF16_ATOL = 2e-5, 2e-2
@@ -157,16 +170,17 @@ def kernel_resources(_build, A):
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?(attn_\w+?)I"
-                      r"(f|13__nv_bfloat16|6__half)Li(\d+)E", line)
+                      r"(f|13__nv_bfloat16|6__half)(?:Li(\d+))?E", line)
         if m:
             kind, dtype = types[m.group(2)]
-            cur = dict(kernel="%s<%s, %s>" % (m.group(1), kind, m.group(3)),
-                       d=int(m.group(3)))
-            which = {"attn_fwd": 0, "attn_bwd_dq": 1, "attn_bwd_dkdv": 2,
-                     "attn_fwd_mma": 0, "attn_bwd_dq_mma": 1,
-                     "attn_bwd_dkdv_mma": 2}[m.group(1)]
+            # the kernels past d 256 take d at run time: "wide"
+            d = int(m.group(3)) if m.group(3) else "wide"
+            cur = dict(kernel="%s<%s%s>" % (m.group(1), kind, (
+                ", %d" % d) if m.group(3) else ""), d=d)
+            which = ("attn_fwd", "attn_bwd_dq", "attn_bwd_dkdv").index(
+                re.sub("_(mma|tf32x3|wide)$", "", m.group(1)))
             cur["smem_bytes"] = A.fused_attention_smem_bytes(
-                which, dtype, cur["d"])
+                which, dtype, 320 if d == "wide" else d)
             continue
         if cur is None:
             continue
@@ -202,6 +216,35 @@ def time_ms(fn, flush):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_times(prof):
+    """{kernel name: (device us, calls)} from a finished torch.profiler
+    profile."""
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            out[e.key] = (us, e.count)
+    return out
+
+
+def device_kernels(fn):
+    """The CUDA kernels one call of ``fn`` runs, by the profiler's names
+    (which backend a PyTorch call took), with their device microseconds;
+    "not measured" where the profiler returned no device events."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {name[:120]: us for name, (us, _) in kernel_times(prof).items()
+            } or "not measured"
 
 
 def bound(q, live_cols, extra_bytes):
@@ -257,8 +300,9 @@ def dense_case(A, dev, gen, flush, name, B, H, Q, C, d, lens, dtype,
 def decode_width_check(A, dev, gen, dtype, d):
     """Untimed: the dense and paged decode kernels at a key row of
     d * itemsize bytes that is not a power of two of 16-byte pieces, not
-    a multiple of 16 bytes (element-by-element copies) or longer than 512
-    bytes (2 or 4 pieces a lane), on unpadded caches, against the plain
+    a multiple of 16 bytes (element-by-element copies), longer than 512
+    bytes (2 or 4 pieces a lane) or than 2048 (the output's columns in
+    2048-byte chunks, one block each), on unpadded caches, against the plain
     version; ragged lengths, a wrapped ring; then ``attention_with_cache``
     on the same cache with its rows padded to 16 bytes, as the sessions
     allocate them, against the unpadded result."""
@@ -299,6 +343,7 @@ def decode_width_check(A, dev, gen, dtype, d):
          dtype=str(dtype), row_bytes=d * q.element_size(),
          padded_row_bytes=width * q.element_size(),
          lanes_and_pieces=A.decode_lanes(d * q.element_size()),
+         column_chunks=A.decode_chunks(d * q.element_size()),
          max_abs_err=err, paged_vs_dense=err_paged,
          padded_vs_unpadded=err_padded, atol=atol)
 
@@ -351,13 +396,14 @@ def paged_case(A, dev, gen, flush):
     return rec
 
 
-def fused_bound(q, bias, backward):
+def fused_bound(q, bias, backward, peak=FUSED_PEAK_OPS_PER_S):
     """(bound_ms, bound_by) of fused attention on q [B, H, S, d]: the
     bytes each input is read and each output written once (forward: q,
     k, v, bias, o, lse; backward: q, k, v, o, dO, lse, bias, dq, dk, dv,
     dbias) over the HBM rate, against the operations (forward 4 B H S^2 d:
     q.k^T and p.v; backward 10 B H S^2 d: q.k^T again, dO.v^T, dV, dK and
-    dQ) at the peak rate of the input type."""
+    dQ) at ``peak`` for the input type (FUSED_PEAK_OPS_PER_S: fp32 as
+    3xTF32; PEAK_OPS_PER_S gives fp32 on the SIMT cores)."""
     B, H, S, d = q.shape
     n, e = q.numel(), q.element_size()
     if backward:
@@ -367,7 +413,7 @@ def fused_bound(q, bias, backward):
         nbytes = 4 * n * e + 4 * B * H * S + 4 * bias.numel()
         ops = 4.0 * B * H * S * S * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[q.dtype] * 1e3
+    t_ops = ops / peak[q.dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -424,6 +470,23 @@ def fused_case(A, dev, gen, flush, name, B, H, S, d, bias_shape, p, dtype):
                                              scale=scale)
     f_ms, f_by = fused_bound(q, bias, False)
     b_ms, b_by = fused_bound(q, bias, True)
+    extra = {}
+    if dtype == torch.float32:
+        # the bound at the SIMT cores' rate, the kernels SDPA runs, and
+        # SDPA's own distance from the plain version at p 0 (TF32 alone
+        # would read about 1e-3 of max(1, the largest magnitude))
+        plain_p0 = A._ref_fused_attention(q, k, v, bias, scale, 0.0, seed)
+        extra = dict(
+            library_rel_err=((lib_out.detach() - plain_p0).abs().max() /
+                             max(1.0, plain_p0.abs().max().item())).item(),
+            bound_simt_ms={kind: fused_bound(q, bias, kind == "bwd",
+                                             PEAK_OPS_PER_S)[0]
+                           for kind in ("fwd", "bwd")},
+            library_kernels=dict(
+                fwd=device_kernels(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=scale)),
+                bwd=device_kernels(lambda: torch.autograd.grad(
+                    lib_out, lib_leaves, do, retain_graph=True))))
     rec = dict(
         name=name, B=B, H=H, S=S, d=d, dtype=str(dtype),
         bias=list(bias.shape), dropout=p, max_abs_err=errs,
@@ -446,7 +509,7 @@ def fused_case(A, dev, gen, flush, name, B, H, S, d, bias_shape, p, dtype):
                 F.scaled_dot_product_attention(*lib_leaves, attn_mask=mask,
                                                scale=scale),
                 lib_leaves, do), flush),
-            bound_ms=b_ms, bound_by=b_by))
+            bound_ms=b_ms, bound_by=b_by), **extra)
     for kind in ("fwd", "bwd"):
         rec[kind]["tflops"] = achieved_tflops(q, kind, rec[kind]["kernel_ms"])
     emit(phase="kernels", kernel="fused_attention", **rec)
@@ -543,7 +606,7 @@ def long_bound(q, bias, kind):
     else:
         nbytes, ops = 6 * n * e + 2 * rows + 2 * 4 * bias.numel(), 8.0
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops * B * H * S * S * d / PEAK_OPS_PER_S[q.dtype] * 1e3
+    t_ops = ops * B * H * S * S * d / FUSED_PEAK_OPS_PER_S[q.dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -561,6 +624,11 @@ def achieved_tflops(q, kind, ms):
 
 
 LONG_OUTPUTS = ("out", "lse", "dq", "dk", "dv", "dbias")
+# what a backward kernel's library_ms times: no PyTorch call computes dq
+# or dk/dv alone, so each carries the SDPA backward of the pair
+LIBRARY_OF = {"dq": "SDPA backward of the dq + dk/dv pair",
+              "dkdv": "SDPA backward of the dq + dk/dv pair",
+              "bwd": "SDPA backward"}
 # The kernels past S 1024 against the plain version: each output's
 # max |kernel - plain| as a share of the plain output's own largest
 # magnitude, held to a limit per output and type that lies between the
@@ -745,10 +813,11 @@ def long_case(A, dev, flush, case, timed):
                 ("bwd", lambda: A.flash_attention_backward(
                     q, k, v, bias, seed, do, o, lse, scale, p))):
             b_ms, b_by = long_bound(q, bias, kind)
+            # dq and dk/dv carry the SDPA backward's time of the pair
             rec[kind] = dict(
                 kernel_ms=time_ms(fn, flush), plain_ms=plain_bwd,
-                bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_bwd if kind == "bwd" else None,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_bwd,
+                library_of=LIBRARY_OF[kind],
                 max_abs_err=max(rec["max_abs_err"][x] for x in errs[kind]))
             rec[kind]["tflops"] = achieved_tflops(q, kind,
                                                   rec[kind]["kernel_ms"])
@@ -910,10 +979,11 @@ def packed_case(A, dev, flush, case):
                     q, k, v, bias_f, strides, seed, o, lse, do, scale, p,
                     bias_grad=True))):
             b_ms, b_by = long_bound(q, bias, kind)
+            # dq and dk/dv carry the SDPA backward's time of the pair
             rec[kind] = dict(
                 kernel_ms=time_ms(fn, flush), plain_ms=plain_bwd,
-                bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_bwd if kind == "bwd" else None,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_bwd,
+                library_of=LIBRARY_OF[kind],
                 max_abs_err=max(rec["max_abs_err"][x] for x in errs[kind]))
             rec[kind]["tflops"] = achieved_tflops(q, kind,
                                                   rec[kind]["kernel_ms"])
@@ -1007,25 +1077,29 @@ def width_case(A, dev, name, B, H, S, d, p, dtype):
                                  "%g of the plain's largest magnitude > %g"
                                  % (name, key, rel[key], rtol[key]))
     emit(phase="kernels", kernel="fused_attention_width", name=name, B=B,
-         H=H, S=S, d=d, built_width=A.built_width(d), dtype=str(dtype),
-         dropout=p, rel_err=rel, rtol=rtol)
+         H=H, S=S, d=d, built_width=A.built_width(d),
+         column_chunks=A.column_chunks(d), dtype=str(dtype), dropout=p,
+         rel_err=rel, rtol=rtol)
 
 
 def fused_cases(A, dev, gen, flush):
     """Every case of the fused kernels; returns the BERT path's fp32
-    record (dropout 0.1), the one the summary line reports. Untimed,
-    head widths the kernels reach zero-padded (48, 80, 160) or built at
-    d 256 (the SIMT forward in every type, the backward's outputs in two
-    column halves on the tensor cores, 32-row tiles in fp32) in fp32,
-    bf16 and fp16, and fp16 at the BERT path's shape."""
-    path = None
+    records at dropout 0.1 and 0, which the summary line reports. fp32
+    runs on the tensor cores as 3xTF32 up to d 128. Untimed, head widths
+    the kernels reach zero-padded (48, 80, 160), built at d 256 (the
+    SIMT forward in every type, the backward's outputs in two column
+    halves on the tensor cores, 32-row tiles in fp32) and past 256 (d 320
+    and 512: the outputs' columns in 64-column chunks, one block each) in
+    fp32, bf16 and fp16, and fp16 at the BERT path's shape."""
+    path = path_p0 = None
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
         rec = fused_case(A, dev, gen, flush, "path_" + tag, 32, 12, 512, 64,
                          "padding", 0.1, dtype)
         path = path or rec
-        fused_case(A, dev, gen, flush, "path_p0_" + tag, 32, 12, 512, 64,
-                   "padding", 0.0, dtype)
+        rec = fused_case(A, dev, gen, flush, "path_p0_" + tag, 32, 12, 512,
+                         64, "padding", 0.0, dtype)
+        path_p0 = path_p0 or rec
         for bias_shape in ((4, 12, 1, 256), (4, 1, 256, 256),
                            (4, 12, 256, 256)):
             fused_case(A, dev, gen, flush, "bias_%s_%s" % (
@@ -1041,17 +1115,21 @@ def fused_cases(A, dev, gen, flush):
         width_case(A, dev, "d80_" + tag, 4, 8, 384, 80, 0.0, dtype)
         width_case(A, dev, "d160_" + tag, 2, 4, 300, 160, 0.1, dtype)
         width_case(A, dev, "d256_" + tag, 2, 4, 520, 256, 0.0, dtype)
+        width_case(A, dev, "d320_" + tag, 2, 4, 300, 320, 0.1, dtype)
+        width_case(A, dev, "d512_" + tag, 2, 2, 260, 512, 0.0, dtype)
     for p in (0.0, 0.1):
         width_case(A, dev, "path_f16_p%g" % p, 32, 12, 512, 64, p,
                    torch.float16)
-    return path
+    return path, path_p0
 
 
 FUSED_KERNELS = ("fused_attention_fwd_kernel", "fused_attention_bwd_dq_kernel",
                  "fused_attention_bwd_dkdv_kernel")
-# the forward wrapper's launches that ran attn_fwd_mma, the tensor-core
-# forward (bfloat16 and float16 up to d 128)
-FWD_MMA = "attn_fwd_mma"
+# each fused wrapper's launches that ran on the tensor cores (fp32 as
+# 3xTF32, bfloat16 and float16 by their own products; up to d 128, the
+# 16-bit backward also at d 256)
+TENSOR_CORES = tuple(name + ":tensor_cores" for name in FUSED_KERNELS)
+FWD_TC, DQ_TC, DKDV_TC = TENSOR_CORES
 
 
 def reset_launches(A):
@@ -1059,16 +1137,16 @@ def reset_launches(A):
     A.paged_attention_kernel.launches = 0
     for name in FUSED_KERNELS:
         getattr(A, name).launches = 0
-    A.fused_attention_fwd_kernel.tensor_core_launches = 0
+        getattr(A, name).tensor_core_launches = 0
 
 
 def launches(A, names):
-    """{wrapper: launches} of ``names``, and, with the forward among them,
-    FWD_MMA: how many of the forward's launches ran on the tensor
-    cores."""
+    """{wrapper: launches} of ``names`` and, for each fused wrapper among
+    them, {wrapper:tensor_cores: its launches on the tensor cores}."""
     got = {name: getattr(A, name).launches for name in names}
-    if "fused_attention_fwd_kernel" in names:
-        got[FWD_MMA] = A.fused_attention_fwd_kernel.tensor_core_launches
+    for name, tc in zip(FUSED_KERNELS, TENSOR_CORES):
+        if name in names:
+            got[tc] = getattr(A, name).tensor_core_launches
     return got
 
 
@@ -1293,16 +1371,69 @@ def plain_fused_attention(A):
         A.fused_attention = saved
 
 
-def bert_path(A, dev):
-    from paddle_tpu_torch import fluid
-    from paddle_tpu_torch.models import bert
-
+def bert_program(fluid, bert):
+    """(cfg, main, startup, loss, build seconds) of the fp32 BERT-base
+    pretraining program at BERT_SEQ."""
     cfg = bert.BertConfig.base()
     t0 = time.perf_counter()
     with fluid.unique_name.guard():
         main, startup, loss = bert.build_pretrain_program(cfg,
                                                           seq_len=BERT_SEQ)
-    build_s = time.perf_counter() - t0
+    return cfg, main, startup, loss, time.perf_counter() - t0
+
+
+def bert_step_check(A, exe, fluid, prog, feed, scope):
+    """One fp32 step of ``prog`` (``bert_program``) on ``feed`` with the
+    fused kernels and one with the plain attention, each from a clone of
+    ``scope`` (its tensors and generator): the record of the loss's
+    relative difference and the watched first moments' (BERT_WATCH)
+    against BERT_LOSS_RTOL and BERT_GRAD_RTOL, ``passes``, and the
+    kernel step's ``launches`` (``launches``: the caller holds them to
+    their route). Raises if the kernel step did not launch each fused
+    kernel once a layer, or the plain step launched any."""
+    cfg, main, _, loss, _ = prog
+    res = {}
+    for route, ctx in (("kernel", contextlib.nullcontext()),
+                       ("plain", plain_fused_attention(A))):
+        sc = clone_scope(fluid, scope)
+        reset_launches(A)
+        with ctx:
+            step_loss = exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=sc)[0]
+        launched = launches(A, FUSED_KERNELS)
+        if [launched[n] for n in FUSED_KERNELS] != [
+                cfg.n_layers * (route == "kernel")] * 3:
+            raise AssertionError("bert: the %s step launched the fused "
+                                 "kernels %s times" % (route, launched))
+        if route == "kernel":
+            kernel_launches = launched
+        res[route] = (float(step_loss[0]),
+                      {n: sc.find_var(n + "_moment1_0") for n in BERT_WATCH},
+                      {n: sc.find_var(n) for n in BERT_WATCH})
+        del sc
+    loss_rel = abs(res["kernel"][0] - res["plain"][0]) / abs(res["plain"][0])
+    grad_rel = {n: ((res["kernel"][1][n] - res["plain"][1][n]).abs().max() /
+                    res["plain"][1][n].abs().max()).item()
+                for n in BERT_WATCH}
+    # parameter moves differ in units of the learning rate (the first Adam
+    # step moves each entry by about lr, whatever its gradient)
+    param_lr = max((res["kernel"][2][n] - res["plain"][2][n]).abs().max()
+                   .item() for n in BERT_WATCH) / 1e-4
+    return dict(loss_kernel=res["kernel"][0], loss_plain=res["plain"][0],
+                loss_rel=loss_rel, loss_rtol=BERT_LOSS_RTOL,
+                grad_rel=grad_rel, grad_rel_max=max(grad_rel.values()),
+                grad_rtol=BERT_GRAD_RTOL, param_diff_in_lr=param_lr,
+                passes=bool(math.isfinite(res["kernel"][0]) and
+                            loss_rel <= BERT_LOSS_RTOL and
+                            max(grad_rel.values()) <= BERT_GRAD_RTOL),
+                launches=kernel_launches)
+
+
+def bert_path(A, dev):
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg, main, startup, loss, build_s = prog = bert_program(fluid, bert)
     ops = main.global_block().ops
     fused = [op for op in ops if op.type == "fused_multihead_attention"]
     if len(fused) != cfg.n_layers or any(
@@ -1320,37 +1451,17 @@ def bert_path(A, dev):
     startup_s = time.perf_counter() - t0
 
     # one step with the kernels and one with the plain attention
-    res = {}
-    for route, ctx in (("kernel", contextlib.nullcontext()),
-                       ("plain", plain_fused_attention(A))):
-        sc = clone_scope(fluid, scope)
-        reset_launches(A)
-        with ctx:
-            step_loss = exe.run(main, feed=feed, fetch_list=[loss],
-                                scope=sc)[0]
-        launched = [getattr(A, name).launches for name in FUSED_KERNELS]
-        if launched != [cfg.n_layers * (route == "kernel")] * 3:
-            raise AssertionError("bert: the %s step launched the fused "
-                                 "kernels %s times" % (route, launched))
-        res[route] = (float(step_loss[0]),
-                      {n: sc.find_var(n + "_moment1_0") for n in BERT_WATCH},
-                      {n: sc.find_var(n) for n in BERT_WATCH})
-        del sc
-    loss_rel = abs(res["kernel"][0] - res["plain"][0]) / abs(res["plain"][0])
-    grad_rel = max(
-        ((res["kernel"][1][n] - res["plain"][1][n]).abs().max() /
-         res["plain"][1][n].abs().max()).item() for n in BERT_WATCH)
-    # parameter moves differ in units of the learning rate (the first Adam
-    # step moves each entry by about lr, whatever its gradient)
-    param_lr = max((res["kernel"][2][n] - res["plain"][2][n]).abs().max()
-                   .item() for n in BERT_WATCH) / 1e-4
-    if not (math.isfinite(res["kernel"][0]) and loss_rel <= BERT_LOSS_RTOL
-            and grad_rel <= BERT_GRAD_RTOL):
+    check = bert_step_check(A, exe, fluid, prog, feed, scope)
+    if list(check["launches"].values()) != [cfg.n_layers] * 6:
+        raise AssertionError("bert: the kernel step's launches %s (want %d "
+                             "each, all on the tensor cores)"
+                             % (check["launches"], cfg.n_layers))
+    if not check["passes"]:
         raise AssertionError("bert: step kernel vs plain: loss %r vs %r "
                              "(rel %g > %g?), gradients rel %g (> %g?)"
-                             % (res["kernel"][0], res["plain"][0], loss_rel,
-                                BERT_LOSS_RTOL, grad_rel, BERT_GRAD_RTOL))
-    del res
+                             % (check["loss_kernel"], check["loss_plain"],
+                                check["loss_rel"], BERT_LOSS_RTOL,
+                                check["grad_rel_max"], BERT_GRAD_RTOL))
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
@@ -1363,11 +1474,12 @@ def bert_path(A, dev):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(float(out[0]))
-    launches = {name: getattr(A, name).launches for name in FUSED_KERNELS}
+    got = launches(A, FUSED_KERNELS)
     want = cfg.n_layers * BERT_STEPS
-    if any(n != want for n in launches.values()):
+    if any(n != want for n in got.values()):
         raise AssertionError("bert: fused kernel launches %s over %d steps "
-                             "(want %d each)" % (launches, BERT_STEPS, want))
+                             "(want %d each, all on the tensor cores)"
+                             % (got, BERT_STEPS, want))
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
         raise AssertionError("bert: losses not finite and falling: %s"
                              % losses)
@@ -1378,12 +1490,10 @@ def bert_path(A, dev):
          startup_s=startup_s, losses=losses, step_s=step_s,
          step_ms=steady * 1e3, tokens_per_s=BERT_BATCH * BERT_SEQ / steady,
          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
-         launches=launches,
-         launches_per_step={k: v / BERT_STEPS for k, v in launches.items()},
-         step_vs_plain=dict(loss_rel=loss_rel, loss_rtol=BERT_LOSS_RTOL,
-                            grad_rel=grad_rel, grad_rtol=BERT_GRAD_RTOL,
-                            param_diff_in_lr=param_lr))
-    return launches
+         launches=got,
+         launches_per_step={k: v / BERT_STEPS for k, v in got.items()},
+         step_vs_plain=check)
+    return got
 
 
 LONG_SHAPES = ((2048, 8), (4096, 4), (8192, 2))   # bench.py bench_longseq
@@ -1550,7 +1660,7 @@ def bert_long_path(A, dev):
                              "seeds %s: past %s" % (rec["seeds"], rec["over"]))
     torch.cuda.empty_cache()
 
-    tiers = {t: dict.fromkeys(FUSED_KERNELS + (FWD_MMA,), 0)
+    tiers = {t: dict.fromkeys(FUSED_KERNELS + TENSOR_CORES, 0)
              for t in ("fused", "long", "flash")}
     for S, batch in LONG_SHAPES:
         if S != LONG_CHECK_SEQ:
@@ -1583,7 +1693,7 @@ def bert_long_path(A, dev):
         if any(n != want for n in got.values()):
             raise AssertionError(
                 "bert_long S %d: fused kernel launches %s (want %d each, "
-                "the forward's on the tensor cores)" % (S, got, want))
+                "all on the tensor cores)" % (S, got, want))
         if not (all(math.isfinite(x) for x in losses) and
                 losses[-1] < losses[0]):
             raise AssertionError("bert_long S %d: losses not finite and "
@@ -1782,14 +1892,13 @@ def bert_packed_path(A, dev):
         want = cfg.n_layers * steps * (attention != "auto")
         op = {"packed": "fused_multihead_attention_packed",
               True: "fused_multihead_attention"}.get(attention)
-        if [got[n] for n in FUSED_KERNELS + (FWD_MMA,)] != [want] * 4 or any(
+        if [got[n] for n in FUSED_KERNELS + TENSOR_CORES] != [want] * 6 or any(
                 types[t] != (cfg.n_layers if t == op else 0) for t in (
                     "fused_multihead_attention_packed",
                     "fused_multihead_attention")):
             raise AssertionError("bert_packed (%s): launches %s over %d "
-                                 "steps (the forward's on the tensor "
-                                 "cores), ops %s" % (label, got, steps,
-                                                     types))
+                                 "steps (all on the tensor cores), ops %s"
+                                 % (label, got, steps, types))
         d = cfg.hidden // cfg.n_heads
         tier = reference_tier(PACKED_SEQ, d, (batch, cfg.n_heads, 2,
                                               (batch, 1, 1, PACKED_SEQ))) \
@@ -1902,7 +2011,7 @@ def encoder_serving_path(A, inference, monitor, dev):
     n_batches = batches.value - batches0
     if any(r is None for r in results):
         raise AssertionError("encoder_serving: unresolved futures")
-    if not (served["fused_attention_fwd_kernel"] ==
+    if not (served["fused_attention_fwd_kernel"] == served[FWD_TC] ==
             cfg.n_layers * n_batches > 0 and
             sum(served[n] for n in FUSED_KERNELS) ==
             served["fused_attention_fwd_kernel"]):
@@ -1977,10 +2086,11 @@ def main():
                      (torch.bfloat16, 96), (torch.float16, 64),
                      (torch.float32, 6), (torch.bfloat16, 12),
                      (torch.float32, 192), (torch.float32, 512),
-                     (torch.bfloat16, 512)):
+                     (torch.bfloat16, 512), (torch.float32, 640),
+                     (torch.bfloat16, 1536)):
         decode_width_check(A, dev, gen, dtype, d)
     paged_rec = paged_case(A, dev, gen, flush)
-    fused_rec = fused_cases(A, dev, gen, flush)
+    fused_rec, fused_p0_rec = fused_cases(A, dev, gen, flush)
     long_rec, flash_rec = long_cases(A, dev, flush)
     res_rec, packed_rec = packed_cases(A, dev, flush)
     packed_equals_per_head(A, dev)
@@ -2015,54 +2125,58 @@ def main():
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
             library_ms=rec["library_ms"]))
     fused_src = "paddle_tpu_torch/kernels/csrc/fused_attention.cu"
-    bwd_launches = bert_launches["fused_attention_bwd_dq_kernel"]
-    # the bf16 paths' forward rows count attn_fwd_mma's launches alone
+    # each row counts its kernels' launches on the tensor cores (a
+    # backward row the dq kernel's: the pair launches together)
     for name, rec, launches, replaces in (
-            ("fused_attention_fwd (attn_fwd, fp32)", fused_rec["fwd"],
-             bert_launches["fused_attention_fwd_kernel"],
-             "paddle_tpu/kernels/attention.py:294"),
-            ("fused_attention_bwd (dq + dk/dv kernels)", fused_rec["bwd"],
-             bwd_launches, "paddle_tpu/kernels/attention.py:307"),
+            ("fused_attention_fwd (attn_fwd_tf32x3, fp32)", dict(
+                fused_rec["fwd"], ms_p0=fused_p0_rec["fwd"]["kernel_ms"]),
+             bert_launches[FWD_TC], "paddle_tpu/kernels/attention.py:294"),
+            ("fused_attention_bwd (attn_bwd_dq_tf32x3 + "
+             "attn_bwd_dkdv_tf32x3, fp32)", fused_rec["bwd"],
+             bert_launches[DQ_TC], "paddle_tpu/kernels/attention.py:307"),
             ("fused_attention_fwd (attn_fwd_mma), long tier",
-             long_rec["fwd"], long_launches["long"][FWD_MMA],
+             long_rec["fwd"], long_launches["long"][FWD_TC],
              "paddle_tpu/kernels/attention.py:362"),
             ("fused_attention_bwd (dq + dk/dv kernels), long tier",
-             long_rec["bwd"],
-             long_launches["long"]["fused_attention_bwd_dq_kernel"],
+             long_rec["bwd"], long_launches["long"][DQ_TC],
              "paddle_tpu/kernels/attention.py:390"),
             ("fused_attention_fwd (attn_fwd_mma), flash tier",
-             flash_rec["fwd"], long_launches["flash"][FWD_MMA],
+             flash_rec["fwd"], long_launches["flash"][FWD_TC],
              "paddle_tpu/kernels/attention.py:602"),
-            ("fused_attention_bwd_dq, flash tier", flash_rec["dq"],
-             long_launches["flash"]["fused_attention_bwd_dq_kernel"],
+            ("fused_attention_bwd_dq (attn_bwd_dq_mma), flash tier",
+             flash_rec["dq"], long_launches["flash"][DQ_TC],
              "paddle_tpu/kernels/attention.py:650"),
-            ("fused_attention_bwd_dkdv, flash tier", flash_rec["dkdv"],
-             long_launches["flash"]["fused_attention_bwd_dkdv_kernel"],
+            ("fused_attention_bwd_dkdv (attn_bwd_dkdv_mma), flash tier",
+             flash_rec["dkdv"], long_launches["flash"][DKDV_TC],
              "paddle_tpu/kernels/attention.py:697"),
             ("fused_attention_fwd (attn_fwd_mma), packed layout, packed "
-             "tier", packed_rec["fwd"], packed_launches["packed"][FWD_MMA],
+             "tier", packed_rec["fwd"], packed_launches["packed"][FWD_TC],
              "paddle_tpu/kernels/attention.py:917"),
             ("fused_attention_bwd (dq + dk/dv kernels), packed layout, "
              "packed tier", packed_rec["bwd"],
-             packed_launches["packed"]["fused_attention_bwd_dq_kernel"],
+             packed_launches["packed"][DQ_TC],
              "paddle_tpu/kernels/attention.py:960"),
             ("fused_attention_fwd (attn_fwd_mma), packed layout, resident "
-             "tier", res_rec["fwd"], packed_launches["resident"][FWD_MMA],
+             "tier", res_rec["fwd"], packed_launches["resident"][FWD_TC],
              "paddle_tpu/kernels/attention.py:1170"),
-            ("fused_attention_bwd_dq, packed layout, resident tier",
-             res_rec["dq"],
-             packed_launches["resident"]["fused_attention_bwd_dq_kernel"],
+            ("fused_attention_bwd_dq (attn_bwd_dq_mma), packed layout, "
+             "resident tier", res_rec["dq"],
+             packed_launches["resident"][DQ_TC],
              "paddle_tpu/kernels/attention.py:1195"),
-            ("fused_attention_bwd_dkdv, packed layout, resident tier",
-             res_rec["dkdv"],
-             packed_launches["resident"]["fused_attention_bwd_dkdv_kernel"],
+            ("fused_attention_bwd_dkdv (attn_bwd_dkdv_mma), packed layout, "
+             "resident tier", res_rec["dkdv"],
+             packed_launches["resident"][DKDV_TC],
              "paddle_tpu/kernels/attention.py:1228")):
-        kernels.append(dict(
+        row = dict(
             name=name, route="cuda", source=fused_src, replaces=replaces,
             launches=launches, max_abs_err=rec["max_abs_err"],
             ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-            library_ms=rec["library_ms"]))
+            library_ms=rec["library_ms"])
+        for key in ("library_of", "ms_p0"):
+            if key in rec:
+                row[key] = rec[key]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -38,13 +38,15 @@ TPU tiers draw differently from one another.
 
 Each public function takes the plain PyTorch version for tensors on the
 CPU and the kernel for tensors on a CUDA device; anything else raises.
-The training kernels take float32, bfloat16 and float16 (the 16-bit
-forward up to d 128 and the 16-bit backward on the tensor cores) and
-head widths 16, 32, 64, 128 and 256; ``flash_attention`` and
-``flash_attention_backward``, which every route reaches, zero-pad any
-other d up to 256 to the next of these. The decode kernels take the
-same three types and key rows of any width up to 2048 bytes; the decode
-sessions pad their caches' rows to a multiple of 16 bytes
+The training kernels take float32, bfloat16 and float16 (on the tensor
+cores up to d 128: float32 as 3xTF32, its backward up to d 64, the
+16-bit types by bf16/fp16 products, their backward also at d 256) and head
+widths 16, 32, 64, 128 and 256, and past 256 any multiple of 64;
+``flash_attention`` and ``flash_attention_backward``, which every route
+reaches, zero-pad any other d to the next of these (``built_width``).
+The decode kernels take the same three types and key rows of any width
+(past 2048 bytes a row's output columns split across blocks); the
+decode sessions pad their caches' rows to a multiple of 16 bytes
 (``decode_row_width``), which ``attention_with_cache`` and
 ``paged_attention_cache`` read with q zero-padded to match.
 Every decode capacity goes to the kernel: the TPU package's capacity
@@ -86,9 +88,12 @@ _M_BWD_DKDV_LAUNCH = _monitor.counter(
 
 
 # -- fused training attention -----------------------------------------------
-# the head widths the fused kernels are built for; ``flash_attention`` and
-# ``flash_attention_backward`` zero-pad any other d up to the next one
+# the head widths the fused kernels are built for up to 256; past it they
+# take any multiple of _WIDE_CHUNK, each block writing one chunk of the
+# outputs' columns. ``flash_attention`` and ``flash_attention_backward``
+# zero-pad any other d up to the next built width (``built_width``).
 _HEAD_DIMS = (16, 32, 64, 128, 256)
+_WIDE_CHUNK = 64
 
 
 # Philox4x32-10 (Random123's constants), the generator of the kernels'
@@ -280,14 +285,23 @@ def _launch_backward(q, k, v, bias, seed, do, o, lse, scale, p, bias_grad):
 
 
 def built_width(d):
-    """The narrowest head width the fused kernels are built for
-    (``_HEAD_DIMS``) that holds ``d``; a d past 256 raises."""
+    """The narrowest head width the fused kernels are built for that
+    holds ``d``: one of ``_HEAD_DIMS`` up to 256, past it d rounded up
+    to a multiple of ``_WIDE_CHUNK``."""
     for width in _HEAD_DIMS:
         if d <= width:
             return width
-    raise ValueError("the fused-attention kernels take head widths up to "
-                     "%d (no d past it is built, none of the model presets "
-                     "has one), got d = %d" % (_HEAD_DIMS[-1], d))
+    return -(-d // _WIDE_CHUNK) * _WIDE_CHUNK
+
+
+def column_chunks(d):
+    """The blocks among which the kernels split a tile's output columns
+    at the built width of ``d``: one chunk of ``_WIDE_CHUNK`` columns
+    each past 256 (each block computes the scores over the whole d), else
+    1 (at d 256 the 16-bit backward still splits its outputs in two
+    halves, a choice of its own)."""
+    width = built_width(d)
+    return width // _WIDE_CHUNK if width > _HEAD_DIMS[-1] else 1
 
 
 def _pad_heads(t, width):
@@ -300,7 +314,8 @@ def _pad_heads(t, width):
 def padded_forward(forward, q, k, v, bias, scale, p, seed):
     """``forward`` (q, k, v, bias, scale, p, seed) -> (o, lse), the
     forward kernel's launch or the plain version, on q, k and v
-    zero-padded along d to ``built_width(d)``; o comes back sliced to d.
+    zero-padded along d to ``built_width(d)`` (any d); o comes back
+    sliced to d.
     Zero columns add nothing to q·kᵀ, so lse is the true one, and v's
     zero columns give o zero columns; ``scale`` is the true d's, fixed
     before the padding."""
@@ -329,10 +344,10 @@ def padded_backward(backward, q, k, v, bias, seed, do, o, lse, scale, p,
 def _rows(t):
     """``t`` as the kernels read it: any strides whose rows of d elements
     are contiguous pass as they are (a packed layout's heads, no copy),
-    a 16-bit operand when every row also starts on a 16-byte boundary
-    (``_rows_aligned``); anything else is copied contiguous, into a
-    fresh (aligned) buffer. The copy changes the layout only: every
-    operand goes to the same kernels."""
+    an operand the tensor-core kernels copy by 16 bytes when every row
+    also starts on a 16-byte boundary (``_rows_aligned``); anything else
+    is copied contiguous, into a fresh (aligned) buffer. The copy changes
+    the layout only: every operand goes to the same kernels."""
     if t.stride(-1) == 1 and _rows_aligned(t):
         return t
     return t.clone(memory_format=torch.contiguous_format)
@@ -343,12 +358,13 @@ _ROW_ALIGN = 16
 
 
 def _rows_aligned(t):
-    """Whether each row of a 16-bit (bfloat16, float16) [.., d] operand
-    starts on a 16-byte boundary, as the tensor-core kernels' copies
-    need: its first element aligned and every stride of a dimension
-    longer than 1 (batch, head, row) a multiple of 8 elements. float32
-    passes: its kernels read elements one by one."""
-    if t.dtype not in _TENSOR_CORE_TYPES:
+    """Whether each row of a [.., d] operand that the tensor-core kernels
+    copy by 16-byte ``cp.async`` (bfloat16 and float16 at every d,
+    float32 up to d 128, the 3xTF32 kernels' widths) starts on a 16-byte
+    boundary: its first element aligned and every stride of a dimension
+    longer than 1 (batch, head, row) a multiple of 16 bytes. float32
+    rows past d 128 pass: the SIMT kernels read elements one by one."""
+    if t.dtype == torch.float32 and t.shape[-1] > _TF32_MAX_D:
         return True
     step = _ROW_ALIGN // t.element_size()
     return t.data_ptr() % _ROW_ALIGN == 0 and all(
@@ -606,22 +622,23 @@ _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
 _VOIDP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-# the longest key row the decode kernels take: 32 lanes of four 16-byte
-# pieces (fp32 d 512, bfloat16 and float16 d 1024)
-_DECODE_MAX_ROW_BYTES = 2048
+# the longest key row one lane group of the decode kernels covers: 32
+# lanes of four 16-byte pieces (fp32 d 512, bfloat16 and float16 d 1024);
+# a longer row's output columns are split across blocks in chunks of it
+_DECODE_CHUNK_BYTES = 2048
 
 
 def decode_lanes(row_bytes):
     """(lanes, pieces a lane) that cover one key row of ``row_bytes``
-    bytes in the decode kernels (csrc/decode_attention.cu): the row
-    rounded up to 16-byte pieces; up to 512 bytes one piece a lane, the
-    pieces rounded up to a power of two of lanes (1 to 32; the lanes past
-    the row stay idle), past that 32 lanes of 2 or 4 pieces. A row of no
-    bytes or past 2048 raises."""
-    if not 1 <= row_bytes <= _DECODE_MAX_ROW_BYTES:
-        raise ValueError("a decode key row must span 1 to %d bytes "
-                         "(d * itemsize), got %d"
-                         % (_DECODE_MAX_ROW_BYTES, row_bytes))
+    bytes, or one 2048-byte chunk of it, in the decode kernels
+    (csrc/decode_attention.cu): the row rounded up to 16-byte pieces; up
+    to 512 bytes one piece a lane, the pieces rounded up to a power of
+    two of lanes (1 to 32; the lanes past the row stay idle), past that
+    32 lanes of 2 or 4 pieces, and past 2048 bytes 32 lanes of 4 pieces
+    on each chunk (``decode_chunks``). A row of no bytes raises."""
+    if row_bytes < 1:
+        raise ValueError("a decode key row must span 1 byte or more "
+                         "(d * itemsize), got %d" % row_bytes)
     pieces = -(-row_bytes // 16)
     if pieces > 32:
         return 32, 2 if pieces <= 64 else 4
@@ -629,6 +646,13 @@ def decode_lanes(row_bytes):
     while lanes < pieces:
         lanes *= 2
     return lanes, 1
+
+
+def decode_chunks(row_bytes):
+    """The blocks among which the decode kernels split a q-row's output
+    columns: one 2048-byte chunk each (1 up to 2048 bytes); each block
+    computes the full-row scores over the row's chunks."""
+    return -(-row_bytes // _DECODE_CHUNK_BYTES)
 
 
 def _entry(name, n_ptrs, n_ints):
@@ -681,8 +705,9 @@ def decode_attention_kernel(q, k_cache, v_cache, cache_len, scale,
     """Launch the dense decode kernel (replaces ``_decode_fwd_kernel``,
     ``paddle_tpu/kernels/attention.py``): q [B, H, Q, d], k/v caches
     [B, H, C, d] in q's dtype (float32, bfloat16 or float16), cache_len
-    [B] int32, all contiguous on one CUDA device; a key row of d elements
-    spans up to 2048 bytes (``decode_lanes``). Rows of a multiple of 16
+    [B] int32, all contiguous on one CUDA device; a key row of any width
+    (``decode_lanes``; past 2048 bytes split across blocks,
+    ``decode_chunks``). Rows of a multiple of 16
     bytes in caches that start 16-byte aligned (the sessions' padded
     caches) travel by 16-byte asynchronous copies, others element by
     element. Returns a new [B, H, Q, d] tensor in q's dtype.
@@ -755,11 +780,13 @@ paged_attention_kernel.launches = 0
 
 
 # -- fused training-attention CUDA kernels -----------------------------------
-# the type code of the C entries: float32 on the SIMT kernels, bfloat16
-# and float16 on the tensor cores (the forward up to d 128; at d 256 it
-# runs on the SIMT kernel)
+# the type code of the C entries: float32 as 3xTF32 on the tensor cores
+# (the forward up to d 128, the backward up to d 64; else the SIMT
+# kernels), bfloat16 and float16 on the tensor cores (the forward up to
+# d 128; at d 256 it runs on the SIMT kernel); past d 256 every type on
+# the SIMT kernels that split the outputs' columns
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_TENSOR_CORE_TYPES = (torch.bfloat16, torch.float16)
+_TF32_MAX_D = 128
 _I64 = ctypes.c_longlong
 
 
@@ -782,9 +809,11 @@ def _check_qkv(q, k, v, aligned=False):
     if q.dtype not in _TYPE_CODES:
         raise TypeError("the fused-attention kernels take float32, "
                         "bfloat16 or float16, got %s" % q.dtype)
-    if q.dim() != 4 or min(q.shape) < 1 or q.shape[3] not in _HEAD_DIMS:
-        raise ValueError("q must be [B, H, S, d] with d in %s, got %s"
-                         % (_HEAD_DIMS, tuple(q.shape)))
+    if q.dim() != 4 or min(q.shape) < 1 or \
+            built_width(q.shape[3]) != q.shape[3]:
+        raise ValueError("q must be [B, H, S, d] with d in %s or a multiple "
+                         "of %d past them, got %s" % (
+                             _HEAD_DIMS, _WIDE_CHUNK, tuple(q.shape)))
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, t, q, aligned)
 
@@ -850,22 +879,24 @@ def fused_attention_fwd_kernel(q, k, v, bias, strides, seed, scale, p):
     ``_fwd_kernel_long``, ``_flash_fwd_kernel``, ``_packed_fwd_kernel``
     and ``_res_fwd_kernel``, ``paddle_tpu/kernels/attention.py``): q, k, v
     [B, H, S, d] of one type (float32, bfloat16 or float16, d in
-    16/32/64/128/256, any S) on one CUDA device, each row of d elements
-    contiguous (a 16-bit operand's rows on 16-byte boundaries: ``_rows``);
-    bias None or contiguous float32 read at element strides ``strides``
-    (batch, head, row; 0 broadcasts); seed int64 [1] when ``p`` > 0.
-    Returns (o [B, H, S, d] in q's type and memory layout, lse [B, H, S]
-    fp32).
+    16/32/64/128/256 or a multiple of 64 past it, any S) on one CUDA
+    device, each row of d elements contiguous (an operand the tensor-core
+    kernels copy by 16 bytes on 16-byte boundaries: ``_rows``); bias None
+    or contiguous float32 read at element strides ``strides`` (batch,
+    head, row; 0 broadcasts); seed int64 [1] when ``p`` > 0. Returns
+    (o [B, H, S, d] in q's type and memory layout, lse [B, H, S] fp32).
 
     Bound on the card: 4·B·H·S²·d operations on the bytes of q, k, v and
     o, S / itemsize operations a byte: in bf16 and fp16 the bytes up to
-    S 590, the tensor cores' rate above (fp32: the SIMT rate from S 80).
-    bfloat16 and float16 up to d 128 run on the tensor cores
-    (``attn_fwd_mma``: ``mma.sync`` m16n8k16, P in pieces of the input
-    type, each tile's P·V joined to O in fp32), float32 and d 256 on the
-    SIMT cores in fp32 (design note in ``csrc/fused_attention.cu``).
-    ``launches`` counts every launch, ``tensor_core_launches`` those of
-    ``attn_fwd_mma``."""
+    S 590, the tensor cores' rate above; in fp32 three TF32 products a
+    product (165 TFLOP/s), the operations from S 200. Up to d 128 it runs
+    on the tensor cores: float32 as 3xTF32 (``attn_fwd_tf32x3``:
+    ``mma.sync`` m16n8k8 on TF32 hi/lo pairs), bfloat16 and float16 on
+    ``attn_fwd_mma`` (``mma.sync`` m16n8k16, P in pieces of the input
+    type, each tile's P·V joined to O in fp32); d 256 on the SIMT cores
+    in fp32, past 256 on ``attn_fwd_wide`` (design notes in
+    ``csrc/fused_attention.cu``). ``launches`` counts every launch,
+    ``tensor_core_launches`` those on the tensor cores."""
     _check_qkv(q, k, v, aligned=True)
     _check_extras(q, bias, strides, seed, p)
     o = torch.empty_like(q)
@@ -908,8 +939,11 @@ def fused_attention_bwd_dq_kernel(q, k, v, bias, strides, seed, o, lse,
     dS·k) at the input type's peak, from S 256 or so at d 64 (below, the
     bytes). bfloat16 and float16 run on the tensor cores (``mma.sync``
     m16n8k16, fp32 accumulators; K/V tiles double-buffered by
-    ``cp.async``; dS rounded to q's type for its product); float32 on the
-    SIMT cores (design note in ``csrc/fused_attention.cu``)."""
+    ``cp.async``; dS rounded to q's type for its product); float32 up to
+    d 64 too, as 3xTF32 (``attn_bwd_dq_tf32x3``: dS split into a TF32
+    pair in registers), at d 128 and 256 on the SIMT cores, which ran
+    faster there (design notes in ``csrc/fused_attention.cu``). ``tensor_core_launches`` counts the
+    launches on the tensor cores."""
     _check_qkv(q, k, v, aligned=True)
     _check_extras(q, bias, strides, seed, p)
     B, H, S, d = q.shape
@@ -929,10 +963,13 @@ def fused_attention_bwd_dq_kernel(q, k, v, bias, strides, seed, o, lse,
     _raise_on(rc, "fused-attention dq")
     fused_attention_bwd_dq_kernel.launches += 1
     _M_BWD_DQ_LAUNCH.inc()
+    if on_tensor_cores(1, q.dtype, d):
+        fused_attention_bwd_dq_kernel.tensor_core_launches += 1
     return dq, delta
 
 
 fused_attention_bwd_dq_kernel.launches = 0
+fused_attention_bwd_dq_kernel.tensor_core_launches = 0
 
 
 def fused_attention_bwd_dkdv_kernel(q, k, v, bias, strides, seed, lse,
@@ -949,9 +986,10 @@ def fused_attention_bwd_dkdv_kernel(q, k, v, bias, strides, seed, lse,
     and dSᵀ·q), as the dq kernel. bfloat16 and float16 on the tensor
     cores: Sᵀ = k·qᵀ and dPᵀ = v·dOᵀ, so Pᵀ and dSᵀ are A operands of the
     next products in registers (rounded to q's type there; dbias from the
-    fp32 dS); Q, dO, lse
-    and delta tiles double-buffered by ``cp.async``. float32 on the SIMT
-    cores."""
+    fp32 dS); Q, dO, lse and delta tiles double-buffered by ``cp.async``.
+    float32 up to d 64 the same as 3xTF32 (``attn_bwd_dkdv_tf32x3``, Pᵀ
+    and dSᵀ split into TF32 pairs), at d 128 and 256 on the SIMT cores.
+    ``tensor_core_launches`` counts the launches on the tensor cores."""
     _check_qkv(q, k, v, aligned=True)
     _check_extras(q, bias, strides, seed, p)
     B, H, S, d = q.shape
@@ -981,10 +1019,13 @@ def fused_attention_bwd_dkdv_kernel(q, k, v, bias, strides, seed, lse,
     _raise_on(rc, "fused-attention dk/dv")
     fused_attention_bwd_dkdv_kernel.launches += 1
     _M_BWD_DKDV_LAUNCH.inc()
+    if on_tensor_cores(2, q.dtype, d):
+        fused_attention_bwd_dkdv_kernel.tensor_core_launches += 1
     return dk, dv, dbias
 
 
 fused_attention_bwd_dkdv_kernel.launches = 0
+fused_attention_bwd_dkdv_kernel.tensor_core_launches = 0
 
 
 def fused_attention_backward(q, k, v, bias, strides, seed, o, lse, dout,

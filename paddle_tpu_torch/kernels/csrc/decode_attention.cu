@@ -42,6 +42,15 @@
 //   * the running max is block-wide, so every group rescales its share of
 //     the sum and of the accumulator by the same factor, and the groups'
 //     shares are added once at the end.
+// Rows past 2048 bytes (fp32 d > 512, 16-bit d > 1024) take
+// decode_attention_wide: their output's columns are split across blocks,
+// one 2048-byte chunk each (32 lanes of four 16-byte pieces), and each
+// block computes every key's full-row score by looping over the row's
+// chunks (one chunk of a tile's K rows in shared memory at a time), then
+// accumulates its own chunk of the V rows. Its copies wait for the block
+// before its math (no ring): no preset has such rows, so it is right
+// first; the bound is the same bytes, read once by each chunk's block
+// for K.
 // What it does not do: split a long row over several blocks. With one
 // block per (b, h, q-row), a batch of 8 streams of 16 heads gives only 128
 // blocks for 132 SMs, and the longest row's tiles run one after the other
@@ -352,6 +361,203 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Rows past 2048 bytes: a block per (q-row and 2048-byte chunk of the
+// output's columns, head, batch); decode_attention_kernel's math with
+// L = 32 lanes of NP = 4 pieces on each chunk of a row in turn.
+constexpr int kChunkBytes = 2048;  // the widest row of one lane group
+constexpr int kWideKeys = 16;      // keys of a tile of a wide row
+
+// Start the copies of elements [c0, c0 + w) of `n` rows of x from logical
+// column `col0` into s [n][kChunkBytes / sizeof(T)]: 16-byte cp.async
+// pieces, or with ``narrow`` element by element, with zeros from w to
+// wp (w rounded up to 16 bytes).
+template <typename T, typename KV>
+__device__ __forceinline__ void issue_chunk(const KV& kv, const T* x, int b,
+                                            int h, int col0, int n, int c0,
+                                            int w, int wp, bool narrow,
+                                            T* s) {
+  constexpr int kVec = 16 / sizeof(T), CW = kChunkBytes / sizeof(T);
+  if (!narrow) {
+    const int pieces = w / kVec;
+    for (int i = threadIdx.x; i < n * pieces; i += kThreads) {
+      const int row = i / pieces, off = (i % pieces) * kVec;
+      cp_async16(s + row * CW + off,
+                 x + kv.offset(b, h, col0 + row) + c0 + off);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < n * wp; i += kThreads) {
+    const int row = i / wp, e = i % wp;
+    if (e < w)
+      s[row * CW + e] = x[kv.offset(b, h, col0 + row) + c0 + e];
+    else
+      store_f32(0.f, s + row * CW + e);
+  }
+}
+
+template <typename T, typename KV>
+__global__ void __launch_bounds__(kThreads)
+    decode_attention_wide(const T* __restrict__ q, const T* k, const T* v,
+                          T* __restrict__ out, const int* __restrict__ lens,
+                          KV kv, int H, int Q, int D, int chunks, int narrow,
+                          int capacity, float scale, int causal_window) {
+  constexpr int kVec = 16 / sizeof(T), CW = kChunkBytes / sizeof(T);
+  constexpr int L = 32, NP = 4, G = kThreads / L, TR = kWideKeys;
+  constexpr int R = TR / G;  // rows of a tile a warp takes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s_k = reinterpret_cast<T*>(smem_raw);  // [TR][CW] a chunk of K rows
+  T* s_v = s_k + TR * CW;                   // [TR][CW] the block's V chunk
+  float* s_acc = reinterpret_cast<float*>(s_v + TR * CW);  // [G][CW]
+  float* s_l = s_acc + G * CW;              // [G]
+  float* s_red = s_l + G;                   // [kWarps]
+  int* s_table = reinterpret_cast<int*>(s_red + kWarps);  // paged: [npages]
+
+  const int r = blockIdx.x / chunks, c_out = blockIdx.x % chunks * CW;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, g = tid / L;
+  const size_t qoff = ((static_cast<size_t>(b) * H + h) * Q + r) * D;
+  const int w_out = min(CW, D - c_out);
+  const int wp_out = (w_out + kVec - 1) / kVec * kVec;
+
+  const int valid = min(lens[b], capacity);
+  const int limit = causal_window ? valid - (Q - 1 - r) : valid;
+  const int n_cols = limit > 0 ? limit : capacity;
+  const int n_tiles = (n_cols + TR - 1) / TR;
+
+  const KV src = kv.bind(b, s_table);
+  if (KV::kHasTable) __syncthreads();
+  float acc[NP][kVec];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[p][e] = 0.f;
+  float m = kMasked, l = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int col0 = i * TR, n = min(TR, n_cols - col0);
+    float sc[R];
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) sc[rr] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += CW) {
+      const int w = min(CW, D - c0), wp = (w + kVec - 1) / kVec * kVec;
+      __syncthreads();  // the previous chunk's (or tile's) rows are consumed
+      issue_chunk<T>(src, k, b, h, col0, n, c0, w, wp, narrow, s_k);
+      if (c0 == 0)
+        issue_chunk<T>(src, v, b, h, col0, n, c_out, w_out, wp_out, narrow,
+                       s_v);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const int at = (lane + p * L) * kVec;  // the lane's piece of the chunk
+        if (at >= wp) continue;
+        float qx[kVec];
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          qx[e] = c0 + at + e < D ? to_f32(q[qoff + c0 + at + e]) : 0.f;
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr) {
+          const int j = g + rr * G;
+          if (j >= n) continue;
+          float kx[kVec];
+          load16(s_k + j * CW + at, kx);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) sc[rr] = fmaf(qx[e], kx[e], sc[rr]);
+        }
+      }
+    }
+#pragma unroll
+    for (int o = L >> 1; o > 0; o >>= 1) {
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr)
+        sc[rr] += __shfl_xor_sync(0xffffffffu, sc[rr], o);
+    }
+    float mx = -INFINITY;  // rows past the tile take no part at all
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      const int j = g + rr * G;
+      if (j < n) {
+        sc[rr] = col0 + j < limit ? sc[rr] * scale : kMasked;
+        mx = fmaxf(mx, sc[rr]);
+      }
+    }
+    mx = warp_max(mx);
+    if (lane == 0) s_red[tid >> 5] = mx;
+    __syncthreads();
+    float m_new = m;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) m_new = fmaxf(m_new, s_red[w]);
+    const float corr = expf(m - m_new);
+    l *= corr;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc[p][e] *= corr;
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      const int j = g + rr * G;
+      if (j < n) {
+        const float pr = expf(sc[rr] - m_new);
+        l += pr;
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          const int at = (lane + p * L) * kVec;
+          if (at >= wp_out) continue;
+          float vx[kVec];
+          load16(s_v + j * CW + at, vx);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e)
+            acc[p][e] = fmaf(pr, vx[e], acc[p][e]);
+        }
+      }
+    }
+    m = m_new;
+  }
+
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    const int at = (lane + p * L) * kVec;
+    if (at >= wp_out) continue;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) s_acc[g * CW + at + e] = acc[p][e];
+  }
+  if (lane == 0) s_l[g] = l;
+  __syncthreads();
+  for (int t = tid; t < w_out; t += kThreads) {
+    float o = 0.f, sum = 0.f;
+    for (int gg = 0; gg < G; ++gg) {
+      o += s_acc[gg * CW + t];
+      sum += s_l[gg];
+    }
+    store_f32(o / sum, out + qoff + c_out + t);
+  }
+}
+
+template <typename T, typename KV>
+int launch_wide(const T* q, const T* k, const T* v, T* out, const int* lens,
+                KV kv, int table_ints, int B, int H, int Q, int D,
+                int narrow, int capacity, float scale, int causal_window,
+                cudaStream_t stream) {
+  constexpr int CW = kChunkBytes / sizeof(T), G = kThreads / 32;
+  const int chunks = (D + CW - 1) / CW;
+  const size_t smem = sizeof(T) * 2 * kWideKeys * CW +
+                      sizeof(float) * (G * CW + G + kWarps) +
+                      sizeof(int) * table_ints;
+  auto kernel = decode_attention_wide<T, KV>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid(Q * chunks, H, B);
+  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, out, lens, kv, H, Q, D,
+                                           chunks, narrow, capacity, scale,
+                                           causal_window);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int L, int NP, typename KV>
 int launch_rows(const T* q, const T* k, const T* v, T* out, const int* lens,
                 KV kv, int table_ints, int B, int H, int Q, int D, int Dp,
@@ -375,22 +581,25 @@ int launch_rows(const T* q, const T* k, const T* v, T* out, const int* lens,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Rows of any d up to 2048 bytes: Dp is d rounded up to 16 bytes; the
-// lanes a row takes are its 16-byte pieces rounded up to a power of two,
-// at most 32, with 2 or 4 pieces a lane past 512 bytes. The copies are
-// narrow (element by element) when a row is not a multiple of 16 bytes or
-// a cache does not start on a 16-byte boundary.
+// Rows of any d: Dp is d rounded up to 16 bytes; the lanes a row takes
+// are its 16-byte pieces rounded up to a power of two, at most 32, with 2
+// or 4 pieces a lane past 512 bytes, and past 2048 bytes the wide kernel.
+// The copies are narrow (element by element) when a row is not a
+// multiple of 16 bytes or a cache does not start on a 16-byte boundary.
 template <typename T, typename KV>
 int launch(const T* q, const T* k, const T* v, T* out, const int* lens,
            KV kv, int table_ints, int B, int H, int Q, int d, int capacity,
            float scale, int causal_window, cudaStream_t stream) {
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));
   const int pieces = (d + kVec - 1) / kVec, Dp = pieces * kVec;
-  if (B < 1 || H < 1 || Q < 1 || capacity < 1 || d < 1 || pieces > 4 * 32)
+  if (B < 1 || H < 1 || Q < 1 || capacity < 1 || d < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int narrow = d % kVec != 0 ||
                      reinterpret_cast<uintptr_t>(k) % 16 != 0 ||
                      reinterpret_cast<uintptr_t>(v) % 16 != 0;
+  if (pieces > 4 * 32)
+    return launch_wide<T, KV>(q, k, v, out, lens, kv, table_ints, B, H, Q, d,
+                              narrow, capacity, scale, causal_window, stream);
   int lanes = 1;
   while (lanes < pieces && lanes < 32) lanes *= 2;
 #define PT_ROWS(L, NP)                                                     \
@@ -438,9 +647,9 @@ int paged(const void* q, const void* k_pool, const void* v_pool,
 // Plain C entry points for ctypes. Each returns cudaGetLastError() after
 // the launch (0 on success); the kernel runs on `stream` and does not
 // synchronise. All pointers are device pointers to contiguous tensors:
-// q/out [B, H, Q, d], k/v [B, H, C, d] or pools [P, H, ptok, d] (any d up
-// to 2048 bytes a row; 16-byte rows on 16-byte boundaries take the
-// asynchronous copies), lens [B] int32, table [B, npages] int32; one
+// q/out [B, H, Q, d], k/v [B, H, C, d] or pools [P, H, ptok, d] (any d;
+// 16-byte rows on 16-byte boundaries take the asynchronous copies), lens
+// [B] int32, table [B, npages] int32; one
 // entry per type (f32, bf16, f16) and source.
 extern "C" {
 

@@ -69,28 +69,34 @@
 // 1/(1-p), as in _attn_block_fwd. The softmax denominator uses the
 // undropped weights; only the accumulation is masked.
 //
-// Head widths: d 16, 32, 64, 128 and 256 are built; the wrappers
-// zero-pad any other d up to 256 to the next of these (zero columns leave
-// q.k^T unchanged and come out of P.V as zero columns) and slice the
-// outputs back. Types: float32, bfloat16 and float16. At d 256 the SIMT
-// forward holds its 64-row tiles at one block an SM in every type, the
-// fp32 backward tiles 32 rows (kBwdRows), and the tensor-core backward
-// splits dq, dk and dv into two 128-column halves, one per block
-// (kHalves): each block computes S and dP over the whole d.
+// Head widths: d 16, 32, 64, 128 and 256 are built, and past 256 every
+// multiple of 64 (attn_*_wide, which split the outputs' columns across
+// blocks); the wrappers zero-pad any other d up to the next of these
+// (zero columns leave q.k^T unchanged and come out of P.V as zero
+// columns) and slice the outputs back. Types: float32, bfloat16 and
+// float16. At d 256 the SIMT forward holds its 64-row tiles at one block
+// an SM in every type, the fp32 backward tiles 32 rows (kBwdRows), and
+// the tensor-core backward splits dq, dk and dv into two 128-column
+// halves, one per block (kHalves): each block computes S and dP over the
+// whole d.
 //
 // Bound on the card, per (b, h) pair: 4 * S^2 * d operations (q.k^T and
 // p.v) on 4 * S * d * sizeof(T) bytes of q, k, v and o, S / sizeof(T)
-// operations a byte at any d. In fp32 (67 TFLOP/s without tensor cores
-// against 3.35 TB/s, 20 a byte) the operations bound it from S = 80. In
+// operations a byte at any d. In fp32 (three TF32 products on the tensor
+// cores, 165 TFLOP/s of fp32-accurate products, against 3.35 TB/s, 49 a
+// byte) the operations bound it from S = 200. In
 // bf16 and fp16 (989 TFLOP/s on the tensor cores, 295 a byte) they bound
 // it from S = 590: the long and flash shapes (S 2048 to 8192) are bound by
 // the tensor cores' rate, BERT's S = 128 (config 3, the packed layout) by
 // the bytes of q, k, v and o. The backward does 10 units of S^2 * d.
 //
-// The forward in fp32 (and in every type at d 256) and the backward in
-// fp32 compute everything in fp32 on the SIMT cores (16-bit tiles are
-// converted to fp32 as they land in shared memory). 256 threads; each
-// holds a 4 x 4 micro-tile of the 64 x 64 score tile (query rows
+// fp32 runs on the tensor cores as 3xTF32, the forward up to d 128 and the
+// backward up to d 64 (attn_fwd_tf32x3, attn_bwd_dq_tf32x3,
+// attn_bwd_dkdv_tf32x3; their note is beside them). The forward at d 256
+// in every type and the fp32 backward at d 128 and 256 compute
+// everything in fp32 on the SIMT cores (16-bit tiles are converted to
+// fp32 as they land in shared memory), as do the kernels past d 256.
+// 256 threads; each holds a 4 x 4 micro-tile of the 64 x 64 score tile (query rows
 // 4ty..4ty+3, key columns tx + 16j; 2 x 2 of a 32 x 32 tile in the d 256
 // backward) and a 4 x d/16 slice of its accumulators. Shared tiles keep
 // an odd row stride (d + 1, 65), so every read of a row or of a column
@@ -688,6 +694,412 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocks<D>)
   }
 }
 
+// ---- head widths past 256: the outputs' columns split across blocks -------
+// attn_fwd_wide, attn_bwd_dq_wide and attn_bwd_dkdv_wide take any d that
+// is a multiple of kDC past 256 (the wrappers zero-pad another d up to
+// one), in every type. Each 64-row tile's outputs (o; dq; dk and dv) are
+// split into d / kDC column chunks, one block each (the grid's x is the
+// tiles times the chunks). A block computes S = Q.K^T and dP = dO.V^T
+// over the whole d by looping over d in kDC-column chunks of the operands
+// through shared memory (fp32 [64][kDC + 1] tiles, 66 to 100 KB a block
+// at any d), then its own chunk of P.V, dS.K, P^T.dO and dS^T.Q; delta
+// = rowsum(dO.O) is read from device memory over the whole row. The
+// first chunk's block alone writes lse, delta and dbias. The math is the
+// SIMT kernels' (fp32 on the SIMT cores, the same micro-tiles, mask and
+// dbias reduction). No preset has such a width: these kernels are right
+// first, and each block recomputes the scores the other chunks' blocks
+// compute, d / kDC times the SIMT kernels' products (bound: the SIMT
+// rate, 67 TFLOP/s, on those operations).
+constexpr int kDC = 64;         // columns of a chunk
+constexpr int kLC = kDC + 1;    // row stride of a chunk tile in shared memory
+
+// s[i][j] += the thread's micro-tile of A . Bt over one chunk
+__device__ __forceinline__ void chunk_dot(const float* A, const float* Bt,
+                                          int ty, int tx, float s[4][4]) {
+  float part[4][4];
+  tile_dot<kDC>(A, Bt, ty, tx, part);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] += part[i][j];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    attn_fwd_wide(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, BiasView bv,
+                  const long long* __restrict__ seed, T* __restrict__ o,
+                  float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
+                  Strides so, int H, int S, int D, float scale, float p_drop,
+                  float keep_scale) {
+  constexpr int E = kDC / 16;
+  extern __shared__ float smem[];
+  float* Qc = smem;            // [kB][kLC] a chunk of the q-tile
+  float* Kc = Qc + kB * kLC;   // a chunk of the k-tile
+  float* Vc = Kc + kB * kLC;   // the block's chunk of the v-tile
+  float* Ps = Vc + kB * kLC;   // [kB][kLP]
+
+  const int chunks = D / kDC;
+  const int q0 = blockIdx.x / chunks * kB, c_out = blockIdx.x % chunks * kDC;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h, ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const T* qh = head_of(q, sq, b, h) + q0 * sq.r;
+  const T* kh = head_of(k, sk, b, h);
+  const T* vh = head_of(v, sv, b, h);
+  const int nq = min(kB, S - q0);
+  const bool drop = p_drop > 0.f;
+  const uint2 key = drop ? seed_key(seed) : make_uint2(0, 0);
+
+  const float* brow[4];
+  float m[4], l[4], acc[4][E];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    brow[i] = bias_row(bv, b, h, min(q0 + 4 * ty + i, S - 1));
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < S; k0 += kB) {
+    const int nk = min(kB, S - k0);
+    float s[4][4] = {};
+    for (int c = 0; c < D; c += kDC) {
+      __syncthreads();  // the previous chunk's (or tile's) tiles are consumed
+      load_tile<T, kDC>(Qc, qh + c, sq.r, nq);
+      load_tile<T, kDC>(Kc, kh + k0 * sk.r + c, sk.r, nk);
+      __syncthreads();
+      chunk_dot(Qc, Kc, ty, tx, s);
+    }
+    load_tile<T, kDC>(Vc, vh + k0 * sv.r + c_out, sv.r, nk);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = biased(s[i][j], scale, brow[i], k0 + tx + 16 * j, S);
+        mx = fmaxf(mx, s[i][j]);
+      }
+      // every tile holds a live column, so m_new is finite
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float corr = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        rs += s[i][j];
+      }
+      l[i] = l[i] * corr + row_sum(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[i][e] *= corr;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      bool keep[4] = {true, true, true, true};
+      if (drop)
+        keep_rows<4>(key, k0 + tx + 16 * j, q0 + 4 * ty, bh, p_drop, keep);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        Ps[(4 * ty + i) * kLP + tx + 16 * j] =
+            drop ? (keep[i] ? s[i][j] * keep_scale : 0.f) : s[i][j];
+    }
+    __syncthreads();  // Ps and Vc
+    for (int c = 0; c < nk; ++c) {
+      float vv[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) vv[e] = Vc[c * kLC + tx + 16 * e];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = Ps[(4 * ty + i) * kLP + c];
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[i][e] = fmaf(p, vv[e], acc[i][e]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row >= S) continue;
+    const float inv = 1.f / l[i];
+    T* orow = head_of(o, so, b, h) + row * so.r + c_out;
+#pragma unroll
+    for (int e = 0; e < E; ++e) store(acc[i][e] * inv, orow + tx + 16 * e);
+    if (tx == 0 && c_out == 0)
+      lse[static_cast<size_t>(bh) * S + row] = m[i] + logf(l[i]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    attn_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, BiasView bv,
+                     const long long* __restrict__ seed,
+                     const T* __restrict__ o, const T* __restrict__ dout,
+                     const float* __restrict__ lse, float* __restrict__ delta,
+                     T* __restrict__ dq, Strides sq, Strides sk, Strides sv,
+                     Strides so, Strides sdo, Strides sdq, int H, int S,
+                     int D, float scale, float p_drop, float keep_scale) {
+  constexpr int E = kDC / 16;
+  extern __shared__ float smem[];
+  float* Qc = smem;              // [kB][kLC] chunks of the q-tile's rows
+  float* dOc = Qc + kB * kLC;
+  float* Kc = dOc + kB * kLC;    // chunks of the k-tile's rows
+  float* Vc = Kc + kB * kLC;
+  float* dSs = Vc + kB * kLC;    // [kB][kLP]
+  float* Lr = dSs + kB * kLP;    // [kB] lse of the tile's rows
+  float* Dr = Lr + kB;           // [kB] delta of the tile's rows
+
+  const int chunks = D / kDC;
+  const int q0 = blockIdx.x / chunks * kB, c_out = blockIdx.x % chunks * kDC;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h, tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const T* qh = head_of(q, sq, b, h) + q0 * sq.r;
+  const T* doh = head_of(dout, sdo, b, h) + q0 * sdo.r;
+  const T* kh = head_of(k, sk, b, h);
+  const T* vh = head_of(v, sv, b, h);
+  const int nq = min(kB, S - q0);
+  {  // delta over the whole row: four threads a row, neighbouring lanes
+    constexpr int kParts = kThreads / kB;
+    const int r = tid / kParts, part = tid % kParts;
+    float acc = 0.f;
+    if (r < nq) {
+      const T* orow = head_of(o, so, b, h) + (q0 + r) * so.r;
+      const T* dorow = doh + r * sdo.r;
+      for (int e = part; e < D; e += kParts)
+        acc = fmaf(to_f32(dorow[e]), to_f32(orow[e]), acc);
+    }
+#pragma unroll
+    for (int x = 1; x < kParts; x <<= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, x);
+    if (part == 0) {
+      Dr[r] = acc;
+      Lr[r] = r < nq ? lse[static_cast<size_t>(bh) * S + q0 + r] : 0.f;
+      if (r < nq && c_out == 0)
+        delta[static_cast<size_t>(bh) * S + q0 + r] = acc;
+    }
+  }
+  const bool drop = p_drop > 0.f;
+  const uint2 key = drop ? seed_key(seed) : make_uint2(0, 0);
+  const float* brow[4];
+  float acc[4][E];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    brow[i] = bias_row(bv, b, h, min(q0 + 4 * ty + i, S - 1));
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < S; k0 += kB) {
+    const int nk = min(kB, S - k0);
+    float s[4][4] = {}, dp[4][4] = {};
+    for (int c = 0; c < D; c += kDC) {
+      __syncthreads();  // the previous chunk's (or tile's) tiles are consumed
+      load_tile<T, kDC>(Qc, qh + c, sq.r, nq);
+      load_tile<T, kDC>(dOc, doh + c, sdo.r, nq);
+      load_tile<T, kDC>(Kc, kh + k0 * sk.r + c, sk.r, nk);
+      load_tile<T, kDC>(Vc, vh + k0 * sv.r + c, sv.r, nk);
+      __syncthreads();
+      chunk_dot(Qc, Kc, ty, tx, s);
+      chunk_dot(dOc, Vc, ty, tx, dp);
+    }
+    __syncthreads();  // Kc is consumed
+    load_tile<T, kDC>(Kc, kh + k0 * sk.r + c_out, sk.r, nk);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = k0 + tx + 16 * j;
+      bool keep[4] = {true, true, true, true};
+      if (drop) keep_rows<4>(key, col, q0 + 4 * ty, bh, p_drop, keep);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 4 * ty + i;
+        const float p = q0 + r < S
+            ? expf(biased(s[i][j], scale, brow[i], col, S) - Lr[r]) : 0.f;
+        const float d = drop ? (keep[i] ? dp[i][j] * keep_scale : 0.f)
+                             : dp[i][j];
+        dSs[r * kLP + tx + 16 * j] = p * (d - Dr[r]);
+      }
+    }
+    __syncthreads();  // dSs and Kc
+    for (int c = 0; c < nk; ++c) {
+      float kv[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) kv[e] = Kc[c * kLC + tx + 16 * e];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float ds = dSs[(4 * ty + i) * kLP + c];
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[i][e] = fmaf(ds, kv[e], acc[i][e]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row >= S) continue;
+    T* drow = head_of(dq, sdq, b, h) + row * sdq.r + c_out;
+#pragma unroll
+    for (int e = 0; e < E; ++e) store(acc[i][e] * scale, drow + tx + 16 * e);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    attn_bwd_dkdv_wide(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, BiasView bv,
+                       const long long* __restrict__ seed,
+                       const T* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, T* __restrict__ dk,
+                       T* __restrict__ dv, DBias db, Strides sq, Strides sk,
+                       Strides sv, Strides sdo, Strides sdk, Strides sdv,
+                       int H, int S, int D, float scale, float p_drop,
+                       float keep_scale) {
+  constexpr int E = kDC / 16;
+  extern __shared__ float smem[];
+  float* Kc = smem;              // [kB][kLC] chunks of the k-tile's rows
+  float* Vc = Kc + kB * kLC;
+  float* Qc = Vc + kB * kLC;     // chunks of the q-tile's rows
+  float* dOc = Qc + kB * kLC;
+  float* Ps = dOc + kB * kLC;    // [kB][kLP] dropped weights
+  float* dSs = Ps + kB * kLP;    // [kB][kLP]
+  float* Lr = dSs + kB * kLP;
+  float* Dr = Lr + kB;
+
+  const int chunks = D / kDC;
+  const int k0 = blockIdx.x / chunks * kB, c_out = blockIdx.x % chunks * kDC;
+  const int h = blockIdx.y, b = blockIdx.z;
+  if (c_out != 0) db.ptr = nullptr;  // the first chunk's block writes dbias
+  const int bh = b * H + h, tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const T* qh = head_of(q, sq, b, h);
+  const T* doh = head_of(dout, sdo, b, h);
+  const T* kh = head_of(k, sk, b, h) + k0 * sk.r;
+  const T* vh = head_of(v, sv, b, h) + k0 * sv.r;
+  const int nk = min(kB, S - k0);
+  const bool drop = p_drop > 0.f;
+  const uint2 key = drop ? seed_key(seed) : make_uint2(0, 0);
+  const bool acc_heads = db.ptr && db.heads == 1 && H > 1;
+  const bool reduce_rows = db.ptr && db.rows == 1;
+  float* db_base = db.ptr ? db.ptr + (static_cast<size_t>(b) * db.heads +
+                                      (db.heads == 1 ? 0 : h)) *
+                                         db.rows * S
+                          : nullptr;
+
+  float adk[4][E], adv[4][E], colsum[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    colsum[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) adk[i][e] = adv[i][e] = 0.f;
+  }
+
+  for (int q0 = 0; q0 < S; q0 += kB) {
+    const int nq = min(kB, S - q0);
+    float s[4][4] = {}, dp[4][4] = {};
+    for (int c = 0; c < D; c += kDC) {
+      __syncthreads();  // the previous chunk's (or tile's) tiles are consumed
+      load_tile<T, kDC>(Qc, qh + q0 * sq.r + c, sq.r, nq);
+      load_tile<T, kDC>(dOc, doh + q0 * sdo.r + c, sdo.r, nq);
+      load_tile<T, kDC>(Kc, kh + c, sk.r, nk);
+      load_tile<T, kDC>(Vc, vh + c, sv.r, nk);
+      __syncthreads();
+      chunk_dot(Qc, Kc, ty, tx, s);
+      chunk_dot(dOc, Vc, ty, tx, dp);
+    }
+    __syncthreads();  // Qc and dOc are consumed
+    load_tile<T, kDC>(Qc, qh + q0 * sq.r + c_out, sq.r, nq);
+    load_tile<T, kDC>(dOc, doh + q0 * sdo.r + c_out, sdo.r, nq);
+    if (tid < kB) {
+      const bool live = tid < nq;
+      Lr[tid] = live ? lse[static_cast<size_t>(bh) * S + q0 + tid] : 0.f;
+      Dr[tid] = live ? delta[static_cast<size_t>(bh) * S + q0 + tid] : 0.f;
+    }
+    __syncthreads();  // Lr and Dr
+    const float* brow[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      brow[i] = bias_row(bv, b, h, min(q0 + 4 * ty + i, S - 1));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = k0 + tx + 16 * j;
+      bool keep[4] = {true, true, true, true};
+      if (drop) keep_rows<4>(key, col, q0 + 4 * ty, bh, p_drop, keep);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 4 * ty + i, row = q0 + r;
+        const float p = row < S
+            ? expf(biased(s[i][j], scale, brow[i], col, S) - Lr[r]) : 0.f;
+        float pd = p, d = dp[i][j];
+        if (drop) {
+          pd = keep[i] ? p * keep_scale : 0.f;
+          d = keep[i] ? d * keep_scale : 0.f;
+        }
+        const float ds = p * (d - Dr[r]);
+        Ps[r * kLP + tx + 16 * j] = pd;
+        dSs[r * kLP + tx + 16 * j] = ds;
+        if (db.ptr && row < S && col < S) {
+          if (reduce_rows) {
+            colsum[j] += ds;
+          } else if (acc_heads) {
+            atomicAdd(db_base + static_cast<size_t>(row) * S + col, ds);
+          } else {
+            db_base[static_cast<size_t>(row) * S + col] = ds;
+          }
+        }
+      }
+    }
+    __syncthreads();  // Ps, dSs
+    for (int r = 0; r < nq; ++r) {
+      float dov[E], qv[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        dov[e] = dOc[r * kLC + tx + 16 * e];
+        qv[e] = Qc[r * kLC + tx + 16 * e];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float pd = Ps[r * kLP + 4 * ty + i];
+        const float ds = dSs[r * kLP + 4 * ty + i];
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          adv[i][e] = fmaf(pd, dov[e], adv[i][e]);
+          adk[i][e] = fmaf(ds, qv[e], adk[i][e]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = k0 + 4 * ty + i;
+    if (row >= S) continue;
+    T* dkrow = head_of(dk, sdk, b, h) + row * sdk.r + c_out;
+    T* dvrow = head_of(dv, sdv, b, h) + row * sdv.r + c_out;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      store(adk[i][e] * scale, dkrow + tx + 16 * e);
+      store(adv[i][e], dvrow + tx + 16 * e);
+    }
+  }
+  if (reduce_rows) {  // column sums over the 16 row groups, in a fixed order
+    float* red = Ps;    // [16][kB], Ps is free once the loop has ended
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[ty * kB + tx + 16 * j] = colsum[j];
+    __syncthreads();
+    if (tid < nk) {
+      float sum = 0.f;
+      for (int t = 0; t < 16; ++t) sum += red[t * kB + tid];
+      if (acc_heads)
+        atomicAdd(db_base + k0 + tid, sum);
+      else
+        db_base[k0 + tid] = sum;
+    }
+  }
+}
+
 // ---- bf16 and fp16 backward on the tensor cores ----------------------------
 using bf16 = __nv_bfloat16;
 using f16 = __half;
@@ -810,21 +1222,23 @@ __device__ __forceinline__ void a_from_acc(unsigned a[4], const float c0[4],
   a[3] = pack2<T>(c1[2], c1[3]);
 }
 
-// Rows [0, n) of a global tile of D-element 16-bit rows, ``rs`` elements
-// apart -> shared [kB][kLDS<D>] by 16-byte cp.async (each row must start
-// on a 16-byte boundary: the wrappers copy an operand that does not);
-// rows n..kB-1 are zero-filled.
+// Rows [0, n) of a global tile of D-element rows of T, ``rs`` elements
+// apart -> shared [kB][D + 16 / sizeof(T)] (rows padded by 16 bytes:
+// kLDS<D> in the 16-bit types, kTf32LDS<D> in fp32) by 16-byte cp.async
+// (each row must start on a 16-byte boundary: the wrappers copy an
+// operand that does not); rows n..kB-1 are zero-filled.
 template <int D, typename T>
 __device__ __forceinline__ void load_tile_async(T* s, const T* g,
                                                 long long rs, int n) {
-  constexpr int kChunks = D / 8;  // 16-byte pieces of a row
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  constexpr int kChunks = D / kVec, LDS = D + kVec;  // 16-byte pieces a row
   const long long stride = rs;    // elements from one row to the next
 #pragma unroll
   for (int j = 0; j < kB * kChunks / kMmaThreads; ++j) {
     const int i = threadIdx.x + j * kMmaThreads;
-    const int r = i / kChunks, c = 8 * (i % kChunks);
+    const int r = i / kChunks, c = kVec * (i % kChunks);
     const bool live = r < n;
-    cp_async16(s + r * kLDS<D> + c, g + (live ? r : 0) * stride + c, live);
+    cp_async16(s + r * LDS + c, g + (live ? r : 0) * stride + c, live);
   }
 }
 
@@ -1472,6 +1886,669 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
   }
 }
 
+// ---- fp32 on the tensor cores: 3xTF32 --------------------------------------
+// Replaces, in fp32, _fwd_kernel (:294) at d 16 to 128 and _bwd_kernel
+// (:307) at d 16 to 64 of paddle_tpu/kernels/attention.py, and in that
+// type the long, flash, packed and resident tiers' kernels, as the SIMT
+// kernels did before: attn_fwd_tf32x3, attn_bwd_dq_tf32x3 (which also
+// writes delta) and attn_bwd_dkdv_tf32x3 (which also writes dbias, from
+// the fp32 dS) compute what attn_fwd, attn_bwd_dq and attn_bwd_dkdv
+// compute, with the 16-bit kernels' tiling, pipeline, Philox bitmask and
+// bias handling.
+// Bound on the card: the operations (4 S^2 d a (b, h) pair forward, 6 and
+// 8 in dq and dk/dv), three TF32 products each at 494.7 TFLOP/s, so about
+// 165 TFLOP/s of fp32-accurate products against the SIMT cores' 67.
+// Design:
+//   * instruction: mma.sync m16n8k8 with TF32 operands and fp32
+//     accumulators. Each fp32 operand x is split into hi = x rounded to
+//     TF32 (cvt.rna) and lo = x - hi, whose fp32 bits the tensor cores
+//     read truncated to TF32 (as CUTLASS's 3xTF32 passes its small part:
+//     the same accuracy on the H100 as lo rounded by cvt, and 10-14% less
+//     time), and each product is lo.hi + hi.lo, then hi.hi, into one
+//     accumulator (mma3: CUTLASS's order, the small terms first), which
+//     keeps about fp32's accuracy where hi.hi alone keeps TF32's 11 bits;
+//   * fragments without ldmatrix (which moves 16-bit elements): 32-bit
+//     shared loads from fp32 tiles whose rows are padded by 16 bytes
+//     (stride d + 4), so that the A fragment (rows g and g + 8, columns t
+//     and t + 4, with g = lane / 4, t = lane % 4) and the B fragment of
+//     K^T (key g, columns t and t + 4) land the 32 lanes on 32 banks;
+//   * accumulator to A operand: an m16n8 accumulator gives a thread the
+//     columns 2t and 2t + 1, the m16n8k8 A operand wants t and t + 4. The
+//     contraction index is relabelled (A slot t stands for key 2t, slot
+//     t + 4 for key 2t + 1) and the B fragment's rows are read as keys 2t
+//     and 2t + 1 (V in P.V, K in dS.K, dO and Q in dk/dv; banks 8t + g,
+//     also free of conflicts): P and dS stay in registers;
+//   * splits in registers as fragments are read: the forward splits Q's
+//     once a block up to d 64 (at d 128, to save registers, each tile),
+//     the backward its resident operands' each tile, every kernel the
+//     streamed tiles' as it reads them;
+//   * short mma chains: the tensor cores' fp32 sums truncate, so a chain
+//     of products into one accumulator leans toward zero by up to an ulp
+//     a step; chains over every key of S 4096 and 8192 missed the fp32
+//     card tests' limits on the H100, so every product over keys or queries
+//     (P.V, dS.K, P^T.dO, dS^T.Q) runs one 64-row tile (24 steps) from a
+//     zero accumulator, joined to the fp32 sum on the SIMT cores (O = O *
+//     corr + P.V; dq, dk, dv += the tile's) as the 16-bit forward does;
+//   * shared memory: five (forward) or six (backward) fp32 64 x (d + 4)
+//     tiles, 87 KB and 104 KB at d 64 (two blocks an SM), the forward's
+//     169 KB at d 128 (one), 16-byte cp.async double buffers with rows
+//     past S zero-filled, as in the 16-bit kernels;
+//   * d 128: the backward's six tiles (203 KB) leave one block of four
+//     warps an SM, and its accumulators and the tiles' partial sums pass
+//     the 255 registers a thread can have; split into two column halves
+//     a block it ran 2.50 ms on the H100 at B 8, H 8, S 512 against the
+//     SIMT kernels' 1.77 (tools/attention_fault_check.py), so fp32 at
+//     d 128 runs the 3xTF32 forward and the SIMT backward, and at d 256
+//     the SIMT kernels.
+// the widest heads fp32 runs at on them: the forward, the backward
+constexpr int kTf32MaxD = 128, kTf32BwdMaxD = 64;
+template <int D> constexpr int kTf32LDS = D + 4;  // row stride of a tile
+template <int D> constexpr int kTf32Blocks = D <= 32 ? 3 : D <= 64 ? 2 : 1;
+template <int D> constexpr bool kHoldQ = D <= 64;  // Q's split fragments
+// query columns of S^T and dP^T the dk/dv kernel holds in registers at once
+template <int D> constexpr int kTf32DkdvCols = D >= 32 ? 32 : 64;
+
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo to about fp32's accuracy: hi rounded to TF32, lo the
+// remainder in fp32 bits, which the tensor cores read truncated to TF32
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c[16 x 8] += a[16 x 8] . b[8 x 8], TF32 operands, fp32 accumulators
+__device__ __forceinline__ void mma_tf32(float c[4], const unsigned a[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b from the TF32 pairs of both: lo.hi + hi.lo, then hi.hi
+__device__ __forceinline__ void mma3(float c[4], const unsigned ah[4],
+                                     const unsigned al[4],
+                                     const unsigned bh[2],
+                                     const unsigned bl[2]) {
+  mma_tf32(c, al, bh[0], bh[1]);
+  mma_tf32(c, ah, bl[0], bl[1]);
+  mma_tf32(c, ah, bh[0], bh[1]);
+}
+
+// the split A fragment of the 16 x 8 block of a tile at s: rows g and
+// g + 8, columns t and t + 4
+template <int LDS>
+__device__ __forceinline__ void a_frag(unsigned hi[4], unsigned lo[4],
+                                       const float* s, int g, int t) {
+  split_tf32(s[g * LDS + t], hi[0], lo[0]);
+  split_tf32(s[(g + 8) * LDS + t], hi[1], lo[1]);
+  split_tf32(s[g * LDS + t + 4], hi[2], lo[2]);
+  split_tf32(s[(g + 8) * LDS + t + 4], hi[3], lo[3]);
+}
+
+// the split B fragment of X^T for the 8 rows of X at s: X[g][t] and
+// X[g][t + 4] (K in Q.K^T, V in dO.V^T, Q and dO in dk/dv)
+template <int LDS>
+__device__ __forceinline__ void bt_frag(unsigned hi[2], unsigned lo[2],
+                                        const float* s, int g, int t) {
+  split_tf32(s[g * LDS + t], hi[0], lo[0]);
+  split_tf32(s[g * LDS + t + 4], hi[1], lo[1]);
+}
+
+// the split B fragment of the 8 rows of X at s, the contraction
+// relabelled as a_from_acc_tf32's: X[2t][g] and X[2t + 1][g]
+template <int LDS>
+__device__ __forceinline__ void b_frag_pairs(unsigned hi[2], unsigned lo[2],
+                                             const float* s, int g, int t) {
+  split_tf32(s[2 * t * LDS + g], hi[0], lo[0]);
+  split_tf32(s[(2 * t + 1) * LDS + g], hi[1], lo[1]);
+}
+
+// the split A operand of the next product from an m16n8 accumulator tile
+// c (rows g, g + 8; columns 2t, 2t + 1): slot t takes column 2t, slot
+// t + 4 column 2t + 1
+__device__ __forceinline__ void a_from_acc_tf32(unsigned hi[4],
+                                                unsigned lo[4],
+                                                const float c[4]) {
+  split_tf32(c[0], hi[0], lo[0]);
+  split_tf32(c[2], hi[1], lo[1]);
+  split_tf32(c[1], hi[2], lo[2]);
+  split_tf32(c[3], hi[3], lo[3]);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kMmaThreads, kTf32Blocks<D>)
+    attn_fwd_tf32x3(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, BiasView bv,
+                    const long long* __restrict__ seed, T* __restrict__ o,
+                    float* __restrict__ lse, Strides sq, Strides sk,
+                    Strides sv, Strides so, int H, int S, float scale,
+                    float p_drop, float keep_scale) {
+  static_assert(std::is_same<T, float>::value, "3xTF32 takes fp32");
+  constexpr int LDS = kTf32LDS<D>, TS = kB * LDS;
+  constexpr int KQ = kHoldQ<D> ? D / 8 : 1;
+  extern __shared__ __align__(16) unsigned char smem16[];
+  float* Qs = reinterpret_cast<float*>(smem16);
+  float* Ks = Qs + TS;                                 // [2][kB][LDS]
+  float* Vs = Ks + 2 * TS;                             // [2][kB][LDS]
+  float* Ct = Vs + 2 * TS;                             // [2][kB] bias by column
+  unsigned* Keep = reinterpret_cast<unsigned*>(Ct + 2 * kB);  // [2][kB][2]
+
+  const int q0 = blockIdx.x * kB, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h, tid = threadIdx.x, lane = tid & 31;
+  const int w = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const float* kh = head_of(k, sk, b, h);
+  const float* vh = head_of(v, sv, b, h);
+  load_tile_async<D>(Qs, head_of(q, sq, b, h) + q0 * sq.r, sq.r,
+                     min(kB, S - q0));
+  load_tile_async<D>(Ks, kh, sk.r, min(kB, S));
+  load_tile_async<D>(Vs, vh, sv.r, min(kB, S));
+  cp_async_commit();
+  const bool drop = p_drop > 0.f;
+  const uint2 key = drop ? seed_key(seed) : make_uint2(0, 0);
+  // a bias with a row per query is read per element; a row-broadcast one
+  // once per tile into Ct, with -inf past the last key (no bias: 0)
+  const bool rowwise = bv.ptr && bv.sr != 0;
+  const float* bcast = rowwise ? nullptr : bias_row(bv, b, h, 0);
+  int rl[2];  // the thread's two tile rows
+  const float* brow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rl[i] = 16 * w + g + 8 * i;
+    brow[i] = rowwise ? bias_row(bv, b, h, min(q0 + rl[i], S - 1)) : nullptr;
+  }
+  const float* Qw = Qs + 16 * w * LDS;  // the warp's 16 query rows
+  const float scale2 = scale * kLog2e;
+  unsigned qh[KQ][4], ql[KQ][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // log2 units
+  float acc[D / 8][4] = {};
+
+  for (int k0 = 0; k0 < S; k0 += kB) {
+    const int buf = (k0 / kB) & 1;
+    const float* Kt = Ks + buf * TS;
+    const float* Vt = Vs + buf * TS;
+    float* ct = Ct + buf * kB;
+    unsigned* const keep = Keep + buf * 2 * kB;
+    if (tid < kB) ct[tid] = bias_term(bcast, k0 + tid, S);
+    if (drop) keep_bits(key, q0, k0, bh, p_drop, keep);
+    cp_async_wait_all();
+    __syncthreads();  // tile k0 has landed; tile k0 - kB is consumed
+    if constexpr (kHoldQ<D>) {
+      if (k0 == 0) {
+#pragma unroll
+        for (int kk = 0; kk < D; kk += 8)
+          a_frag<LDS>(qh[kk / 8], ql[kk / 8], Qw + kk, g, t4);
+      }
+    }
+    if (k0 + kB < S) {  // the next tile's copies overlap this tile's math
+      const int nk = min(kB, S - k0 - kB);
+      load_tile_async<D>(Ks + (buf ^ 1) * TS, kh + (k0 + kB) * sk.r, sk.r,
+                         nk);
+      load_tile_async<D>(Vs + (buf ^ 1) * TS, vh + (k0 + kB) * sv.r, sv.r,
+                         nk);
+      cp_async_commit();
+    }
+    // S = Q . K^T, 16 x 64 per warp
+    float s[kB / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 8) {
+      unsigned ah[4], al[4];
+      if constexpr (kHoldQ<D>) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ah[i] = qh[kk / 8][i];
+          al[i] = ql[kk / 8][i];
+        }
+      } else {
+        a_frag<LDS>(ah, al, Qw + kk, g, t4);
+      }
+#pragma unroll
+      for (int n = 0; n < kB; n += 8) {
+        unsigned kb_hi[2], kb_lo[2];
+        bt_frag<LDS>(kb_hi, kb_lo, Kt + n * LDS + kk, g, t4);
+        mma3(s[n / 8], ah, al, kb_hi, kb_lo);
+      }
+    }
+    // (s * scale + bias) * log2(e); -inf past the last key
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kB / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, c = 8 * j + 2 * t4 + (e & 1);
+        const float bias = rowwise ? bias_term(brow[i], k0 + c, S) : ct[c];
+        s[j][e] = fmaf(s[j][e], scale2, bias * kLog2e);
+        mx[i] = fmaxf(mx[i], s[j][e]);
+      }
+    // every tile holds a live column, so each new max is finite
+    float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      corr[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < kB / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - m[e >> 1]);
+        rs[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+      l[i] = l[i] * corr[i] + rs[i];
+    }
+    if (drop) {  // dropped weights leave P . V, not l
+      unsigned kw[2][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          kw[i][half] = keep[2 * rl[i] + half];
+#pragma unroll
+      for (int j = 0; j < kB / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t4 + (e & 1);
+          if (!((kw[e >> 1][j >> 2] >> (c & 31)) & 1)) s[j][e] = 0.f;
+        }
+    }
+    // O = O * corr + P . V, the tile's P . V from a zero accumulator, 8
+    // keys a product
+    float tile_pv[D / 8][4] = {};
+#pragma unroll
+    for (int c = 0; c < kB; c += 8) {
+      unsigned ph[4], pl[4];
+      a_from_acc_tf32(ph, pl, s[c / 8]);
+#pragma unroll
+      for (int n = 0; n < D; n += 8) {
+        unsigned vb_hi[2], vb_lo[2];
+        b_frag_pairs<LDS>(vb_hi, vb_lo, Vt + c * LDS + n, g, t4);
+        mma3(tile_pv[n / 8], ph, pl, vb_hi, vb_lo);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[j][e] = fmaf(acc[j][e], corr[e >> 1], tile_pv[j][e]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + rl[i];
+    if (row >= S) continue;
+    const float inv = keep_scale / l[i];
+    float* orow = head_of(o, so, b, h) + row * so.r;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      orow[8 * j + 2 * t4] = acc[j][2 * i] * inv;
+      orow[8 * j + 2 * t4 + 1] = acc[j][2 * i + 1] * inv;
+    }
+    if (t4 == 0)
+      lse[static_cast<size_t>(bh) * S + row] = m[i] * kLn2 + logf(l[i]);
+  }
+}
+
+// Per 64-row q-tile: delta = rowsum(dO * O) (also written out), then dq
+// over all k-tiles; warp w owns query rows 16w..16w+15 of the tile.
+template <typename T, int D>
+__global__ void __launch_bounds__(kMmaThreads, kTf32Blocks<D>)
+    attn_bwd_dq_tf32x3(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, BiasView bv,
+                       const long long* __restrict__ seed,
+                       const T* __restrict__ o, const T* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       float* __restrict__ delta, T* __restrict__ dq,
+                       Strides sq, Strides sk, Strides sv, Strides so,
+                       Strides sdo, Strides sdq, int H, int S, float scale,
+                       float p_drop, float keep_scale) {
+  static_assert(std::is_same<T, float>::value, "3xTF32 takes fp32");
+  constexpr int LDS = kTf32LDS<D>, TS = kB * LDS;
+  extern __shared__ __align__(16) unsigned char smem16[];
+  float* Qs = reinterpret_cast<float*>(smem16);
+  float* dOs = Qs + TS;
+  float* Ks = dOs + TS;                                // [2][kB][LDS]
+  float* Vs = Ks + 2 * TS;                             // [2][kB][LDS]
+  float* Ct = Vs + 2 * TS;                             // [2][kB] bias by column
+  float* Dr = Ct + 2 * kB;                             // [kB] delta of the rows
+  unsigned* Keep = reinterpret_cast<unsigned*>(Dr + kB);  // [2][kB][2]
+
+  const int q0 = blockIdx.x * kB, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h, tid = threadIdx.x, lane = tid & 31;
+  const int w = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const float* kh = head_of(k, sk, b, h);
+  const float* vh = head_of(v, sv, b, h);
+  const int nq = min(kB, S - q0);
+  load_tile_async<D>(Qs, head_of(q, sq, b, h) + q0 * sq.r, sq.r, nq);
+  load_tile_async<D>(dOs, head_of(dout, sdo, b, h) + q0 * sdo.r, sdo.r, nq);
+  load_tile_async<D>(Ks, kh, sk.r, min(kB, S));
+  load_tile_async<D>(Vs, vh, sv.r, min(kB, S));
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  {  // two threads per row, lanes 2r and 2r + 1 of one warp
+    const int r = tid >> 1, part = tid & 1;
+    float acc = 0.f;
+    if (r < nq) {
+      const float* orow = head_of(o, so, b, h) + (q0 + r) * so.r;
+      for (int e = part; e < D; e += 2)
+        acc = fmaf(dOs[r * LDS + e], orow[e], acc);
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (part == 0) {
+      Dr[r] = acc;
+      if (r < nq) delta[static_cast<size_t>(bh) * S + q0 + r] = acc;
+    }
+  }
+  const bool drop = p_drop > 0.f;
+  const uint2 key = drop ? seed_key(seed) : make_uint2(0, 0);
+  const bool rowwise = bv.ptr && bv.sr != 0;
+  const float* bcast = rowwise ? nullptr : bias_row(bv, b, h, 0);
+  __syncthreads();  // Dr
+  int rl[2];        // the thread's two tile rows
+  float lse_r[2], delta_r[2];
+  const float* brow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rl[i] = 16 * w + g + 8 * i;
+    const int row = q0 + rl[i];
+    lse_r[i] = row < S ? lse[static_cast<size_t>(bh) * S + row] : 0.f;
+    delta_r[i] = Dr[rl[i]];
+    brow[i] = rowwise ? bias_row(bv, b, h, min(row, S - 1)) : nullptr;
+  }
+  const float* Qw = Qs + 16 * w * LDS;  // the warp's 16 query rows
+  const float* dOw = dOs + 16 * w * LDS;
+  float acc[D / 8][4] = {};
+
+  for (int k0 = 0; k0 < S; k0 += kB) {
+    const int buf = (k0 / kB) & 1;
+    const float* Kt = Ks + buf * TS;
+    const float* Vt = Vs + buf * TS;
+    float* ct = Ct + buf * kB;
+    unsigned* const keep = Keep + buf * 2 * kB;
+    if (tid < kB) ct[tid] = bias_term(bcast, k0 + tid, S);
+    if (drop) keep_bits(key, q0, k0, bh, p_drop, keep);
+    cp_async_wait_all();
+    __syncthreads();  // tile k0 has landed; tile k0 - kB is consumed
+    if (k0 + kB < S) {  // the next tile's copies overlap this tile's math
+      const int nk = min(kB, S - k0 - kB);
+      load_tile_async<D>(Ks + (buf ^ 1) * TS, kh + (k0 + kB) * sk.r, sk.r,
+                         nk);
+      load_tile_async<D>(Vs + (buf ^ 1) * TS, vh + (k0 + kB) * sv.r, sv.r,
+                         nk);
+      cp_async_commit();
+    }
+    // S = Q . K^T and dP = dO . V^T, 16 x 64 per warp
+    float s[kB / 8][4] = {}, dp[kB / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 8) {
+      unsigned qa_hi[4], qa_lo[4], da_hi[4], da_lo[4];
+      a_frag<LDS>(qa_hi, qa_lo, Qw + kk, g, t4);
+      a_frag<LDS>(da_hi, da_lo, dOw + kk, g, t4);
+#pragma unroll
+      for (int n = 0; n < kB; n += 8) {
+        unsigned b_hi[2], b_lo[2];
+        bt_frag<LDS>(b_hi, b_lo, Kt + n * LDS + kk, g, t4);
+        mma3(s[n / 8], qa_hi, qa_lo, b_hi, b_lo);
+        bt_frag<LDS>(b_hi, b_lo, Vt + n * LDS + kk, g, t4);
+        mma3(dp[n / 8], da_hi, da_lo, b_hi, b_lo);
+      }
+    }
+    // dS = P * (dP * keep * keep_scale - delta), in place of S, fp32
+    unsigned kw[2][2] = {};
+    if (drop) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          kw[i][half] = keep[2 * rl[i] + half];
+    }
+#pragma unroll
+    for (int j = 0; j < kB / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, c = 8 * j + 2 * t4 + (e & 1);
+        const float bias = rowwise ? bias_term(brow[i], k0 + c, S) : ct[c];
+        const float p = q0 + rl[i] < S
+            ? expf(s[j][e] * scale + bias - lse_r[i]) : 0.f;
+        float d = dp[j][e];
+        if (drop) d = (kw[i][j >> 2] >> (c & 31)) & 1 ? d * keep_scale : 0.f;
+        s[j][e] = p * (d - delta_r[i]);
+      }
+    // dq += dS . K, the tile's from a zero accumulator, 8 keys a product
+    float part[D / 8][4] = {};
+#pragma unroll
+    for (int c = 0; c < kB; c += 8) {
+      unsigned a_hi[4], a_lo[4];
+      a_from_acc_tf32(a_hi, a_lo, s[c / 8]);
+#pragma unroll
+      for (int n = 0; n < D; n += 8) {
+        unsigned b_hi[2], b_lo[2];
+        b_frag_pairs<LDS>(b_hi, b_lo, Kt + c * LDS + n, g, t4);
+        mma3(part[n / 8], a_hi, a_lo, b_hi, b_lo);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + rl[i];
+    if (row >= S) continue;
+    float* drow = head_of(dq, sdq, b, h) + row * sdq.r;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      drow[8 * j + 2 * t4] = acc[j][2 * i] * scale;
+      drow[8 * j + 2 * t4 + 1] = acc[j][2 * i + 1] * scale;
+    }
+  }
+}
+
+// Per 64-key tile: dk, dv (and dbias) over all q-tiles; warp w owns keys
+// 16w..16w+15 of the tile and computes S^T = K . Q^T and dP^T = V . dO^T
+// over NC query columns at a time, so that P^T and dS^T land in the
+// accumulator layout, the A operand of dV += P^T . dO and
+// dK += dS^T . Q.
+template <typename T, int D>
+__global__ void __launch_bounds__(kMmaThreads, kTf32Blocks<D>)
+    attn_bwd_dkdv_tf32x3(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, BiasView bv,
+                         const long long* __restrict__ seed,
+                         const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, T* __restrict__ dk,
+                         T* __restrict__ dv, DBias db, Strides sq,
+                         Strides sk, Strides sv, Strides sdo, Strides sdk,
+                         Strides sdv, int H, int S, float scale,
+                         float p_drop, float keep_scale) {
+  static_assert(std::is_same<T, float>::value, "3xTF32 takes fp32");
+  constexpr int LDS = kTf32LDS<D>, TS = kB * LDS, NC = kTf32DkdvCols<D>;
+  extern __shared__ __align__(16) unsigned char smem16[];
+  float* Ks = reinterpret_cast<float*>(smem16);
+  float* Vs = Ks + TS;
+  float* Qs = Vs + TS;                                 // [2][kB][LDS]
+  float* dOs = Qs + 2 * TS;                            // [2][kB][LDS]
+  float* Lr = dOs + 2 * TS;                            // [2][kB] lse
+  float* Dr = Lr + 2 * kB;                             // [2][kB] delta
+  unsigned* Keep = reinterpret_cast<unsigned*>(Dr + 2 * kB);  // [2][kB][2]
+
+  const int k0 = blockIdx.x * kB, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h, tid = threadIdx.x, lane = tid & 31;
+  const int w = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const int nk = min(kB, S - k0);
+  // q-tile q0 (its Q, dO, lse and delta rows) into buffer buf
+  auto load_q_tile = [&](int q0, int buf) {
+    const int nq = min(kB, S - q0), bb = late(b, q0), hh = late(h, q0);
+    load_tile_async<D>(Qs + buf * TS, head_of(q, sq, bb, hh) + q0 * sq.r,
+                       sq.r, nq);
+    load_tile_async<D>(dOs + buf * TS,
+                       head_of(dout, sdo, bb, hh) + q0 * sdo.r, sdo.r, nq);
+    if (tid < kB) {
+      const bool live = tid < nq;
+      const size_t at = static_cast<size_t>(bh) * S + q0 + (live ? tid : 0);
+      cp_async4(Lr + buf * kB + tid, lse + at, live);
+      cp_async4(Dr + buf * kB + tid, delta + at, live);
+    }
+    cp_async_commit();
+  };
+  load_tile_async<D>(Ks, head_of(k, sk, b, h) + k0 * sk.r, sk.r, nk);
+  load_tile_async<D>(Vs, head_of(v, sv, b, h) + k0 * sv.r, sv.r, nk);
+  load_q_tile(0, 0);
+  const bool drop = p_drop > 0.f;
+  const bool acc_heads = db.ptr && db.heads == 1 && H > 1;
+  const bool reduce_rows = db.ptr && db.rows == 1;
+  const bool rowwise = bv.ptr && bv.sr != 0;  // a bias row per query
+  const int key0 = k0 + 16 * w + g;  // the thread's keys: key0, key0 + 8
+  float colsum[2] = {0.f, 0.f};
+  const float* Kw = Ks + 16 * w * LDS;  // the warp's 16 keys
+  const float* Vw = Vs + 16 * w * LDS;
+  float adk[D / 8][4] = {}, adv[D / 8][4] = {};
+
+  for (int q0 = 0; q0 < S; q0 += kB) {
+    const int buf = (q0 / kB) & 1;
+    const float* Qt = Qs + buf * TS;
+    const float* dOt = dOs + buf * TS;
+    const float* lt = Lr + buf * kB;
+    const float* dt = Dr + buf * kB;
+    unsigned* const keep = Keep + buf * 2 * kB;
+    if (drop) keep_bits(seed_key(seed), q0, k0, bh, p_drop, keep);
+    cp_async_wait_all();
+    __syncthreads();  // tile q0 has landed; tile q0 - kB is consumed
+    if (q0 + kB < S) load_q_tile(q0 + kB, buf ^ 1);
+    // the tile's dk and dv, from zero accumulators
+    float pdk[D / 8][4] = {}, pdv[D / 8][4] = {};
+#pragma unroll 1  // one chunk's fragments live at a time
+    for (int c0 = 0; c0 < kB; c0 += NC) {
+      // S^T = K . Q^T and dP^T = V . dO^T, 16 keys x NC queries per warp
+      float s[NC / 8][4] = {}, dp[NC / 8][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < D; kk += 8) {
+        unsigned ka_hi[4], ka_lo[4], va_hi[4], va_lo[4];
+        a_frag<LDS>(ka_hi, ka_lo, Kw + kk, g, t4);
+        a_frag<LDS>(va_hi, va_lo, Vw + kk, g, t4);
+#pragma unroll
+        for (int n = 0; n < NC; n += 8) {
+          unsigned b_hi[2], b_lo[2];
+          bt_frag<LDS>(b_hi, b_lo, Qt + (c0 + n) * LDS + kk, g, t4);
+          mma3(s[n / 8], ka_hi, ka_lo, b_hi, b_lo);
+          bt_frag<LDS>(b_hi, b_lo, dOt + (c0 + n) * LDS + kk, g, t4);
+          mma3(dp[n / 8], va_hi, va_lo, b_hi, b_lo);
+        }
+      }
+      // P^T (dropped) in place of S^T, dS^T in place of dP^T, fp32; dbias
+      // from the fp32 dS, its addresses formed here from late() copies
+      const int bb = late(b, c0), hh = late(h, c0);
+      const float* brow0 = bias_row(bv, bb, hh, 0);
+      // a row-broadcast bias at the thread's two keys, read before any
+      // dbias store (which the compiler must assume may alias it)
+      const float bkey[2] = {bias_term(brow0, key0, S),
+                             bias_term(brow0, key0 + 8, S)};
+      float* db_base =
+          db.ptr ? db.ptr + (static_cast<size_t>(bb) * db.heads +
+                             (db.heads == 1 ? 0 : hh)) * db.rows * S
+                 : nullptr;
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, c = c0 + 8 * j + 2 * t4 + (e & 1);
+          const int row = q0 + c, key = key0 + 8 * i;
+          const float bias = rowwise
+              ? bias_term(brow0 + min(row, S - 1) * bv.sr, key, S)
+              : bkey[i];
+          const float p = row < S
+              ? expf(s[j][e] * scale + bias - lt[c]) : 0.f;
+          float pd = p, d = dp[j][e];
+          if (drop) {
+            const bool kept = (keep[2 * c + (w >> 1)] >> (key & 31)) & 1;
+            pd = kept ? p * keep_scale : 0.f;
+            d = kept ? d * keep_scale : 0.f;
+          }
+          const float ds = p * (d - dt[c]);
+          if (db.ptr && row < S && key < S) {
+            if (reduce_rows) {
+              colsum[i] += ds;
+            } else if (acc_heads) {
+              atomicAdd(db_base + static_cast<size_t>(row) * S + key, ds);
+            } else {
+              db_base[static_cast<size_t>(row) * S + key] = ds;
+            }
+          }
+          s[j][e] = pd;
+          dp[j][e] = ds;
+        }
+      // dV += P^T . dO and dK += dS^T . Q, 8 queries a product
+#pragma unroll
+      for (int c = 0; c < NC; c += 8) {
+        unsigned pa_hi[4], pa_lo[4], sa_hi[4], sa_lo[4];
+        a_from_acc_tf32(pa_hi, pa_lo, s[c / 8]);
+        a_from_acc_tf32(sa_hi, sa_lo, dp[c / 8]);
+#pragma unroll
+        for (int n = 0; n < D; n += 8) {
+          unsigned b_hi[2], b_lo[2];
+          b_frag_pairs<LDS>(b_hi, b_lo, dOt + (c0 + c) * LDS + n, g, t4);
+          mma3(pdv[n / 8], pa_hi, pa_lo, b_hi, b_lo);
+          b_frag_pairs<LDS>(b_hi, b_lo, Qt + (c0 + c) * LDS + n, g, t4);
+          mma3(pdk[n / 8], sa_hi, sa_lo, b_hi, b_lo);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        adk[j][e] += pdk[j][e];
+        adv[j][e] += pdv[j][e];
+      }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 8 * i;
+    if (key >= S) continue;
+    float* dkrow = head_of(dk, sdk, b, h) + key * sdk.r;
+    float* dvrow = head_of(dv, sdv, b, h) + key * sdv.r;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      dkrow[8 * j + 2 * t4] = adk[j][2 * i] * scale;
+      dkrow[8 * j + 2 * t4 + 1] = adk[j][2 * i + 1] * scale;
+      dvrow[8 * j + 2 * t4] = adv[j][2 * i];
+      dvrow[8 * j + 2 * t4 + 1] = adv[j][2 * i + 1];
+    }
+  }
+  if (reduce_rows) {  // over the four lanes that share a key, fixed order
+    float* db_base = db.ptr + (static_cast<size_t>(b) * db.heads +
+                               (db.heads == 1 ? 0 : h)) * S;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      colsum[i] += __shfl_xor_sync(0xffffffffu, colsum[i], 1);
+      colsum[i] += __shfl_xor_sync(0xffffffffu, colsum[i], 2);
+      const int key = key0 + 8 * i;
+      if (t4 == 0 && key < S) {
+        if (acc_heads)
+          atomicAdd(db_base + key, colsum[i]);
+        else
+          db_base[key] = colsum[i];
+      }
+    }
+  }
+}
+
 template <int D>
 constexpr size_t smem_fwd() { return sizeof(float) * (3 * kB * (D + 1) + kB * kLP); }
 template <int D>
@@ -1501,6 +2578,30 @@ template <int D>
 constexpr size_t smem_fwd_mma() {
   return sizeof(bf16) * 5 * kB * kLDS<D> + sizeof(float) * 2 * kB +
          sizeof(unsigned) * 4 * kB;
+}
+
+// the 3xTF32 kernels' (fp32 tiles)
+template <int D>
+constexpr size_t smem_fwd_tf32() {
+  return sizeof(float) * (5 * kB * kTf32LDS<D> + 2 * kB) +
+         sizeof(unsigned) * 4 * kB;
+}
+template <int D>
+constexpr size_t smem_dq_tf32() {
+  return sizeof(float) * (6 * kB * kTf32LDS<D> + 3 * kB) +
+         sizeof(unsigned) * 4 * kB;
+}
+template <int D>
+constexpr size_t smem_dkdv_tf32() {
+  return sizeof(float) * (6 * kB * kTf32LDS<D> + 4 * kB) +
+         sizeof(unsigned) * 4 * kB;
+}
+
+// the kernels past d 256 (the same at every d)
+constexpr size_t smem_wide(int which) {
+  return sizeof(float) * (which == 0 ? 3 * kB * kLC + kB * kLP
+                          : which == 1 ? 4 * kB * kLC + kB * kLP + 2 * kB
+                                       : 4 * kB * kLC + 2 * kB * kLP + 2 * kB);
 }
 
 template <typename K>
@@ -1586,17 +2687,116 @@ int run_fwd_simt(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int D>
+int run_fwd_tf32(const Args& a) {
+  auto kernel = attn_fwd_tf32x3<T, D>;
+  if (int e = set_smem(kernel, smem_fwd_tf32<D>())) return e;
+  const dim3 grid((a.S + kB - 1) / kB, a.H, a.B);
+  kernel<<<grid, kMmaThreads, smem_fwd_tf32<D>(), a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v),
+      BiasView{static_cast<const float*>(a.bias), a.sb, a.sh, a.sr},
+      static_cast<const long long*>(a.seed), static_cast<T*>(a.out),
+      static_cast<float*>(a.lse_out), a.sq, a.sk, a.sv, a.so, a.H, a.S,
+      a.scale, a.p_drop, a.keep_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int run_dq_tf32(const Args& a) {
+  auto kernel = attn_bwd_dq_tf32x3<T, D>;
+  if (int e = set_smem(kernel, smem_dq_tf32<D>())) return e;
+  const dim3 grid((a.S + kB - 1) / kB, a.H, a.B);
+  kernel<<<grid, kMmaThreads, smem_dq_tf32<D>(), a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v),
+      BiasView{static_cast<const float*>(a.bias), a.sb, a.sh, a.sr},
+      static_cast<const long long*>(a.seed), static_cast<const T*>(a.o),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<float*>(a.delta), static_cast<T*>(a.dq), a.sq, a.sk,
+      a.sv, a.so, a.sdo, a.sdq, a.H, a.S, a.scale, a.p_drop, a.keep_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int run_dkdv_tf32(const Args& a) {
+  auto kernel = attn_bwd_dkdv_tf32x3<T, D>;
+  if (int e = set_smem(kernel, smem_dkdv_tf32<D>())) return e;
+  const dim3 grid((a.S + kB - 1) / kB, a.H, a.B);
+  kernel<<<grid, kMmaThreads, smem_dkdv_tf32<D>(), a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v),
+      BiasView{static_cast<const float*>(a.bias), a.sb, a.sh, a.sr},
+      static_cast<const long long*>(a.seed), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+      DBias{static_cast<float*>(a.dbias), a.dbias_heads, a.dbias_rows},
+      a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.H, a.S, a.scale, a.p_drop,
+      a.keep_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// past d 256: kernel ``which`` on d / kDC column chunks a tile
+template <typename T>
+int run_wide(int which, const Args& a) {
+  const dim3 grid((a.S + kB - 1) / kB * (a.d / kDC), a.H, a.B);
+  const size_t smem = smem_wide(which);
+  const BiasView bv{static_cast<const float*>(a.bias), a.sb, a.sh, a.sr};
+  const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
+          *v = static_cast<const T*>(a.v);
+  const long long* seed = static_cast<const long long*>(a.seed);
+  if (which == 0) {
+    auto kernel = attn_fwd_wide<T>;
+    if (int e = set_smem(kernel, smem)) return e;
+    kernel<<<grid, kThreads, smem, a.stream>>>(
+        q, k, v, bv, seed, static_cast<T*>(a.out),
+        static_cast<float*>(a.lse_out), a.sq, a.sk, a.sv, a.so, a.H, a.S,
+        a.d, a.scale, a.p_drop, a.keep_scale);
+  } else if (which == 1) {
+    auto kernel = attn_bwd_dq_wide<T>;
+    if (int e = set_smem(kernel, smem)) return e;
+    kernel<<<grid, kThreads, smem, a.stream>>>(
+        q, k, v, bv, seed, static_cast<const T*>(a.o),
+        static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<float*>(a.delta), static_cast<T*>(a.dq), a.sq, a.sk,
+        a.sv, a.so, a.sdo, a.sdq, a.H, a.S, a.d, a.scale, a.p_drop,
+        a.keep_scale);
+  } else {
+    auto kernel = attn_bwd_dkdv_wide<T>;
+    if (int e = set_smem(kernel, smem)) return e;
+    kernel<<<grid, kThreads, smem, a.stream>>>(
+        q, k, v, bv, seed, static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+        DBias{static_cast<float*>(a.dbias), a.dbias_heads, a.dbias_rows},
+        a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.H, a.S, a.d, a.scale,
+        a.p_drop, a.keep_scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// whether fp32 operands at head width D take the 3xTF32 forward, and the
+// 3xTF32 backward
+template <typename T, int D>
+constexpr bool kOnTf32 = std::is_same<T, float>::value && D <= kTf32MaxD;
+template <typename T, int D>
+constexpr bool kOnTf32Bwd = kOnTf32<T, D> && D <= kTf32BwdMaxD;
+
 // whether kernel ``which`` (0 forward, 1 dq, 2 dk/dv) runs on the tensor
 // cores for operands of T at head width D
 template <typename T, int D>
 constexpr bool kOnTensorCores(int which) {
-  return kHalf16<T> && (which != 0 || D <= kMmaFwdMaxD);
+  return which == 0 ? kOnTf32<T, D> || (kHalf16<T> && D <= kMmaFwdMaxD)
+                    : kOnTf32Bwd<T, D> || kHalf16<T>;
 }
 
-// the forward: bf16 and fp16 on the tensor cores up to d 128, else SIMT
+// the forward: fp32 up to d 128 as 3xTF32, bf16 and fp16 on the tensor
+// cores up to d 128, else SIMT
 template <typename T, int D>
 int run_fwd(const Args& a) {
-  if constexpr (kOnTensorCores<T, D>(0)) {
+  if constexpr (kOnTf32<T, D>) {
+    return run_fwd_tf32<T, D>(a);
+  } else if constexpr (kOnTensorCores<T, D>(0)) {
     return run_fwd_mma<T, D>(a);
   } else {
     return run_fwd_simt<T, D>(a);
@@ -1639,11 +2839,14 @@ int run_dkdv_simt(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the backward: bf16 and fp16 on the tensor cores, fp32 on the SIMT kernels
+// the backward: bf16 and fp16 on the tensor cores, fp32 as 3xTF32 up to
+// d 64 and on the SIMT kernels at d 128 and 256
 template <typename T, int D>
 int run_dq(const Args& a) {
   if constexpr (kHalf16<T>) {
     return run_dq_mma<T, D>(a);
+  } else if constexpr (kOnTf32Bwd<T, D>) {
+    return run_dq_tf32<T, D>(a);
   } else {
     return run_dq_simt<D>(a);
   }
@@ -1653,13 +2856,18 @@ template <typename T, int D>
 int run_dkdv(const Args& a) {
   if constexpr (kHalf16<T>) {
     return run_dkdv_mma<T, D>(a);
+  } else if constexpr (kOnTf32Bwd<T, D>) {
+    return run_dkdv_tf32<T, D>(a);
   } else {
     return run_dkdv_simt<D>(a);
   }
 }
 
+// whether d is taken by the kernels past 256
+inline bool wide(int d) { return d > 256 && d % kDC == 0; }
+
 // which: 0 forward, 1 dq (+ delta), 2 dk/dv (+ dbias); head width d in
-// {16, 32, 64, 128, 256}
+// {16, 32, 64, 128, 256} or a multiple of kDC past 256
 template <typename T>
 int dispatch(int which, const Args& a) {
   if (a.B < 1 || a.H < 1 || a.S < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -1672,33 +2880,40 @@ int dispatch(int which, const Args& a) {
     case 64: PT_RUN(64);
     case 128: PT_RUN(128);
     case 256: PT_RUN(256);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      return wide(a.d) ? run_wide<T>(which, a)
+                       : static_cast<int>(cudaErrorInvalidValue);
   }
 #undef PT_RUN
 }
 
-// dynamic shared memory a block of kernel ``which`` takes
+// dynamic shared memory a block of kernel ``which`` takes at head width D
+template <typename T, int D>
+size_t smem_at(int which) {
+  if (!kOnTensorCores<T, D>(which))
+    return which == 0 ? smem_fwd<D>()
+         : which == 1 ? smem_dq<D>() : smem_dkdv<D>();
+  if (std::is_same<T, float>::value)
+    return which == 0 ? smem_fwd_tf32<D>()
+         : which == 1 ? smem_dq_tf32<D>() : smem_dkdv_tf32<D>();
+  return which == 0 ? smem_fwd_mma<D>()
+       : which == 1 ? smem_dq_mma<D>() : smem_dkdv_mma<D>();
+}
+
 template <typename T>
 size_t smem_of(int which, int d) {
-#define PT_SMEM(D)                                                       \
-  if (!kOnTensorCores<T, D>(which))                                     \
-    return which == 0 ? smem_fwd<D>()                                   \
-         : which == 1 ? smem_dq<D>() : smem_dkdv<D>();                  \
-  return which == 0 ? smem_fwd_mma<D>()                                 \
-       : which == 1 ? smem_dq_mma<D>() : smem_dkdv_mma<D>()
   switch (d) {
-    case 16: PT_SMEM(16);
-    case 32: PT_SMEM(32);
-    case 64: PT_SMEM(64);
-    case 128: PT_SMEM(128);
-    case 256: PT_SMEM(256);
-    default: return 0;
+    case 16: return smem_at<T, 16>(which);
+    case 32: return smem_at<T, 32>(which);
+    case 64: return smem_at<T, 64>(which);
+    case 128: return smem_at<T, 128>(which);
+    case 256: return smem_at<T, 256>(which);
+    default: return wide(d) ? smem_wide(which) : 0;
   }
-#undef PT_SMEM
 }
 
 // whether kernel ``which`` runs on the tensor cores for the type code
-// ``type`` at head width d (false for a width not built)
+// ``type`` at head width d (false for a width not built, and past 256)
 template <typename T>
 bool tensor_cores_of(int which, int d) {
   switch (d) {
@@ -1811,8 +3026,8 @@ long long pt_fused_attention_smem(int which, int type, int d) {
 }
 
 // 1 when the forward (which 0), dq (1) or dk/dv (2) kernel runs on the
-// tensor cores (attn_fwd_mma, attn_bwd_dq_mma, attn_bwd_dkdv_mma) for the
-// type code ``type`` at head width d, else 0 (the SIMT kernels)
+// tensor cores (attn_*_tf32x3 in fp32, attn_*_mma in bf16 and fp16) for
+// the type code ``type`` at head width d, else 0 (the SIMT kernels)
 int pt_fused_attention_tensor_cores(int which, int type, int d) {
   return type == 0 ? tensor_cores_of<float>(which, d)
                    : tensor_cores_of<bf16>(which, d);

@@ -6,11 +6,12 @@ with their source, checked on the CPU:
   text it replaces occurs the stated number of times), so an edit of the
   kernels that would leave one unplanted fails here, not after a chip
   run; and each fault reaches the routes it is meant for (the SIMT
-  kernels, the tensor-core forward and the tensor-core backward);
-* the wrappers' row-alignment rule (``_rows``): a 16-bit operand whose
-  rows do not all start on a 16-byte boundary, which the tensor-core
-  kernels copy with 16-byte ``cp.async``, is copied contiguous, and no
-  other operand is.
+  kernels, the 16-bit tensor-core forward and backward, the fp32
+  3xTF32 kernels and the kernels past d 256);
+* the wrappers' row-alignment rule (``_rows``): an operand whose rows
+  do not all start on a 16-byte boundary and which the tensor-core
+  kernels copy with 16-byte ``cp.async`` (16-bit at every d, fp32 up to
+  d 128) is copied contiguous, and no other operand is.
 """
 
 import importlib.util
@@ -58,6 +59,9 @@ def test_fault_plants_into_current_source(tmp_path, fault):
 SIMT = ("attn_fwd", "attn_bwd_dq", "attn_bwd_dkdv")
 MMA_FORWARD = ("attn_fwd_mma",)
 MMA_BACKWARD = ("attn_bwd_dq_mma", "attn_bwd_dkdv_mma")
+TF32 = ("attn_fwd_tf32x3", "attn_bwd_dq_tf32x3", "attn_bwd_dkdv_tf32x3")
+WIDE = ("attn_fwd_wide", "attn_bwd_dq_wide", "attn_bwd_dkdv_wide")
+ROUTES = (SIMT, MMA_FORWARD, MMA_BACKWARD, TF32, WIDE)
 
 
 def _functions(text):
@@ -91,36 +95,42 @@ def _reached(text, spans, kernel):
 
 
 def test_every_fault_reaches_both_backward_routes():
-    """Each fault but the transposed K and V changes a line that the SIMT
-    kernels run, one that the tensor-core forward runs and one that the
-    tensor-core backward runs (in the kernel or in a function it calls);
-    k_not_transposed reaches the tensor-core dq kernel alone,
-    v_not_transposed the tensor-core forward alone. The variants reach
-    the tensor-core forward alone (forward_simt its route's width limit,
-    defined beside it)."""
+    """Each of the four faults of every route changes a line that each
+    route runs (in the kernel or in a function it calls): the SIMT
+    kernels, the 16-bit tensor-core forward and backward, the fp32
+    3xTF32 kernels and the kernels past d 256. k_not_transposed reaches
+    the 16-bit dq kernel alone, v_not_transposed the 16-bit forward
+    alone, tf32x1 the 3xTF32 kernels alone. The variants reach the
+    16-bit forward alone (forward_simt its route's width limit, defined
+    beside it), the fp32 ones (fp32_simt, lo_rounded, q_split_each_tile,
+    dkdv_cols_64) the 3xTF32 kernels alone (their constants, likewise)."""
     with open(os.path.join(ROOT, FC.SOURCE)) as f:
         text = re.sub(r"//[^\n]*", lambda m: " " * len(m.group()), f.read())
     spans = _functions(text)
-    assert set(SIMT + MMA_FORWARD + MMA_BACKWARD) <= set(spans)
+    assert set(sum(ROUTES, ())) <= set(spans)
 
     def reaches(at, kernels):
         return any(a <= i < b for kernel in kernels
                    for a, b in _reached(text, spans, kernel) for i in at)
 
-    alone = {"k_not_transposed": [False, False, True],
-             "v_not_transposed": [False, True, False]}
+    tf32_alone = [False, False, False, True, False]
+    alone = {"k_not_transposed": [False, False, True, False, False],
+             "v_not_transposed": [False, True, False, False, False],
+             "tf32x1": tf32_alone, "fp32_simt": tf32_alone,
+             "lo_rounded": tf32_alone, "q_split_each_tile": tf32_alone,
+             "dkdv_cols_64": tf32_alone}
     for name, subs in FC.PLANTS.items():
         at = [i for old, _, _ in subs for i in _find_all(text, old)]
-        routes = [reaches(at, kernels)
-                  for kernels in (SIMT, MMA_FORWARD, MMA_BACKWARD)]
+        routes = [reaches(at, kernels) for kernels in ROUTES]
         if name == "sound":
             assert not at
         elif name in alone:
             assert routes == alone[name], (name, routes)
         elif name in FC.VARIANTS:
-            assert routes == [False, True, False], (name, routes)
+            assert routes == [False, True, False, False, False], (name,
+                                                                  routes)
         else:
-            assert routes == [True, True, True], (name, routes)
+            assert routes == [True] * 5, (name, routes)
 
 
 def _find_all(text, sub):
@@ -152,8 +162,13 @@ def _views():
         # a dimension of size 1 takes any stride
         ("odd_stride_of_size_one", one[..., :S * d].view(1, 1, S, d)
          .as_strided((1, 1, S, d), (3, 5, d, 1)), False),
+        # float32 up to d 128 runs on the 3xTF32 kernels' 16-byte copies
         ("float32_offset", torch.zeros(B * H * S * d + 1)[1:]
-         .view(B, H, S, d), False),
+         .view(B, H, S, d), True),
+        ("float32_offset_d256", torch.zeros(B * H * S * 256 + 1)[1:]
+         .view(B, H, S, 256), False),
+        ("float32_row_stride_d_plus_1", torch.zeros(B, H, S, d + 1)[..., :d],
+         True),
     ]
 
 
@@ -171,7 +186,8 @@ def test_rows_copies_exactly_the_misaligned_operands(name, t, copied):
 def test_backward_wrappers_refuse_a_misaligned_bf16_operand():
     """The dq and dk/dv wrappers check what ``_rows`` ensures: a
     bfloat16 operand whose rows are not 16-byte aligned is refused, one
-    that is passes, and float32 takes any row address."""
+    that is passes; float32 likewise up to d 128 (the 3xTF32 kernels'
+    16-byte copies), and at d 256 (the SIMT kernels) any row address."""
     B, H, S, d = 1, 2, 4, 16
     q = _bf16(B, H, S, d)
     bad = _bf16(B * H * S * d + 1)[1:].view(B, H, S, d)
@@ -180,4 +196,8 @@ def test_backward_wrappers_refuse_a_misaligned_bf16_operand():
     A._check_operand("k", A._rows(bad), q, aligned=True)
     A._check_operand("k", bad, q)
     f32 = torch.zeros(B * H * S * d + 1)[1:].view(B, H, S, d)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        A._check_operand("k", f32, f32, aligned=True)
+    A._check_operand("k", A._rows(f32), f32, aligned=True)
+    f32 = torch.zeros(B * H * S * 256 + 1)[1:].view(B, H, S, 256)
     A._check_operand("k", f32, f32, aligned=True)

@@ -97,12 +97,13 @@ def test_paged_kernel_matches_plain_and_dense(cuda_device):
 
 
 def test_kernel_wrapper_refuses_what_it_cannot_take(cuda_device):
-    """What the decode wrapper refuses (a row past 2048 bytes), and what
-    it used to refuse and now takes, matching the plain version: float16
-    rows, 192-byte rows (fp32 d 48: twelve 16-byte pieces on sixteen
-    lanes), a 24-byte row (fp32 d 6, copied element by element), a
-    1024-byte row (fp32 d 256: two pieces a lane) and a cache that starts
-    off a 16-byte boundary (element by element)."""
+    """What the decode wrapper refuses (a wrong length type, strided
+    caches, float64), and what it used to refuse and now takes, matching
+    the plain version: a 2052-byte row (fp32 d 513: two column chunks),
+    float16 rows, 192-byte rows (fp32 d 48: twelve 16-byte pieces on
+    sixteen lanes), a 24-byte row (fp32 d 6, copied element by element),
+    a 1024-byte row (fp32 d 256: two pieces a lane) and a cache that
+    starts off a 16-byte boundary (element by element)."""
     q = torch.zeros(1, 1, 1, 64, device=cuda_device)
     lens = torch.ones(1, dtype=torch.int32, device=cuda_device)
     with pytest.raises(TypeError, match="cache_len"):
@@ -113,10 +114,14 @@ def test_kernel_wrapper_refuses_what_it_cannot_take(cuda_device):
     with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
         A.decode_attention_kernel(q.double(), q.double(), q.double(), lens,
                                   1.0)
-    with pytest.raises(ValueError, match="1 to 2048 bytes"):
-        q513 = torch.zeros(1, 1, 1, 513, device=cuda_device)
-        A.decode_attention_kernel(q513, q513, q513, lens, 1.0)
     g = torch.Generator(device=cuda_device).manual_seed(48)
+    q513, k513 = (torch.randn(1, 1, n, 513, device=cuda_device, generator=g)
+                  for n in (1, 3))
+    lens3 = torch.full((1,), 3, dtype=torch.int32, device=cuda_device)
+    got = A.decode_attention_kernel(q513, k513, k513, lens3, 513 ** -0.5)
+    want = A._ref_attention_cache(q513, k513, k513, lens3, 513 ** -0.5)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 2e-5
     kc = torch.randn(80 * 64 + 1, device=cuda_device,
                      generator=g)[1:].view(1, 1, 80, 64)
     lens = torch.tensor([70], dtype=torch.int32, device=cuda_device)
@@ -142,8 +147,11 @@ def test_kernel_wrapper_refuses_what_it_cannot_take(cuda_device):
 # two: 16 bytes on one lane (bf16 d 8), 48 bytes on four (bf16 d 24:
 # three pieces), 192 bytes on sixteen (fp32 d 48, bf16 d 96: twelve
 # pieces), and float16; rows that are not a multiple of 16 bytes (fp32 d
-# 6, bf16 d 12, fp16 d 300: element-by-element copies) and rows past 512
-# bytes (fp32 d 192 and 512, bf16 d 512: 32 lanes of 2 or 4 pieces)
+# 6, bf16 d 12, fp16 d 300: element-by-element copies), rows past 512
+# bytes (fp32 d 192 and 512, bf16 d 512: 32 lanes of 2 or 4 pieces) and
+# rows past 2048 bytes, split across blocks in 2048-byte column chunks
+# (fp32 d 640 and bf16 d 1536: 2560 and 3072 bytes; fp32 d 641 and fp16
+# d 1300, copied element by element)
 @pytest.mark.parametrize("dtype,atol,d", [(torch.bfloat16, 2e-2, 8),
                                           (torch.bfloat16, 2e-2, 24),
                                           (torch.float32, 2e-5, 48),
@@ -154,7 +162,11 @@ def test_kernel_wrapper_refuses_what_it_cannot_take(cuda_device):
                                           (torch.float16, 2e-2, 300),
                                           (torch.float32, 2e-5, 192),
                                           (torch.float32, 2e-5, 512),
-                                          (torch.bfloat16, 2e-2, 512)])
+                                          (torch.bfloat16, 2e-2, 512),
+                                          (torch.float32, 2e-5, 640),
+                                          (torch.bfloat16, 2e-2, 1536),
+                                          (torch.float32, 2e-5, 641),
+                                          (torch.float16, 2e-2, 1300)])
 def test_decode_kernels_take_any_16_byte_row(cuda_device, dtype, atol, d):
     """The dense and paged kernels at row widths that are not a power of
     two of 16-byte pieces, against the plain version, over tails of 1
@@ -332,14 +344,19 @@ def test_fused_attention_dropout_on_card(cuda_device):
 
 
 def test_fused_attention_refuses_long_sequences(cuda_device):
-    """What the kernels still refuse past S 1024: a head width past 256.
-    The S 2048, d 48 call that was refused before the head widths were
-    padded, and the S 1040 call that was refused before the long and
-    flash tiers were ported, now run through the kernels and match the
-    plain version."""
-    q = torch.zeros(1, 1, 2048, 300, device=cuda_device)
-    with pytest.raises(ValueError, match="up to 256 .*got d = 300"):
-        A.fused_attention(q, q, q)
+    """Calls the kernels once refused past S 1024 now run through them
+    and match the plain version: S 2048 at d 300 (refused before the
+    widths past 256, zero-padded to 320 and split into five column
+    chunks), at d 48 (refused before the head widths were padded), and
+    S 1040 (refused before the long and flash tiers were ported)."""
+    g = torch.Generator(device=cuda_device).manual_seed(300)
+    q, k, v = (torch.randn(1, 1, 2048, 300, device=cuda_device, generator=g)
+               for _ in range(3))
+    got = A.fused_attention(q, k, v)
+    want = A._ref_fused_attention(q, k, v, None, 300 ** -0.5, 0.0, None)
+    torch.cuda.synchronize()
+    assert A.built_width(300) == 320 and A.column_chunks(300) == 5
+    assert (got - want).abs().max().item() <= 2e-5
     g = torch.Generator(device=cuda_device).manual_seed(2048)
     q, k, v = (torch.randn(1, 2, 2048, 48, device=cuda_device, generator=g)
                for _ in range(3))
@@ -640,7 +657,8 @@ def test_packed_entry_copies_nothing(cuda_device, monkeypatch):
                 if t is not None and t.shape == args[0].shape]
             return out
 
-        wrapper.launches = 0    # the launcher counts on the name it sees
+        # the launcher counts on the name it sees
+        wrapper.launches = wrapper.tensor_core_launches = 0
         monkeypatch.setattr(A, name, wrapper)
 
     for w in _FUSED_COUNTERS:
@@ -781,7 +799,7 @@ def test_bf16_backward_copies_only_the_misaligned_operand(cuda_device,
         seen["ptrs"] = [t.data_ptr() for t in args[:3]]
         return launch(*args, **kwargs)
 
-    spy.launches = 0
+    spy.launches = spy.tensor_core_launches = 0
     monkeypatch.setattr(A, "fused_attention_bwd_dq_kernel", spy)
     n0 = A.fused_attention_bwd_dkdv_kernel.launches
     leaves = [q.detach().requires_grad_(True)] + [
@@ -820,6 +838,10 @@ def test_bf16_backward_copies_only_the_misaligned_operand(cuda_device,
     (1, 2, 300, 256, (1, 2, 1, 300), 0.0, False),
     (2, 2, 130, 256, (2, 1, 1, 130), 0.1, True),
     (2, 3, 77, 200, (2, 3, 77, 77), 0.0, True),
+    # past 256: the outputs' columns in 64-column chunks, one block each
+    (2, 3, 150, 320, (2, 1, 1, 150), 0.1, False),
+    (1, 2, 130, 512, (1, 2, 130, 130), 0.0, False),
+    (2, 2, 100, 300, (2, 2, 1, 100), 0.1, True),
 ])
 def test_fused_attention_pads_other_head_widths(cuda_device, dtype, B, H, S,
                                                 d, bias_shape, p, packed):
@@ -940,6 +962,72 @@ def test_16bit_dropout_mask_bit_equal_forward_backward(cuda_device, dtype):
     torch.cuda.synchronize()
     assert torch.equal(o != 0, keep)
     assert torch.equal(dv.transpose(2, 3) != 0, keep)
+
+
+# The fp32 kernels on the tensor cores (3xTF32: attn_fwd_tf32x3,
+# attn_bwd_dq_tf32x3, attn_bwd_dkdv_tf32x3) against the plain version:
+# the bert path's shape, ragged S, every bias shape and none, d 16, 32,
+# 64 and 128 (there the 3xTF32 forward and the SIMT backward), dropout on
+# and off, held to chip_smoke.py's FUSED_ATOL (2e-5 of max(1, the plain
+# output's largest magnitude)).
+@pytest.mark.parametrize("B,H,S,d,bias_shape,p", [
+    (32, 12, 512, 64, (32, 1, 1, 512), 0.1),    # the bert path
+    (2, 3, 500, 64, (2, 3, 500, 500), 0.1),     # per-row, ragged S
+    (2, 3, 333, 16, (2, 1, 1, 333), 0.1),
+    (2, 3, 200, 32, (2, 3, 1, 200), 0.0),       # per-head
+    (1, 2, 300, 128, (1, 1, 300, 300), 0.1),    # head-broadcast rows
+    (2, 2, 130, 64, (1, 1, 1, 130), 0.1),       # batch-broadcast
+    (2, 2, 65, 128, None, 0.0),                 # no bias, one-key tail
+])
+def test_tf32x3_kernels_match_plain(cuda_device, B, H, S, d, bias_shape, p):
+    q, k, v, do, bias = _attn_inputs(cuda_device, torch.float32, B, H, S, d,
+                                     bias_shape, S * 3 + d)
+    seed = torch.tensor([S * 31 + d], dtype=torch.int64, device=cuda_device)
+    n0 = [(w.launches, w.tensor_core_launches) for w in _FUSED_COUNTERS]
+    got = _grads(lambda q_, k_, v_, b_: A.fused_attention(
+        q_, k_, v_, b_, dropout_prob=p, seed=seed), q, k, v, bias, do)
+    torch.cuda.synchronize()
+    on_tc = (True, d <= 64, d <= 64)
+    assert [(w.launches, w.tensor_core_launches)
+            for w in _FUSED_COUNTERS] == [(a + 1, b + tc) for (a, b), tc
+                                          in zip(n0, on_tc)]
+    want = _grads(lambda q_, k_, v_, b_: A._ref_fused_attention(
+        q_, k_, v_, b_, d ** -0.5, p, seed), q, k, v, bias, do)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
+        err = (a - b).abs().max().item()
+        limit = smoke.FUSED_ATOL[torch.float32] * max(
+            1.0, b.abs().max().item())
+        assert err <= limit, (name, err, limit)
+
+
+def test_fp32_dropout_mask_bit_equal_forward_backward(cuda_device):
+    """The 3xTF32 kernels' mask (d 64, S 128: two q-tiles and two
+    k-tiles), q = k = 0 so every weight is 1/S: with v one-hot on key
+    block t (v[64 t + c, c] = 1) the forward's o[r, c] is keep[r, 64 t +
+    c] / (S (1 - p)), and with dO one-hot on query block t the
+    backward's dv[key, c] is the dropped weight of query 64 t + c, so
+    both kernels' masks equal dropout_keep_mask bit for bit, over three
+    heads and two batch rows."""
+    B, H, S, d, p = 2, 3, 128, 64, 0.3
+    q = torch.zeros(B, H, S, d, device=cuda_device)
+    seed = torch.tensor([1717], dtype=torch.int64, device=cuda_device)
+    keep = A.dropout_keep_mask(B, H, S, p, seed)
+    cols = torch.arange(d, device=cuda_device)
+    assert all(A.on_tensor_cores(w, torch.float32, d) for w in range(3))
+    for t in range(S // d):
+        block = torch.zeros_like(q)
+        block[:, :, t * d + cols, cols] = 1
+        v = block.clone().requires_grad_(True)
+        o = A.fused_attention(q, q, v, dropout_prob=p, seed=seed)
+        (dv,) = torch.autograd.grad(o, v, block)
+        torch.cuda.synchronize()
+        want = keep[..., t * d:(t + 1) * d]
+        assert torch.equal(o != 0, want), t
+        torch.testing.assert_close(o, want.float() / (S * (1 - p)),
+                                   rtol=1e-6, atol=0)
+        assert torch.equal(dv.transpose(2, 3) != 0,
+                           keep[:, :, t * d:(t + 1) * d]), t
 
 
 def test_packed_amp_bert_tiny_step_on_card_matches_cpu(cuda_device):

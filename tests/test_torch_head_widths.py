@@ -2,17 +2,20 @@
 for, checked on the CPU.
 
 - Fused training attention: the kernels are built for d 16, 32, 64, 128
-  and 256; ``flash_attention`` and ``flash_attention_backward`` zero-pad
-  any other d up to 256 to the next of these (``padded_forward``,
+  and 256, and past 256 for every multiple of 64 (``built_width``);
+  ``flash_attention`` and ``flash_attention_backward`` zero-pad any
+  other d to the next of these (``padded_forward``,
   ``padded_backward``) and slice o, dq, dk and dv back. The padding
   functions drive the plain version here: plain on the padded operands
   against plain at the true d, forward (o, lse) and backward (dq, dk, dv,
   dbias), fp32 at rtol 1e-5 (atol 1e-6: the padded columns add exact
   zeros, so the two differ only in the order of the sums).
-- Decode: a key row of any width up to 2048 bytes is covered by its
-  16-byte pieces (the row rounded up to 16 bytes), rounded up to a power
-  of two of lanes, with 2 or 4 pieces a lane past 512 bytes
-  (``decode_lanes``, the rule of ``csrc/decode_attention.cu``).
+- Decode: a key row of any width is covered by its 16-byte pieces (the
+  row rounded up to 16 bytes), rounded up to a power of two of lanes,
+  with 2 or 4 pieces a lane past 512 bytes, and past 2048 bytes by 32
+  lanes of 4 pieces on each 2048-byte chunk of its columns, one block a
+  chunk (``decode_lanes``, ``decode_chunks``: the rule of
+  ``csrc/decode_attention.cu``); a row of no bytes is refused.
 - A BERT program at d 48 (hidden 96, 2 heads), which the kernels take
   only through the padding, with ``use_fused_attention=True`` and
   ``"packed"``: its 10-step loss matches the reference's at rtol 1e-4
@@ -69,11 +72,16 @@ def test_padding_holds_plain_on_padded_to_plain(d, bias_shape, p):
 
 
 def test_built_widths_and_the_limit():
+    """Up to 256 the next of _HEAD_DIMS; past it (once a raise) the next
+    multiple of 64, its columns split into that many 64-column chunks,
+    one block each."""
     widths = [A.built_width(d) for d in range(1, 257)]
     assert widths == [16] * 16 + [32] * 16 + [64] * 32 + [128] * 64 + \
         [256] * 128
-    with pytest.raises(ValueError, match="up to 256 .*got d = 257"):
-        A.built_width(257)
+    assert [A.built_width(d) for d in (257, 300, 320, 321, 512, 1000)] == \
+        [320, 320, 320, 384, 512, 1024]
+    assert [A.column_chunks(d) for d in (16, 256, 257, 512, 1000)] == \
+        [1, 1, 5, 8, 16]
 
 
 def test_padding_leaves_a_built_width_as_it_is():
@@ -93,13 +101,14 @@ def test_padding_leaves_a_built_width_as_it_is():
     (128, (8, 1)), (192, (16, 1)), (256, (16, 1)), (384, (32, 1)),
     (512, (32, 1)), (8, (1, 1)), (24, (2, 1)), (100, (8, 1)),
     (528, (32, 2)), (768, (32, 2)), (1024, (32, 2)), (1040, (32, 4)),
-    (2048, (32, 4))])
+    (2048, (32, 4)), (2049, (32, 4)), (2560, (32, 4)), (3072, (32, 4)),
+    (4096, (32, 4))])
 def test_decode_lanes_round_up_to_a_power_of_two(row_bytes, lanes):
     assert A.decode_lanes(row_bytes) == lanes
+    assert A.decode_chunks(row_bytes) == -(-row_bytes // 2048)
 
 
-@pytest.mark.parametrize("row_bytes,match", [
-    (0, "1 to 2048"), (2049, "1 to 2048"), (4096, "1 to 2048")])
+@pytest.mark.parametrize("row_bytes,match", [(0, "1 byte or more")])
 def test_decode_lanes_refuse_other_rows(row_bytes, match):
     with pytest.raises(ValueError, match=match):
         A.decode_lanes(row_bytes)

@@ -3,13 +3,17 @@ package on the CPU, and the smoke run's multi-seed step check and the
 tensor-core forward's arithmetic, checked without a card.
 
 - Fused training attention at d 160 (zero-padded to the built width 256)
-  and d 256, forward and backward, per head and in the packed layout:
-  the port's plain version through its padding functions against the
-  JAX package's ``fused_attention`` / ``fused_attention_packed``, which
-  on the CPU take their own fallback (no Pallas tier is built for these
-  widths there). fp32, rtol 1e-5 and atol 1e-5: the same math summed in
-  another order.
-- Decode at fp32 d 6 (24-byte rows), fp32 d 192 (768 bytes) and bf16 d 12
+  and d 256, and past 256 at d 300 (zero-padded to 320), 320 and 512
+  (the kernels split the outputs' columns into 64-column chunks, one
+  block each: ``built_width``, ``column_chunks``), forward and backward,
+  per head and in the packed layout: the port's plain version through
+  its padding functions against the JAX package's ``fused_attention`` /
+  ``fused_attention_packed``, which on the CPU take their own fallback
+  (no Pallas tier is built for these widths there). fp32, rtol 1e-5 and
+  atol 1e-5: the same math summed in another order.
+- Decode at fp32 d 6 (24-byte rows), fp32 d 192 (768 bytes), bf16 d 12,
+  and past 2048 bytes fp32 d 640 (2560 bytes) and bf16 d 1536 (3072
+  bytes; the kernels split the output's columns into 2048-byte chunks)
   through ``attention_with_cache`` and ``paged_attention_cache``, on
   unpadded caches and on caches whose rows are padded to 16 bytes as the
   sessions allocate them, against the JAX package's (its plain
@@ -122,13 +126,82 @@ def test_wide_heads_packed_match_reference(reference_fallback, d):
                                    **TOL)
 
 
-def test_past_256_raises_with_its_own_message():
-    with pytest.raises(ValueError, match="up to 256 .*got d = 300"):
-        PA.built_width(300)
+def test_past_256_raises_with_its_own_message(reference_fallback):
+    """Past 256 the kernels once raised; d 300 now reaches them
+    zero-padded to 320 (five 64-column chunks), and the plain version
+    through the same padding matches the reference's fallback, forward
+    and gradients."""
+    assert (PA.built_width(300), PA.column_chunks(300)) == (320, 5)
+    _wide_heads_case(300, (2, 1, 1, 24), 24)
+
+
+def _wide_heads_case(d, bias_shape, S):
+    """The plain version through padded_forward / padded_backward at
+    head width d against the reference's fused_attention and its
+    gradients."""
+    rng = np.random.RandomState(d + bias_shape[1])
+    B, H = 2, 3
+    q, k, v, do = (rng.randn(B, H, S, d).astype(np.float32)
+                   for _ in range(4))
+    bias = rng.randn(*bias_shape).astype(np.float32)
+    bias[..., -4:] = -1e4
+
+    def jax_loss(q_, k_, v_, b_):
+        return jnp.sum(JA.fused_attention(q_, k_, v_, b_) * do)
+
+    want_out = np.asarray(JA.fused_attention(q, k, v, bias))
+    want_grads = jax.grad(jax_loss, argnums=(0, 1, 2, 3))(q, k, v, bias)
+    leaves = [torch.tensor(a, requires_grad=True) for a in (q, k, v, bias)]
+    o, lse = PA.padded_forward(PA._ref_flash_attention, *leaves, d ** -0.5,
+                               0.0, None)
+    grads = PA.padded_backward(PA._ref_flash_attention_backward, *leaves,
+                               None, torch.from_numpy(do), o, lse,
+                               d ** -0.5, 0.0, True)
+    np.testing.assert_allclose(o.detach().numpy(), want_out, **TOL)
+    for name, g, w in zip("q k v bias".split(), grads, want_grads):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                   err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("d", [320, 512])
+@pytest.mark.parametrize("bias_shape", [(2, 1, 1, 24), (2, 3, 24, 24)],
+                         ids=["padding_mask", "per_row"])
+def test_heads_past_256_match_reference(reference_fallback, d, bias_shape):
+    """Built widths past 256 (no padding: 5 and 8 column chunks)."""
+    assert PA.built_width(d) == d and PA.column_chunks(d) == d // 64
+    _wide_heads_case(d, bias_shape, 24)
+
+
+@pytest.mark.parametrize("d", [320, 512])
+def test_heads_past_256_packed_match_reference(reference_fallback, d):
+    rng = np.random.RandomState(d + 1)
+    B, S, H = 2, 20, 2
+    q, k, v, do = (rng.randn(B, S, H * d).astype(np.float32)
+                   for _ in range(4))
+    bias = np.zeros((B, 1, 1, S), np.float32)
+    bias[1, ..., 13:] = -1e4
+
+    def jax_loss(q_, k_, v_):
+        return jnp.sum(JA.fused_attention_packed(q_, k_, v_, bias,
+                                                 n_heads=H) * do)
+
+    want_out = np.asarray(JA.fused_attention_packed(q, k, v, bias,
+                                                    n_heads=H))
+    want_grads = jax.grad(jax_loss, argnums=(0, 1, 2))(q, k, v)
+    leaves = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    out = PA.fused_attention_packed(*leaves, torch.from_numpy(bias),
+                                    n_heads=H)
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), want_out, **TOL)
+    for name, g, w in zip("q k v".split(), grads, want_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   **TOL)
 
 
 # -- decode rows of any width ------------------------------------------------
-DECODE_CASES = [(np.float32, 6), (np.float32, 192), ("bfloat16", 12)]
+DECODE_CASES = [(np.float32, 6), (np.float32, 192), ("bfloat16", 12),
+                (np.float32, 640), ("bfloat16", 1536)]
 
 
 def _decode_tol(dtype):
@@ -146,7 +219,8 @@ def _as_jax(a, dtype):
 
 
 @pytest.mark.parametrize("dtype,d", DECODE_CASES,
-                         ids=["f32_d6", "f32_d192", "bf16_d12"])
+                         ids=["f32_d6", "f32_d192", "bf16_d12", "f32_d640",
+                              "bf16_d1536"])
 def test_decode_any_row_matches_reference(reference_fallback, dtype, d):
     """Dense and paged decode on unpadded caches and on caches padded to
     16-byte rows (the sessions' layout), against the JAX package."""

@@ -34,27 +34,19 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+from chip_smoke import kernel_times  # noqa: E402
 from paddle_tpu_torch import fluid  # noqa: E402
 from paddle_tpu_torch.models import bert  # noqa: E402
 
-# the fused-attention kernels (csrc/fused_attention.cu): the fp32 SIMT
-# forward and backward and the bf16/fp16 tensor-core forward and backward
+# the fused-attention kernels (csrc/fused_attention.cu): the SIMT
+# forward and backward (fp32 at d 256), the fp32 3xTF32 and the bf16/fp16
+# tensor-core forward and backward, and the kernels past d 256
 ATTENTION_KERNELS = ("attn_fwd", "attn_bwd_dq", "attn_bwd_dkdv",
-                     "attn_fwd_mma", "attn_bwd_dq_mma", "attn_bwd_dkdv_mma")
-
-
-def _device_kernels(prof):
-    """{kernel name: (device us, calls)} from a finished profile."""
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            out[e.key] = (us, e.count)
-    return out
+                     "attn_fwd_tf32x3", "attn_bwd_dq_tf32x3",
+                     "attn_bwd_dkdv_tf32x3",
+                     "attn_fwd_mma", "attn_bwd_dq_mma", "attn_bwd_dkdv_mma",
+                     "attn_fwd_wide", "attn_bwd_dq_wide",
+                     "attn_bwd_dkdv_wide")
 
 
 def main():
@@ -100,7 +92,7 @@ def main():
         for _ in range(args.steps):
             step()
         torch.cuda.synchronize()
-    kern = _device_kernels(prof)
+    kern = kernel_times(prof)
     rec = dict(phase="profile", path="bert", batch=args.batch,
                seq_len=args.seq, amp="bf16" if args.amp else None,
                attention="packed" if args.packed else "auto",
