@@ -17,7 +17,16 @@ the script exits non-zero without its final line:
              same function, and the least time the card could take. The
              times are device time: the host's launch overhead is kept
              out of the timed span. Decode attention: ragged capacity,
-             causal window, wrapped ring, paged; fp32 and bf16; untimed,
+             causal window (its bound counts V over the capacity for a
+             batch row with an empty window), wrapped ring, paged at the
+             serving path's shape, at its serving phase's short
+             lengths (33-96) and with one long slot (2 slots, 64
+             pages of 128, lengths 8192 and 3000) against the plain
+             version and the dense kernel on the gathered cache; fp32
+             and bf16; each timed case with the pieces its key axis
+             was cut into, blocks, shared memory a block, registers
+             (decode_attention.log), and the path and paged cases also
+             timed at other forced piece counts; untimed,
              dense and paged, key rows of 16 and 192 bytes (bf16 d 8,
              fp32 d 48, bf16 d 96), fp16, rows that are not a multiple
              of 16 bytes (fp32 d 6, bf16 d 12), rows past 512 bytes
@@ -196,17 +205,23 @@ def kernel_resources(_build, A):
     return out
 
 
-def time_ms(fn, flush):
+def time_ms(fn, flush, clean=False):
     """Median milliseconds of ``fn`` over REPS launches, each timed with
-    CUDA events after a write of 128 MiB that evicts the 50 MB L2. The
-    stream then spins for about a millisecond before the start event, so
-    the host has queued all of ``fn`` by the time it starts: the span is
-    device work, not the host's launch overhead."""
+    CUDA events after a write of 128 MiB that evicts the 50 MB L2 (with
+    ``clean``, a read of it: the L2 then holds no dirty lines whose
+    write-back ``fn`` would pay, as a decode step finds it, after
+    products that read far more than they write). The stream then spins
+    for about a millisecond before the start event, so the host has
+    queued all of ``fn`` by the time it starts: the span is device work,
+    not the host's launch overhead."""
     for _ in range(WARMUP):
         fn()
     times = []
     for _ in range(REPS):
-        flush.zero_()
+        if clean:
+            flush.max()
+        else:
+            flush.zero_()
         torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -247,28 +262,155 @@ def device_kernels(fn):
             } or "not measured"
 
 
-def bound(q, live_cols, extra_bytes):
+def bound(q, live_cols, extra_bytes, v_cols=None):
     """(bound_ms, bound_by) for decode attention of q [B, H, Q, d] over
     ``live_cols`` live key columns in total (summed over the batch):
-    bytes = q + live K and V rows + output + ``extra_bytes``; operations
-    = 4 d per (row, live column, head) (QK^T and PV) at the peak rate of
-    the input type."""
+    bytes = q + live K rows + V rows (``v_cols`` of them, else the live
+    ones) + output + ``extra_bytes``; operations = 4 d per (row, live
+    column, head) (QK^T and PV) at the peak rate of the input type."""
     B, H, Q, d = q.shape
     e = q.element_size()
-    nbytes = 2 * q.numel() * e + 2 * live_cols * H * d * e + extra_bytes
+    v_cols = live_cols if v_cols is None else v_cols
+    nbytes = 2 * q.numel() * e + (live_cols + v_cols) * H * d * e + \
+        extra_bytes
     ops = 4.0 * d * Q * H * live_cols
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[q.dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def dense_case(A, dev, gen, flush, name, B, H, Q, C, d, lens, dtype,
-               causal=False):
+DECODE_TYPES = {"f": torch.float32, "13__nv_bfloat16": torch.bfloat16,
+                "6__half": torch.float16}
+
+
+def decode_resources(_build):
+    """Registers and spills of each decode kernel as ptxas reported them
+    when this build compiled it (``-Xptxas -v``, kept in
+    ``_build/decode_attention.log``): {(dtype, lanes, slices a lane, q-rows
+    a block, "DenseKV" or "PagedKV"): {...}} for the split kernel,
+    {(dtype, "combine"): {...}} for the combine."""
+    with open(os.path.join(_build.BUILD_DIR, "decode_attention.log")) as f:
+        log = f.read()
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?decode_attention_"
+                      r"(kernel|combine)I(f|13__nv_bfloat16|6__half)"
+                      r"(?:Li(\d+)ELi(\d+)ELi(\d+)E\S*?(DenseKV|PagedKV))?",
+                      line)
+        if m:
+            dtype = DECODE_TYPES[m.group(2)]
+            cur = (dtype, "combine") if m.group(1) == "combine" else (
+                dtype, int(m.group(3)), int(m.group(4)), int(m.group(5)),
+                m.group(6))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(cur, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(cur, {})["registers"] = int(m.group(1))
+            cur = None
+    return out
+
+
+def decode_smem_bytes(A, dtype, d, Q, npages=0):
+    """(key columns a tile, dynamic shared memory a block) of the split
+    decode kernel for rows of ``d`` elements of ``dtype`` and Q q-rows,
+    with a page table of ``npages`` entries a slot (0: the dense cache),
+    as csrc/decode_attention.cu sizes them (``tile_rows``, ``rows_smem``:
+    a ring of 3 stages of at most 16 KB of K and V rows, which the row
+    groups' fp32 accumulators reuse, then their sums, the rows' maxima
+    and the page indices); for the records only."""
+    e = dtype.itemsize
+    lanes, per_lane = A.decode_lanes(d * e)
+    rows = A.decode_block_rows(Q, d * e)
+    dp = -(-d * e // 16) * 16 // e
+    tile = min(32, 16384 // (2 * 16 * lanes * per_lane))
+    groups = 128 // lanes
+    front = max(e * 3 * 2 * tile * dp, 4 * groups * dp)
+    return tile, front + 4 * (groups + rows * 4) + 4 * npages
+
+
+def decode_launch(A, resources, q, capacity, npages=0, longest=None):
+    """How a decode wrapper launches for q at ``capacity`` columns and
+    the host's ``longest``: the pieces (``decode_pieces``), the blocks of
+    the split kernel, its q-rows a block, key columns a tile and shared
+    memory a block, and the registers and spills of it and of the combine
+    (run when the pieces are more than one). Rows past 2048 bytes take
+    ``decode_attention_wide``, which these records do not cover."""
+    B, H, Q, d = q.shape
+    piece, splits = A.decode_pieces(B, H, Q, capacity, d, q.dtype,
+                                    A._sm_count(q.device), longest)
+    lanes, per_lane = A.decode_lanes(d * q.element_size())
+    rows = A.decode_block_rows(Q, d * q.element_size())
+    tile, smem = decode_smem_bytes(A, q.dtype, d, Q, npages)
+    key = (q.dtype, lanes, per_lane, rows,
+           "PagedKV" if npages else "DenseKV")
+    return dict(splits=splits, piece=piece,
+                blocks=splits * -(-Q // rows) * B * H,
+                block_rows=rows, tile_keys=tile, smem_bytes=smem,
+                kernel_resources=resources.get(key, "not in the log"),
+                combine_resources=resources.get((q.dtype, "combine"),
+                                                "not in the log")
+                if splits > 1 else None)
+
+
+def split_sweeps(A, fn, flush, capacity, counts):
+    """The rule's alternatives, timed beside its choice: {pieces: ms} of
+    ``fn(splits)`` at each forced count, after a write of the flush
+    buffer (``kernel_ms_by_splits``) and after a read of it
+    (``kernel_ms_by_splits_clean_l2``)."""
+    out = {}
+    for key, clean in (("kernel_ms_by_splits", False),
+                       ("kernel_ms_by_splits_clean_l2", True)):
+        times = out[key] = {}
+        for s in counts:
+            n = -(-capacity // A.decode_piece(capacity, s))
+            if n not in times:
+                times[n] = time_ms(lambda: fn(n), flush, clean)
+    return out
+
+
+def dense_inputs(dev, gen, B, H, Q, C, d, lens, dtype=torch.float32):
+    """q [B, H, Q, d], a ring cache k, v [B, H, C, d] and its lengths."""
     q, k, v = (torch.randn(*s, device=dev, generator=gen).to(dtype)
                for s in ((B, H, Q, d), (B, H, C, d), (B, H, C, d)))
-    cache_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+def paged_inputs(dev, gen, B, npages, pool_pages, lens):
+    """q [B, 16, 1, 64], pools of 128-token pages and tables for slots of
+    ``lens``: slots of length 1 keep their whole table on scratch page 0,
+    as idle slots do, the others take pages of a permuted pool."""
+    H, d, ptok = 16, 64, 128
+    k_pool, v_pool = (torch.randn(pool_pages, H, ptok, d, device=dev,
+                                  generator=gen) for _ in range(2))
+    q = torch.randn(B, H, 1, d, device=dev, generator=gen)
+    table = torch.zeros(B, npages, dtype=torch.int32, device=dev)
+    pages = (torch.randperm(pool_pages - 1, device=dev, generator=gen)
+             + 1).tolist()
+    for b, n in enumerate(lens):
+        if n > 1:
+            need = min(npages, -(-n // ptok))
+            table[b, :need] = torch.tensor(pages[:need], device=dev)
+            pages = pages[need:]
+    return q, k_pool, v_pool, table, torch.tensor(lens, dtype=torch.int32,
+                                                  device=dev)
+
+
+def dense_case(A, dev, gen, flush, name, B, H, Q, C, d, lens, dtype,
+               causal=False, timed=True, resources=None, sweep=()):
+    """The dense decode kernel against the plain version (and, timed,
+    beside SDPA and its bound); ``sweep`` times forced piece counts."""
+    q, k, v, cache_len = dense_inputs(dev, gen, B, H, Q, C, d, lens, dtype)
     scale = 1.0 / math.sqrt(d)
-    got = A.decode_attention_kernel(q, k, v, cache_len, scale, causal)
+    longest = max(lens)     # as a session holds it on the host
+    got = A.decode_attention_kernel(q, k, v, cache_len, scale, causal,
+                                    longest)
     want = A._ref_attention_cache(q, k, v, cache_len, scale, causal)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
@@ -276,23 +418,34 @@ def dense_case(A, dev, gen, flush, name, B, H, Q, C, d, lens, dtype,
     if not err <= atol:
         raise AssertionError("%s: decode kernel vs plain max |err| %g > %g"
                              % (name, err, atol))
+    rec = dict(name=name, B=B, H=H, Q=Q, C=C, d=d, dtype=str(dtype),
+               causal=causal, max_abs_err=err, atol=atol)
+    if not timed:
+        return rec
     valid = torch.clamp(cache_len, max=C).view(B, 1, 1, 1)
     col = torch.arange(C, device=dev).view(1, 1, 1, C)
     limit = valid - (Q - 1) + torch.arange(Q, device=dev).view(1, 1, Q, 1) \
         if causal else valid
     mask = col < limit
-    live = int(torch.clamp(torch.clamp(cache_len, max=C), min=1).sum())
-    b_ms, b_by = bound(q, live, 4 * B)
-    rec = dict(
-        name=name, B=B, H=H, Q=Q, C=C, d=d, dtype=str(dtype), causal=causal,
-        max_abs_err=err, atol=atol,
-        kernel_ms=time_ms(lambda: A.decode_attention_kernel(q, k, v, cache_len,
-                                                     scale, causal), flush),
+    live_k = torch.clamp(torch.clamp(cache_len, max=C), min=1)
+    # a causal row whose window is empty averages V over the capacity
+    live_v = torch.where(live_k - (Q - 1) <= 0, C, live_k) if causal \
+        else live_k
+    b_ms, b_by = bound(q, int(live_k.sum()), 4 * B, int(live_v.sum()))
+    rec.update(
+        kernel_ms=time_ms(lambda: A.decode_attention_kernel(
+            q, k, v, cache_len, scale, causal, longest), flush),
+        kernel_ms_clean_l2=time_ms(lambda: A.decode_attention_kernel(
+            q, k, v, cache_len, scale, causal, longest), flush, clean=True),
         plain_ms=time_ms(lambda: A._ref_attention_cache(
             q, k, v, cache_len, scale, causal), flush),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=scale), flush),
-        bound_ms=b_ms, bound_by=b_by)
+        bound_ms=b_ms, bound_by=b_by,
+        launch=decode_launch(A, resources, q, C, longest=longest))
+    if sweep:
+        rec.update(split_sweeps(A, lambda s: A.decode_attention_kernel(
+            q, k, v, cache_len, scale, causal, _splits=s), flush, C, sweep))
     emit(phase="kernels", kernel="decode_attention", **rec)
     return rec
 
@@ -339,61 +492,132 @@ def decode_width_check(A, dev, gen, dtype, d):
             "dense %g (> %g?), padded rows vs unpadded %g" % (
                 d, dtype, err, atol, err_paged, PAGED_VS_DENSE_ATOL,
                 err_padded))
-    emit(phase="kernels", kernel="decode_attention_width", d=d,
-         dtype=str(dtype), row_bytes=d * q.element_size(),
-         padded_row_bytes=width * q.element_size(),
-         lanes_and_pieces=A.decode_lanes(d * q.element_size()),
-         column_chunks=A.decode_chunks(d * q.element_size()),
-         max_abs_err=err, paged_vs_dense=err_paged,
-         padded_vs_unpadded=err_padded, atol=atol)
+    rec = dict(d=d, dtype=str(dtype), row_bytes=d * q.element_size(),
+               padded_row_bytes=width * q.element_size(),
+               lanes_and_pieces=A.decode_lanes(d * q.element_size()),
+               column_chunks=A.decode_chunks(d * q.element_size()),
+               max_abs_err=err, paged_vs_dense=err_paged,
+               padded_vs_unpadded=err_padded, atol=atol)
+    emit(phase="kernels", kernel="decode_attention_width", **rec)
+    return rec
 
 
-def paged_case(A, dev, gen, flush):
-    """Paged kernel at the serving path's geometry: width 8, 16 heads of
-    64, pages of 128 tokens, 8 pages per slot, a 25-page pool; five live
-    slots (one full, one across three pages) and three idle slots whose
-    tables point at scratch page 0."""
-    B, H, d, ptok, npages, P = 8, 16, 64, 128, 8, 25
-    k_pool, v_pool = (torch.randn(P, H, ptok, d, device=dev, generator=gen)
-                      for _ in range(2))
-    q = torch.randn(B, H, 1, d, device=dev, generator=gen)
-    lens = [1024, 300, 96, 70, 65, 1, 1, 1]
-    table = torch.zeros(B, npages, dtype=torch.int32, device=dev)
-    pages = (torch.randperm(P - 1, device=dev, generator=gen) + 1).tolist()
-    for b, n in enumerate(lens):
-        if n > 1:
-            need = -(-n // ptok)
-            table[b, :need] = torch.tensor(pages[:need], device=dev)
-            pages = pages[need:]
-    cache_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+def paged_case(A, dev, gen, flush, name, B, npages, pool_pages, lens,
+               timed=True, resources=None, sweep=()):
+    """The paged kernel, 16 heads of 64 in pages of 128 tokens (the
+    serving path's geometry, ``paged_inputs``), against the plain version
+    and the dense kernel on the gathered cache (the same pieces and
+    tiles: equal to PAGED_VS_DENSE_ATOL)."""
+    H, d, ptok = 16, 64, 128
+    q, k_pool, v_pool, table, cache_len = paged_inputs(
+        dev, gen, B, npages, pool_pages, lens)
     scale = 1.0 / math.sqrt(d)
+    longest = max(lens)     # as the paged session holds it on the host
     got = A.paged_attention_kernel(q, k_pool, v_pool, table, cache_len,
-                                   scale)
+                                   scale, longest)
     kd, vd = (A.gather_paged_cache(p, table).contiguous()
               for p in (k_pool, v_pool))
     want = A._ref_attention_cache(q, kd, vd, cache_len, scale)
-    dense = A.decode_attention_kernel(q, kd, vd, cache_len, scale)
+    dense = A.decode_attention_kernel(q, kd, vd, cache_len, scale,
+                                      longest=longest)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     err_dense = (got - dense).abs().max().item()
     if not (err <= FP32_ATOL and err_dense <= PAGED_VS_DENSE_ATOL):
-        raise AssertionError("paged kernel: vs plain %g (> %g?), vs dense "
-                             "kernel %g (> %g?)" % (err, FP32_ATOL,
+        raise AssertionError("%s: paged kernel vs plain %g (> %g?), vs dense "
+                             "kernel %g (> %g?)" % (name, err, FP32_ATOL,
                                                     err_dense,
                                                     PAGED_VS_DENSE_ATOL))
-    b_ms, b_by = bound(q, sum(lens), 4 * B + 4 * B * npages)
-    rec = dict(
-        name="paged_path", B=B, H=H, ptok=ptok, npages=npages, pool_pages=P,
-        d=d, lens=lens, max_abs_err=err, max_abs_err_vs_dense=err_dense,
-        atol=FP32_ATOL,
+    rec = dict(name=name, B=B, H=H, ptok=ptok, npages=npages,
+               pool_pages=pool_pages, d=d, lens=lens, max_abs_err=err,
+               max_abs_err_vs_dense=err_dense, atol=FP32_ATOL)
+    if not timed:
+        return rec
+    cap = npages * ptok
+    live = sum(min(n, cap) for n in lens)
+    b_ms, b_by = bound(q, live, 4 * B + 4 * B * npages)
+    rec.update(
         kernel_ms=time_ms(lambda: A.paged_attention_kernel(
-            q, k_pool, v_pool, table, cache_len, scale), flush),
+            q, k_pool, v_pool, table, cache_len, scale, longest), flush),
+        kernel_ms_clean_l2=time_ms(lambda: A.paged_attention_kernel(
+            q, k_pool, v_pool, table, cache_len, scale, longest), flush,
+            clean=True),
         plain_ms=time_ms(lambda: A._ref_attention_cache(
             q, A.gather_paged_cache(k_pool, table),
             A.gather_paged_cache(v_pool, table), cache_len, scale), flush),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        dense_kernel_ms=time_ms(lambda: A.decode_attention_kernel(
+            q, kd, vd, cache_len, scale, longest=longest), flush),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        launch=decode_launch(A, resources, q, cap, npages, longest))
+    if sweep:
+        rec.update(split_sweeps(A, lambda s: A.paged_attention_kernel(
+            q, k_pool, v_pool, table, cache_len, scale, _splits=s), flush,
+            cap, sweep))
     emit(phase="kernels", kernel="paged_attention", **rec)
     return rec
+
+
+# the decode kernel cases of the kernels phase: (name, function, arguments
+# after (A, dev, gen, flush), keywords); timed, each case times itself
+def decode_case_list():
+    path_lens = np.random.RandomState(2).randint(64, 97, 64).tolist()
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        cases += [
+            ("path_" + tag, dense_case, ("path_" + tag, 64, 16, 1, 1024, 64,
+                                         path_lens, dtype),
+             dict(sweep=(1, 2)) if dtype == torch.float32 else {}),
+            ("ragged_" + tag, dense_case, (
+                "ragged_" + tag, 64, 16, 1, 1000, 64,
+                np.random.RandomState(3).randint(1, 1001, 64).tolist(),
+                dtype), {}),
+            ("causal_" + tag, dense_case, (
+                "causal_" + tag, 64, 16, 4, 1024, 64,
+                [2, 3, 4, 5] + list(range(64, 1024, 16)), dtype),
+             dict(causal=True)),
+            ("wrapped_" + tag, dense_case, (
+                "wrapped_" + tag, 64, 16, 1, 1024, 64,
+                list(range(1025, 1025 + 64 * 37, 37)), dtype), {})]
+    for dtype, d in ((torch.bfloat16, 8), (torch.float32, 48),
+                     (torch.bfloat16, 96), (torch.float16, 64),
+                     (torch.float32, 6), (torch.bfloat16, 12),
+                     (torch.float32, 192), (torch.float32, 512),
+                     (torch.bfloat16, 512), (torch.float32, 640),
+                     (torch.bfloat16, 1536)):
+        cases.append(("width_%s_d%d" % (str(dtype)[6:], d),
+                      decode_width_check, (dtype, d), {}))
+    # the serving path: width 8, 8 pages a slot, a 25-page pool, five live
+    # slots (one full, one across three pages) and three idle; the serving
+    # phase's own steps (prompts of 32-64 tokens and up to 32 new ones:
+    # every slot within its first page); then one long slot beside a
+    # shorter one, 64 pages a slot
+    cases += [
+        ("paged_path", paged_case,
+         ("paged_path", 8, 8, 25, [1024, 300, 96, 70, 65, 1, 1, 1]),
+         dict(sweep=(1, 2, 3, 4, 8))),
+        ("paged_step", paged_case,
+         ("paged_step", 8, 8, 25,
+          np.random.RandomState(5).randint(33, 97, 8).tolist()),
+         dict(sweep=(1, 2, 4, 8))),
+        ("paged_long", paged_case, ("paged_long", 2, 64, 89, [8192, 3000]),
+         dict(sweep=(4, 8, 16, 32, 64)))]
+    return cases
+
+
+def decode_cases(A, dev, gen, flush, timed=True, resources=None):
+    """Run every decode kernel case; {name: record}."""
+    out = {}
+    for name, fn, args, kw in decode_case_list():
+        if fn is decode_width_check:
+            out[name] = fn(A, dev, gen, *args)
+        elif timed:
+            out[name] = fn(A, dev, gen, flush, *args, resources=resources,
+                           **kw)
+        else:
+            kw = {k: v for k, v in kw.items() if k != "sweep"}
+            out[name] = fn(A, dev, gen, flush, *args, timed=False, **kw)
+    return out
 
 
 def fused_bound(q, bias, backward, peak=FUSED_PEAK_OPS_PER_S):
@@ -1154,7 +1378,8 @@ def launches(A, names):
 def plain_attention(T, A):
     """Route the model's dense decode attention through the plain
     version (the whole-model kernel-vs-plain step comparison)."""
-    def plain(q, k, v, cache_len, scale=None, causal_window=False):
+    def plain(q, k, v, cache_len, scale=None, causal_window=False,
+              longest=None):
         return A._ref_attention_cache(q, k, v, cache_len, scale,
                                       causal_window)
 
@@ -2067,29 +2292,9 @@ def main():
 
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    path_lens = np.random.RandomState(2).randint(64, 97, 64).tolist()
-    dense_rec = None
-    for dtype in (torch.float32, torch.bfloat16):
-        tag = "f32" if dtype == torch.float32 else "bf16"
-        rec = dense_case(A, dev, gen, flush, "path_" + tag, 64, 16, 1, 1024,
-                         64, path_lens, dtype)
-        dense_rec = dense_rec or rec
-        dense_case(A, dev, gen, flush, "ragged_" + tag, 64, 16, 1, 1000, 64,
-                   np.random.RandomState(3).randint(1, 1001, 64).tolist(),
-                   dtype)
-        dense_case(A, dev, gen, flush, "causal_" + tag, 64, 16, 4, 1024, 64,
-                   [2, 3, 4, 5] + list(range(64, 1024, 16)), dtype,
-                   causal=True)
-        dense_case(A, dev, gen, flush, "wrapped_" + tag, 64, 16, 1, 1024, 64,
-                   list(range(1025, 1025 + 64 * 37, 37)), dtype)
-    for dtype, d in ((torch.bfloat16, 8), (torch.float32, 48),
-                     (torch.bfloat16, 96), (torch.float16, 64),
-                     (torch.float32, 6), (torch.bfloat16, 12),
-                     (torch.float32, 192), (torch.float32, 512),
-                     (torch.bfloat16, 512), (torch.float32, 640),
-                     (torch.bfloat16, 1536)):
-        decode_width_check(A, dev, gen, dtype, d)
-    paged_rec = paged_case(A, dev, gen, flush)
+    decode = decode_cases(A, dev, gen, flush,
+                          resources=decode_resources(_build))
+    dense_rec, paged_rec = decode["path_f32"], decode["paged_path"]
     fused_rec, fused_p0_rec = fused_cases(A, dev, gen, flush)
     long_rec, flash_rec = long_cases(A, dev, flush)
     res_rec, packed_rec = packed_cases(A, dev, flush)
@@ -2123,7 +2328,8 @@ def main():
             launches=launches, max_abs_err=rec["max_abs_err"],
             ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-            library_ms=rec["library_ms"]))
+            library_ms=rec["library_ms"], splits=rec["launch"]["splits"],
+            ms_clean_l2=rec["kernel_ms_clean_l2"]))
     fused_src = "paddle_tpu_torch/kernels/csrc/fused_attention.cu"
     # each row counts its kernels' launches on the tensor cores (a
     # backward row the dq kernel's: the pair launches together)

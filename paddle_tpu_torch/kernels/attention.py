@@ -45,7 +45,10 @@ widths 16, 32, 64, 128 and 256, and past 256 any multiple of 64;
 ``flash_attention`` and ``flash_attention_backward``, which every route
 reaches, zero-pad any other d to the next of these (``built_width``).
 The decode kernels take the same three types and key rows of any width
-(past 2048 bytes a row's output columns split across blocks); the
+(past 2048 bytes a row's output columns split across blocks), hold
+every q-row of a (batch, head) in one block, and where batch × heads
+would leave SMs idle cut the key axis into pieces (``decode_splits``,
+chosen from shapes alone) whose partials a second launch merges; the
 decode sessions pad their caches' rows to a multiple of 16 bytes
 (``decode_row_width``), which ``attention_with_cache`` and
 ``paged_attention_cache`` read with q zero-padded to match.
@@ -531,7 +534,7 @@ def _pad_to_rows(q, cache):
 
 
 def attention_with_cache(q, k_cache, v_cache, cache_len, scale=None,
-                         causal_window=False):
+                         causal_window=False, longest=None):
     """Decode-step attention against a KV ring buffer.
 
     q [B, H, Q, d] (Q=1 for incremental decode), k_cache/v_cache
@@ -543,7 +546,11 @@ def attention_with_cache(q, k_cache, v_cache, cache_len, scale=None,
     does not matter, so a wrapped ring needs no unscrambling.
     ``causal_window=True`` (speculative verify, Q > 1): row r masks the
     columns written after it, which assumes the ring has not wrapped.
-    Returns [B, H, Q, d] in q's dtype, accumulated in fp32."""
+    ``longest`` (a Python int, optional) is the largest cache_len as the
+    caller holds it on the host; on the card it sets how the kernel cuts
+    the key axis (``decode_splits``), never the result beyond the order
+    of its sums. Returns [B, H, Q, d] in q's dtype, accumulated in
+    fp32."""
     d = q.shape[-1]
     scale = float(1.0 / math.sqrt(d) if scale is None else scale)
     q = _pad_to_rows(q, k_cache)
@@ -552,7 +559,8 @@ def attention_with_cache(q, k_cache, v_cache, cache_len, scale=None,
                                    causal_window=causal_window)
     else:
         out = decode_attention_kernel(q, k_cache, v_cache, cache_len, scale,
-                                      causal_window=causal_window)
+                                      causal_window=causal_window,
+                                      longest=longest)
     return out[..., :d]
 
 
@@ -595,14 +603,15 @@ def gather_paged_cache(pool, page_table):
 
 
 def paged_attention_cache(q, k_pool, v_pool, page_table, cache_len,
-                          scale=None):
+                          scale=None, longest=None):
     """Decode-step attention against a PAGED KV cache.
 
     q [B, H, Q, d], pools [P, H, ptok, d'] (d' = d, or padded rows as
     ``attention_with_cache`` takes them), page_table [B, npages] int32,
     cache_len [B] int32 (after the update). Live slots are the first
     min(cache_len, npages * ptok) logical positions in table order; the
-    result equals ``attention_with_cache`` of the gathered cache."""
+    result equals ``attention_with_cache`` of the gathered cache (at the
+    same ``longest``)."""
     d = q.shape[-1]
     scale = float(1.0 / math.sqrt(d) if scale is None else scale)
     q = _pad_to_rows(q, k_pool)
@@ -612,7 +621,7 @@ def paged_attention_cache(q, k_pool, v_pool, page_table, cache_len,
                                    cache_len, scale)
     else:
         out = paged_attention_kernel(q, k_pool, v_pool, page_table,
-                                     cache_len, scale)
+                                     cache_len, scale, longest=longest)
     return out[..., :d]
 
 
@@ -653,6 +662,124 @@ def decode_chunks(row_bytes):
     columns: one 2048-byte chunk each (1 up to 2048 bytes); each block
     computes the full-row scores over the row's chunks."""
     return -(-row_bytes // _DECODE_CHUNK_BYTES)
+
+
+# a piece of the decode kernels' key axis is a multiple of this many
+# columns: whole tiles (of at most 32 keys), and whole pages for every
+# page size that divides it (the serving preset's 128 tokens)
+DECODE_PIECE_COLS = 128
+# B * H * row blocks at least this many times the SMs fill the card in one
+# piece; below it, the key axis is split until the blocks reach
+# _DECODE_SPLIT_BLOCKS times the SMs, in at most _DECODE_MAX_SPLITS pieces
+# (past them the short pieces' blocks cost more than they spread: PERF.md)
+_DECODE_FULL_WAVES = 4
+_DECODE_SPLIT_BLOCKS = 8
+_DECODE_MAX_SPLITS = 8
+
+
+def decode_block_rows(Q, row_bytes):
+    """The q-rows one block of the decode kernels takes (all of a (b, h)
+    up to this; more rows take more blocks): 1 at Q 1, else 4, or 8 for
+    rows of one 16-byte slice a lane, 2 for rows of four (the
+    accumulators of 8 / slices rows stay in registers); 1 past 2048
+    bytes, where each q-row has blocks of its own. The launch passes it
+    to the library, which has a kernel for each of these counts."""
+    if decode_chunks(row_bytes) > 1:
+        return 1
+    most = 8 // decode_lanes(row_bytes)[1]
+    if Q == 1:
+        return 1
+    return min(4, most) if Q <= min(4, most) else most
+
+
+def decode_piece(capacity, splits, granule=DECODE_PIECE_COLS):
+    """Columns of each piece when the decode kernels cut a key axis of
+    ``capacity`` columns into ``splits``: the even share rounded up to a
+    multiple of ``granule`` (at most the capacity). The pieces are
+    ``ceil(capacity / piece)``, the last one short."""
+    if capacity < 1 or splits < 1:
+        raise ValueError("capacity and splits must be at least 1, got %r, "
+                         "%r" % (capacity, splits))
+    share = -(-capacity // splits)
+    return min(capacity, -(-share // granule) * granule)
+
+
+def decode_span(capacity, longest=None):
+    """The key columns the decode kernels' pieces are cut over: the
+    capacity, or where the caller knows the longest live length on the
+    host (``longest``, a Python int: the largest cache_len after the
+    update, or any bound on it) that length, between 1 and the
+    capacity."""
+    if longest is None:
+        return capacity
+    if not isinstance(longest, int) or isinstance(longest, bool):
+        raise TypeError("longest is a Python int held on the host, got %r"
+                        % (type(longest),))
+    return max(1, min(capacity, longest))
+
+
+def decode_splits(B, H, Q, capacity, d, dtype, sms, longest=None):
+    """The pieces into which the decode kernels cut each (b, h)'s key
+    axis, from shapes and, where the caller holds it on the host, the
+    longest live length (``decode_span``), never from the lengths on the
+    card (reading them would sync the host every step): one where B * H
+    * the blocks of its q-rows (``decode_block_rows``) fill the ``sms``
+    SMs _DECODE_FULL_WAVES times over (a dense batch of 64 streams of 16
+    heads), else enough that the blocks reach _DECODE_SPLIT_BLOCKS times
+    ``sms`` (a serving batch of 8), at most _DECODE_MAX_SPLITS, in pieces
+    of ``decode_piece`` over the span; so one wherever every row ends
+    within 128 columns, and one for rows past 2048 bytes. A paged cache
+    and its gathered dense cache of the same capacity and span get the
+    same count, so they cut the same pieces."""
+    ints = (B, H, Q, capacity, d, sms)
+    if not all(isinstance(x, int) and not isinstance(x, bool) for x in ints):
+        raise TypeError("decode_splits takes Python ints (shapes), got %r"
+                        % (ints,))
+    span = decode_span(capacity, longest)
+    row_bytes = d * dtype.itemsize
+    if decode_chunks(row_bytes) > 1:
+        return 1
+    blocks = B * H * -(-Q // decode_block_rows(Q, row_bytes))
+    if blocks >= _DECODE_FULL_WAVES * sms:
+        return 1
+    want = min(_DECODE_MAX_SPLITS, -(-_DECODE_SPLIT_BLOCKS * sms // blocks))
+    return -(-span // decode_piece(span, want))
+
+
+def decode_pieces(B, H, Q, capacity, d, dtype, sms, longest=None,
+                  splits=None):
+    """(piece, splits) of a decode launch: ``splits`` pieces of ``piece``
+    columns cut over ``decode_span``, the last running on to the
+    capacity, so a span shorter than a row costs time, never columns;
+    ``decode_splits`` unless ``splits`` forces a count (rows past 2048
+    bytes refuse more than one). With one piece, the piece is the
+    capacity."""
+    if splits is None:
+        splits = decode_splits(B, H, Q, capacity, d, dtype, sms, longest)
+    elif splits > 1 and decode_chunks(d * dtype.itemsize) > 1:
+        raise ValueError("rows past %d bytes take one piece"
+                         % _DECODE_CHUNK_BYTES)
+    span = decode_span(capacity, longest)
+    piece = decode_piece(span, splits)
+    n = -(-span // piece)
+    return (piece, n) if n > 1 else (capacity, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _decode_launch_args(q, capacity, longest, splits):
+    """(piece, splits, q-rows a block, workspace) of a decode launch: the
+    pieces (``decode_pieces``), ``decode_block_rows`` and, for more than
+    one piece, the fp32 workspace of the partials."""
+    B, H, Q, d = q.shape
+    piece, n = decode_pieces(B, H, Q, capacity, d, q.dtype,
+                             _sm_count(q.device), longest, splits)
+    ws = torch.empty(B * H * Q * n * (d + 2), dtype=torch.float32,
+                     device=q.device) if n > 1 else None
+    return piece, n, decode_block_rows(Q, d * q.element_size()), ws
 
 
 def _entry(name, n_ptrs, n_ints):
@@ -701,7 +828,7 @@ def _raise_on(rc, what):
 
 
 def decode_attention_kernel(q, k_cache, v_cache, cache_len, scale,
-                            causal_window=False):
+                            causal_window=False, longest=None, _splits=None):
     """Launch the dense decode kernel (replaces ``_decode_fwd_kernel``,
     ``paddle_tpu/kernels/attention.py``): q [B, H, Q, d], k/v caches
     [B, H, C, d] in q's dtype (float32, bfloat16 or float16), cache_len
@@ -713,10 +840,17 @@ def decode_attention_kernel(q, k_cache, v_cache, cache_len, scale,
     element. Returns a new [B, H, Q, d] tensor in q's dtype.
 
     Bound on the card: the bytes of the live K and V rows over the HBM
-    rate (3.35 TB/s on the H100 SXM); the kernel reads only live rows
-    through a pipeline of asynchronous 16-byte copies, pads nothing and
-    keeps the softmax carry on chip (design note in
-    ``csrc/decode_attention.cu``)."""
+    rate (3.35 TB/s on the H100 SXM); the kernel reads only live rows,
+    each once for all q-rows, through a pipeline of asynchronous 16-byte
+    copies, and cuts the key axis into ``decode_splits`` pieces whose
+    partials a second launch merges where B * H alone would leave SMs
+    idle and the rows are long (design note in
+    ``csrc/decode_attention.cu``). ``longest``, a Python int, is the
+    largest cache_len as the caller holds it on the host (the decode
+    sessions pass it; none reads the lengths on the card): the pieces
+    cover that many columns, and any value gives the same output up to
+    the order of the sums. ``_splits`` forces the count of pieces (card
+    tests and fault checks only)."""
     _check_q(q)
     B, H, Q, d = q.shape
     C = k_cache.shape[2] if k_cache.dim() == 4 else 0
@@ -725,13 +859,14 @@ def decode_attention_kernel(q, k_cache, v_cache, cache_len, scale,
     _check("cache_len", cache_len, q.device, torch.int32, (B,))
     if C < 1:
         raise ValueError("k_cache must hold at least one slot")
+    piece, splits, rows, ws = _decode_launch_args(q, C, longest, _splits)
     out = torch.empty_like(q)
-    fn = _entry("pt_decode_attention_" + _DTYPES[q.dtype], 5, 6)
+    fn = _entry("pt_decode_attention_" + _DTYPES[q.dtype], 6, 9)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                cache_len.data_ptr(), out.data_ptr(), B, H, Q, d, C,
-                int(bool(causal_window)), float(scale), stream)
+                cache_len.data_ptr(), out.data_ptr(), _ptr(ws), B, H, Q, d,
+                C, int(bool(causal_window)), piece, splits, rows,
+                float(scale), _stream(q.device))
     _raise_on(rc, "decode-attention")
     decode_attention_kernel.launches += 1
     _M_DECODE_LAUNCH.inc()
@@ -741,17 +876,20 @@ def decode_attention_kernel(q, k_cache, v_cache, cache_len, scale,
 decode_attention_kernel.launches = 0
 
 
-def paged_attention_kernel(q, k_pool, v_pool, page_table, cache_len, scale):
+def paged_attention_kernel(q, k_pool, v_pool, page_table, cache_len, scale,
+                           longest=None, _splits=None):
     """Launch the paged decode kernel (replaces
     ``_paged_decode_fwd_kernel``, ``paddle_tpu/kernels/attention.py``;
     same bound and design as ``decode_attention_kernel``, whose template
-    it shares): q [B, H, Q, d], pools [P, H, ptok, d] in q's dtype,
-    page_table [B, npages] int32, cache_len [B] int32, all contiguous on
-    one CUDA device, with the same row terms. Each block reads its own
-    page indices from the table; the dense cache is never materialised.
-    Table entries must index the pool (the sessions guarantee it;
-    checking here would sync the host every step). Returns a new
-    [B, H, Q, d] tensor in q's dtype."""
+    it shares, and the same pieces for the capacity npages * ptok and
+    the same ``longest``): q
+    [B, H, Q, d], pools [P, H, ptok, d] in q's dtype, page_table
+    [B, npages] int32, cache_len [B] int32, all contiguous on one CUDA
+    device, with the same row terms. Each block reads its piece's page
+    indices from the table; the dense cache is never materialised. Table
+    entries must index the pool (the sessions guarantee it; checking
+    here would sync the host every step). Returns a new [B, H, Q, d]
+    tensor in q's dtype."""
     _check_q(q)
     B, H, Q, d = q.shape
     P, ptok = (k_pool.shape[0], k_pool.shape[2]) if k_pool.dim() == 4 \
@@ -763,13 +901,15 @@ def paged_attention_kernel(q, k_pool, v_pool, page_table, cache_len, scale):
     _check("cache_len", cache_len, q.device, torch.int32, (B,))
     if P < 1 or ptok < 1 or npages < 1:
         raise ValueError("the pool and the page table must be non-empty")
+    piece, splits, rows, ws = _decode_launch_args(q, npages * ptok, longest,
+                                                  _splits)
     out = torch.empty_like(q)
-    fn = _entry("pt_paged_attention_" + _DTYPES[q.dtype], 6, 6)
+    fn = _entry("pt_paged_attention_" + _DTYPES[q.dtype], 7, 9)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 page_table.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
-                B, H, Q, d, ptok, npages, float(scale), stream)
+                _ptr(ws), B, H, Q, d, ptok, npages, piece, splits, rows,
+                float(scale), _stream(q.device))
     _raise_on(rc, "paged-attention")
     paged_attention_kernel.launches += 1
     _M_PAGED_LAUNCH.inc()

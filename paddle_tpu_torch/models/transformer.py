@@ -92,21 +92,25 @@ class MultiHeadAttention(nn.Module):
         return self._attend(qh, kh, vh, bias)
 
     def forward_cached(self, x, k_cache, v_cache, cache_len,
-                       causal_window=False):
+                       causal_window=False, longest=None):
         """ONE decode step of self-attention: project the incoming
         token(s), write K/V into the ring caches at slot cache_len % C
         (in place), attend q against the cache with the post-update
-        length. Returns (out, k_cache, v_cache, cache_len + T)."""
+        length (``longest``: its largest value, where the caller holds
+        it on the host; ``attention_with_cache``). Returns (out, k_cache,
+        v_cache, cache_len + T)."""
         qh = self._q_head(x).contiguous()
         kh, vh = self._kv_heads(x)
         k_cache, new_len = kv_cache_update(k_cache, kh, cache_len)
         v_cache, _ = kv_cache_update(v_cache, vh, cache_len)
         ctx = attention_with_cache(qh, k_cache, v_cache, new_len,
                                    scale=1.0 / math.sqrt(self.d_key),
-                                   causal_window=causal_window)
+                                   causal_window=causal_window,
+                                   longest=longest)
         return self._merge_out(ctx), k_cache, v_cache, new_len
 
-    def forward_paged(self, x, k_pool, v_pool, page_table, cache_len):
+    def forward_paged(self, x, k_pool, v_pool, page_table, cache_len,
+                      longest=None):
         """forward_cached against the shared page pools: K/V land at the
         pool page the slot's table maps its write position to, and
         attention reads back through the same table."""
@@ -116,7 +120,8 @@ class MultiHeadAttention(nn.Module):
                                                 cache_len)
         v_pool, _ = paged_kv_cache_update(v_pool, vh, page_table, cache_len)
         ctx = paged_attention_cache(qh, k_pool, v_pool, page_table, new_len,
-                                    scale=1.0 / math.sqrt(self.d_key))
+                                    scale=1.0 / math.sqrt(self.d_key),
+                                    longest=longest)
         return self._merge_out(ctx), k_pool, v_pool, new_len
 
 
@@ -198,22 +203,24 @@ class DecoderLayer(nn.Module):
             self.cross_attn._q_head(h), cross_k, cross_v, cross_bias)
 
     def forward_step(self, x, cross_k, cross_v, k_cache, v_cache,
-                     cache_len, cross_bias, causal_window=False):
+                     cache_len, cross_bias, causal_window=False,
+                     longest=None):
         """ONE decode step: cached self-attention (q_len=1 against the
         KV ring) and cross-attention against the precomputed encoder
         K/V."""
         y, k_cache, v_cache, new_len = self.self_attn.forward_cached(
-            x, k_cache, v_cache, cache_len, causal_window=causal_window)
+            x, k_cache, v_cache, cache_len, causal_window=causal_window,
+            longest=longest)
         x = self._tail(x, y, self._cross_cached(cross_k, cross_v,
                                                 cross_bias))
         return x, k_cache, v_cache, new_len
 
     def forward_step_paged(self, x, cross_k, cross_v, k_pool, v_pool,
-                           page_table, cache_len, cross_bias):
+                           page_table, cache_len, cross_bias, longest=None):
         """forward_step with the self-attention KV state in the shared
         page pools."""
         y, k_pool, v_pool, new_len = self.self_attn.forward_paged(
-            x, k_pool, v_pool, page_table, cache_len)
+            x, k_pool, v_pool, page_table, cache_len, longest=longest)
         x = self._tail(x, y, self._cross_cached(cross_k, cross_v,
                                                 cross_bias))
         return x, k_pool, v_pool, new_len
@@ -313,12 +320,15 @@ class Transformer(nn.Module):
         return self._embed(tok.reshape(B, 1, 1), self.tgt_emb,
                            cache_len.reshape(B, 1, 1))
 
-    def decode_step(self, tok, finished, end_ids, cache_len, *rest):
+    def decode_step(self, tok, finished, end_ids, cache_len, *rest,
+                    longest=None):
         """ONE greedy decode step (q_len=1) against the KV ring caches.
         ``rest`` is L cross-K, L cross-V, L self-K caches, L self-V
-        caches, then an optional src padding bias. Returns (next_tok
-        [B, 1] int32, new_len [B] int32, finished' [B, 1] bool, L K
-        caches, L V caches)."""
+        caches, then an optional src padding bias. ``longest`` (a Python
+        int, optional) is the largest new_len as the caller holds it on
+        the host; the decode kernels cut their key axis by it. Returns
+        (next_tok [B, 1] int32, new_len [B] int32, finished' [B, 1] bool,
+        L K caches, L V caches)."""
         L = len(self.dec_layers)
         cross_k, cross_v = rest[:L], rest[L:2 * L]
         k_caches, v_caches = rest[2 * L:3 * L], rest[3 * L:4 * L]
@@ -328,7 +338,7 @@ class Transformer(nn.Module):
         for l, ck, cv, kc, vc in zip(self.dec_layers, cross_k, cross_v,
                                      k_caches, v_caches):
             x, k_new, v_new, new_len = l.forward_step(
-                x, ck, cv, kc, vc, cache_len, src_bias)
+                x, ck, cv, kc, vc, cache_len, src_bias, longest=longest)
             new_k.append(k_new)
             new_v.append(v_new)
         nxt, fin = self._next_token(self.proj(x), finished, end_ids)
@@ -342,13 +352,13 @@ class Transformer(nn.Module):
         return nxt, finished | (nxt == end_ids)
 
     def decode_step_paged(self, tok, finished, end_ids, cache_len,
-                          page_table, *rest):
+                          page_table, *rest, longest=None):
         """decode_step with the self-attention KV state in SHARED page
         pools: ``page_table`` [B, n_pages] int32 maps each slot's logical
         ring pages to pool rows (row 0 = the scratch page). ``rest`` is
         L cross-K, L cross-V, L K pools, L V pools [P, H, ptok, d], then
-        an optional src padding bias. Returns (next_tok, new_len,
-        finished', L K pools, L V pools)."""
+        an optional src padding bias; ``longest`` as ``decode_step``.
+        Returns (next_tok, new_len, finished', L K pools, L V pools)."""
         L = len(self.dec_layers)
         cross_k, cross_v = rest[:L], rest[L:2 * L]
         k_pools, v_pools = rest[2 * L:3 * L], rest[3 * L:4 * L]
@@ -358,7 +368,8 @@ class Transformer(nn.Module):
         for l, ck, cv, kp, vp in zip(self.dec_layers, cross_k, cross_v,
                                      k_pools, v_pools):
             x, k_new, v_new, new_len = l.forward_step_paged(
-                x, ck, cv, kp, vp, page_table, cache_len, src_bias)
+                x, ck, cv, kp, vp, page_table, cache_len, src_bias,
+                longest=longest)
             new_k.append(k_new)
             new_v.append(v_new)
         nxt, fin = self._next_token(self.proj(x), finished, end_ids)
@@ -544,10 +555,12 @@ class DecodeSession:
         finished = tok == self.end_id
         cache_len = torch.from_numpy(plens.astype(np.int32)).to(dev)
         toks = [tok]
-        for _ in range(max_new_tokens - 1):
+        for step in range(max_new_tokens - 1):
             t0 = time.perf_counter()
-            outs = self.model.decode_step(tok, finished, self._end_ids,
-                                          cache_len, *cross, *kc, *vc)
+            # the lengths after this step's write, as the host knows them
+            outs = self.model.decode_step(
+                tok, finished, self._end_ids, cache_len, *cross, *kc, *vc,
+                longest=int(plens.max()) + step + 1)
             tok, cache_len, finished = outs[0], outs[1], outs[2]
             toks.append(tok)
             _M_DECODE_STEPS.inc()
@@ -914,7 +927,8 @@ class PagedDecodeSession:
             torch.from_numpy(self._fin).to(dev), self._end_ids,
             torch.from_numpy(self._len).to(dev),
             torch.from_numpy(self._table).to(dev),
-            *self._cross, *self._kpool, *self._vpool)
+            *self._cross, *self._kpool, *self._vpool,
+            longest=int(self._len.max()) + 1)
         _M_DECODE_STEPS.inc()
         _M_DECODE_SECONDS.observe(time.perf_counter() - t0)
         tok_np = outs[0].cpu().numpy()      # [B,1] — the per-step sync

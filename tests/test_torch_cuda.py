@@ -96,6 +96,106 @@ def test_paged_kernel_matches_plain_and_dense(cuda_device):
     assert (got - dense).abs().max().item() <= 1e-6
 
 
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+def test_decode_kernels_at_forced_pieces(cuda_device, splits, dtype, atol):
+    """Both kernels with the key axis cut into a forced count of pieces
+    (capacity 1024: pieces of 1024, 512, 384 and 128 columns), against
+    the plain version: slots of length 1, one inside a page, one across
+    three, a wrapped ring and a full one; at Q 4 speculative verify rows,
+    two of them with empty windows. The paged kernel on a permuted pool
+    equals the dense kernel on the gathered cache bit for bit, and each
+    wrapper counts one launch a call."""
+    g = torch.Generator(device=cuda_device).manual_seed(splits)
+    B, H, d, ptok, npages = 6, 4, 64, 128, 8
+    C = ptok * npages
+    assert A.decode_pieces(B, H, 1, C, d, dtype, 132, splits=splits)[1] \
+        == splits
+    lens = torch.tensor([1, 100, 300, 1024, 1500, 1], dtype=torch.int32,
+                        device=cuda_device)
+    P = B * npages + 1
+    pools = [torch.randn(P, H, ptok, d, device=cuda_device,
+                         generator=g).to(dtype) for _ in range(2)]
+    table = (torch.randperm(P - 1, device=cuda_device, generator=g)[
+        :B * npages] + 1).to(torch.int32).view(B, npages)
+    kd, vd = (A.gather_paged_cache(p, table).contiguous() for p in pools)
+    for Q, causal, cache_len in (
+            (1, False, lens),
+            (4, True, torch.tensor([2, 3, 100, 1024, 700, 5],
+                                   dtype=torch.int32, device=cuda_device))):
+        q = torch.randn(B, H, Q, d, device=cuda_device, generator=g).to(dtype)
+        n0 = (A.decode_attention_kernel.launches,
+              A.paged_attention_kernel.launches)
+        got = A.decode_attention_kernel(q, kd, vd, cache_len, d ** -0.5,
+                                        causal, _splits=splits)
+        want = A._ref_attention_cache(q, kd, vd, cache_len, d ** -0.5,
+                                      causal)
+        torch.cuda.synchronize()
+        assert (got.float() - want.float()).abs().max().item() <= atol
+        if causal:
+            assert A.decode_attention_kernel.launches == n0[0] + 1
+            continue
+        paged = A.paged_attention_kernel(q, *pools, table, cache_len,
+                                         d ** -0.5, _splits=splits)
+        torch.cuda.synchronize()
+        assert (A.decode_attention_kernel.launches,
+                A.paged_attention_kernel.launches) == (n0[0] + 1, n0[1] + 1)
+        assert torch.equal(paged, got)
+
+
+@pytest.mark.parametrize("longest", [1, 100, 300, 1024, 1500])
+def test_decode_kernels_at_the_hosts_longest(cuda_device, longest):
+    """The rule's own pieces at a batch that splits (6 slots of 4 heads),
+    cut over the longest length the host passes: one piece at 1 and 100,
+    three where the rows run past it (300: the last piece runs on to the
+    capacity), eight at 1024 and past it; against the plain version, and
+    the paged kernel on a permuted pool bit for bit equal to the dense
+    kernel on the gathered cache at the same length."""
+    g = torch.Generator(device=cuda_device).manual_seed(longest)
+    B, H, d, ptok, npages = 6, 4, 64, 128, 8
+    P = B * npages + 1
+    pools = [torch.randn(P, H, ptok, d, device=cuda_device, generator=g)
+             for _ in range(2)]
+    table = (torch.randperm(P - 1, device=cuda_device, generator=g)[
+        :B * npages] + 1).to(torch.int32).view(B, npages)
+    kd, vd = (A.gather_paged_cache(p, table).contiguous() for p in pools)
+    q = torch.randn(B, H, 1, d, device=cuda_device, generator=g)
+    lens = torch.tensor([1, 100, 300, 1024, 1500, 1], dtype=torch.int32,
+                        device=cuda_device)
+    got = A.decode_attention_kernel(q, kd, vd, lens, d ** -0.5,
+                                    longest=longest)
+    paged = A.paged_attention_kernel(q, *pools, table, lens, d ** -0.5,
+                                     longest=longest)
+    want = A._ref_attention_cache(q, kd, vd, lens, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 2e-5
+    assert torch.equal(paged, got)
+
+
+def test_decode_library_refuses_what_the_host_did_not_plan(cuda_device):
+    """The library takes the q-rows a block the host decided
+    (``decode_block_rows``) and refuses a count it has no kernel for;
+    rows past 2048 bytes refuse a forced count of pieces."""
+    q = torch.zeros(1, 1, 3, 64, device=cuda_device)
+    k = torch.zeros(1, 1, 256, 64, device=cuda_device)
+    lens = torch.ones(1, dtype=torch.int32, device=cuda_device)
+    out = torch.empty_like(q)
+    fn = A._entry("pt_decode_attention_f32", 6, 9)
+    with torch.cuda.device(cuda_device):
+        for rows, refused in ((A.decode_block_rows(3, 256), False),
+                              (3, True)):
+            rc = fn(q.data_ptr(), k.data_ptr(), k.data_ptr(),
+                    lens.data_ptr(), out.data_ptr(), None, 1, 1, 3, 64,
+                    256, 0, 256, 1, rows, 1.0, A._stream(cuda_device))
+            assert (rc != 0) == refused, rows
+    torch.cuda.synchronize()
+    q = torch.zeros(1, 1, 1, 640, device=cuda_device)
+    k = torch.zeros(1, 1, 256, 640, device=cuda_device)
+    with pytest.raises(ValueError, match="one piece"):
+        A.decode_attention_kernel(q, k, k, lens, 1.0, _splits=2)
+
+
 def test_kernel_wrapper_refuses_what_it_cannot_take(cuda_device):
     """What the decode wrapper refuses (a wrong length type, strided
     caches, float64), and what it used to refuse and now takes, matching

@@ -10,7 +10,8 @@ pool), times STEPS decode steps on the host clock (ending in a device
 sync), traces as many with torch.profiler, and prints one JSON
 line per path: wall ms per step, device-busy ms per step (the sum of
 kernel times), the device's idle share, kernel launches per step, the
-decode-attention kernel's share of device time, and the ten kernels
+decode-attention kernels' share of device time (the split kernel and
+its combine), and the ten kernels
 with the most device time. Device numbers are "not measured" where the
 profiler returned no device events.
 """
@@ -70,8 +71,9 @@ def _report(path, step_fn, steps, **meta):
                    idle_share="not measured")
     else:
         busy_us = sum(us for us, _ in kern.values())
+        # the split kernel and, where the key axis is split, its combine
         attn_us = sum(us for k, (us, _) in kern.items()
-                      if "decode_attention_kernel" in k)
+                      if "decode_attention" in k)
         rec.update(
             device_busy_ms_per_step=busy_us / steps / 1e3,
             idle_share=1.0 - busy_us / steps / 1e3 / wall_ms,
