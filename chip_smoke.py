@@ -5,7 +5,16 @@
 Needs one CUDA card (an H100: the kernels build for sm_90a), nvcc and the
 port's sources beside this file. It imports nothing of JAX or of the JAX
 package. Phases, each printed as one JSON line; any failure raises and
-the script exits non-zero without its final line:
+the script exits non-zero without its final line.
+
+Launch counts: a kernel's wrapper counts the launches it makes, and a
+phase's count runs from its first step on. A graphed window's first
+step runs eagerly, through the wrappers; the capture and the replays
+call none, so after the timed replays more replays are traced with
+torch.profiler, TRACE_TRIES of them, and the kernels of the most
+complete trace are counted by name (``traced_launches``,
+``complete_trace``). The kernels line gives both: ``launches`` (the
+wrappers') and ``replay_launches`` (the traced replay's).
 
 1. card      nvidia-smi name and power limit; build every CUDA kernel;
              each fused-attention kernel's registers and spills (ptxas)
@@ -75,19 +84,25 @@ the script exits non-zero without its final line:
              build_pretrain_program -> Executor.run (startup, then train
              steps) on one synthetic batch of 32. One step with the fused
              kernels agrees with the same step on the plain attention from
-             a cloned scope and generator (``bert_step_check``); then 6
-             timed steps, each through 12 forward and 12 + 12 backward
-             kernel launches, all on the tensor cores (3xTF32), with
-             finite losses that fall (the batch is memorised).
+             a cloned scope and generator (``bert_step_check``; each
+             route runs eagerly, ``route_step``); then a warm step (12
+             forward and 12 + 12 backward launches through the
+             wrappers, all on the tensor cores, 3xTF32), the step
+             captured into a CUDA graph (the executor's default), the
+             timed replays and one traced replay naming the same 36
+             kernels, with finite losses that fall (the batch is
+             memorised).
 6. bert_long BERT-base long-context pretraining in bf16 AMP
              (use_amp=True, dropout 0.1, max_seq = S), the reference's
              long-sequence run: first one step with the kernels against
              one with the plain attention at S 2048, batch 1, from a
              cloned scope and generator, at data seeds 0-5, judged
              together (``step_verdict``); then (S 2048, batch 8),
-             (S 4096, batch 4) and (S 8192, batch 2), each one warm step
-             and 4 timed steps through 12 forward (all attn_fwd_mma, the
-             tensor-core forward), 12 dq and 12 dk/dv launches a step,
+             (S 4096, batch 4) and (S 8192, batch 2), each a warm step,
+             its capture (``Executor.close()`` drops each shape's graph),
+             4 timed replays and one traced; the warm step and the traced
+             replay each through 12 forward (all attn_fwd_mma, the
+             tensor-core forward), 12 dq and 12 dk/dv launches,
              reported under the TPU tier they stand in for
              (``reference_tier``: long at S 2048, flash above), with
              finite losses that fall.
@@ -95,20 +110,35 @@ the script exits non-zero without its final line:
              pretraining at batch 128, S 128, bf16 AMP with
              use_fused_attention="packed" (the reference's bench_bert
              shapes): one step against the plain attention at batch 2,
-             at data seeds 0-5, judged together; one warm and 4 timed
-             steps through 12 forward (attn_fwd_mma), 12 dq and 12
-             dk/dv launches a step on the heads' strided views (the
+             at data seeds 0-5, judged together; a warm step, its
+             capture, 4 timed replays and a traced one, the warm step
+             and the traced replay each through 12 forward
+             (attn_fwd_mma), 12 dq and 12 dk/dv launches on the heads'
+             strided views (the
              program's only attention op is the packed one), with
              falling losses; the same with "auto" (the einsum chain) and
              True (per-head kernels behind transposes) for their step
              times; BERT-tiny at the same shapes, which the TPU runs in
              its packed tier.
-8. encoder_serving  a BERT-base packed encoder saved with
+8. executor  config 3 through the executor's CUDA graphs against its
+             eager steps (``executor_path``): 10 steps at p 0 from one
+             cloned state (losses and first moments equal to the bit,
+             replays, launches);
+             iters=4 against four single graphed runs, async handles
+             against sync fetches; at p 0.1 replays against eager steps
+             and the masks changing between replays; the *_mma kernels
+             by name in a profiler trace of one replay and the host's
+             launch calls a step, graphed and eager; step times, peak
+             memory and replays, graphed and eager in turns.
+9. encoder_serving  a BERT-base packed encoder saved with
              save_inference_model, loaded as a Predictor behind a Server
-             (batches up to 32, 2 ms delay, ladder warmed up): 64
-             requests of 1-4 rows from 8 threads, each held to a direct
-             Predictor.run of its rows; latency, occupancy, launches.
-9. summary   the kernels line, the card line, then the result line.
+             (batches up to 32, 2 ms delay, ladder warmed up and
+             captured): 64 requests of 1-4 rows from 8 threads, each held
+             to a direct Predictor.run of its rows with capture off;
+             latency, occupancy, launches (from the warm-up on, and a
+             traced replay), replays, memory; then the same with the
+             served predictor's capture off.
+10. summary  the kernels line, the card line, then the result line.
 """
 
 import contextlib
@@ -1374,6 +1404,42 @@ def launches(A, names):
     return got
 
 
+# The fused wrappers' kernels by name (csrc/fused_attention.cu). A wrapper
+# counts only the launches it makes; a CUDA graph's replay launches the
+# kernels it captured without calling a wrapper, so a graphed window's
+# replays are counted here, by name, in a torch.profiler trace.
+KERNEL_NAME = re.compile(
+    r"(?<!\w)attn_(fwd|bwd_dq|bwd_dkdv)(_mma|_tf32x3|_wide)?[<(]")
+KERNEL_WRAPPER = dict(zip(("fwd", "bwd_dq", "bwd_dkdv"), FUSED_KERNELS))
+
+
+def traced_launches(kern):
+    """The fused kernels of a trace (``kernel_times``' {name: (us,
+    calls)}), in the form of ``launches``: {wrapper: kernels of it,
+    wrapper:tensor_cores: those on the tensor cores (_mma, _tf32x3)}."""
+    got = dict.fromkeys(FUSED_KERNELS + TENSOR_CORES, 0)
+    for key, (_, calls) in kern.items():
+        m = KERNEL_NAME.search(key)
+        if m:
+            got[KERNEL_WRAPPER[m.group(1)]] += calls
+            if m.group(2) in ("_mma", "_tf32x3"):
+                got[KERNEL_WRAPPER[m.group(1)] + ":tensor_cores"] += calls
+    return got
+
+
+def traced_replay(exe, run, phase, **where):
+    """More ``run()``s of a graphed window, traced (``complete_trace``):
+    the fused kernels that ran (``traced_launches``), or None when
+    ``exe`` runs eagerly (its wrappers counted every launch). Emits the
+    device kernels each trace recorded."""
+    if not exe.cuda_graphs:
+        return None
+    _, kern, totals, diffs = complete_trace(run)
+    emit(phase=phase, check="replay_trace", kernels_per_trace=totals,
+         trace_diffs=diffs, **where)
+    return traced_launches(kern)
+
+
 @contextlib.contextmanager
 def plain_attention(T, A):
     """Route the model's dense decode attention through the plain
@@ -1580,6 +1646,18 @@ def clone_scope(fluid, scope):
     return c
 
 
+def route_step(fluid, exe, main, feed, loss, scope):
+    """One step of a step check's route: ``main`` on ``feed`` from a
+    clone of ``scope`` (its tensors and generator) through an executor on
+    ``exe``'s place with capture off, so each route runs its own kernels
+    or its plain version and never replays a graph the other route
+    captured (tools/graph_fault_check.py plants the fault). Returns (the
+    loss fetch, the clone)."""
+    sc = clone_scope(fluid, scope)
+    eager = fluid.Executor(exe.place, cuda_graphs=False)
+    return eager.run(main, feed=feed, fetch_list=[loss], scope=sc)[0], sc
+
+
 @contextlib.contextmanager
 def plain_fused_attention(A):
     """Route the program's fused_multihead_attention ops through the plain
@@ -1620,11 +1698,9 @@ def bert_step_check(A, exe, fluid, prog, feed, scope):
     res = {}
     for route, ctx in (("kernel", contextlib.nullcontext()),
                        ("plain", plain_fused_attention(A))):
-        sc = clone_scope(fluid, scope)
         reset_launches(A)
         with ctx:
-            step_loss = exe.run(main, feed=feed, fetch_list=[loss],
-                                scope=sc)[0]
+            step_loss, sc = route_step(fluid, exe, main, feed, loss, scope)
         launched = launches(A, FUSED_KERNELS)
         if [launched[n] for n in FUSED_KERNELS] != [
                 cfg.n_layers * (route == "kernel")] * 3:
@@ -1691,6 +1767,10 @@ def bert_path(A, dev):
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches(A)
+    # a warm run (its wrappers launch), then the capture of its graph
+    # (launches nothing), then replays
+    for _ in range(2):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
     losses, step_s = [], []
     for _ in range(BERT_STEPS):
         torch.cuda.synchronize()
@@ -1699,12 +1779,15 @@ def bert_path(A, dev):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(float(out[0]))
+    replayed = traced_replay(exe, lambda: exe.run(
+        main, feed=feed, fetch_list=[loss], scope=scope), "bert")
     got = launches(A, FUSED_KERNELS)
-    want = cfg.n_layers * BERT_STEPS
-    if any(n != want for n in got.values()):
-        raise AssertionError("bert: fused kernel launches %s over %d steps "
-                             "(want %d each, all on the tensor cores)"
-                             % (got, BERT_STEPS, want))
+    if any(n != cfg.n_layers for n in list(got.values()) +
+           list(replayed.values())):
+        raise AssertionError("bert: fused kernel launches %s over the warm "
+                             "step, %s in a traced replay (want %d each, "
+                             "all on the tensor cores)"
+                             % (got, replayed, cfg.n_layers))
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
         raise AssertionError("bert: losses not finite and falling: %s"
                              % losses)
@@ -1715,10 +1798,8 @@ def bert_path(A, dev):
          startup_s=startup_s, losses=losses, step_s=step_s,
          step_ms=steady * 1e3, tokens_per_s=BERT_BATCH * BERT_SEQ / steady,
          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
-         launches=got,
-         launches_per_step={k: v / BERT_STEPS for k, v in got.items()},
-         step_vs_plain=check)
-    return got
+         launches=got, replay_launches=replayed, step_vs_plain=check)
+    return got, replayed
 
 
 LONG_SHAPES = ((2048, 8), (4096, 4), (8192, 2))   # bench.py bench_longseq
@@ -1841,11 +1922,9 @@ def long_step_check(A, exe, fluid, bert, prog, data_seed=0):
     res = {}
     for route, ctx in (("kernel", contextlib.nullcontext()),
                        ("plain", plain_fused_attention(A))):
-        sc = clone_scope(fluid, scope)
         reset_launches(A)
         with ctx:
-            step_loss = exe.run(main, feed=feed, fetch_list=[loss],
-                                scope=sc)[0]
+            step_loss, sc = route_step(fluid, exe, main, feed, loss, scope)
         launched = [getattr(A, name).launches for name in FUSED_KERNELS]
         if launched != [cfg.n_layers * (route == "kernel")] * 3:
             raise AssertionError("bert_long: the %s step launched the fused "
@@ -1865,8 +1944,8 @@ def long_step_check(A, exe, fluid, bert, prog, data_seed=0):
 
 
 def bert_long_path(A, dev):
-    """The long-context AMP path; returns {tier: {kernel: launches}} over
-    the timed steps of every shape."""
+    """The long-context AMP path; returns {tier: ({kernel: launches},
+    {kernel: launches in a traced replay})} summed over every shape."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.models import bert
 
@@ -1885,8 +1964,8 @@ def bert_long_path(A, dev):
                              "seeds %s: past %s" % (rec["seeds"], rec["over"]))
     torch.cuda.empty_cache()
 
-    tiers = {t: dict.fromkeys(FUSED_KERNELS + TENSOR_CORES, 0)
-             for t in ("fused", "long", "flash")}
+    tiers = {t: tuple(dict.fromkeys(FUSED_KERNELS + TENSOR_CORES, 0)
+                      for _ in range(2)) for t in ("fused", "long", "flash")}
     for S, batch in LONG_SHAPES:
         if S != LONG_CHECK_SEQ:
             cfg, main, startup, loss, build_s = long_program(fluid, bert, S)
@@ -1899,11 +1978,12 @@ def bert_long_path(A, dev):
         feed = bert.synthetic_batch(cfg, batch, S, seed=0)
         scope = fluid.Scope()
         exe.run(startup, scope=scope)
-        losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
-                                scope=scope)[0][0])]       # warm step
-        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches(A)
+        # a warm run (its wrappers launch), then the capture of its graph
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope)[0][0]) for _ in range(2)]
+        torch.cuda.synchronize()
         step_s = []
         for _ in range(LONG_STEPS):
             torch.cuda.synchronize()
@@ -1912,19 +1992,24 @@ def bert_long_path(A, dev):
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
             losses.append(float(out[0]))
+        replayed = traced_replay(exe, lambda: exe.run(
+            main, feed=feed, fetch_list=[loss], scope=scope), "bert_long",
+            seq_len=S)
         tier = reference_tier(S, cfg.hidden // cfg.n_heads)
         got = launches(A, FUSED_KERNELS)
-        want = cfg.n_layers * LONG_STEPS
-        if any(n != want for n in got.values()):
+        if any(n != cfg.n_layers for n in list(got.values()) +
+               list(replayed.values())):
             raise AssertionError(
-                "bert_long S %d: fused kernel launches %s (want %d each, "
-                "all on the tensor cores)" % (S, got, want))
+                "bert_long S %d: fused kernel launches %s over the warm "
+                "step, %s in a traced replay (want %d each, all on the "
+                "tensor cores)" % (S, got, replayed, cfg.n_layers))
         if not (all(math.isfinite(x) for x in losses) and
                 losses[-1] < losses[0]):
             raise AssertionError("bert_long S %d: losses not finite and "
                                  "falling: %s" % (S, losses))
         for name in got:
-            tiers[tier][name] += got[name]
+            tiers[tier][0][name] += got[name]
+            tiers[tier][1][name] += replayed[name]
         steady = statistics.median(step_s)
         emit(phase="bert_long", config="BertConfig.base, max_seq %d" % S,
              amp="bf16", seq_len=S, batch=batch, dropout=cfg.hidden_dropout,
@@ -1932,9 +2017,9 @@ def bert_long_path(A, dev):
              casts=casts, build_s=build_s, losses=losses, step_s=step_s,
              step_ms=steady * 1e3, tokens_per_s=batch * S / steady,
              max_memory_allocated_gb=torch.cuda.max_memory_allocated()
-             / 2 ** 30, tier=tier,
-             launches_per_step={k: v / LONG_STEPS for k, v in got.items()})
+             / 2 ** 30, tier=tier, launches=got, replay_launches=replayed)
         del scope, main, startup
+        exe.close()         # no S 8192 graph pool outlives its shape
         torch.cuda.empty_cache()
     return tiers
 
@@ -2010,11 +2095,9 @@ def packed_step_check(A, exe, fluid, bert, prog, data_seed=0):
     res = {}
     for route, ctx in (("kernel", contextlib.nullcontext()),
                        ("plain", plain_packed_attention(A))):
-        sc = clone_scope(fluid, scope)
         reset_launches(A)
         with ctx:
-            step_loss = exe.run(main, feed=feed, fetch_list=[loss],
-                                scope=sc)[0]
+            step_loss, sc = route_step(fluid, exe, main, feed, loss, scope)
         launched = [getattr(A, name).launches for name in FUSED_KERNELS]
         if launched != [cfg.n_layers * (route == "kernel")] * 3:
             raise AssertionError("bert_packed: the %s step launched the "
@@ -2034,18 +2117,23 @@ def packed_step_check(A, exe, fluid, bert, prog, data_seed=0):
 
 
 def timed_steps(A, exe, fluid, bert, prog, batch, steps):
-    """One warm step and ``steps`` timed steps of ``prog`` on one
-    synthetic batch: (losses, step seconds, peak GB, launches of the
-    fused wrappers over the timed steps)."""
+    """Two warm steps (through a graphed ``exe``, the second captures the
+    step) and ``steps`` timed steps of ``prog`` on one synthetic batch,
+    in a fresh scope: (losses, step seconds, peak GB allocated from the
+    first warm step on, the fused wrappers' launches from the first warm
+    step on, the fused kernels of one more replay (``traced_replay``) or
+    None when ``exe`` runs eagerly). Closes ``exe`` after, so no graph
+    outlives its run."""
     cfg, main, startup, loss, _ = prog
     feed = bert.synthetic_batch(cfg, batch, PACKED_SEQ, seed=0)
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
-    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
-                            scope=scope)[0][0])]          # warm step
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(A)
+    # a warm run, then (graphed) the capture of its graph
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0][0]) for _ in range(2)]
+    torch.cuda.synchronize()
     step_s = []
     for _ in range(steps):
         torch.cuda.synchronize()
@@ -2054,15 +2142,19 @@ def timed_steps(A, exe, fluid, bert, prog, batch, steps):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(float(out[0]))
-    got = launches(A, FUSED_KERNELS)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    replayed = traced_replay(exe, lambda: exe.run(
+        main, feed=feed, fetch_list=[loss], scope=scope), "timed_steps",
+        attention=str(cfg.use_fused_attention))
+    got = launches(A, FUSED_KERNELS)
     del scope
+    exe.close()
     torch.cuda.empty_cache()
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
         raise AssertionError("bert_packed (%s): losses not finite and "
                              "falling: %s" % (cfg.use_fused_attention,
                                               losses))
-    return losses, step_s, peak, got
+    return losses, step_s, peak, got, replayed
 
 
 def bert_packed_path(A, dev):
@@ -2078,8 +2170,8 @@ def bert_packed_path(A, dev):
     d 16 the TPU runs in its packed tier. A packed run's program holds
     one fused_multihead_attention_packed op a layer and no other
     attention op, so its launches are the packed layout's. Returns
-    {tier: {wrapper: launches}} of the last packed run and the BERT-tiny
-    run."""
+    {tier: ({wrapper: launches}, {wrapper: launches in a traced replay})}
+    of the last packed run and the BERT-tiny run."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.models import bert
 
@@ -2112,24 +2204,28 @@ def bert_packed_path(A, dev):
         types = {t: sum(op.type == t for op in ops) for t in (
             "fused_multihead_attention_packed", "fused_multihead_attention",
             "einsum", "cast")}
-        losses, step_s, peak, got = timed_steps(A, exe, fluid, bert, prog,
-                                                batch, steps)
-        want = cfg.n_layers * steps * (attention != "auto")
+        losses, step_s, peak, got, replayed = timed_steps(
+            A, exe, fluid, bert, prog, batch, steps)
+        # the warm step's launches, and one replay's
+        want = cfg.n_layers * (attention != "auto")
         op = {"packed": "fused_multihead_attention_packed",
               True: "fused_multihead_attention"}.get(attention)
-        if [got[n] for n in FUSED_KERNELS + TENSOR_CORES] != [want] * 6 or any(
+        if [got[n] for n in FUSED_KERNELS + TENSOR_CORES] != [want] * 6 or [
+                replayed[n] for n in FUSED_KERNELS + TENSOR_CORES] != [
+                    want] * 6 or any(
                 types[t] != (cfg.n_layers if t == op else 0) for t in (
                     "fused_multihead_attention_packed",
                     "fused_multihead_attention")):
-            raise AssertionError("bert_packed (%s): launches %s over %d "
-                                 "steps (all on the tensor cores), ops %s"
-                                 % (label, got, steps, types))
+            raise AssertionError("bert_packed (%s): launches %s over the "
+                                 "warm step, %s in a traced replay (all on "
+                                 "the tensor cores), ops %s"
+                                 % (label, got, replayed, types))
         d = cfg.hidden // cfg.n_heads
         tier = reference_tier(PACKED_SEQ, d, (batch, cfg.n_heads, 2,
                                               (batch, 1, 1, PACKED_SEQ))) \
             if attention == "packed" else None
         if tier is not None:
-            tiers[tier] = got
+            tiers[tier] = (got, replayed)
         step_s_of.setdefault(label, []).extend(step_s)
         steady = statistics.median(step_s)
         emit(phase="bert_packed",
@@ -2141,7 +2237,8 @@ def bert_packed_path(A, dev):
              step_s=step_s, step_ms=steady * 1e3,
              tokens_per_s=batch * PACKED_SEQ / steady,
              max_memory_allocated_gb=peak, tier=tier,
-             launches_per_step={k: v / steps for k, v in got.items() if v})
+             launches={k: v for k, v in got.items() if v},
+             replay_launches={k: v for k, v in replayed.items() if v})
         del prog, main
         torch.cuda.empty_cache()
     del progs
@@ -2152,6 +2249,253 @@ def bert_packed_path(A, dev):
                   for label, v in step_s_of.items() if label != "tiny_packed"},
          auto_rule="einsum below S 256, fused from S 256 (measured on a TPU)")
     return tiers
+
+
+# The executor phase: config 3 (BERT-base, batch 128, S 128, bf16 AMP,
+# packed) through Executor(cuda_graphs=True), the default (run 1 of a
+# program and feed signature eager, run 2 captured into a CUDA graph,
+# then replays), against cuda_graphs=False (every step op by op), from
+# clones of one state and generator. The same kernels run in the same
+# order on the same inputs (the embedding backward in a fixed order), and
+# every reading on the H100 was 0.0 (PERF.md §6: losses, moments,
+# iters=4, async), so graphed and eager must agree to the bit: a replay
+# that dropped or repeated a small part of the step would show.
+EXEC_STEPS, EXEC_TIMED = 10, 4
+# graphed and eager step times in turns, each round in a fresh scope
+EXEC_ROUNDS = (("graphed", True), ("eager", False), ("eager", False),
+               ("graphed", True))
+# the host's CUDA calls that issue work (torch.profiler's names)
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync")
+EXEC_KERNELS = ("attn_fwd_mma", "attn_bwd_dq_mma", "attn_bwd_dkdv_mma")
+
+
+# Idle seconds a trace keeps on each side of what it traces: the
+# profiler drops device events that fall outside its window on the
+# host's clock, and the device's clock, converted to it, can run off by
+# enough to lose the first kernels of a replay launched right after the
+# window opens.
+TRACE_PAD_S = 0.1
+
+
+def host_launches(fn):
+    """The host's launch calls (``LAUNCH_APIS``, by name) and the
+    device's kernels ({name: (us, calls)}) of one call of ``fn``, from a
+    torch.profiler trace with TRACE_PAD_S of idle time on each side."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_PAD_S)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+    api = {e.key: e.count for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and e.key in LAUNCH_APIS}
+    return api, kernel_times(prof)
+
+
+# A torch.profiler trace can miss the first events of what it traces:
+# one trace at S 8192 held 10 of a replay's 12 attn_fwd_mma kernels,
+# though the graph holds 12 and the traces before it held 12; another
+# lost a config-3 replay's first 50 events (TRACE_PAD_S). A trace never
+# adds a kernel, so of TRACE_TRIES traces, one ``fn()`` each, the one
+# with the most device events stands for the replay: a kernel missing
+# from all of them is missing from the graph.
+TRACE_TRIES = 3
+
+
+def complete_trace(fn, tries=TRACE_TRIES):
+    """(launch calls, {kernel: (us, calls)}, device kernels of each
+    trace, each trace's {kernel: calls} where it differs from the
+    chosen one) of the most complete of ``tries`` traces
+    (``host_launches``) of one ``fn()`` each."""
+    traces = [host_launches(fn) for _ in range(tries)]
+    totals = [sum(n for _, n in kern.values()) for _, kern in traces]
+    api, kern = traces[totals.index(max(totals))]
+    diffs = [{k[:80]: other.get(k, (0, 0))[1] - kern.get(k, (0, 0))[1]
+              for k in set(other) | set(kern)
+              if other.get(k, (0, 0))[1] != kern.get(k, (0, 0))[1]}
+             for _, other in traces]
+    return api, kern, totals, diffs
+
+
+def rel_diff(a, b):
+    """max |a - b| over max |b| (tensors or sequences of floats)."""
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def executor_path(A, monitor, dev):
+    """Config 3 graphed against eager (see EXEC_STEPS): 10 steps at p 0
+    (losses and the watched first moments, equal to the bit); at the program's p 0.1 the
+    first 5 steps beside eager's (whether replays reproduce the eager
+    draws: a finding) and, from one state, a replay with the generator
+    rewound (its loss must repeat) against one without (it must differ:
+    the masks change between replays); the three *_mma kernels by name
+    in a profiler trace of one replay, 12 launches each, and the host's
+    launch calls of a graphed and an eager step; iters=4 against four
+    single graphed runs; two async replays read after both against two
+    sync ones; then EXEC_ROUNDS of step times. Returns the replay's
+    kernel calls."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    replays = monitor.counter("executor_graph_replay_total")
+    cfg0 = bert.BertConfig.base()
+    cfg0.hidden_dropout = cfg0.attn_dropout = 0.0
+    cfg, main, startup, loss, _ = packed_program(fluid, bert, cfg0, "packed")
+    feed = bert.synthetic_batch(cfg, PACKED_BATCH, PACKED_SEQ, seed=0)
+    scope = fluid.Scope()
+    fluid.Executor(dev, cuda_graphs=False).run(startup, scope=scope)
+
+    def steps(exe, sc, n, **kw):
+        return [float(np.asarray(exe.run(main, feed=feed, fetch_list=[loss],
+                                         scope=sc, **kw)[0]).reshape(-1)[0])
+                for _ in range(n)]
+
+    runs = {}
+    for label, graphs in (("graphed", True), ("eager", False)):
+        sc = clone_scope(fluid, scope)
+        exe = fluid.Executor(dev, cuda_graphs=graphs)
+        reset_launches(A)
+        r0 = replays.value
+        runs[label] = (steps(exe, sc, EXEC_STEPS), {
+            n: sc.find_var(n + "_moment1_0") for n in BERT_WATCH},
+            replays.value - r0, launches(A, FUSED_KERNELS))
+        exe.close()
+        del sc
+    (g_loss, g_m1, g_replays, g_launched) = runs["graphed"]
+    (e_loss, e_m1, e_replays, e_launched) = runs["eager"]
+    grad_rel = {n: rel_diff(g_m1[n], e_m1[n]) for n in BERT_WATCH}
+    rec = dict(phase="executor", config="BertConfig.base, packed",
+               amp="bf16", seq_len=PACKED_SEQ, batch=PACKED_BATCH,
+               check="graphed_vs_eager", dropout=0.0, steps=EXEC_STEPS,
+               losses_graphed=g_loss, losses_eager=e_loss,
+               loss_rel=rel_diff(g_loss, e_loss), grad_rel=grad_rel,
+               moments_equal=all(torch.equal(g_m1[n], e_m1[n])
+                                 for n in BERT_WATCH),
+               replays=g_replays, eager_replays=e_replays,
+               launches=g_launched, eager_launches=e_launched)
+    emit(**rec)
+    # the wrappers launch in the graphed run's first (eager) step only
+    if not (g_loss == e_loss and rec["moments_equal"] and
+            g_replays == EXEC_STEPS - 1 and e_replays == 0 and
+            all(v == cfg.n_layers for v in g_launched.values()) and
+            all(v == cfg.n_layers * EXEC_STEPS
+                for v in e_launched.values())):
+        raise AssertionError("executor: graphed vs eager past its limits: "
+                             "%s" % rec)
+    del runs, g_m1, e_m1
+
+    # iters=4 against four single graphed runs; then two sync replays
+    # against two async ones, read after both
+    a, b, c = (clone_scope(fluid, scope) for _ in range(3))
+    stacked = {k: np.stack([v] * 4) for k, v in feed.items()}
+    exe = fluid.Executor(dev)
+    window = np.asarray(exe.run(main, feed=stacked, fetch_list=[loss],
+                                scope=a, iters=4)[0]).reshape(4, -1)[:, 0]
+    single = steps(exe, b, 4)
+    sync = steps(exe, b, 2)
+    steps(exe, c, 4)
+    handles = [exe.run(main, feed=feed, fetch_list=[loss], scope=c,
+                       fetch_mode="async")[0] for _ in range(2)]
+    async_ = [float(h.numpy().reshape(-1)[0]) for h in handles]
+    rec = dict(phase="executor", check="iters_and_async",
+               iters_window=window.tolist(), single_runs=single,
+               iters_rel=rel_diff(window, single), async_losses=async_,
+               sync_losses=sync, async_rel=rel_diff(async_, sync))
+    emit(**rec)
+    if not (window.tolist() == single and async_ == sync and
+            async_[0] != async_[1]):
+        raise AssertionError("executor: iters=4 or async past the limit: "
+                             "%s" % rec)
+    exe.close()
+    del a, b, c, scope
+
+    # the program's own dropout, p 0.1
+    cfg, main, startup, loss, _ = packed_program(
+        fluid, bert, bert.BertConfig.base(), "packed")
+    scope = fluid.Scope()
+    fluid.Executor(dev, cuda_graphs=False).run(startup, scope=scope)
+    sc = clone_scope(fluid, scope)
+    eager = steps(fluid.Executor(dev, cuda_graphs=False), sc, 5)
+    exe = fluid.Executor(dev)
+    graphed = steps(exe, scope, 5)
+    del sc
+    state = {n: scope.find_var(n).clone() for n in scope.local_var_names()}
+    rng = scope.generator.get_state()
+
+    def replay(rewind):
+        for n, t in state.items():
+            scope.find_var(n).copy_(t)
+        if rewind:
+            scope.generator.set_state(rng)
+        return steps(exe, scope, 1)[0]
+
+    first = replay(True)
+    rec = dict(phase="executor", check="dropout_masks", dropout=0.1,
+               losses_graphed=graphed, losses_eager=eager,
+               replays_equal_eager=graphed == eager,
+               replays_rel_to_eager=rel_diff(graphed, eager),
+               replay_loss=first, rewound_replay_loss=replay(True),
+               next_replay_loss=replay(False))
+    rec["same_seed_repeats"] = rec["rewound_replay_loss"] == first
+    rec["masks_change"] = rec["next_replay_loss"] != first
+    del state
+
+    # the kernels of one replay by name; the host's launch calls a step
+    api, kern, traced, diffs = complete_trace(lambda: steps(exe, scope,
+                                                            1))
+    calls = traced_launches(kern)
+    named = {name: sum(n for k, (_, n) in kern.items() if name + "<" in k)
+             for name in EXEC_KERNELS}
+    e_exe = fluid.Executor(dev, cuda_graphs=False)
+    e_sc = clone_scope(fluid, scope)
+    steps(e_exe, e_sc, 1)
+    e_api, e_kern = host_launches(lambda: steps(e_exe, e_sc, 1))
+    rec.update(replay_kernels=named, replay_launches=calls,
+               replay_host_launches=api,
+               replay_device_kernels=sum(n for _, n in kern.values()),
+               kernels_per_trace=traced, trace_diffs=diffs,
+               eager_host_launches=e_api,
+               eager_device_kernels=sum(n for _, n in e_kern.values()))
+    emit(**rec)
+    if not (rec["same_seed_repeats"] and rec["masks_change"] and
+            all(math.isfinite(x) for x in graphed) and
+            all(n == cfg.n_layers for n in list(calls.values()) +
+                list(named.values()))):
+        raise AssertionError("executor: p 0.1 replays or the replay's "
+                             "kernels: %s" % rec)
+    exe.close()
+    del scope, e_sc
+    torch.cuda.empty_cache()
+
+    # step times, graphed and eager in turns (timed_steps, fresh scopes)
+    prog = (cfg, main, startup, loss, 0.0)
+    times = {}
+    for label, graphs in EXEC_ROUNDS:
+        exe = fluid.Executor(dev, cuda_graphs=graphs)
+        r0 = replays.value
+        losses, step_s, peak, got, replayed = timed_steps(
+            A, exe, fluid, bert, prog, PACKED_BATCH, EXEC_TIMED)
+        steady = statistics.median(step_s)
+        times.setdefault(label, []).extend(step_s)
+        emit(phase="executor", check="step_times", mode=label,
+             step_s=step_s, step_ms=steady * 1e3,
+             tokens_per_s=PACKED_BATCH * PACKED_SEQ / steady,
+             max_memory_allocated_gb=peak, losses=losses,
+             replays=replays.value - r0, launches=got,
+             replay_launches=replayed)
+        # graphed: the capture's replay, the timed ones, the traced ones
+        if graphs and replays.value - r0 != EXEC_TIMED + 1 + TRACE_TRIES:
+            raise AssertionError("executor: %d replays over %d timed steps"
+                                 % (replays.value - r0, EXEC_TIMED))
+    emit(phase="executor", check="step_times_compare",
+         step_ms={k: statistics.median(v) * 1e3 for k, v in times.items()},
+         host_launches_per_step={"graphed": api, "eager": e_api})
+    return calls
 
 
 SERVE_SEQ, SERVE_REQUESTS, SERVE_CLIENTS = 128, 64, 8
@@ -2167,9 +2511,17 @@ def encoder_serving_path(A, inference, monitor, dev):
     use_fused_attention="packed", fp32) built, started on the card,
     saved with save_inference_model and loaded back as a Predictor,
     behind a Server (batches up to 32, 2 ms queue delay, ladder warmed
-    up); SERVE_REQUESTS requests of 1-4 padded rows from SERVE_CLIENTS
-    threads. Every future is held to a direct Predictor.run of its rows.
-    Returns the forward kernel's launches over the served batches."""
+    up: each bucket run twice, the second capturing its CUDA graph);
+    SERVE_REQUESTS requests of 1-4 padded rows from SERVE_CLIENTS
+    threads, served from the graphs and then, in the same call, by a
+    predictor with capture off (every batch op by op). Every future is
+    held to a direct Predictor.run of its rows through an eager clone
+    (capture off in both modes, so a graphed batch is held to the op by
+    op path). The wrappers' launches are counted from the warm-up on:
+    graphed, only each bucket's first (eager) run launches through them,
+    and one more replay of the one-row bucket, traced, names the forward
+    kernel. Returns the wrappers' launches of the graphed run and that
+    replay's kernels."""
     import tempfile
 
     from paddle_tpu_torch import fluid
@@ -2190,83 +2542,130 @@ def encoder_serving_path(A, inference, monitor, dev):
     starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
     reqs = [{n: rows[n][s:s + k] for n in feeds}
             for s, k in zip(starts, sizes)]
+    lbl = {"model": "bert_encoder"}
+    occ = monitor.histogram("serving_batch_occupancy", labels=lbl)
+    batches = monitor.counter("serving_batches_total", labels=lbl)
+    replays = monitor.counter("executor_graph_replay_total")
+    served_launches = None
     with tempfile.TemporaryDirectory() as model_dir:
         with fluid.scope_guard(scope):
             exe.run(startup, scope=scope)
             fluid.io.save_inference_model(model_dir, feeds, [enc], exe,
                                           main_program=main)
-        t0 = time.perf_counter()
-        pred = inference.create_predictor(inference.Config(model_dir))
-        load_s = time.perf_counter() - t0
-    direct = pred.clone()
-    lbl = {"model": "bert_encoder"}
-    occ = monitor.histogram("serving_batch_occupancy", labels=lbl)
-    batches = monitor.counter("serving_batches_total", labels=lbl)
-    results, latency = [None] * len(reqs), [None] * len(reqs)
-    with inference.Server() as srv:
-        t0 = time.perf_counter()
-        ladder = srv.register(
-            "bert_encoder", pred,
-            config=inference.ServeConfig(max_batch_size=32,
-                                         max_queue_delay_ms=2.0),
-            warmup_feed={n: reqs[0][n][:1] for n in feeds})
-        torch.cuda.synchronize()
-        warmup_s = time.perf_counter() - t0
-        occ0, batches0 = (occ.sum, occ.count), batches.value
-        reset_launches(A)
-        t0 = time.perf_counter()
+        del exe, scope
+        for mode in ("graphed", "eager"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            pred = inference.create_predictor(inference.Config(model_dir))
+            load_s = time.perf_counter() - t0
+            pred._exe.cuda_graphs = mode == "graphed"
+            direct = pred.clone()
+            direct._exe.cuda_graphs = False
+            results, latency = [None] * len(reqs), [None] * len(reqs)
+            exemplar = {n: reqs[0][n][:1] for n in feeds}
+            with inference.Server() as srv:
+                reset_launches(A)
+                t0 = time.perf_counter()
+                r0 = replays.value
+                ladder = srv.register(
+                    "bert_encoder", pred,
+                    config=inference.ServeConfig(max_batch_size=32,
+                                                 max_queue_delay_ms=2.0),
+                    warmup_feed=exemplar)
+                torch.cuda.synchronize()
+                warmup_s = time.perf_counter() - t0
+                warm_replays = replays.value - r0
+                peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+                reserved_gb = torch.cuda.memory_reserved() / 2 ** 30
+                occ0, batches0, r0 = (occ.sum, occ.count), batches.value, \
+                    replays.value
+                t0 = time.perf_counter()
 
-        def client(c):
-            for i in range(c, len(reqs), SERVE_CLIENTS):
-                ts = time.perf_counter()
-                results[i] = srv.submit("bert_encoder", reqs[i]).result(
-                    timeout=600)
-                latency[i] = time.perf_counter() - ts
+                def client(c):
+                    for i in range(c, len(reqs), SERVE_CLIENTS):
+                        ts = time.perf_counter()
+                        results[i] = srv.submit("bert_encoder",
+                                                reqs[i]).result(timeout=600)
+                        latency[i] = time.perf_counter() - ts
 
-        threads = [threading.Thread(target=client, args=(c,))
-                   for c in range(SERVE_CLIENTS)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-            if t.is_alive():
-                raise AssertionError("encoder_serving client thread hung")
-        wall = time.perf_counter() - t0
-    served = launches(A, FUSED_KERNELS)
-    n_batches = batches.value - batches0
-    if any(r is None for r in results):
-        raise AssertionError("encoder_serving: unresolved futures")
-    if not (served["fused_attention_fwd_kernel"] == served[FWD_TC] ==
-            cfg.n_layers * n_batches > 0 and
-            sum(served[n] for n in FUSED_KERNELS) ==
-            served["fused_attention_fwd_kernel"]):
-        raise AssertionError("encoder_serving: launches %s over %d batches"
-                             % (served, n_batches))
-    err = ref = 0.0
-    for req, got in zip(reqs, results):
-        want = direct.run(req)[0]
-        if got[0].shape != want.shape or not np.isfinite(got[0]).all():
-            raise AssertionError("encoder_serving: output %s, want %s"
-                                 % (got[0].shape, want.shape))
-        err = max(err, float(np.abs(got[0] - want).max()))
-        ref = max(ref, float(np.abs(want).max()))
-    if not err <= SERVE_ATOL:
-        raise AssertionError("encoder_serving: served vs direct max |err| "
-                             "%g > %g" % (err, SERVE_ATOL))
-    lat = np.array(latency)
-    emit(phase="encoder_serving", config="BertConfig.base encoder, packed",
-         seq_len=SERVE_SEQ, dtype="float32", requests=len(reqs),
-         rows=int(sizes.sum()), clients=SERVE_CLIENTS, max_batch_size=32,
-         max_queue_delay_ms=2.0, ladder=ladder, load_s=load_s,
-         warmup_s=warmup_s, wall_s=wall, batches=n_batches,
-         occupancy_mean=(occ.sum - occ0[0]) / (occ.count - occ0[1]),
-         request_p50_s=float(np.percentile(lat, 50)),
-         request_p99_s=float(np.percentile(lat, 99)),
-         rows_per_s=float(sizes.sum()) / wall,
-         packed_fwd_launches=served["fused_attention_fwd_kernel"],
-         vs_direct_max_abs_err=err, vs_direct_atol=SERVE_ATOL,
-         output_max_abs=ref)
-    return served["fused_attention_fwd_kernel"]
+                threads = [threading.Thread(target=client, args=(c,))
+                           for c in range(SERVE_CLIENTS)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=600)
+                    if t.is_alive():
+                        raise AssertionError("encoder_serving client "
+                                             "thread hung")
+                wall = time.perf_counter() - t0
+            n_batches = batches.value - batches0
+            served_replays = replays.value - r0
+            replayed = traced_replay(pred._exe, lambda: pred.run(exemplar),
+                                     "encoder_serving", mode=mode)
+            served = launches(A, FUSED_KERNELS)
+            if any(r is None for r in results):
+                raise AssertionError("encoder_serving: unresolved futures")
+            # graphed: each bucket's warm run; eager: both warm-up runs
+            # of every bucket and every served batch
+            want = cfg.n_layers * (len(ladder) if mode == "graphed" else
+                                   2 * len(ladder) + n_batches)
+            if not (served["fused_attention_fwd_kernel"] == served[FWD_TC]
+                    == want > 0 and
+                    sum(served[n] for n in FUSED_KERNELS) ==
+                    served["fused_attention_fwd_kernel"] and
+                    (replayed is None or
+                     (replayed["fused_attention_fwd_kernel"] ==
+                      replayed[FWD_TC] == cfg.n_layers and
+                      sum(replayed[n] for n in FUSED_KERNELS) ==
+                      cfg.n_layers))):
+                raise AssertionError("encoder_serving (%s): launches %s "
+                                     "from the warm-up on (want %d), %s in "
+                                     "a traced replay"
+                                     % (mode, served, want, replayed))
+            # graphed: the ladder captured at warm-up (one replay a
+            # bucket), then every served batch a replay
+            want = (len(ladder), n_batches) if mode == "graphed" else (0, 0)
+            if (warm_replays, served_replays) != want:
+                raise AssertionError(
+                    "encoder_serving (%s): %d warm-up and %d served "
+                    "replays, want %s" % (mode, warm_replays,
+                                          served_replays, want))
+            err = ref = 0.0
+            for req, got in zip(reqs, results):
+                expect = direct.run(req)[0]
+                if got[0].shape != expect.shape or \
+                        not np.isfinite(got[0]).all():
+                    raise AssertionError("encoder_serving: output %s, want "
+                                         "%s" % (got[0].shape, expect.shape))
+                err = max(err, float(np.abs(got[0] - expect).max()))
+                ref = max(ref, float(np.abs(expect).max()))
+            if not err <= SERVE_ATOL:
+                raise AssertionError("encoder_serving: served vs direct max "
+                                     "|err| %g > %g" % (err, SERVE_ATOL))
+            lat = np.array(latency)
+            emit(phase="encoder_serving",
+                 config="BertConfig.base encoder, packed", mode=mode,
+                 seq_len=SERVE_SEQ, dtype="float32", requests=len(reqs),
+                 rows=int(sizes.sum()), clients=SERVE_CLIENTS,
+                 max_batch_size=32, max_queue_delay_ms=2.0, ladder=ladder,
+                 load_s=load_s, warmup_s=warmup_s, wall_s=wall,
+                 batches=n_batches, warmup_replays=warm_replays,
+                 served_replays=served_replays,
+                 max_memory_allocated_gb=peak_gb,
+                 memory_reserved_gb=reserved_gb,
+                 occupancy_mean=(occ.sum - occ0[0]) / (occ.count - occ0[1]),
+                 request_p50_s=float(np.percentile(lat, 50)),
+                 request_p99_s=float(np.percentile(lat, 99)),
+                 rows_per_s=float(sizes.sum()) / wall,
+                 packed_fwd_launches=served["fused_attention_fwd_kernel"],
+                 replay_launches=replayed,
+                 vs_direct_max_abs_err=err, vs_direct_atol=SERVE_ATOL,
+                 output_max_abs=ref)
+            if served_launches is None:
+                served_launches = (served, replayed)
+            del pred, direct
+    return served_launches
 
 
 def main():
@@ -2314,6 +2713,8 @@ def main():
     torch.cuda.empty_cache()
     packed_launches = bert_packed_path(A, dev)
     torch.cuda.empty_cache()
+    executor_path(A, monitor, dev)
+    torch.cuda.empty_cache()
     encoder_serving_path(A, inference, monitor, dev)
 
     src = "paddle_tpu_torch/kernels/csrc/decode_attention.cu"
@@ -2332,50 +2733,55 @@ def main():
             ms_clean_l2=rec["kernel_ms_clean_l2"]))
     fused_src = "paddle_tpu_torch/kernels/csrc/fused_attention.cu"
     # each row counts its kernels' launches on the tensor cores (a
-    # backward row the dq kernel's: the pair launches together)
+    # backward row the dq kernel's: the pair launches together): those
+    # its wrapper made (``launches``: the phase's eager warm step; its
+    # graph's replays call no wrapper) and those of one traced replay
+    # of the graph, by kernel name (``replay_launches``)
     for name, rec, launches, replaces in (
             ("fused_attention_fwd (attn_fwd_tf32x3, fp32)", dict(
                 fused_rec["fwd"], ms_p0=fused_p0_rec["fwd"]["kernel_ms"]),
-             bert_launches[FWD_TC], "paddle_tpu/kernels/attention.py:294"),
+             (bert_launches, FWD_TC), "paddle_tpu/kernels/attention.py:294"),
             ("fused_attention_bwd (attn_bwd_dq_tf32x3 + "
              "attn_bwd_dkdv_tf32x3, fp32)", fused_rec["bwd"],
-             bert_launches[DQ_TC], "paddle_tpu/kernels/attention.py:307"),
+             (bert_launches, DQ_TC), "paddle_tpu/kernels/attention.py:307"),
             ("fused_attention_fwd (attn_fwd_mma), long tier",
-             long_rec["fwd"], long_launches["long"][FWD_TC],
+             long_rec["fwd"], (long_launches["long"], FWD_TC),
              "paddle_tpu/kernels/attention.py:362"),
             ("fused_attention_bwd (dq + dk/dv kernels), long tier",
-             long_rec["bwd"], long_launches["long"][DQ_TC],
+             long_rec["bwd"], (long_launches["long"], DQ_TC),
              "paddle_tpu/kernels/attention.py:390"),
             ("fused_attention_fwd (attn_fwd_mma), flash tier",
-             flash_rec["fwd"], long_launches["flash"][FWD_TC],
+             flash_rec["fwd"], (long_launches["flash"], FWD_TC),
              "paddle_tpu/kernels/attention.py:602"),
             ("fused_attention_bwd_dq (attn_bwd_dq_mma), flash tier",
-             flash_rec["dq"], long_launches["flash"][DQ_TC],
+             flash_rec["dq"], (long_launches["flash"], DQ_TC),
              "paddle_tpu/kernels/attention.py:650"),
             ("fused_attention_bwd_dkdv (attn_bwd_dkdv_mma), flash tier",
-             flash_rec["dkdv"], long_launches["flash"][DKDV_TC],
+             flash_rec["dkdv"], (long_launches["flash"], DKDV_TC),
              "paddle_tpu/kernels/attention.py:697"),
             ("fused_attention_fwd (attn_fwd_mma), packed layout, packed "
-             "tier", packed_rec["fwd"], packed_launches["packed"][FWD_TC],
+             "tier", packed_rec["fwd"], (packed_launches["packed"], FWD_TC),
              "paddle_tpu/kernels/attention.py:917"),
             ("fused_attention_bwd (dq + dk/dv kernels), packed layout, "
              "packed tier", packed_rec["bwd"],
-             packed_launches["packed"][DQ_TC],
+             (packed_launches["packed"], DQ_TC),
              "paddle_tpu/kernels/attention.py:960"),
             ("fused_attention_fwd (attn_fwd_mma), packed layout, resident "
-             "tier", res_rec["fwd"], packed_launches["resident"][FWD_TC],
+             "tier", res_rec["fwd"], (packed_launches["resident"], FWD_TC),
              "paddle_tpu/kernels/attention.py:1170"),
             ("fused_attention_bwd_dq (attn_bwd_dq_mma), packed layout, "
              "resident tier", res_rec["dq"],
-             packed_launches["resident"][DQ_TC],
+             (packed_launches["resident"], DQ_TC),
              "paddle_tpu/kernels/attention.py:1195"),
             ("fused_attention_bwd_dkdv (attn_bwd_dkdv_mma), packed layout, "
              "resident tier", res_rec["dkdv"],
-             packed_launches["resident"][DKDV_TC],
+             (packed_launches["resident"], DKDV_TC),
              "paddle_tpu/kernels/attention.py:1228")):
+        (got, replayed), key = launches
         row = dict(
             name=name, route="cuda", source=fused_src, replaces=replaces,
-            launches=launches, max_abs_err=rec["max_abs_err"],
+            launches=got[key], replay_launches=replayed[key],
+            max_abs_err=rec["max_abs_err"],
             ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
             library_ms=rec["library_ms"])

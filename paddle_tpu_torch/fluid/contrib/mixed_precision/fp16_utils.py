@@ -115,6 +115,7 @@ def rewrite_program(main_program, amp_lists, dest_dtype="bfloat16"):
                         low_vars.add(out)
         new_ops.append(op)
     block.ops = new_ops
+    main_program._bump()
     return main_program
 
 

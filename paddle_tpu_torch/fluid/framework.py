@@ -251,12 +251,14 @@ class Block:
             return self.vars[name]
         v = Variable(self, **kwargs)
         self.vars[v.name] = v
+        self.program._bump()
         return v
 
     def create_parameter(self, **kwargs):
         p = Parameter(self, **kwargs)
         # parameters live in the global block's var table
         self.program.global_block().vars[p.name] = p
+        self.program._bump()
         return p
 
     def append_op(self, type, inputs=None, outputs=None, attrs=None):
@@ -266,6 +268,7 @@ class Block:
             v = self._find_var_recursive(name)
             if v is not None and v.op is None:
                 v.op = op
+        self.program._bump()
         return op
 
     def all_parameters(self):
@@ -282,7 +285,13 @@ class Block:
 
 class Program:
     """A multi-block IR program. ``random_seed`` seeds the generator of
-    the scope that first runs it (see ``executor.py``)."""
+    the scope that first runs it (see ``executor.py``).
+
+    ``_uid`` is a token no other Program shares (``id`` can be reused
+    once a Program is collected) and ``_mutation`` an edit counter,
+    bumped by every var or op a block adds and by rewrites that replace
+    ops: the executor keys its compiled steps by both, so a program
+    edited after a run is lowered and captured anew."""
 
     _uid_counter = itertools.count()
 
@@ -290,9 +299,13 @@ class Program:
         self.blocks = [Block(self, 0)]
         self.current_block_idx = 0
         self.random_seed = 0
+        self._mutation = 0
         self._uid = next(Program._uid_counter)
         # set by append_backward: param name -> grad var name
         self.param_grad_map = {}
+
+    def _bump(self):
+        self._mutation += 1
 
     def global_block(self):
         return self.blocks[0]
@@ -315,6 +328,7 @@ class Program:
         ``is_test`` attr to eval mode (dropout off)."""
         p = Program.__new__(Program)
         p._uid = next(Program._uid_counter)
+        p._mutation = 0
         p.random_seed = self.random_seed
         p.param_grad_map = dict(self.param_grad_map)
         p.current_block_idx = 0
@@ -381,6 +395,7 @@ class Program:
     def from_desc(desc):
         p = Program.__new__(Program)
         p._uid = next(Program._uid_counter)
+        p._mutation = 0
         p.random_seed = desc.get("random_seed", 0)
         p.param_grad_map = dict(desc.get("param_grad_map", {}))
         p.current_block_idx = 0

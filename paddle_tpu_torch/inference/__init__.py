@@ -5,12 +5,15 @@
 A ``Predictor`` loads what ``fluid.io.save_inference_model`` wrote (by
 either package): the pruned program through the load gate, its
 parameters onto the card (``Config(place=)``, "cuda" by default), and
-serves ``run(feed) -> fetches`` through the port's eager executor, op
-by op, so the fused attention ops reach their CUDA kernels. The
-reference compiles one XLA executable per feed signature; the port
-compiles nothing, but still counts each new signature
+serves ``run(feed) -> fetches`` through the port's executor, so the
+fused attention ops reach their CUDA kernels. The reference compiles one
+XLA executable per feed signature; on the card the port's executor
+captures one CUDA graph per signature (at its second run; the first runs
+op by op) and replays it after, and each new signature is counted
 (``predictor_shape_recompile_total``), which is what a serving ladder
-is sized by.
+is sized by. A predictor's graphs rewrite their static buffers at every
+replay, so one predictor serves one thread at a time; ``clone()`` gives
+another thread its own executor and graphs over the same weights.
 """
 
 import time as _time
@@ -90,7 +93,8 @@ class Predictor:
             # read, and the scope's contents stay exactly as it serves
             self._exe = fluid.Executor(
                 _clone_of._exe.place,
-                promote_products=_clone_of._exe.promote_products)
+                promote_products=_clone_of._exe.promote_products,
+                cuda_graphs=_clone_of._exe.cuda_graphs)
             self._program = _clone_of._program
             self._scope = _clone_of._scope
             self._feed_names = list(_clone_of._feed_names)

@@ -9,7 +9,9 @@ head-of-line signature group (priority, then earliest deadline, then
 FIFO), stacks its rows into one batch and pads it, by repeating the last
 row, up to the power-of-two ladder (1, 2, 4, ..., ``max_batch_size``),
 so every request size maps onto ``len(ladder)`` batch shapes, which
-``register(warmup_feed=)`` runs once each before traffic. A batch
+``register(warmup_feed=)`` runs twice each before traffic: on the card
+the predictor's executor runs a new shape once op by op and captures it
+into a CUDA graph at the second run, so traffic only replays graphs. A batch
 closes when it is full, when its oldest request has waited
 ``max_queue_delay_ms``, or a service-time margin before the earliest
 ``deadline_ms`` of its riders; a request whose deadline passes in the
@@ -267,8 +269,9 @@ class Server:
     def register(self, name, predictor, config=None, warmup_feed=None):
         """Host ``predictor`` under ``name``. ``warmup_feed`` is ONE
         exemplar row ({feed_name: [1, ...] array}); when given, every
-        ladder batch size runs once before the worker starts. Returns
-        the ladder."""
+        ladder batch size runs twice before the worker starts (a warm
+        run, then the run that captures its CUDA graph on the card).
+        Returns the ladder."""
         config = config or ServeConfig()
         with self._lock:
             if self._closed:
@@ -295,11 +298,12 @@ class Server:
         t0 = time.perf_counter()
         with _DISPATCH_LOCK:
             for b in entry.config.ladder():
-                entry.predictor.run({
-                    n: np.repeat(_bucket_pad(
-                        v, entry.config.bucket_dims.get(n, ()),
-                        entry.config.pad_value), b, axis=0)
-                    for n, v in exemplar.items()})
+                batch = {n: np.repeat(_bucket_pad(
+                    v, entry.config.bucket_dims.get(n, ()),
+                    entry.config.pad_value), b, axis=0)
+                    for n, v in exemplar.items()}
+                for _ in range(2):
+                    entry.predictor.run(batch)
         entry.metrics["warmup_seconds"].observe(time.perf_counter() - t0)
 
     # -- client side -------------------------------------------------------

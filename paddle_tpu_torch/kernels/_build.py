@@ -97,6 +97,11 @@ def build_all():
     return out
 
 
+def loaded(stem):
+    """Whether ``library(stem)`` has been built and loaded already."""
+    return stem in _LIBS
+
+
 def library(stem):
     """The loaded ``ctypes.CDLL`` built from ``csrc/<stem>.cu``."""
     with _LOCK:

@@ -785,7 +785,7 @@ def _decode_launch_args(q, capacity, longest, splits):
 def _entry(name, n_ptrs, n_ints):
     """The C entry ``name`` of the decode-attention library, with its
     argument types declared: pointers, ints, the scale, the stream."""
-    fn = getattr(_build.library("decode_attention"), name)
+    fn = getattr(_library("decode_attention", name), name)
     if fn.argtypes is None:
         fn.argtypes = [_VOIDP] * n_ptrs + [_INT] * n_ints + [_FLOAT, _VOIDP]
         fn.restype = _INT
@@ -819,6 +819,40 @@ def _check_q(q):
         raise ValueError("q must be [B, H, Q, d], got %s"
                          % (tuple(q.shape),))
     decode_lanes(q.shape[3] * q.element_size())
+
+
+def _library(stem, entry):
+    """The library of ``csrc/<stem>.cu``, for its C entry ``entry``. A
+    library that is not loaded yet would be built (minutes of ``nvcc``)
+    and loaded at this call: inside a CUDA graph capture, which records
+    launches and runs nothing, that raises instead, naming the entry (the
+    executor runs every step once eagerly before it captures one)."""
+    if not _build.loaded(stem) and torch.cuda.is_current_stream_capturing():
+        raise _build.BuildError(
+            "%s: csrc/%s.cu is not built yet, and a CUDA graph capture "
+            "cannot build it; run the step once eagerly first"
+            % (entry, stem))
+    return _build.library(stem)
+
+
+# -- launch counts ------------------------------------------------------------
+# A wrapper counts a launch where it launches its kernel, and nowhere
+# else. While the executor captures a step into a CUDA graph, a call on
+# the capturing stream records its kernel in the graph and launches
+# nothing, so it counts nothing; a replay launches the graph's kernels
+# without calling any wrapper, so its kernels are counted by name in a
+# profiler trace (``chip_smoke.traced_launches``), never here.
+def _launched(wrapper, monitor, tensor_cores=False):
+    """Count one launch of ``wrapper``'s kernel (in its ``launches``, its
+    ``tensor_core_launches`` where ``tensor_cores``, and its ``monitor``
+    series), unless the call went to a capturing stream (the backward's
+    calls come from autograd's thread, on that stream)."""
+    if torch.cuda.is_current_stream_capturing():
+        return
+    wrapper.launches += 1
+    if tensor_cores:
+        wrapper.tensor_core_launches += 1
+    monitor.inc()
 
 
 def _raise_on(rc, what):
@@ -868,8 +902,7 @@ def decode_attention_kernel(q, k_cache, v_cache, cache_len, scale,
                 C, int(bool(causal_window)), piece, splits, rows,
                 float(scale), _stream(q.device))
     _raise_on(rc, "decode-attention")
-    decode_attention_kernel.launches += 1
-    _M_DECODE_LAUNCH.inc()
+    _launched(decode_attention_kernel, _M_DECODE_LAUNCH)
     return out
 
 
@@ -911,8 +944,7 @@ def paged_attention_kernel(q, k_pool, v_pool, page_table, cache_len, scale,
                 _ptr(ws), B, H, Q, d, ptok, npages, piece, splits, rows,
                 float(scale), _stream(q.device))
     _raise_on(rc, "paged-attention")
-    paged_attention_kernel.launches += 1
-    _M_PAGED_LAUNCH.inc()
+    _launched(paged_attention_kernel, _M_PAGED_LAUNCH)
     return out
 
 
@@ -934,7 +966,7 @@ def _fused_entry(name, signature):
     """The C entry ``name`` of the fused-attention library with its
     argument types: ``signature`` is a string of p (pointer), i (int),
     l (int64), f (float), one letter per argument."""
-    fn = getattr(_build.library("fused_attention"), name)
+    fn = getattr(_library("fused_attention", name), name)
     if fn.argtypes is None:
         types = {"p": _VOIDP, "i": _INT, "l": _I64, "f": _FLOAT}
         fn.argtypes = [types[c] for c in signature]
@@ -1050,10 +1082,8 @@ def fused_attention_fwd_kernel(q, k, v, bias, strides, seed, scale, p):
                 lse.data_ptr(), _strides(q, k, v, o), B, H, S, d,
                 float(scale), float(p), _keep_scale(p), _stream(q.device))
     _raise_on(rc, "fused-attention forward")
-    fused_attention_fwd_kernel.launches += 1
-    _M_FWD_LAUNCH.inc()
-    if on_tensor_cores(0, q.dtype, d):
-        fused_attention_fwd_kernel.tensor_core_launches += 1
+    _launched(fused_attention_fwd_kernel, _M_FWD_LAUNCH,
+              on_tensor_cores(0, q.dtype, d))
     return o, lse
 
 
@@ -1101,10 +1131,8 @@ def fused_attention_bwd_dq_kernel(q, k, v, bias, strides, seed, o, lse,
                 dq.data_ptr(), _strides(q, k, v, o, dout, dq), B, H, S, d,
                 float(scale), float(p), _keep_scale(p), _stream(q.device))
     _raise_on(rc, "fused-attention dq")
-    fused_attention_bwd_dq_kernel.launches += 1
-    _M_BWD_DQ_LAUNCH.inc()
-    if on_tensor_cores(1, q.dtype, d):
-        fused_attention_bwd_dq_kernel.tensor_core_launches += 1
+    _launched(fused_attention_bwd_dq_kernel, _M_BWD_DQ_LAUNCH,
+              on_tensor_cores(1, q.dtype, d))
     return dq, delta
 
 
@@ -1157,10 +1185,8 @@ def fused_attention_bwd_dkdv_kernel(q, k, v, bias, strides, seed, lse,
                 _strides(q, k, v, dout, dk, dv), B, H, S, d, float(scale),
                 float(p), _keep_scale(p), _stream(q.device))
     _raise_on(rc, "fused-attention dk/dv")
-    fused_attention_bwd_dkdv_kernel.launches += 1
-    _M_BWD_DKDV_LAUNCH.inc()
-    if on_tensor_cores(2, q.dtype, d):
-        fused_attention_bwd_dkdv_kernel.tensor_core_launches += 1
+    _launched(fused_attention_bwd_dkdv_kernel, _M_BWD_DKDV_LAUNCH,
+              on_tensor_cores(2, q.dtype, d))
     return dk, dv, dbias
 
 

@@ -1212,3 +1212,268 @@ def test_predictor_and_server_on_card(cuda_device, tmp_path):
     assert A.fused_attention_fwd_kernel.launches > n0
     for r, out in zip(reqs, outs):
         np.testing.assert_allclose(out, card.run(r)[0], atol=1e-5)
+
+
+# -- the executor's CUDA graphs ---------------------------------------------------
+# BERT-tiny in the packed layout, bf16 AMP, batch 4, S 64: graphed
+# (Executor(cuda_graphs=True), the default: run 1 eager, run 2 captures,
+# later runs replay) against eager (cuda_graphs=False), each from a clone
+# of one state and generator. The same kernels run in the same order on
+# the same inputs (the embedding backward in a fixed order), so graphed
+# and eager must agree to the bit, as every reading of chip_smoke's
+# executor phase did at config 3 (PERF.md §6).
+
+
+def _graph_program(dropout=0.0, dynamic_scaling=False):
+    """(cfg, main, loss, feed, scope after startup) of BERT-tiny packed
+    AMP pretraining; ``dynamic_scaling`` decorates Adam with dynamic loss
+    scaling that moves every step (raised every 2 good steps)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import optimizer
+    from paddle_tpu_torch.fluid.contrib import mixed_precision
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.tiny()
+    cfg.use_fused_attention = "packed"
+    cfg.hidden_dropout = cfg.attn_dropout = dropout
+    with fluid.unique_name.guard():
+        if not dynamic_scaling:
+            main, startup, loss = bert.build_pretrain_program(
+                cfg, seq_len=64, use_amp=True)
+        else:
+            main, startup = fluid.Program(), fluid.Program()
+            main.random_seed = 7
+            with fluid.program_guard(main, startup):
+                enc = bert.bert_encoder(*bert._feeds(64), cfg)
+                n = bert.max_predictions(64)
+                loss = bert.mlm_loss_masked(
+                    enc, *(fluid.layers.data(name, shape=[n], dtype=dt)
+                           for name, dt in (("mask_pos", "int64"),
+                                            ("mask_label", "int64"),
+                                            ("mask_weight", "float32"))),
+                    cfg)
+                mixed_precision.decorate(
+                    optimizer.Adam(learning_rate=1e-4),
+                    use_dynamic_loss_scaling=True, init_loss_scaling=1.0,
+                    incr_every_n_steps=2).minimize(loss)
+    feed = bert.synthetic_batch(cfg, 4, 64, seed=0)
+    scope = fluid.Scope()
+    fluid.Executor("cuda", cuda_graphs=False).run(startup, scope=scope)
+    return cfg, main, loss, feed, scope
+
+
+def _replays():
+    from paddle_tpu_torch.fluid import monitor
+    return monitor.counter("executor_graph_replay_total").value
+
+
+def _losses(exe, main, loss, feed, scope, steps, **kw):
+    return [float(np.asarray(exe.run(main, feed=feed, fetch_list=[loss],
+                                     scope=scope, **kw)[0]).reshape(-1)[0])
+            for _ in range(steps)]
+
+
+def test_graphed_steps_match_eager(cuda_device):
+    """10 graphed steps at p 0 against 10 eager ones: the losses and
+    every persistable after them equal; 9 replays (runs 2-10). The
+    wrappers count the first (eager) run's launches alone, once a layer
+    each; a traced replay runs the same kernels, by name."""
+    from paddle_tpu_torch import fluid
+
+    cfg, main, loss, feed, scope = _graph_program()
+    graphed, eager = (smoke.clone_scope(fluid, scope) for _ in range(2))
+    r0 = _replays()
+    n0 = [w.launches for w in _FUSED_COUNTERS]
+    exe = fluid.Executor(cuda_device)
+    got = _losses(exe, main, loss, feed, graphed, 9)
+    _, kern = smoke.host_launches(
+        lambda: got.extend(_losses(exe, main, loss, feed, graphed, 1)))
+    assert _replays() - r0 == 9
+    assert [w.launches - n for w, n in zip(_FUSED_COUNTERS, n0)] == \
+        [cfg.n_layers] * 3
+    assert list(smoke.traced_launches(kern).values()) == [cfg.n_layers] * 6
+    want = _losses(fluid.Executor(cuda_device, cuda_graphs=False), main,
+                   loss, feed, eager, 10)
+    assert _replays() - r0 == 9
+    assert got == want
+    for n in eager.local_var_names():
+        assert torch.equal(graphed.find_var(n), eager.find_var(n)), n
+
+
+def test_graph_loss_scaling_state_matches_eager(cuda_device):
+    """Dynamic loss scaling writes its scale and good/bad counters out
+    of place (assign ops); the graph copies them back into the storage it
+    reads next: after each of 6 steps they equal the eager run's (the
+    counters move every step, the scale every 2)."""
+    from paddle_tpu_torch import fluid
+
+    cfg, main, loss, feed, scope = _graph_program(dynamic_scaling=True)
+    names = sorted(n for n in scope.local_var_names()
+                   if n.startswith("loss_scaling"))
+    assert len(names) == 3, names
+    runs = {}
+    for label, graphs in (("graphed", True), ("eager", False)):
+        sc = smoke.clone_scope(fluid, scope)
+        exe = fluid.Executor(cuda_device, cuda_graphs=graphs)
+        runs[label] = []
+        for _ in range(6):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=sc)
+            runs[label].append([float(sc.find_var(n).reshape(-1)[0])
+                                for n in names])
+    assert runs["graphed"] == runs["eager"]
+    assert len({tuple(r) for r in runs["eager"]}) == 6
+
+
+def test_graph_masks_change_between_replays(cuda_device):
+    """At p 0.1 every replay draws new masks from the scope's generator:
+    from one state, a replay with the generator rewound repeats its
+    loss exactly, and one without differs."""
+    from paddle_tpu_torch import fluid
+
+    cfg, main, loss, feed, scope = _graph_program(dropout=0.1)
+    exe = fluid.Executor(cuda_device)
+    _losses(exe, main, loss, feed, scope, 2)          # warm, capture
+    state = {n: scope.find_var(n).clone() for n in scope.local_var_names()}
+    rng = scope.generator.get_state()
+
+    def replay(rewind):
+        for n, t in state.items():
+            scope.find_var(n).copy_(t)
+        if rewind:
+            scope.generator.set_state(rng)
+        return _losses(exe, main, loss, feed, scope, 1)[0]
+
+    first = replay(True)
+    assert replay(True) == first
+    assert replay(False) != first
+
+
+def test_graph_sees_a_replaced_weight(cuda_device):
+    """A weight replaced with set_var between two graphed runs changes
+    the next fetch as it does eagerly."""
+    from paddle_tpu_torch import fluid
+
+    cfg, main, loss, feed, scope = _graph_program()
+    name = "mlm_out_bias"
+    out = {}
+    for label, graphs in (("graphed", True), ("eager", False)):
+        sc = smoke.clone_scope(fluid, scope)
+        exe = fluid.Executor(cuda_device, cuda_graphs=graphs)
+        out[label] = _losses(exe, main, loss, feed, sc, 3)
+        old = sc.find_var(name)
+        sc.set_var(name, old + torch.linspace(-5, 5, old.numel(),
+                                              device=old.device))
+        out[label] += _losses(exe, main, loss, feed, sc, 2)
+    assert out["graphed"] == out["eager"]
+    assert abs(out["eager"][3] - out["eager"][2]) > 4e-2 * abs(
+        out["eager"][2])
+
+
+def test_graph_async_handles_survive_the_next_replay(cuda_device):
+    """Two async replays, read after both, give the eager losses of
+    those steps: each handle holds its own copy of the graph's output."""
+    from paddle_tpu_torch import fluid
+
+    cfg, main, loss, feed, scope = _graph_program()
+    graphed, eager = (smoke.clone_scope(fluid, scope) for _ in range(2))
+    exe = fluid.Executor(cuda_device)
+    _losses(exe, main, loss, feed, graphed, 2)
+    handles = [exe.run(main, feed=feed, fetch_list=[loss], scope=graphed,
+                       fetch_mode="async")[0] for _ in range(2)]
+    got = [float(h.numpy().reshape(-1)[0]) for h in handles]
+    want = _losses(fluid.Executor(cuda_device, cuda_graphs=False), main,
+                   loss, feed, eager, 4)[2:]
+    assert got == want
+    assert got[0] != got[1]
+
+
+def test_graph_iters_matches_single_runs(cuda_device):
+    """iters=4 (its first step eager, the second captured, then
+    replays) gives the trajectory and state of 4 single graphed runs."""
+    from paddle_tpu_torch import fluid
+
+    cfg, main, loss, feed, scope = _graph_program()
+    a, b = (smoke.clone_scope(fluid, scope) for _ in range(2))
+    r0 = _replays()
+    # stacked explicitly: batch 4 = iters 4 would read a per-step feed
+    # as a stack (the reference's rule for a dynamic batch dim)
+    stacked = {k: np.stack([v] * 4) for k, v in feed.items()}
+    traj = fluid.Executor(cuda_device).run(
+        main, feed=stacked, fetch_list=[loss], scope=a, iters=4)[0]
+    assert traj.shape[0] == 4 and _replays() - r0 == 3
+    singles = _losses(fluid.Executor(cuda_device), main, loss, feed, b, 4)
+    assert traj.reshape(4, -1)[:, 0].tolist() == singles
+    for n in b.local_var_names():
+        assert torch.equal(a.find_var(n), b.find_var(n)), n
+
+
+def test_graph_skip_step_restores_the_state(cuda_device):
+    """Under skip_step a non-finite replay (an input mask of NaN) leaves
+    every persistable bit-equal, and the next clean replay trains on."""
+    from paddle_tpu_torch import fluid
+
+    cfg, main, loss, feed, scope = _graph_program()
+    fluid.set_flags({"FLAGS_anomaly_policy": "skip_step"})
+    try:
+        exe = fluid.Executor(cuda_device)
+        _losses(exe, main, loss, feed, scope, 2)
+        before = {n: scope.find_var(n).clone()
+                  for n in scope.local_var_names()}
+        bad = dict(feed, input_mask=np.full_like(feed["input_mask"], np.nan))
+        r0 = _replays()
+        exe.run(main, feed=bad, fetch_list=[loss], scope=scope)
+        assert _replays() - r0 == 1
+        for n, t in before.items():
+            assert torch.equal(scope.find_var(n), t), n
+        assert np.isfinite(_losses(exe, main, loss, feed, scope, 1)).all()
+        assert not torch.equal(scope.find_var("word_emb"),
+                               before["word_emb"])
+    finally:
+        fluid.set_flags({"FLAGS_anomaly_policy": "raise"})
+
+
+def test_graph_of_one_scope_never_serves_another(cuda_device):
+    """One program, one executor, two scopes: the second scope's first
+    run is its own (eager) run, equal to the first scope's first step,
+    and leaves the first scope's state as it was."""
+    from paddle_tpu_torch import fluid
+
+    cfg, main, loss, feed, scope = _graph_program()
+    a, b = (smoke.clone_scope(fluid, scope) for _ in range(2))
+    exe = fluid.Executor(cuda_device)
+    first = _losses(exe, main, loss, feed, a, 3)
+    kept = {n: a.find_var(n).clone() for n in a.local_var_names()}
+    r0 = _replays()
+    assert _losses(exe, main, loss, feed, b, 1) == first[:1]
+    assert _replays() == r0
+    for n, t in kept.items():
+        assert torch.equal(a.find_var(n), t), n
+
+
+def test_predictor_graphs_match_eager(cuda_device, tmp_path):
+    """A packed BERT-tiny encoder Predictor captures one graph per input
+    signature (two batch sizes, three runs each): every output equals
+    an eager predictor's (fp32, the same kernels), from its replays."""
+    from paddle_tpu_torch import fluid, inference
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.tiny()
+    cfg.use_fused_attention = "packed"
+    feeds = ["src_ids", "pos_ids", "sent_ids", "input_mask"]
+    with fluid.unique_name.guard():
+        main, startup, enc = bert.build_encoder_program(cfg, seq_len=64)
+    exe, scope = fluid.Executor(cuda_device), fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup, scope=scope)
+        fluid.io.save_inference_model(str(tmp_path), feeds, [enc], exe,
+                                      main_program=main)
+    graphed = inference.create_predictor(inference.Config(str(tmp_path)))
+    eager = graphed.clone()
+    eager._exe.cuda_graphs = False
+    batch = bert.synthetic_batch(cfg, 6, 64, seed=4)
+    r0 = _replays()
+    for rows in (2, 6, 2, 6, 2, 6):
+        feed = {n: batch[n][:rows] for n in feeds}
+        np.testing.assert_allclose(graphed.run(feed)[0], eager.run(feed)[0],
+                                   rtol=1e-6, atol=1e-6)
+    assert _replays() - r0 == 4

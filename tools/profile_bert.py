@@ -1,5 +1,5 @@
 """Where a BERT-base pretraining step of paddle_tpu_torch spends its time
-on the card.
+on the card, replayed from the executor's CUDA graph and run eagerly.
 
     python3 tools/profile_bert.py [--seq 512] [--batch 32] [--amp]
                                   [--packed] [--steps 2]
@@ -10,15 +10,20 @@ Needs one CUDA card. Builds the program of chip_smoke.py's bert phase
 bert_long phase runs at S 2048/4096/8192 with batch 8/4/2;
 ``BertConfig.max_seq`` is raised to ``--seq`` past 512; ``--packed``
 sets ``use_fused_attention="packed"``, the bert_packed phase's layout,
-which that phase runs at S 128, batch 128, with ``--amp``), runs its
+which that phase runs at S 128, batch 128, with ``--amp``). For each
+mode in turn (``graphed``: ``Executor(cuda_graphs=True)``, the
+default, whose second run captures the step and later runs replay it;
+``eager``: ``cuda_graphs=False``, op by op), in a fresh scope: runs the
 startup program and two warm-up steps on one synthetic batch, times
 ``--steps`` steps on the host clock (ending in a device sync), traces as
 many with torch.profiler, and prints the card's name and power limit,
-then one JSON line: wall ms per step, device-busy ms per step (the sum
-of kernel times), the device's idle share, kernel launches per step, the
-fused attention kernels' device ms and share, and the kernels with the
-most device time. Device numbers are "not measured" where the profiler
-returned no device events.
+then one JSON line a mode: wall ms per step, device-busy ms per step
+(the sum of kernel times), the device's idle share, kernel launches per
+step on the device and the host's launch calls per step
+(``chip_smoke.LAUNCH_APIS``), peak memory allocated from the first warm
+step on and reserved at the end, the fused attention kernels' device ms
+and share, and the kernels with the most device time. Device numbers are
+"not measured" where the profiler returned no device events.
 """
 
 import argparse
@@ -34,7 +39,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from chip_smoke import kernel_times  # noqa: E402
+from chip_smoke import LAUNCH_APIS, kernel_times  # noqa: E402
 from paddle_tpu_torch import fluid  # noqa: E402
 from paddle_tpu_torch.models import bert  # noqa: E402
 
@@ -47,6 +52,67 @@ ATTENTION_KERNELS = ("attn_fwd", "attn_bwd_dq", "attn_bwd_dkdv",
                      "attn_fwd_mma", "attn_bwd_dq_mma", "attn_bwd_dkdv_mma",
                      "attn_fwd_wide", "attn_bwd_dq_wide",
                      "attn_bwd_dkdv_wide")
+
+
+def profile_mode(main_prog, startup, loss, feed, args, mode):
+    """The record of one mode (module docstring)."""
+    exe = fluid.Executor("cuda", cuda_graphs=mode == "graphed")
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+
+    def step():
+        exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / args.steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.steps):
+            step()
+        torch.cuda.synchronize()
+    kern = kernel_times(prof)
+    api = {e.key: e.count / args.steps for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and e.key in LAUNCH_APIS}
+    rec = dict(phase="profile", path="bert", mode=mode, batch=args.batch,
+               seq_len=args.seq, amp="bf16" if args.amp else None,
+               attention="packed" if args.packed else "auto",
+               steps=args.steps, wall_ms_per_step=wall_ms,
+               tokens_per_s=args.batch * args.seq / wall_ms * 1e3,
+               host_launch_calls_per_step=api,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+               / 2 ** 30,
+               memory_reserved_gb=torch.cuda.memory_reserved() / 2 ** 30)
+    if not kern:
+        rec.update(device_busy_ms_per_step="not measured",
+                   idle_share="not measured")
+    else:
+        busy_us = sum(us for us, _ in kern.values())
+        attn = {name: sum(us for k, (us, _) in kern.items() if name + "<" in k)
+                / args.steps / 1e3 for name in ATTENTION_KERNELS}
+        rec.update(
+            device_busy_ms_per_step=busy_us / args.steps / 1e3,
+            idle_share=1.0 - busy_us / args.steps / 1e3 / wall_ms,
+            kernel_launches_per_step=sum(n for _, n in kern.values())
+            / args.steps,
+            attention_ms_per_step=attn,
+            attention_share_of_busy=sum(attn.values()) * 1e3 * args.steps
+            / busy_us,
+            top=[dict(kernel=k[:96], ms_per_step=us / args.steps / 1e3,
+                      calls_per_step=n / args.steps)
+                 for k, (us, n) in sorted(kern.items(),
+                                          key=lambda kv: -kv[1][0])[:15]])
+    exe.close()
+    del scope
+    return rec
 
 
 def main():
@@ -73,51 +139,9 @@ def main():
         main_prog, startup, loss = bert.build_pretrain_program(
             cfg, seq_len=args.seq, use_amp=args.amp)
     feed = bert.synthetic_batch(cfg, args.batch, args.seq, seed=0)
-    exe, scope = fluid.Executor("cuda"), fluid.Scope()
-    exe.run(startup, scope=scope)
-
-    def step():
-        exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
-
-    for _ in range(2):
-        step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(args.steps):
-        step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / args.steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(args.steps):
-            step()
-        torch.cuda.synchronize()
-    kern = kernel_times(prof)
-    rec = dict(phase="profile", path="bert", batch=args.batch,
-               seq_len=args.seq, amp="bf16" if args.amp else None,
-               attention="packed" if args.packed else "auto",
-               steps=args.steps, wall_ms_per_step=wall_ms,
-               tokens_per_s=args.batch * args.seq / wall_ms * 1e3)
-    if not kern:
-        rec.update(device_busy_ms_per_step="not measured",
-                   idle_share="not measured")
-    else:
-        busy_us = sum(us for us, _ in kern.values())
-        attn = {name: sum(us for k, (us, _) in kern.items() if name + "<" in k)
-                / args.steps / 1e3 for name in ATTENTION_KERNELS}
-        rec.update(
-            device_busy_ms_per_step=busy_us / args.steps / 1e3,
-            idle_share=1.0 - busy_us / args.steps / 1e3 / wall_ms,
-            kernel_launches_per_step=sum(n for _, n in kern.values())
-            / args.steps,
-            attention_ms_per_step=attn,
-            attention_share_of_busy=sum(attn.values()) * 1e3 * args.steps
-            / busy_us,
-            top=[dict(kernel=k[:96], ms_per_step=us / args.steps / 1e3,
-                      calls_per_step=n / args.steps)
-                 for k, (us, n) in sorted(kern.items(),
-                                          key=lambda kv: -kv[1][0])[:15]])
-    print(json.dumps(rec), flush=True)
+    for mode in ("graphed", "eager"):
+        print(json.dumps(profile_mode(main_prog, startup, loss, feed, args,
+                                      mode)), flush=True)
     return 0
 
 
