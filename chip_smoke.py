@@ -138,7 +138,35 @@ wrappers') and ``replay_launches`` (the traced replay's).
              latency, occupancy, launches (from the warm-up on, and a
              traced replay), replays, memory; then the same with the
              served predictor's capture off.
-10. summary  the kernels line, the card line, then the result line.
+10. lenet    BASELINE config 1 as bench.py's bench_lenet feeds it:
+             LeNet-5, batch 1024, fp32, Adam, graphed; 3 steps graphed
+             against 3 eager from one state (losses and every
+             persistable equal to the bit, and two eager runs equal to
+             each other), then 10 steps and timed iters=100 windows:
+             images/s and step ms; falling losses.
+11. resnet   BASELINE config 2 as bench.py's bench_resnet feeds it:
+             ResNet-50, batch 256, 224x224, bf16 AMP, Momentum(0.9) +
+             L2Decay(1e-4), random images and labels made on the card,
+             graphed. Per layout (NCHW, the reference's default, and
+             NHWC): 3 graphed steps against 3 eager ones from one state
+             (losses, every parameter, velocity and batch-norm running
+             statistic equal to the bit; two eager runs too), the
+             convolution kernels of the eager step and of a traced
+             replay equal by name (cuDNN chose them outside the
+             capture); then timed rounds NCHW, NHWC, NHWC, NCHW: images/s,
+             step ms, device-busy ms and idle share, host launch calls a
+             step, peak allocated and reserved GB, the five kernels with
+             the most device time, and MFU against 989 TFLOP/s with the
+             FLOPs counted from the program's conv2d and mul shapes (3x
+             the forward's); every AMP loss finite. ResNet-18 fp32 at
+             64x64, batch 8, 3 steps on the card against the port's CPU
+             path (rtol 1e-4, the largest difference printed); the
+             trained ResNet-50 served by a Predictor at batch 32 against
+             an eager run of the for_test clone (SERVE_ATOL). No
+             hand-written kernel runs here: the reference has no Pallas
+             convolution, pooling or batch norm, so these lower to
+             cuDNN and ATen.
+12. summary  the kernels line, the card line, then the result line.
 """
 
 import contextlib
@@ -2668,6 +2696,400 @@ def encoder_serving_path(A, inference, monitor, dev):
     return served_launches
 
 
+# -- BASELINE configs 1 and 2: LeNet and ResNet-50 through the IR ----------------
+LENET_BATCH, LENET_WARM, LENET_ITERS, LENET_WINDOWS = 1024, 10, 100, 3
+RESNET_BATCH, RESNET_SIZE, RESNET_CLASSES = 256, 224, 1000
+RESNET_ROUNDS = ("NCHW", "NHWC", "NHWC", "NCHW")     # interleaved
+RESNET_WARM, RESNET_TIMED = 2, 6
+CHECK_STEPS = 3
+# the card against the port's own CPU path: ResNet-18, fp32 (TF32 off),
+# a fresh batch each step. At 32x32 a deep batch-norm network on a few
+# images is chaotic in fp32 (the port's fp32 losses leave its own
+# float64 run by 1e-2 within 3 steps at batch 8); at 64x64 by 1.3e-4.
+CARD_CPU_SIZE, CARD_CPU_BATCH, CARD_CPU_RTOL = 64, 8, 1e-4
+SERVE_RESNET_BATCH = 32
+BF16_PEAK_OPS_PER_S = 989e12
+TOP_KERNELS = 5
+# cuDNN's convolution kernels and layout transposes, by the profiler's
+# names: the captured step must run the eager step's
+CONV_KERNEL = re.compile(r"conv|cudnn|xmma|implicit|wgrad|dgrad|fprop|"
+                         r"nchwToNhwc|nhwcToNchw", re.I)
+
+
+def program_flops(main, batch):
+    """Operations of one forward pass of ``main`` at ``batch`` rows,
+    counted from its conv2d and mul ops' declared shapes (-1: the
+    batch): 2 per multiply-add."""
+    block = main.global_block()
+
+    def shape(name):
+        return [batch if s == -1 else int(s)
+                for s in block._find_var_recursive(name).shape]
+
+    total = 0
+    for op in block.ops:
+        if op.type in ("conv2d", "depthwise_conv2d"):
+            out = shape(op.output("Output")[0])
+            w = shape(op.input("Filter")[0])            # O, I/groups, kh, kw
+            total += 2 * math.prod(out) * math.prod(w[1:])
+        elif op.type == "mul":
+            x, y = shape(op.input("X")[0]), shape(op.input("Y")[0])
+            total += 2 * math.prod(x) * math.prod(
+                y[op.attr("y_num_col_dims", 1):])
+    return total
+
+
+def fetch_losses(exe, main, feed, fetches, scope, n):
+    """``n`` runs of ``main``: each run's first fetch as a float."""
+    return [float(np.asarray(exe.run(main, feed=feed, fetch_list=fetches,
+                                     scope=scope)[0]).reshape(-1)[0])
+            for _ in range(n)]
+
+
+def unequal(a, b):
+    """The names of the scopes' tensors that differ anywhere."""
+    return sorted(n for n in a.local_var_names()
+                  if not torch.equal(a.find_var(n), b.find_var(n)))
+
+
+def graphed_vs_eager(fluid, dev, main, feed, loss, scope, phase, **where):
+    """CHECK_STEPS steps from clones of ``scope``: eager, eager again
+    (whether the step is reproducible at all), graphed (run 1 eager, run
+    2 captured, then replays). The losses and every persistable must
+    equal eager's to the bit."""
+    runs = {}
+    for label, graphs in (("eager", False), ("eager_again", False),
+                          ("graphed", True)):
+        sc = clone_scope(fluid, scope)
+        exe = fluid.Executor(dev, cuda_graphs=graphs)
+        runs[label] = (fetch_losses(exe, main, feed, [loss], sc,
+                                    CHECK_STEPS), sc)
+        exe.close()
+    eager_diff = unequal(runs["eager_again"][1], runs["eager"][1])
+    graph_diff = unequal(runs["graphed"][1], runs["eager"][1])
+    rec = dict(phase=phase, check="graphed_vs_eager", steps=CHECK_STEPS,
+               losses_graphed=runs["graphed"][0],
+               losses_eager=runs["eager"][0],
+               losses_eager_again=runs["eager_again"][0],
+               eager_repeat_unequal=eager_diff[:8],
+               eager_repeat_unequal_count=len(eager_diff),
+               graphed_unequal=graph_diff[:8],
+               graphed_unequal_count=len(graph_diff),
+               persistables=len(scope.local_var_names()), **where)
+    emit(**rec)
+    del runs
+    torch.cuda.empty_cache()
+    if (eager_diff or graph_diff or rec["losses_graphed"] !=
+            rec["losses_eager"] or rec["losses_eager_again"] !=
+            rec["losses_eager"]):
+        raise AssertionError("%s: graphed vs eager not equal to the bit: "
+                             "%s" % (phase, rec))
+
+
+def lenet_path(dev):
+    """BASELINE config 1 as bench.py's bench_lenet feeds it: LeNet-5 at
+    batch 1024, fp32, Adam, graphed, on one synthetic batch made on the
+    card; graphed against eager from one state; then LENET_WINDOWS timed
+    ``iters=LENET_ITERS`` windows after LENET_WARM single steps."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import lenet
+
+    with fluid.unique_name.guard():
+        main, startup, loss, acc = lenet.build_train_program()
+    g = torch.Generator(device=dev).manual_seed(0)
+    feed = {"img": torch.rand(LENET_BATCH, 1, 28, 28, generator=g,
+                              device=dev),
+            "label": torch.randint(0, 10, (LENET_BATCH, 1), generator=g,
+                                   device=dev)}
+    scope = fluid.Scope()
+    fluid.Executor(dev, cuda_graphs=False).run(startup, scope=scope)
+    graphed_vs_eager(fluid, dev, main, feed, loss, scope, "lenet")
+    exe = fluid.Executor(dev)
+    losses = fetch_losses(exe, main, feed, [loss, acc], scope, LENET_WARM)
+    window_s, accs = [], []
+    for _ in range(LENET_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        traj, accuracy = exe.run(main, feed=feed, fetch_list=[loss, acc],
+                                 scope=scope, iters=LENET_ITERS)
+        torch.cuda.synchronize()
+        window_s.append(time.perf_counter() - t0)
+        losses.extend(np.asarray(traj).reshape(-1).tolist())
+        accs.append(float(np.asarray(accuracy).reshape(-1)[-1]))
+    step_s = statistics.median(window_s) / LENET_ITERS
+    api, kern = host_launches(lambda: exe.run(
+        main, feed=feed, fetch_list=[loss], scope=scope, iters=10))
+    exe.close()
+    busy_ms = sum(us for us, _ in kern.values()) / 1e3 / 10
+    flops = 3 * program_flops(main, LENET_BATCH)
+    rec = dict(phase="lenet", config="LeNet-5 (BASELINE config 1)",
+               batch=LENET_BATCH, dtype="float32", optimizer="Adam",
+               mode="graphed", iters=LENET_ITERS, window_s=window_s,
+               step_ms=step_s * 1e3, images_per_s=LENET_BATCH / step_s,
+               device_busy_ms=busy_ms if kern else "not measured",
+               idle_share=1.0 - busy_ms / (step_s * 1e3) if kern
+               else "not measured",
+               device_kernels_per_step=sum(n for _, n in kern.values()) / 10,
+               host_launch_calls_per_step={k: v / 10
+                                           for k, v in api.items()},
+               top_kernels=[dict(name=k[:160], ms=us / 1e3 / 10,
+                                 calls=n / 10) for k, (us, n) in sorted(
+                   kern.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]],
+               train_flops_per_step=flops,
+               achieved_tflops=flops / step_s / 1e12,
+               first_loss=losses[0], last_loss=losses[-1],
+               accuracy=accs)
+    emit(**rec)
+    if not (all(math.isfinite(x) for x in losses) and
+            losses[-1] < losses[0]):
+        raise AssertionError("lenet: losses not finite and falling: %s"
+                             % losses[::10])
+    return rec
+
+
+def resnet_program(fluid, resnet, fmt, depth=50, size=RESNET_SIZE,
+                   use_amp=True, **kw):
+    with fluid.unique_name.guard():
+        return resnet.build_train_program(depth=depth, image_size=size,
+                                          use_amp=use_amp, data_format=fmt,
+                                          **kw)
+
+
+def resnet_feed(dev, batch, size, seed, classes=RESNET_CLASSES):
+    """Synthetic ``rand`` images and random labels, made on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {"img": torch.rand(batch, 3, size, size, generator=g, device=dev),
+            "label": torch.randint(0, classes, (batch, 1), generator=g,
+                                   device=dev)}
+
+
+def conv_kernels(kern):
+    return sorted({k[:160] for k in kern if CONV_KERNEL.search(k)})
+
+
+def resnet_round(fluid, dev, prog, feed, fmt):
+    """One timed round of a layout (fresh scope, graphed): RESNET_WARM
+    steps (the eager run and the capture), RESNET_TIMED timed replays, a
+    traced replay. Returns (its record, the trained scope)."""
+    main, startup, loss, _ = prog
+    exe, scope = fluid.Executor(dev), fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = fetch_losses(exe, main, feed, [loss], scope, RESNET_WARM)
+    step_s = []
+    for _ in range(RESNET_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += fetch_losses(exe, main, feed, [loss], scope, 1)
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved = torch.cuda.memory_reserved() / 2 ** 30
+    api, kern, traced, _ = complete_trace(
+        lambda: fetch_losses(exe, main, feed, [loss], scope, 1))
+    exe.close()
+    steady = statistics.median(step_s)
+    busy_ms = sum(us for us, _ in kern.values()) / 1e3
+    flops = 3 * program_flops(main, RESNET_BATCH)
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]
+    rec = dict(phase="resnet", check="step_times", layout=fmt,
+               mode="graphed", step_s=step_s, step_ms=steady * 1e3,
+               images_per_s=RESNET_BATCH / steady,
+               device_busy_ms=busy_ms if kern else "not measured",
+               idle_share=1.0 - busy_ms / (steady * 1e3) if kern
+               else "not measured",
+               device_kernels_per_step=sum(n for _, n in kern.values()),
+               host_launch_calls_per_step=api,
+               max_memory_allocated_gb=peak, memory_reserved_gb=reserved,
+               top_kernels=[dict(name=k[:160], ms=us / 1e3, calls=n)
+                            for k, (us, n) in top],
+               train_flops_per_step=flops,
+               mfu=flops / steady / BF16_PEAK_OPS_PER_S, losses=losses)
+    emit(**rec)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("resnet (%s): a non-finite AMP loss: %s"
+                             % (fmt, losses))
+    return rec, scope
+
+
+def float64_program(main):
+    """``main`` with every float32 var and fill made float64."""
+    from paddle_tpu_torch.fluid import framework
+
+    desc = main.to_desc()
+    for v in desc["blocks"][0]["vars"]:
+        if v["dtype"] == "float32":
+            v["dtype"] = "float64"
+    for op in desc["blocks"][0]["ops"]:
+        if op["attrs"].get("dtype") == "float32":
+            op["attrs"]["dtype"] = "float64"
+    return framework.Program.from_desc(desc)
+
+
+def resnet_card_vs_cpu(fluid, resnet, dev):
+    """ResNet-18, fp32, CARD_CPU_SIZE, batch CARD_CPU_BATCH, CHECK_STEPS
+    steps (a fresh seeded batch each) from one startup state, graphed on
+    the card against the port's CPU path. The CPU also runs the program
+    in float64, which measures how far fp32 rounding alone moves each
+    quantity here (``noise``: a random-label ResNet's gradients are
+    ill-conditioned in fp32, its velocities moving by up to 40% of their
+    largest magnitude within 3 steps at this shape, its losses by 1e-4).
+    After every step each loss (relative) and each persistable (over its
+    largest magnitude) on the card must lie within max(CARD_CPU_RTOL, 3 x
+    noise) of the CPU's; the largest difference is printed."""
+    main, startup, loss, _ = resnet_program(
+        fluid, resnet, "NCHW", depth=18, size=CARD_CPU_SIZE, use_amp=False,
+        lr=0.01)
+    cpu = fluid.Scope()
+    fluid.Executor("cpu").run(startup, scope=cpu)
+    card, c64 = fluid.Scope(), fluid.Scope()
+    for n in cpu.local_var_names():
+        t = cpu.find_var(n)
+        card.set_var(n, t.to(dev, copy=True))
+        c64.set_var(n, t.double() if t.dtype == torch.float32 else t.clone())
+    m64 = float64_program(main)
+    rng = np.random.RandomState(1)
+    feeds = [{"img": rng.rand(CARD_CPU_BATCH, 3, CARD_CPU_SIZE,
+                              CARD_CPU_SIZE).astype(np.float32),
+              "label": rng.randint(0, RESNET_CLASSES, (CARD_CPU_BATCH, 1))
+              .astype(np.int64)} for _ in range(CHECK_STEPS)]
+    cexe, gexe = fluid.Executor("cpu"), fluid.Executor(dev)
+    losses, rows = [], []
+    for step, f in enumerate(feeds):
+        got = fetch_losses(gexe, main, f, [loss], card, 1)[0]
+        want = fetch_losses(cexe, main, f, [loss], cpu, 1)[0]
+        truth = fetch_losses(cexe, m64, dict(f, img=f["img"].astype(
+            np.float64)), [loss.name], c64, 1)[0]
+        losses.append((got, want, truth))
+        rows.append((abs(got - want) / abs(want),
+                     abs(want - truth) / abs(truth), step, "loss"))
+        for n in cpu.local_var_names():
+            w, t = cpu.find_var(n).double(), c64.find_var(n).double()
+            scale = max(t.abs().max().item(), 1e-30)
+            rows.append((
+                (card.find_var(n).cpu().double() - w).abs().max().item()
+                / scale, (w - t).abs().max().item() / scale, step, n))
+    gexe.close()
+    over = [r for r in rows if r[0] > max(CARD_CPU_RTOL, 3 * r[1])]
+    worst = max(rows)
+    rec = dict(phase="resnet", check="card_vs_cpu", depth=18,
+               image_size=CARD_CPU_SIZE, batch=CARD_CPU_BATCH,
+               dtype="float32", steps=CHECK_STEPS,
+               losses_card=[x[0] for x in losses],
+               losses_cpu=[x[1] for x in losses],
+               losses_cpu_float64=[x[2] for x in losses],
+               loss_rel=max(r[0] for r in rows if r[3] == "loss"),
+               max_rel=worst[0], max_rel_fp32_noise=worst[1],
+               max_rel_at=[worst[2], worst[3]],
+               past_rtol=sum(r[0] > CARD_CPU_RTOL for r in rows),
+               compared=len(rows), over=[list(r) for r in over[:8]],
+               rtol=CARD_CPU_RTOL)
+    emit(**rec)
+    if over:
+        raise AssertionError("resnet: card vs CPU past max(%g, 3 x fp32 "
+                             "noise): %s" % (CARD_CPU_RTOL, rec))
+
+
+def resnet_serving(fluid, resnet, inference, dev, scope):
+    """``resnet.build_infer_program(depth=50)`` saved with the trained
+    ``scope``'s weights and served by a Predictor at batch
+    SERVE_RESNET_BATCH (run 1 eager, run 2 captured, then replays):
+    logits within SERVE_ATOL of an eager run of the for_test clone."""
+    import tempfile
+
+    with fluid.unique_name.guard():
+        main, _, logits = resnet.build_infer_program(depth=50)
+    feed = {"img": np.random.RandomState(7).rand(
+        SERVE_RESNET_BATCH, 3, RESNET_SIZE, RESNET_SIZE).astype(np.float32)}
+    eager = fluid.Executor(dev, cuda_graphs=False)
+    want = eager.run(main.clone(for_test=True), feed=feed,
+                     fetch_list=[logits], scope=scope)[0]
+    with tempfile.TemporaryDirectory() as model_dir:
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(model_dir, ["img"], [logits], eager,
+                                          main_program=main)
+        pred = inference.create_predictor(inference.Config(model_dir))
+        run_s, outs = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            outs.append(pred.run(feed)[0])
+            run_s.append(time.perf_counter() - t0)
+    err = max(float(np.abs(o - want).max()) for o in outs)
+    steady = statistics.median(run_s[2:])
+    rec = dict(phase="resnet", check="serving", depth=50,
+               batch=SERVE_RESNET_BATCH, dtype="float32", run_s=run_s,
+               request_ms=steady * 1e3,
+               images_per_s=SERVE_RESNET_BATCH / steady,
+               logits_shape=list(outs[-1].shape),
+               vs_eager_max_abs_err=err, atol=SERVE_ATOL,
+               logits_max_abs=float(np.abs(want).max()))
+    emit(**rec)
+    if not (outs[-1].shape == (SERVE_RESNET_BATCH, RESNET_CLASSES) and
+            all(np.isfinite(o).all() for o in outs) and err <= SERVE_ATOL):
+        raise AssertionError("resnet serving: %s" % rec)
+
+
+def resnet_path(inference, dev):
+    """BASELINE config 2 as bench.py's bench_resnet feeds it: ResNet-50,
+    batch 256, 224x224, use_amp=True, Momentum(0.9) + L2Decay(1e-4),
+    synthetic images and labels made on the card. Per layout (NCHW, the
+    reference's default, and NHWC): graphed against eager from one
+    state, and the convolution kernels of the eager step and of a traced
+    replay by name; then RESNET_ROUNDS timed rounds in turns; the card
+    against the CPU (``resnet_card_vs_cpu``); serving
+    (``resnet_serving``)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import resnet
+
+    feed = resnet_feed(dev, RESNET_BATCH, RESNET_SIZE, seed=0)
+    progs = {}
+    for fmt in ("NCHW", "NHWC"):
+        t0 = time.perf_counter()
+        progs[fmt] = prog = resnet_program(fluid, resnet, fmt)
+        main, startup, loss, _ = prog
+        build_s = time.perf_counter() - t0
+        scope = fluid.Scope()
+        fluid.Executor(dev, cuda_graphs=False).run(startup, scope=scope)
+        graphed_vs_eager(fluid, dev, main, feed, loss, scope, "resnet",
+                         layout=fmt, build_s=build_s)
+        exe, sc = fluid.Executor(dev), clone_scope(fluid, scope)
+        _, eager_kern = host_launches(
+            lambda: fetch_losses(exe, main, feed, [loss], sc, 1))
+        fetch_losses(exe, main, feed, [loss], sc, 1)       # the capture
+        _, replay_kern, _, _ = complete_trace(
+            lambda: fetch_losses(exe, main, feed, [loss], sc, 1))
+        exe.close()
+        del sc, scope
+        torch.cuda.empty_cache()
+        eager_conv, replay_conv = (conv_kernels(eager_kern),
+                                   conv_kernels(replay_kern))
+        emit(phase="resnet", check="conv_kernels", layout=fmt,
+             eager=eager_conv, replay_equal=replay_conv == eager_conv,
+             replay_only=sorted(set(replay_conv) - set(eager_conv)),
+             eager_only=sorted(set(eager_conv) - set(replay_conv)))
+        if not eager_conv or replay_conv != eager_conv:
+            raise AssertionError("resnet (%s): the replay's convolution "
+                                 "kernels are not the eager step's" % fmt)
+    rounds, trained = {}, None
+    for fmt in RESNET_ROUNDS:
+        rec, trained = resnet_round(fluid, dev, progs[fmt], feed, fmt)
+        rounds.setdefault(fmt, []).append(rec)
+        torch.cuda.empty_cache()
+    emit(phase="resnet", check="layouts_compare", batch=RESNET_BATCH,
+         image_size=RESNET_SIZE, amp="bf16",
+         step_ms={f: [r["step_ms"] for r in rs] for f, rs in rounds.items()},
+         images_per_s={f: [r["images_per_s"] for r in rs]
+                       for f, rs in rounds.items()},
+         idle_share={f: [r["idle_share"] for r in rs]
+                     for f, rs in rounds.items()},
+         mfu={f: [r["mfu"] for r in rs] for f, rs in rounds.items()})
+    resnet_card_vs_cpu(fluid, resnet, dev)
+    resnet_serving(fluid, resnet, inference, dev, trained)
+    del trained
+    torch.cuda.empty_cache()
+    return rounds
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2716,6 +3138,10 @@ def main():
     executor_path(A, monitor, dev)
     torch.cuda.empty_cache()
     encoder_serving_path(A, inference, monitor, dev)
+    torch.cuda.empty_cache()
+    lenet_path(dev)
+    torch.cuda.empty_cache()
+    resnet_path(inference, dev)
 
     src = "paddle_tpu_torch/kernels/csrc/decode_attention.cu"
     kernels = []

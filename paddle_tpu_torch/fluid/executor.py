@@ -26,7 +26,8 @@ that creates persistables, such as a startup program's, or a program
 with host-side ops) lowers the block op by op:
 
 1. the feeds are normalised to their declared dtypes on the device
-   (numpy has no bfloat16, so a feed declared bfloat16 raises);
+   (numpy has no bfloat16, so a numpy feed declared bfloat16 raises; a
+   torch tensor feed may already be on the device);
 2. the program's persistables are gathered from the scope;
 3. each ``wrt`` parameter of the block's ``autodiff`` op is bound as a
    fresh autograd leaf that shares the scope tensor's storage, so the
@@ -451,10 +452,16 @@ class Executor:
         self._anomaly_skips = 0
 
     # -- feeds -----------------------------------------------------------------
-    @staticmethod
-    def _host_feed(block, name, value):
-        """``value`` as a numpy array in the declared dtype of ``name``."""
+    def _host_feed(self, block, name, value):
+        """``value`` as a numpy array in the declared dtype of ``name``;
+        a torch tensor (a batch already on the card, as the reference
+        takes a device array) stays a tensor, on the place and in the
+        declared dtype."""
         var = block._find_var_recursive(name)
+        if isinstance(value, torch.Tensor):
+            if var is not None and var.dtype is not None:
+                value = value.to(to_torch_dtype(var.dtype))
+            return value.to(self.place)
         if var is not None and var.dtype == framework.BFLOAT16:
             raise TypeError(
                 "feed %r is declared bfloat16, which numpy cannot hold; "

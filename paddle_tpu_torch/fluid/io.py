@@ -19,7 +19,7 @@ rename).
 Not ported: ``save``/``load`` of whole training states,
 ``CheckpointManager`` (ROADMAP queue 1 item 5), and
 ``save_inference_model(prelower=True)``, whose executables need the
-compile cache (queue 1 item 5).
+compile cache (queue 1 item 3).
 """
 
 import io as _io

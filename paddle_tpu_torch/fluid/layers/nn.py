@@ -1,17 +1,18 @@
 """NN layers (counterparts in ``paddle_tpu/fluid/layers/nn.py``): the
-subset the BERT pretraining program emits. Each validates its arguments,
+subset the BERT, LeNet and ResNet programs emit. Each validates its arguments,
 creates parameters through LayerHelper and appends its ops; the math is
 in the op lowerings (``fluid/ops``)."""
 
 import numpy as np
 
-from .. import framework
-from ..initializer import Constant
+from .. import framework, unique_name
+from ..initializer import Constant, Normal
 from ..layer_helper import LayerHelper
 
 __all__ = [
-    "fc", "embedding", "layer_norm", "dropout", "fused_attention",
-    "reshape", "transpose", "unsqueeze", "scale", "gather", "matmul",
+    "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
+    "dropout", "fused_attention", "reshape", "transpose", "unsqueeze",
+    "scale", "gather", "matmul", "topk", "mean", "relu", "sign",
     "reduce_sum", "elementwise_add", "elementwise_mul", "elementwise_div",
     "softmax", "einsum",
 ]
@@ -44,17 +45,25 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
     return helper.append_activation(pre_act, act)
 
 
-def _append_bias(helper, x, bias_attr, dim_start=1):
+def _append_bias(helper, x, bias_attr, dim_start=1, channel_dim=None):
+    """A bias over the dims from ``dim_start`` on, or over the one
+    ``channel_dim`` (a convolution's channels)."""
     if bias_attr is False:
         return x
-    bias_size = [int(np.prod(x.shape[dim_start:]))] if x.shape else [1]
+    if channel_dim is not None:
+        bias_size = [x.shape[channel_dim]] \
+            if x.shape and len(x.shape) > channel_dim else [1]
+        axis = channel_dim
+    else:
+        bias_size = [int(np.prod(x.shape[dim_start:]))] if x.shape else [1]
+        axis = dim_start
     b = helper.create_parameter(bias_attr, bias_size, _data_type(x),
                                 is_bias=True)
     if b is None:
         return x
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op(type="elementwise_add", inputs={"X": [x], "Y": [b]},
-                     outputs={"Out": [out]}, attrs={"axis": dim_start})
+                     outputs={"Out": [out]}, attrs={"axis": axis})
     return out
 
 
@@ -74,6 +83,105 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
         attrs={"is_sparse": is_sparse, "is_distributed": is_distributed,
                "padding_idx": -1 if padding_idx is None else padding_idx})
     return out
+
+
+def _pair_list(v):
+    return [v, v] if isinstance(v, int) else list(v)
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCHW"):
+    """2-D convolution over NCHW or NHWC input with an OIHW filter drawn
+    from Normal(0, sqrt(2 / fan_in)), plus a per-channel bias unless
+    ``bias_attr=False``, then the activation."""
+    helper = LayerHelper("conv2d", **locals())
+    groups = groups or 1
+    if isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    num_channels = (input.shape[-1] if data_format == "NHWC"
+                    else input.shape[1])
+    filter_shape = [num_filters, num_channels // groups] + list(filter_size)
+    fan = num_channels * filter_size[0] * filter_size[1] // groups
+    w = helper.create_parameter(
+        param_attr, filter_shape, _data_type(input),
+        default_initializer=Normal(0.0, (2.0 / fan) ** 0.5))
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="conv2d", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": _pair_list(stride),
+               "paddings": _pair_list(padding),
+               "dilations": _pair_list(dilation), "groups": groups,
+               "data_format": data_format})
+    out = _append_bias(helper, out, bias_attr,
+                       channel_dim=-1 if data_format == "NHWC" else 1)
+    return helper.append_activation(out, act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True, adaptive=False,
+           data_format="NCHW"):
+    helper = LayerHelper("pool2d", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": _pair_list(pool_size),
+               "strides": _pair_list(pool_stride),
+               "paddings": _pair_list(pool_padding),
+               "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+               "exclusive": exclusive, "adaptive": adaptive,
+               "data_format": data_format})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=False,
+               use_global_stats=False):
+    """Batch norm over the channel axis (1 for NCHW, the last for NHWC):
+    scale (1) and bias (0) parameters, and the running mean (0) and
+    variance (1) as persistable, stop_gradient vars the op updates."""
+    helper = LayerHelper("batch_norm", **locals())
+    dtype = _data_type(input)
+    ch = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(param_attr, [ch], dtype,
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(bias_attr, [ch], dtype, is_bias=True)
+    mean = _create_persistable_stat(helper, moving_mean_name, [ch], dtype,
+                                    0.0)
+    var = _create_persistable_stat(helper, moving_variance_name, [ch],
+                                   dtype, 1.0)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [var]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [var],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(out, act)
+
+
+def _create_persistable_stat(helper, name, shape, dtype, init_val):
+    name = name or unique_name.generate(helper.name_prefix + ".stat")
+    var = helper.main_program.global_block().create_var(
+        name=name, shape=shape, dtype=dtype, persistable=True,
+        stop_gradient=True)
+    sb = helper.startup_program.global_block()
+    sv = sb.create_var(name=name, shape=shape, dtype=dtype, persistable=True,
+                       stop_gradient=True)
+    Constant(init_val)(sv, sb)
+    return var
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
@@ -152,6 +260,39 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0,
                             "transpose_Y": transpose_y,
                             "alpha": float(alpha)})
     return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", **locals())
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    return values, indices
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def _unary_layer(op_type, x, name=None):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type=op_type, inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={})
+    return out
+
+
+def relu(x, name=None):
+    return _unary_layer("relu", x, name)
+
+
+def sign(x):
+    return _unary_layer("sign", x)
 
 
 def transpose(x, perm, name=None):

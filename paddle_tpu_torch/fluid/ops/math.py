@@ -1,7 +1,7 @@
 """Dense math ops: mul / matmul (plain ``torch.matmul``, as the JAX
 package left its products to XLA; bf16 operands under AMP), scale,
-reduce_sum, einsum, and isfinite of dynamic loss scaling (counterparts
-in ``paddle_tpu/fluid/ops/math.py``)."""
+sum, mean, reduce_sum, einsum, top_k, and isfinite of dynamic loss
+scaling (counterparts in ``paddle_tpu/fluid/ops/math.py``)."""
 
 import numpy as np
 import torch
@@ -64,6 +64,29 @@ def _scale(ctx, op):
     else:
         out = (x + bias) * scale
     ctx.set_output(op, "Out", out.to(x.dtype))
+
+
+@register("sum")
+def _sum(ctx, op):
+    xs = ctx.get_inputs(op, "X")
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    ctx.set_output(op, "Out", out)
+
+
+@register("mean")
+def _mean(ctx, op):
+    """The mean of every element: a 0-d tensor, as jnp.mean gives."""
+    ctx.set_output(op, "Out", torch.mean(ctx.get_input(op, "X")))
+
+
+@register("top_k")
+def _top_k(ctx, op):
+    """The k largest along the last axis, largest first; int64 indices."""
+    vals, idx = torch.topk(ctx.get_input(op, "X"), op.attr("k", 1), dim=-1)
+    ctx.set_output(op, "Out", vals)
+    ctx.set_output(op, "Indices", idx)
 
 
 @register("reduce_sum")

@@ -1,15 +1,21 @@
-"""The ``adam`` op with Paddle's update (counterpart in
-``paddle_tpu/fluid/ops/optimizer_ops.py``):
+"""The ``adam`` and ``momentum`` ops (counterparts in
+``paddle_tpu/fluid/ops/optimizer_ops.py``). Adam with Paddle's update:
 
     m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g^2
     lr_t = lr * sqrt(1 - b2^t) / (1 - b1^t)
     p -= lr_t * m / (sqrt(v) + eps)          (eps outside the correction)
 
-and the beta powers advance inside the op. Unlike the JAX package, whose
-arrays are immutable, the parameter, both moments and the beta powers
-are updated IN PLACE: a copy of every parameter and moment would add
-their full size to the step's peak memory. The executor runs the ops
-after ``autodiff`` under ``torch.no_grad()``.
+and the beta powers advance inside the op. Momentum, dense gradients:
+
+    v = mu v + g
+    p -= lr v                 (use_nesterov: p -= (g + mu v) lr)
+
+Unlike the JAX package, whose arrays are immutable, each op updates its
+parameter and accumulators IN PLACE: a copy of every parameter and
+accumulator would add their full size to the step's peak memory, and a
+captured step would copy each back into its storage inside the graph.
+The executor runs the ops after ``autodiff`` under ``torch.no_grad()``.
+The SelectedRows (sparse) momentum waits for the sparse lookups.
 """
 
 import torch
@@ -38,3 +44,20 @@ def _adam(ctx, op):
     for slot, t in (("ParamOut", p), ("Moment1Out", m), ("Moment2Out", v),
                     ("Beta1PowOut", b1p), ("Beta2PowOut", b2p)):
         ctx.set_output(op, slot, t)
+
+
+@register("momentum")
+def _momentum(ctx, op):
+    p = ctx.get_input(op, "Param")
+    g = ctx.get_input(op, "Grad")
+    v = ctx.get_input(op, "Velocity")
+    mu = op.attr("mu")
+    lr = ctx.get_input(op, "LearningRate").reshape(()).to(p.dtype)
+    with torch.no_grad():
+        v.mul_(mu).add_(g)
+        if op.attr("use_nesterov", False):
+            p.sub_((g + mu * v) * lr)
+        else:
+            p.sub_(lr * v)
+    ctx.set_output(op, "ParamOut", p)
+    ctx.set_output(op, "VelocityOut", v)

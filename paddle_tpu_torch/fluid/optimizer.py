@@ -3,8 +3,11 @@ of ``paddle_tpu/fluid/optimizer.py``): ``minimize`` = ``append_backward``
 + ``apply_gradients``; the learning rate and the accumulators are
 persistable vars that the startup program fills.
 
-Ported: the ``Optimizer`` base and ``Adam``. Gradient clipping,
-regularization and the other optimizers wait for later slices.
+Ported: the ``Optimizer`` base with weight decay (``regularization``,
+``regularizer.py``: applied in ``apply_gradients`` to every parameter,
+norms' scales and biases included), ``Adam`` and ``Momentum``.
+Gradient clipping, the other optimizers and dygraph updates wait for
+later slices.
 """
 
 from . import unique_name
@@ -12,13 +15,16 @@ from .backward import append_backward
 from .framework import Variable, default_main_program
 from .initializer import Constant
 from .layer_helper import LayerHelper
+from .regularizer import append_regularization_ops
 
-__all__ = ["Adam", "AdamOptimizer"]
+__all__ = ["Adam", "AdamOptimizer", "Momentum", "MomentumOptimizer"]
 
 
 class Optimizer:
-    def __init__(self, learning_rate):
+    def __init__(self, learning_rate, regularization=None, name=None):
         self._learning_rate = learning_rate
+        self.regularization = regularization
+        self._name = name
         self._accumulators = {}  # acc_name -> {param_name: var}
         self._lr_var = None
 
@@ -81,6 +87,8 @@ class Optimizer:
     def apply_gradients(self, params_grads):
         block = default_main_program().global_block()
         self._create_global_learning_rate()
+        params_grads = append_regularization_ops(params_grads,
+                                                 self.regularization)
         self._create_accumulators(block, [p for p, _ in params_grads])
         for pg in params_grads:
             self._append_optimize_op(block, pg)
@@ -95,8 +103,8 @@ class Optimizer:
 
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8):
-        super().__init__(learning_rate)
+                 epsilon=1e-8, regularization=None, name=None):
+        super().__init__(learning_rate, regularization, name)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 
     def _create_accumulators(self, block, parameters):
@@ -126,4 +134,31 @@ class AdamOptimizer(Optimizer):
                    "epsilon": self._epsilon})
 
 
+class MomentumOptimizer(Optimizer):
+    """v = mu v + g; p -= lr v (Nesterov: p -= (g + mu v) lr), one
+    ``momentum`` op a parameter with a ``velocity`` accumulator."""
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 regularization=None, name=None):
+        super().__init__(learning_rate, regularization, name)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        velocity = self._get_accumulator("velocity", param)
+        return block.append_op(
+            "momentum",
+            inputs={"Param": [param], "Grad": [grad], "Velocity": [velocity],
+                    "LearningRate": [self._lr_for(param)]},
+            outputs={"ParamOut": [param], "VelocityOut": [velocity]},
+            attrs={"mu": self._momentum,
+                   "use_nesterov": self._use_nesterov})
+
+
 Adam = AdamOptimizer
+Momentum = MomentumOptimizer

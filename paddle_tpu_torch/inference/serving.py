@@ -31,8 +31,8 @@ One module-level ``_DISPATCH_LOCK`` serialises every dispatch onto the
 one card; each worker launches on its own thread's current stream.
 The series ``serving_*`` are labelled by model.
 
-Not ported: the telemetry spans (ROADMAP queue 1 item 1) and the
-compile-cache warm-up counters (queue 1 item 5).
+Not ported: the telemetry spans (ROADMAP queue 1 item 8) and the
+compile-cache warm-up counters (queue 1 item 3).
 """
 
 import threading

@@ -1477,3 +1477,88 @@ def test_predictor_graphs_match_eager(cuda_device, tmp_path):
         np.testing.assert_allclose(graphed.run(feed)[0], eager.run(feed)[0],
                                    rtol=1e-6, atol=1e-6)
     assert _replays() - r0 == 4
+
+
+# -- the convolutional slice: ResNet through the executor on the card ---------
+def _resnet18(fluid, fmt, use_amp, size=64):
+    from paddle_tpu_torch.models import resnet
+    return smoke.resnet_program(fluid, resnet, fmt, depth=18, size=size,
+                                use_amp=use_amp, lr=0.01)
+
+
+@pytest.mark.parametrize("fmt,use_amp", [("NCHW", True), ("NHWC", True),
+                                         ("NCHW", False)])
+def test_resnet18_graphed_matches_eager(cuda_device, fmt, use_amp):
+    """4 graphed steps (run 1 eager, run 2 captured, then replays)
+    against 4 eager ones from one state: the losses and every persistable
+    (parameters, velocities, batch-norm running statistics) equal to the
+    bit, with 3 replays; the convolutions' backward is deterministic."""
+    from paddle_tpu_torch import fluid
+
+    main, startup, loss, _ = _resnet18(fluid, fmt, use_amp)
+    feed = smoke.resnet_feed(cuda_device, 8, 64, seed=1)
+    scope = fluid.Scope()
+    fluid.Executor(cuda_device, cuda_graphs=False).run(startup, scope=scope)
+    graphed, eager = (smoke.clone_scope(fluid, scope) for _ in range(2))
+    r0 = _replays()
+    got = _losses(fluid.Executor(cuda_device), main, loss, feed, graphed, 4)
+    assert _replays() - r0 == 3
+    want = _losses(fluid.Executor(cuda_device, cuda_graphs=False), main,
+                   loss, feed, eager, 4)
+    assert got == want and all(np.isfinite(got))
+    assert smoke.unequal(graphed, eager) == []
+
+
+@pytest.mark.parametrize("fmt", ["NCHW", "NHWC"])
+def test_convolutions_keep_the_layout(cuda_device, monkeypatch, fmt):
+    """Every convolution of a ResNet-18 AMP step, forward and backward,
+    takes and gives tensors in the program's layout: channels-last
+    strides under NHWC (the permuted views, no copy between), contiguous
+    NCHW under NCHW."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.ops import nn as nn_ops
+
+    fmt_of = torch.channels_last if fmt == "NHWC" else \
+        torch.contiguous_format
+    seen = []
+    conv, conv_bwd = F.conv2d, nn_ops._Conv2d.backward
+
+    def spy(x, w, *args):
+        out = conv(x, w, *args)
+        if out.device.type == "cuda":
+            seen.append(("fwd", x.is_contiguous(memory_format=fmt_of),
+                         out.is_contiguous(memory_format=fmt_of)))
+        return out
+
+    def spy_bwd(ctx, grad):
+        out = conv_bwd(ctx, grad)
+        seen.append(("bwd", grad.is_contiguous(memory_format=fmt_of),
+                     out[0] is None or
+                     out[0].is_contiguous(memory_format=fmt_of)))
+        return out
+
+    monkeypatch.setattr(F, "conv2d", spy)
+    monkeypatch.setattr(nn_ops._Conv2d, "backward", staticmethod(spy_bwd))
+    main, startup, loss, _ = _resnet18(fluid, fmt, True)
+    scope = fluid.Scope()
+    exe = fluid.Executor(cuda_device, cuda_graphs=False)
+    exe.run(startup, scope=scope)
+    del seen[:]
+    exe.run(main, feed=smoke.resnet_feed(cuda_device, 8, 64, seed=2),
+            fetch_list=[loss], scope=scope)
+    assert len(seen) == 2 * 20
+    assert all(x and out for _, x, out in seen), seen
+
+
+def test_resnet18_on_card_matches_cpu(cuda_device):
+    """chip_smoke.py's card-vs-CPU check: ResNet-18 fp32 at 64x64,
+    batch 8, 3 graphed steps on the card against the port's CPU path
+    from one state, each loss and persistable after every step within
+    max(CARD_CPU_RTOL, 3 x what fp32 rounding alone moves it, read from
+    the CPU's float64 run)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import resnet
+
+    smoke.resnet_card_vs_cpu(fluid, resnet, cuda_device)

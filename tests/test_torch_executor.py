@@ -139,6 +139,31 @@ def test_iters_invariant_feed_matches_reference():
     _close(_state(pm, pscope), _state(jm, jscope))
 
 
+def test_tensor_feeds_match_numpy_feeds_and_reference():
+    """Feeds given as torch tensors (a batch already on the place, as
+    the reference takes device arrays; float64 cast to the declared
+    float32): single runs and an iters=3 window, against the same
+    numpy feeds through the reference."""
+    (jm, jl, _, jexe, jscope), (pm, pl, _, pexe, pscope) = _pair()
+    feeds = _feeds(5, seed=4)
+    want = [float(np.asarray(jexe.run(jm, feed=f, fetch_list=[jl],
+                                      scope=jscope)[0]).reshape(-1)[0])
+            for f in feeds[:2]]
+    got = [float(pexe.run(pm, feed={k: torch.from_numpy(v).double()
+                                    for k, v in f.items()},
+                          fetch_list=[pl], scope=pscope)[0].reshape(-1)[0])
+           for f in feeds[:2]]
+    np.testing.assert_allclose(got, want, rtol=RTOL)
+    stacked = _stack(feeds[2:])
+    (want,) = jexe.run(jm, feed=stacked, fetch_list=[jl], scope=jscope,
+                       iters=3)
+    (got,) = pexe.run(pm, feed={k: torch.from_numpy(v)
+                                for k, v in stacked.items()},
+                      fetch_list=[pl], scope=pscope, iters=3)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=TRAJ_RTOL)
+    _close(_state(pm, pscope), _state(jm, jscope))
+
+
 def test_bert_tiny_window_matches_reference():
     """BERT-tiny (fused attention, dropout 0, seq 16): one iters=10
     window of the port against 10 single runs of the reference from one

@@ -184,6 +184,10 @@ def test_port_imports_without_jax_triton_or_nvcc():
         "import paddle_tpu_torch.fluid.io, paddle_tpu_torch.fluid.compat\n"
         "import paddle_tpu_torch.fluid.core.proto_io\n"
         "import paddle_tpu_torch.fluid.core.tensor_io\n"
+        "import paddle_tpu_torch.fluid.regularizer\n"
+        "import paddle_tpu_torch.fluid.layers.metric_op\n"
+        "import paddle_tpu_torch.fluid.ops.metrics\n"
+        "import paddle_tpu_torch.models.lenet, paddle_tpu_torch.models.resnet\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m in ('jax', 'triton') or\n"
         "       m == 'paddle_tpu' or m.startswith(('paddle_tpu.', 'jax.'))]\n"
