@@ -27,7 +27,10 @@ wrappers') and ``replay_launches`` (the traced replay's).
              times are device time: the host's launch overhead is kept
              out of the timed span. Decode attention: ragged capacity,
              causal window (its bound counts V over the capacity for a
-             batch row with an empty window), wrapped ring, paged at the
+             batch row with an empty window), the speculative verify
+             step's shape (batch 8, 16 heads, Q 4 under the causal
+             window, lengths 68-96; untimed at 125-132, either side of
+             the first piece's end), wrapped ring, paged at the
              serving path's shape, at its serving phase's short
              lengths (33-96) and with one long slot (2 slots, 64
              pages of 128, lengths 8192 and 3000) against the plain
@@ -166,9 +169,35 @@ wrappers') and ``replay_launches`` (the traced replay's).
              hand-written kernel runs here: the reference has no Pallas
              convolution, pooling or batch norm, so these lower to
              cuDNN and ATen.
-12. summary  the kernels line, the card line, then the result line.
+12. stream   the dense continuous stream, GenerativePredictor(...,
+             slot_prefill=True).open_stream() at width 8 (bench.py's
+             decode-engine legs): 16 requests of ragged prompt lengths
+             and budgets joined and stepped, each equal to its solo run
+             in the stream, with end_id a token only one request emits
+             (so that request ends on it), where there is one; the decode
+             kernel L times a step and the paged kernel never; one
+             scatter a decoding join, its device kernels from a trace;
+             one step with slots at mixed lengths and some idle held to
+             the plain version (STEP_LOGITS_ATOL); step ms, occupancy,
+             the idle share of a traced window of steps; then the same
+             requests through GenerativeServer from 4 threads (p50, p99,
+             each equal to its solo run).
+13. speculative  build_speculative_session over a dense session at batch
+             8, k 4, full prompts, 12 and 32 new tokens, draft depth 3
+             (the default, L // 2) and 6: tokens equal to the dense
+             session's row by row (a row may differ only where the dense
+             run's top-two logit gap is under STEP_LOGITS_ATOL, and one
+             row at most); the full-depth draft accepts k a round (else
+             the first round that did not, with its gap); the verify
+             step's logits (Q k under the causal window on the decode
+             kernel) against the plain version from one prefilled
+             state; rounds, accepted mean, target and draft launches,
+             tokens/s beside the dense session's, the idle share of a
+             traced generate.
+14. summary  the kernels line, the card line, then the result line.
 """
 
+import collections
 import contextlib
 import json
 import math
@@ -637,6 +666,19 @@ def decode_case_list():
             ("wrapped_" + tag, dense_case, (
                 "wrapped_" + tag, 64, 16, 1, 1024, 64,
                 list(range(1025, 1025 + 64 * 37, 37)), dtype), {})]
+    # the speculative verify step: batch 8, k 4 under the causal window, at
+    # lengths of the speculative phase's rounds (prompts of 64, up to 32
+    # new tokens); untimed, lengths on both sides of the first piece's end
+    # (128 columns), where a piece that stopped short of a row's window
+    # would drop its keys
+    cases += [
+        ("verify_f32", dense_case, ("verify_f32", 8, 16, 4, 1024, 64,
+                                    list(range(68, 100, 4)), torch.float32),
+         dict(causal=True)),
+        ("verify_boundary_f32", dense_case, (
+            "verify_boundary_f32", 8, 16, 4, 1024, 64,
+            list(range(125, 133)), torch.float32),
+         dict(causal=True, timed=False))]
     for dtype, d in ((torch.bfloat16, 8), (torch.float32, 48),
                      (torch.bfloat16, 96), (torch.float16, 64),
                      (torch.float32, 6), (torch.bfloat16, 12),
@@ -669,12 +711,15 @@ def decode_cases(A, dev, gen, flush, timed=True, resources=None):
     for name, fn, args, kw in decode_case_list():
         if fn is decode_width_check:
             out[name] = fn(A, dev, gen, *args)
-        elif timed:
+        elif timed and kw.get("timed", True):
             out[name] = fn(A, dev, gen, flush, *args, resources=resources,
                            **kw)
         else:
-            kw = {k: v for k, v in kw.items() if k != "sweep"}
+            kw = {k: v for k, v in kw.items() if k not in ("sweep", "timed")}
             out[name] = fn(A, dev, gen, flush, *args, timed=False, **kw)
+            if timed:       # a case left untimed in a timed run
+                emit(phase="kernels", kernel="decode_attention",
+                     **out[name])
     return out
 
 
@@ -1647,6 +1692,474 @@ def serving_path(T, A, inference, monitor, dev, dense_pred, dense_feed):
          tokens_served=int(sum(len(t) for t, _ in results)),
          agree_with_dense=agree)
     return launches
+
+
+# -- the dense continuous stream and speculative decoding ---------------------
+# bench.py's decode-engine legs (bench_decode_engine): Transformer.big, src
+# 128, prompt 64, ring 1024; a stream of width 8; speculative at batch 8,
+# k 4, full prompts, 12 and 32 new tokens, with the default draft depth
+# (L // 2) and the full-depth draft (every proposal accepted).
+STREAM_WIDTH, STREAM_REQUESTS = 8, 16
+SPEC_BATCH, SPEC_K, SPEC_NEW = 8, 4, (12, 32)
+TRACED_STEPS = 8
+
+
+def stream_drive(stream, reqs, step_s=None):
+    """Requests ``reqs`` [(src, prompt, prompt_len, budget)] through
+    ``stream`` in order: join into vacant slots, step, until every one
+    completed. {index: (tokens, finished)}; each step's host seconds
+    (the step ends in its one sync) appended to ``step_s``."""
+    pending, slot_of, done = list(range(len(reqs))), {}, {}
+    while pending or stream.active_count:
+        while pending and stream.vacant_slots():
+            i = pending.pop(0)
+            src, prompt, plen, budget = reqs[i]
+            slot, out = stream.join(src, prompt, prompt_len=plen,
+                                    max_new_tokens=budget)
+            if out is None:
+                slot_of[slot] = i
+            else:
+                done[i] = out
+        if stream.active_count:
+            t0 = time.perf_counter()
+            completed = stream.step()
+            if step_s is not None:
+                step_s.append(time.perf_counter() - t0)
+            for slot, toks, fin in completed:
+                done[slot_of.pop(slot)] = (toks, fin)
+    return done
+
+
+def drain(stream):
+    """Step ``stream`` until every slot retired."""
+    while stream.active_count:
+        stream.step()
+
+
+@contextlib.contextmanager
+def proj_logits(model, keep):
+    """Hold each output of ``model.proj`` for which ``keep(out)`` is true
+    (the logits of the steps run inside)."""
+    got = []
+    hook = model.proj.register_forward_hook(
+        lambda m, i, o: got.append(o) if keep(o) else None)
+    try:
+        yield got
+    finally:
+        hook.remove()
+
+
+def kernel_vs_plain_logits(T, A, model, run):
+    """max |kernel - plain| and max |plain| of the logits of ``run()`` (one
+    step from cloned state), run with the decode kernel and with the
+    plain version, and the plain logits."""
+    logits = {}
+    for route, ctx in (("kernel", contextlib.nullcontext()),
+                       ("plain", plain_attention(T, A))):
+        with ctx, proj_logits(model, lambda o: True) as got, \
+                torch.no_grad():
+            run()
+        logits[route] = got[-1]
+    torch.cuda.synchronize()
+    if not torch.isfinite(logits["kernel"]).all():
+        raise AssertionError("non-finite kernel logits")
+    return ((logits["kernel"] - logits["plain"]).abs().max().item(),
+            logits["plain"].abs().max().item(), logits["plain"])
+
+
+def stream_step_check(T, A, stream, reqs):
+    """One stream step with the slots at mixed lengths and some idle:
+    three requests of different prompt lengths joined, two steps, then
+    the third step run from cloned state with the kernel and with the
+    plain version; the stream is drained after."""
+    s = stream._s
+    for src, prompt, plen, _ in reqs[:3]:
+        stream.join(src, prompt, prompt_len=plen, max_new_tokens=32)
+    stream.step()
+    stream.step()
+    stream._clamp_idle()
+    hlen = stream._hlen.copy()
+
+    def run():
+        s.model.decode_step(
+            stream._tok, stream._fin, s._end_ids, stream._len,
+            *stream._cross, *[c.clone() for c in stream._kc + stream._vc],
+            longest=int(hlen.max()) + 1)
+
+    err, peak, _ = kernel_vs_plain_logits(T, A, s.model, run)
+    if not err <= STEP_LOGITS_ATOL:
+        raise AssertionError("stream: step logits kernel vs plain max |err| "
+                             "%g > %g" % (err, STEP_LOGITS_ATOL))
+    live = stream.active_count
+    drain(stream)
+    return dict(step_logits_max_abs_err=err,
+                step_logits_atol=STEP_LOGITS_ATOL, step_logits_max_abs=peak,
+                step_live_slots=live, step_lengths=hlen.tolist())
+
+
+def scatter_kernels(T, stream):
+    """(tensors, the host's launch calls, the device kernels {name:
+    calls}) of one join's slot scatter at the stream's shapes, into an
+    idle slot from batch-1 zeros, from the fullest of TRACE_TRIES traces
+    (``complete_trace``)."""
+    state = stream._kc + stream._vc + stream._cross
+    rows = [torch.zeros_like(t[:1]) for t in state]
+    slot = stream.vacant_slots()[0]
+    T._slot_scatter(state, rows, slot)
+    api, kern, _, _ = complete_trace(
+        lambda: T._slot_scatter(state, rows, slot))
+    return len(state), api, {k[:120]: n for k, (_, n) in kern.items()
+                             } or "not measured"
+
+
+def idle_share(step_ms, fn, steps):
+    """{busy ms, idle share, device kernels, host launch calls} a step of
+    ``steps`` steps run by ``fn`` in one trace, against ``step_ms``, the
+    untraced median step."""
+    api, kern = host_launches(fn)
+    if not kern:
+        return dict(device_busy_ms="not measured", idle_share="not measured")
+    busy = sum(us for us, _ in kern.values()) / 1e3 / steps
+    return dict(device_busy_ms=busy, idle_share=1.0 - busy / step_ms,
+                device_kernels=sum(n for _, n in kern.values()) / steps,
+                host_launch_calls={k: v / steps for k, v in api.items()})
+
+
+def serve_requests(inference, stream, reqs, model_name):
+    """``reqs`` through a GenerativeServer over ``stream`` from 4 client
+    threads; (results, latencies s)."""
+    results, latency = [None] * len(reqs), [None] * len(reqs)
+    with inference.GenerativeServer(stream, model=model_name) as srv:
+        def client(k):
+            pending = {}
+            for j in range(k, len(reqs), 4):
+                src, prompt, plen, budget = reqs[j]
+                pending[j] = (time.perf_counter(), srv.submit(
+                    src, prompt, prompt_len=plen, max_new_tokens=budget))
+            while pending:
+                for j, (ts, fut) in list(pending.items()):
+                    if fut.done():
+                        latency[j] = time.perf_counter() - ts
+                        results[j] = fut.result()
+                        del pending[j]
+                time.sleep(0.001)
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+            if t.is_alive():
+                raise AssertionError("%s: client thread hung" % model_name)
+    if any(r is None for r in results):
+        raise AssertionError("%s: unresolved futures" % model_name)
+    return results, latency
+
+
+def stream_path(T, A, inference, monitor, dev, model):
+    """The dense continuous stream (GenerativePredictor(slot_prefill=True)
+    .open_stream()) at width 8: 16 requests of ragged prompt lengths and
+    budgets, each equal to its solo run in the stream; the decode kernel
+    L times a step, the paged kernel never; one step at mixed lengths
+    with idle slots held to the plain version; then the same requests
+    through GenerativeServer."""
+    W, SRC, PROMPT, CAP = STREAM_WIDTH, 128, 64, 1024
+    L = len(model.dec_layers)
+    rng = np.random.RandomState(3)
+    reqs = [(rng.randint(2, 32000, SRC).astype(np.int64),
+             rng.randint(2, 32000, PROMPT).astype(np.int64),
+             int(rng.randint(8, PROMPT + 1)), int(rng.randint(8, 33)))
+            for _ in range(STREAM_REQUESTS)]
+
+    def predictor(end_id):
+        return inference.GenerativePredictor(
+            model, batch_size=W, src_len=SRC, prompt_len=PROMPT,
+            cache_capacity=CAP, end_id=end_id, slot_prefill=True,
+            device=dev)
+
+    # a probe run (also the warm-up) with an end_id no request emits;
+    # then end_id is a token that one request alone emits, first past its
+    # second token, so exactly one request ends on it, in a step
+    probe_pred = predictor(1)
+    probe = stream_drive(probe_pred.open_stream(), reqs)
+    seen = collections.Counter(t for i in probe for t in set(probe[i][0]))
+    end_id = next((int(t) for i in sorted(probe) for t in probe[i][0][2:]
+                   if seen[t] == 1 and t not in probe[i][0][:2]), 1)
+    check = stream_step_check(T, A, probe_pred.open_stream(), reqs)
+    del probe_pred
+
+    pred = predictor(end_id)
+    stream = pred.open_stream()
+    names = ("decode_steps_total", "decode_slot_join_total",
+             "decode_slot_retire_total",
+             "decode_slot_scatter_dispatch_total")
+    before = {n: monitor.counter(n).value for n in names}
+    occ = monitor.histogram("decode_slot_occupancy")
+    occ0 = (occ.sum, occ.count)
+    reset_launches(A)
+    step_s = []
+    t0 = time.perf_counter()
+    together = stream_drive(stream, reqs, step_s)
+    wall = time.perf_counter() - t0
+    launches = A.decode_attention_kernel.launches
+    paged = A.paged_attention_kernel.launches
+    delta = {n: monitor.counter(n).value - before[n] for n in names}
+    steps = delta["decode_steps_total"]
+    if not (steps == len(step_s) and launches == L * steps and paged == 0):
+        raise AssertionError(
+            "stream: %d decode-kernel launches over %d steps (want %d a "
+            "step), %d paged launches" % (launches, steps, L, paged))
+    at_join = sum(len(t) == 1 for t, _ in together.values())
+    decoding = delta["decode_slot_join_total"] - at_join
+    if delta["decode_slot_scatter_dispatch_total"] != decoding:
+        raise AssertionError("stream: %d scatters for %d decoding joins"
+                             % (delta["decode_slot_scatter_dispatch_total"],
+                                decoding))
+    solo = [stream_drive(stream, [r])[0] for r in reqs]
+    unequal = [i for i, (t, f) in enumerate(solo)
+               if not (np.array_equal(together[i][0], t)
+                       and together[i][1] == f)]
+    for i, (tok, fin) in together.items():
+        if tok.dtype != np.int64 or not 1 <= len(tok) <= reqs[i][3] or \
+                tok.min() < 0 or tok.max() >= 32000 or \
+                (len(tok) < reqs[i][3] and not fin):
+            raise AssertionError("stream: bad tokens %r" % (tok,))
+    if unequal:
+        raise AssertionError("stream: requests %s differ from their solo "
+                             "runs" % unequal)
+    step_ms = statistics.median(step_s) * 1e3
+    # traced after the timed steps: a trace slows the host's later launches
+    n_state, scatter_api, scatter = scatter_kernels(T, stream)
+    for src, prompt, plen, _ in reqs[:W]:
+        stream.join(src, prompt, prompt_len=plen, max_new_tokens=32)
+    traced = idle_share(
+        step_ms, lambda: [stream.step() for _ in range(TRACED_STEPS)],
+        TRACED_STEPS)
+    drain(stream)
+
+    steps0 = monitor.counter("decode_steps_total").value
+    reset_launches(A)
+    t0 = time.perf_counter()
+    served, latency = serve_requests(inference, pred.open_stream(), reqs,
+                                     "smoke-dense")
+    server_wall = time.perf_counter() - t0
+    server_steps = monitor.counter("decode_steps_total").value - steps0
+    server_launches = A.decode_attention_kernel.launches
+    if server_launches != L * server_steps or \
+            A.paged_attention_kernel.launches:
+        raise AssertionError("stream server: %d decode launches over %d "
+                             "steps" % (server_launches, server_steps))
+    server_unequal = [i for i, (t, f) in enumerate(served)
+                      if not (np.array_equal(t, solo[i][0])
+                              and f == solo[i][1])]
+    if server_unequal:
+        raise AssertionError("stream server: requests %s differ from their "
+                             "solo runs" % server_unequal)
+    lat = np.array(latency)
+    emit(phase="stream", width=W, src_len=SRC, prompt_len=PROMPT,
+         cache_capacity=CAP, requests=len(reqs), end_id=end_id,
+         ended_on_end_id=sum(bool(f) for _, f in together.values()),
+         completed_at_join=at_join, joins=delta["decode_slot_join_total"],
+         retires=delta["decode_slot_retire_total"],
+         scatters_per_decoding_join=(
+             delta["decode_slot_scatter_dispatch_total"] / decoding),
+         scatter_tensors=n_state, scatter_launch_calls=scatter_api,
+         scatter_device_kernels=scatter,
+         decode_steps=steps, wall_s=wall, step_ms_median=step_ms,
+         step_ms_mean=statistics.mean(step_s) * 1e3,
+         occupancy_mean=(occ.sum - occ0[0]) / (occ.count - occ0[1]),
+         decode_kernel_launches=launches, launches_per_step=launches / steps,
+         tokens_served=int(sum(len(t) for t, _ in together.values())),
+         equal_to_solo=len(reqs) - len(unequal),
+         traced_steps=TRACED_STEPS, traced_per_step=traced,
+         server_wall_s=server_wall, server_steps=server_steps,
+         server_launches_per_step=server_launches / server_steps,
+         request_p50_s=float(np.percentile(lat, 50)),
+         request_p99_s=float(np.percentile(lat, 99)),
+         server_equal_to_solo=len(reqs) - len(server_unequal), **check)
+    return launches
+
+
+@contextlib.contextmanager
+def counted_calls(obj, names):
+    """{name: calls} of ``obj``'s methods ``names`` made inside."""
+    counts = dict.fromkeys(names, 0)
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            counts[name] += 1
+            return fn(*args, **kw)
+        return call
+
+    for name in names:
+        setattr(obj, name, wrap(name, getattr(obj, name)))
+    try:
+        yield counts
+    finally:
+        for name in names:
+            delattr(obj, name)
+
+
+def top2_gap(logits):
+    """Top-two gap of each row of ``logits`` [..., V]."""
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def dense_gap(sess, src, prompt, plens, row, pos):
+    """The dense session's top-two logit gap where it chose token ``pos``
+    of ``row``: the prefill's logits at the row's last prompt position
+    for token 0, decode step ``pos`` for the rest."""
+    with proj_logits(sess.model, lambda o: True) as got:
+        sess.generate(src, prompt, plens, pos + 1)
+    out = got[0][row, int(plens[row]) - 1] if pos == 0 else got[pos][row, 0]
+    return top2_gap(out).item()
+
+
+def first_short_round(T, spec, src, prompt, plens, new):
+    """(round, smallest top-two gap of its verify logits) of the first
+    round of ``spec.generate`` that accepted fewer than k tokens in some
+    row, or None."""
+    short = []
+    hist = T._M_SPEC_ACCEPT
+    k = spec.k
+    with counted_calls(spec._s.model, ("verify_step",)) as n, \
+            proj_logits(spec._s.model, lambda o: o.shape[1] == k) as got:
+        observe = hist.observe
+
+        def note(a):
+            if a < k:
+                short.append(n["verify_step"] - 1)
+            observe(a)
+
+        hist.observe = note
+        try:
+            spec.generate(src, prompt, plens, new)
+        finally:
+            del hist.observe
+    if not short:
+        return None
+    return short[0], top2_gap(got[short[0]]).min().item()
+
+
+def speculative_path(T, A, inference, monitor, dev, model):
+    """Greedy self-speculative decoding (build_speculative_session ->
+    SpeculativeDecodeSession.generate) at batch 8, k 4, full prompts:
+    draft depth L // 2 (the default) and L; tokens equal to the dense
+    session's row by row (a row may differ only at a near-tie of the
+    dense run, and only one); the verify step's logits, kernel against
+    plain, from one prefilled state; rounds, acceptance, launches and
+    tokens/s beside the dense session at the same batch."""
+    B, SRC, PROMPT, CAP, K = SPEC_BATCH, 128, 64, 1024, SPEC_K
+    L = len(model.dec_layers)
+    pred = inference.GenerativePredictor(
+        model, batch_size=B, src_len=SRC, prompt_len=PROMPT,
+        cache_capacity=CAP, device=dev)
+    sess = pred._session
+    rng = np.random.RandomState(7)
+    src = rng.randint(2, 32000, (B, SRC)).astype(np.int64)
+    prompt = rng.randint(2, 32000, (B, PROMPT)).astype(np.int64)
+    plens = np.full(B, PROMPT, np.int64)
+    feed = {"src": src, "prompt": prompt, "prompt_lens": plens}
+    dense = {n: pred.run(feed, max_new_tokens=n)[0] for n in SPEC_NEW}
+    t0 = time.perf_counter()
+    pred.run(feed, max_new_tokens=SPEC_NEW[-1])
+    dense_wall = time.perf_counter() - t0
+
+    # the verify step from the dense session's prefilled state: the dense
+    # run's first k tokens at the prompts' lengths
+    outs = sess._prefill(src, prompt, sess._caches)
+    state, cross = outs[1:1 + 2 * L], outs[1 + 2 * L:1 + 4 * L]
+    toks = torch.from_numpy(dense[SPEC_NEW[0]][:, :K].astype(
+        np.int32)).to(dev)
+    step_ids = torch.arange(K, dtype=torch.int32, device=dev).view(1, -1)
+    tlen = torch.from_numpy(plens.astype(np.int32)).to(dev)
+    verify_err, verify_peak, verify_logits = kernel_vs_plain_logits(
+        T, A, model, lambda: model.verify_step(
+            toks, step_ids, tlen, *cross, *[c.clone() for c in state],
+            longest=int(plens.max()) + K))
+    if not verify_err <= STEP_LOGITS_ATOL:
+        raise AssertionError("speculative: verify logits kernel vs plain "
+                             "max |err| %g > %g"
+                             % (verify_err, STEP_LOGITS_ATOL))
+    verify_greedy = verify_logits.argmax(-1).cpu().numpy()
+    verify_equal = int((verify_greedy[:, :K - 1] ==
+                        dense[SPEC_NEW[0]][:, 1:K]).sum())
+
+    hist = monitor.histogram("decode_spec_accepted_tokens")
+    drafts, ties, launch_counts = [], [], {}
+    for Ld in (None, L):
+        spec = T.build_speculative_session(model, sess, k=K,
+                                           draft_layers=Ld)
+        Ld = spec.draft_layers
+        rec = dict(draft_layers=Ld)
+        spec.generate(src, prompt, plens, SPEC_NEW[0])        # warm-up
+        for new in SPEC_NEW:
+            c0, s0 = hist.count, hist.sum
+            with counted_calls(model, ("verify_step",
+                                       "decode_step_draft")) as n:
+                reset_launches(A)
+                t0 = time.perf_counter()
+                got, _ = spec.generate(src, prompt, plens, new)
+                wall = time.perf_counter() - t0
+            launches = A.decode_attention_kernel.launches
+            rounds, draft_steps = n["verify_step"], n["decode_step_draft"]
+            if launches != L * rounds + Ld * draft_steps or \
+                    A.paged_attention_kernel.launches or not rounds:
+                raise AssertionError(
+                    "speculative: %d decode launches for %d verify and %d "
+                    "draft steps" % (launches, rounds, draft_steps))
+            launch_counts["draft"] = launch_counts.get("draft", 0) + \
+                Ld * draft_steps
+            launch_counts["verify"] = launch_counts.get("verify", 0) + \
+                L * rounds
+            for b in np.flatnonzero((got != dense[new]).any(axis=1)):
+                pos = int(np.flatnonzero(got[b] != dense[new][b])[0])
+                gap = dense_gap(sess, src, prompt, plens, int(b), pos)
+                ties.append(dict(draft_layers=Ld, new_tokens=new, row=int(b),
+                                 position=pos, dense_top2_gap=gap))
+                if not gap < STEP_LOGITS_ATOL:
+                    raise AssertionError(
+                        "speculative: row %d differs from dense at token %d "
+                        "(dense top-two gap %g)" % (b, pos, gap))
+            rec[new] = dict(
+                rounds=rounds, draft_steps=draft_steps,
+                verify_launches_per_round=L, draft_launches_per_step=Ld,
+                accepted_mean=(hist.sum - s0) / (hist.count - c0),
+                wall_s=wall, tokens_per_s=B * new / wall,
+                rows_equal_to_dense=int((got == dense[new]).all(
+                    axis=1).sum()))
+        if Ld == L and rec[SPEC_NEW[-1]]["accepted_mean"] != K:
+            rec["first_short_round"] = first_short_round(
+                T, spec, src, prompt, plens, SPEC_NEW[-1])
+            if rec["first_short_round"] and \
+                    not rec["first_short_round"][1] < STEP_LOGITS_ATOL:
+                raise AssertionError("speculative: the full-depth draft "
+                                     "missed k at %s" % (
+                                         rec["first_short_round"],))
+        new = SPEC_NEW[0]
+        t0 = time.perf_counter()
+        spec.generate(src, prompt, plens, new)
+        untraced = time.perf_counter() - t0
+        rec["traced_generate"] = idle_share(
+            untraced * 1e3, lambda: spec.generate(src, prompt, plens, new),
+            1)
+        rec["traced_generate"]["new_tokens"] = new
+        drafts.append(rec)
+    if len(ties) > 1:
+        raise AssertionError("speculative: %d rows differ from dense at "
+                             "near-ties: %s" % (len(ties), ties))
+    emit(phase="speculative", batch=B, src_len=SRC, prompt_len=PROMPT,
+         cache_capacity=CAP, k=K, new_tokens=list(SPEC_NEW),
+         dense_wall_s=dense_wall,
+         dense_tokens_per_s=B * SPEC_NEW[-1] / dense_wall, drafts=drafts,
+         ties=ties, verify_logits_max_abs_err=verify_err,
+         verify_logits_atol=STEP_LOGITS_ATOL,
+         verify_logits_max_abs=verify_peak,
+         verify_greedy_equal_to_dense=verify_equal,
+         verify_greedy_positions=B * (K - 1))
+    return launch_counts
 
 
 BERT_BATCH, BERT_SEQ, BERT_STEPS = 32, 512, 6
@@ -3116,6 +3629,7 @@ def main():
     decode = decode_cases(A, dev, gen, flush,
                           resources=decode_resources(_build))
     dense_rec, paged_rec = decode["path_f32"], decode["paged_path"]
+    verify_rec = decode["verify_f32"]
     fused_rec, fused_p0_rec = fused_cases(A, dev, gen, flush)
     long_rec, flash_rec = long_cases(A, dev, flush)
     res_rec, packed_rec = packed_cases(A, dev, flush)
@@ -3142,6 +3656,12 @@ def main():
     lenet_path(dev)
     torch.cuda.empty_cache()
     resnet_path(inference, dev)
+    torch.cuda.empty_cache()
+    # the dense phase's model again (the same seed)
+    model = T.Transformer.big(device=dev, seed=0)
+    stream_launches = stream_path(T, A, inference, monitor, dev, model)
+    spec_launches = speculative_path(T, A, inference, monitor, dev, model)
+    del model
 
     src = "paddle_tpu_torch/kernels/csrc/decode_attention.cu"
     kernels = []
@@ -3157,6 +3677,16 @@ def main():
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
             library_ms=rec["library_ms"], splits=rec["launch"]["splits"],
             ms_clean_l2=rec["kernel_ms_clean_l2"]))
+    # the dense kernel's other paths: the stream's steps, the speculative
+    # phase's draft steps (Q 1) and verify steps (Q k, causal window),
+    # each counted over its own run; the verify shape timed apart
+    kernels[0].update(
+        launches_stream=stream_launches, launches_draft=spec_launches["draft"],
+        launches_verify=spec_launches["verify"],
+        verify={key: verify_rec[key] for key in (
+            "B", "H", "Q", "C", "d", "max_abs_err", "kernel_ms",
+            "kernel_ms_clean_l2", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")})
     fused_src = "paddle_tpu_torch/kernels/csrc/fused_attention.cu"
     # each row counts its kernels' launches on the tensor cores (a
     # backward row the dq kernel's: the pair launches together): those

@@ -236,13 +236,16 @@ class PredictorPool:
 class GenerativePredictor:
     """Serves greedy generation from a ``Transformer`` through a decode
     session built once at fixed shapes: the dense ring-cache
-    ``DecodeSession`` (``run``), or with ``paged=True`` the paged
-    continuous-batching ``PagedDecodeSession`` (``open_stream``, for
-    ``GenerativeServer``). The model is moved to ``device`` first."""
+    ``DecodeSession`` (``run``; with ``slot_prefill=True`` also its
+    continuous-batching ``ContinuousDecodeSession``, ``open_stream``), or
+    with ``paged=True`` the paged continuous-batching
+    ``PagedDecodeSession`` (``open_stream``). Either stream serves
+    ``GenerativeServer``. The model is moved to ``device`` first."""
 
     def __init__(self, model, batch_size, src_len, prompt_len,
-                 cache_capacity, end_id=1, paged=False, page_tokens=None,
-                 pool_pages=None, prefix_cache_size=0, device="cuda"):
+                 cache_capacity, end_id=1, slot_prefill=False, paged=False,
+                 page_tokens=None, pool_pages=None, prefix_cache_size=0,
+                 device="cuda"):
         from ..models.transformer import (build_decode_session,
                                           build_paged_decode_session)
 
@@ -256,16 +259,28 @@ class GenerativePredictor:
         else:
             self._session = build_decode_session(
                 model, batch_size, src_len, prompt_len, cache_capacity,
-                end_id=end_id)
+                end_id=end_id, slot_prefill=slot_prefill)
 
     def open_stream(self):
-        """The paged continuous-batching stream (``paged=True`` only:
-        the dense continuous stream is not ported yet)."""
-        if not self._paged:
+        """A continuous-batching stream over this predictor's session: the
+        ``PagedDecodeSession`` when built with ``paged=True``, else a
+        dense ``ContinuousDecodeSession`` (needs ``slot_prefill=True``).
+        Both serve the same join/step contract, so ``GenerativeServer``
+        drives either."""
+        if self._paged:
+            return self._session
+        if not self._session.slot_prefill:
             raise ValueError(
-                "open_stream() serves the paged engine: build the "
-                "predictor with paged=True")
-        return self._session
+                "open_stream() needs a continuous-batching engine: build "
+                "the predictor with slot_prefill=True (the dense stream) "
+                "or paged=True")
+        return self._session.open_stream()
+
+    def get_input_names(self):
+        return ["src", "prompt", "prompt_lens"]
+
+    def get_output_names(self):
+        return ["tokens", "finished"]
 
     def run(self, feed, max_new_tokens):
         """feed: {"src": [B, S] int64, "prompt": [B, P] int64,

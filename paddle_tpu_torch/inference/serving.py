@@ -499,10 +499,15 @@ class GenerativeServer:
     ``submit(src, prompt, ...)``; the worker joins waiting prompts into
     vacant slots of the live decode batch and steps it, resolving each
     request's future with ``(tokens [n] int64, finished bool)`` as its
-    slot retires.
+    slot retires, so the batch never drains to serve a new arrival.
 
-    ``stream`` is a ``PagedDecodeSession``
-    (``GenerativePredictor(..., paged=True).open_stream()``)."""
+    ``stream`` is any ``GenerativePredictor.open_stream()``: the dense
+    ``ContinuousDecodeSession`` (``slot_prefill=True``) or the
+    ``PagedDecodeSession`` (``paged=True``). Both take the same
+    join/step contract; a join is made only into a vacant slot, so the
+    dense stream's RuntimeError for a full batch never reaches a client,
+    while the paged stream's typed ``Overloaded`` (the page pool cannot
+    seat the prompt) sheds that one request."""
 
     def __init__(self, stream, max_queue_depth=64, breaker_threshold=16,
                  breaker_reset_s=0.25, model="generative"):

@@ -375,6 +375,58 @@ class Transformer(nn.Module):
         nxt, fin = self._next_token(self.proj(x), finished, end_ids)
         return tuple([nxt, new_len, fin] + new_k + new_v)
 
+    def decode_step_draft(self, tok, finished, end_ids, cache_len, *rest,
+                          longest=None):
+        """decode_step through only the first len(rest)//4 decoder layers:
+        the self-speculative draft (the same embeddings and output
+        projection, its own shallow KV caches). ``rest`` is Ld cross-K,
+        Ld cross-V, Ld K caches, Ld V caches; ``longest`` as
+        ``decode_step``. The draft only sets how many proposals the
+        verify step accepts, never which tokens are emitted."""
+        Ld = len(rest) // 4
+        cross_k, cross_v = rest[:Ld], rest[Ld:2 * Ld]
+        k_caches, v_caches = rest[2 * Ld:3 * Ld], rest[3 * Ld:4 * Ld]
+        x = self._decode_input(tok, cache_len)
+        new_k, new_v, new_len = [], [], None
+        for l, ck, cv, kc, vc in zip(self.dec_layers[:Ld], cross_k, cross_v,
+                                     k_caches, v_caches):
+            x, k_new, v_new, new_len = l.forward_step(
+                x, ck, cv, kc, vc, cache_len, None, longest=longest)
+            new_k.append(k_new)
+            new_v.append(v_new)
+        nxt, fin = self._next_token(self.proj(x), finished, end_ids)
+        return tuple([nxt, new_len, fin] + new_k + new_v)
+
+    def verify_step(self, toks, step_ids, cache_len, *rest, longest=None):
+        """Speculative verify: consume k proposed tokens ``toks`` [B, k]
+        int32 in one pass. They are embedded at positions cache_len +
+        ``step_ids`` ([1, k] int32, arange(k)), written into the ring
+        caches, and attended with the per-row causal window: q row r sees
+        the columns < cache_len + r + 1, what r + 1 single-token steps
+        would have seen. ``rest`` is L cross-K, L cross-V, L K caches, L V
+        caches; ``longest`` is the largest cache_len + k as the caller
+        holds it on the host. Returns (greedy [B, k] int32, new_len [B],
+        L K caches, L V caches): greedy[:, i] is the target's next token
+        after toks[:, :i+1]. The caller keeps the window inside the ring
+        (no wraparound) and rolls a rejected tail back by its length:
+        rows above the length are masked until overwritten."""
+        L = len(self.dec_layers)
+        cross_k, cross_v = rest[:L], rest[L:2 * L]
+        k_caches, v_caches = rest[2 * L:3 * L], rest[3 * L:4 * L]
+        B, K = toks.shape
+        pos = cache_len.reshape(B, 1, 1) + step_ids.reshape(1, K, 1)
+        x = self._embed(toks.reshape(B, K, 1), self.tgt_emb, pos)
+        new_k, new_v, new_len = [], [], None
+        for l, ck, cv, kc, vc in zip(self.dec_layers, cross_k, cross_v,
+                                     k_caches, v_caches):
+            x, k_new, v_new, new_len = l.forward_step(
+                x, ck, cv, kc, vc, cache_len, None, causal_window=True,
+                longest=longest)
+            new_k.append(k_new)
+            new_v.append(v_new)
+        greedy = torch.argmax(self.proj(x), dim=-1).to(torch.int32)
+        return tuple([greedy, new_len] + new_k + new_v)
+
 
 def make_causal_bias(seq_len):
     m = np.triu(np.full((seq_len, seq_len), -1e4, np.float32), k=1)
@@ -425,6 +477,9 @@ _M_SLOT_OCC = monitor.histogram(
     "decode_slot_occupancy", "active slots / batch width observed at "
     "each continuous-batching decode step",
     buckets=(0.0625, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0))
+_M_SCATTER_DISPATCH = monitor.counter(
+    "decode_slot_scatter_dispatch_total", "multi-tensor slot scatters "
+    "of a continuous-batching join (one a join, whatever the depth)")
 _M_PAGES_ALLOC = monitor.counter(
     "decode_pages_allocated_total", "KV pages taken from the paged "
     "decode free list (prompt prefills, ring growth, copy-on-write "
@@ -472,9 +527,14 @@ def _check_ids(model, src, prompt):
 
 
 def build_decode_session(model, batch_size, src_len, prompt_len,
-                         cache_capacity, end_id=1):
+                         cache_capacity, end_id=1, slot_prefill=False):
     """A dense ring-cache ``DecodeSession`` over ``model`` at fixed
-    shapes, on the model's device. Puts the model in eval() mode."""
+    shapes, on the model's device. Puts the model in eval() mode.
+
+    ``slot_prefill=True`` also keeps the batch-1 prefill state (zero
+    caches and positions) that ``session.open_stream()`` uses to prefill
+    ONE request into a vacant slot of a live decode batch (continuous
+    batching) without touching the other slots."""
     if cache_capacity < prompt_len:
         raise ValueError(
             "cache_capacity=%d < prompt_len=%d: the prefill write would "
@@ -482,7 +542,7 @@ def build_decode_session(model, batch_size, src_len, prompt_len,
     _check_positions(model, src_len, prompt_len, 0)
     model.eval()
     return DecodeSession(model, batch_size, src_len, prompt_len,
-                         cache_capacity, end_id)
+                         cache_capacity, end_id, slot_prefill)
 
 
 class DecodeSession:
@@ -494,7 +554,7 @@ class DecodeSession:
     so a generation syncs the host once, after the last step."""
 
     def __init__(self, model, batch_size, src_len, prompt_len,
-                 cache_capacity, end_id=1):
+                 cache_capacity, end_id=1, slot_prefill=False):
         self.model = model
         self.device = dev = _model_device(model)
         self._L = L = len(model.dec_layers)
@@ -513,20 +573,18 @@ class DecodeSession:
         self._causal = torch.from_numpy(make_causal_bias(prompt_len)).to(dev)
         self._end_ids = torch.tensor([self.end_id], dtype=torch.int32,
                                      device=dev)
+        self.slot_prefill = bool(slot_prefill)
+        if self.slot_prefill:
+            self._caches1 = [torch.zeros(1, H, C, d, device=dev)
+                             for _ in range(2 * L)]
 
-    @torch.no_grad()
-    def generate(self, src, prompt, prompt_lens, max_new_tokens):
-        """Greedy-decode ``max_new_tokens`` tokens per sequence.
-
-        src [B, src_len] int64; prompt [B, prompt_len] int64 right-padded
-        (first token is the GO symbol); prompt_lens [B] = true prompt
-        lengths (pad slots are masked out of attention and overwritten by
-        later decode writes). Returns (tokens [B, max_new_tokens] int64,
-        finished [B] bool) as numpy arrays."""
-        B, L, dev = self.batch_size, self._L, self.device
+    def _check_request(self, src, prompt, plens, max_new_tokens):
+        """src, prompt and prompt_lens [B] as int64 numpy arrays, checked
+        against the session's shapes and tables."""
+        B = self.batch_size
         src = np.ascontiguousarray(src, np.int64)
         prompt = np.ascontiguousarray(prompt, np.int64)
-        plens = np.asarray(prompt_lens, np.int64).reshape(B)
+        plens = np.asarray(plens, np.int64).reshape(B)
         if src.shape != (B, self.src_len) or \
                 prompt.shape != (B, self.prompt_len):
             raise ValueError(
@@ -538,15 +596,38 @@ class DecodeSession:
         if plens.min() < 1 or plens.max() > self.prompt_len:
             raise ValueError("prompt_lens must be in [1, %d]"
                              % self.prompt_len)
+        _check_ids(self.model, src, prompt)
+        return src, prompt, plens
+
+    def _prefill(self, src, prompt, caches):
+        """Prefill (prompt logits, L K caches, L V caches, L cross-K, L
+        cross-V) of int64 numpy ``src``/``prompt`` into ``caches``, zeroed
+        first: this session's batch caches, or the batch-1 slot-prefill
+        ones."""
+        dev = self.device
+        n = src.shape[0]
+        for c in caches:
+            c.zero_()
+        return self.model.prefill(
+            torch.from_numpy(src).to(dev), torch.from_numpy(prompt).to(dev),
+            self._pos_src[:n], self._pos_tgt[:n], self._causal,
+            torch.zeros(n, dtype=torch.int32, device=dev), *caches)
+
+    @torch.no_grad()
+    def generate(self, src, prompt, prompt_lens, max_new_tokens):
+        """Greedy-decode ``max_new_tokens`` tokens per sequence.
+
+        src [B, src_len] int64; prompt [B, prompt_len] int64 right-padded
+        (first token is the GO symbol); prompt_lens [B] = true prompt
+        lengths (pad slots are masked out of attention and overwritten by
+        later decode writes). Returns (tokens [B, max_new_tokens] int64,
+        finished [B] bool) as numpy arrays."""
+        B, L, dev = self.batch_size, self._L, self.device
+        src, prompt, plens = self._check_request(src, prompt, prompt_lens,
+                                                 max_new_tokens)
         _check_positions(self.model, self.src_len, self.prompt_len,
                          int(plens.max()) + max_new_tokens - 2)
-        _check_ids(self.model, src, prompt)
-        for c in self._caches:
-            c.zero_()
-        outs = self.model.prefill(
-            torch.from_numpy(src).to(dev), torch.from_numpy(prompt).to(dev),
-            self._pos_src, self._pos_tgt, self._causal,
-            torch.zeros(B, dtype=torch.int32, device=dev), *self._caches)
+        outs = self._prefill(src, prompt, self._caches)
         kc, vc = outs[1:1 + L], outs[1 + L:1 + 2 * L]
         cross = outs[1 + 2 * L:1 + 4 * L]
         last = torch.from_numpy(plens - 1).to(dev)
@@ -570,6 +651,17 @@ class DecodeSession:
         tokens = torch.cat(toks, dim=1).cpu().numpy().astype(np.int64)
         return tokens, finished.cpu().numpy().reshape(B)
 
+    def open_stream(self):
+        """A ``ContinuousDecodeSession`` over this session's model: a live
+        fixed-width decode batch that requests join mid-stream (batch-1
+        prefill into a vacant slot) and leave as they finish, without
+        draining the batch. Needs ``slot_prefill=True``."""
+        if not self.slot_prefill:
+            raise ValueError(
+                "continuous batching needs the batch-1 slot-prefill "
+                "state: build_decode_session(..., slot_prefill=True)")
+        return ContinuousDecodeSession(self)
+
 
 class _SlotState:
     """Host-side bookkeeping for one active continuous-batching slot."""
@@ -580,11 +672,157 @@ class _SlotState:
 
 
 def _slot_scatter(state, updates, slot):
-    """Write batch-1 rows ``updates`` into row ``slot`` of each batch
-    tensor in ``state`` (cross K/V), in place."""
-    for s, u in zip(state, updates):
-        s[slot].copy_(u[0])
+    """Write the batch-1 rows ``updates`` into row ``slot`` of each batch
+    tensor in ``state`` (ring caches, cross K/V), in place, in one
+    multi-tensor copy: on the card a few launches for every tensor
+    together, where a copy per tensor would launch 4L times a join."""
+    torch._foreach_copy_([s[slot] for s in state], [u[0] for u in updates])
     return state
+
+
+class ContinuousDecodeSession:
+    """Slot-level continuous batching over a dense ``DecodeSession``: a
+    decode batch of FIXED width (``session.batch_size`` slots) stepped
+    as a whole, where between steps finished slots retire and waiting
+    requests join vacant ones (batch-1 prefill, then its K/V copied into
+    the slot's rows of the live caches by ``_slot_scatter``), so the
+    batch stays full under ragged generation lengths.
+
+    Tokens [B, 1], the finished mask and the lengths stay on the device;
+    each slot's length is also kept on the host (its prompt length plus
+    its steps, 1 when idle), and its maximum is passed to the decode
+    step as ``longest``, so no step reads the lengths on the card. A
+    step syncs the host once, for the tokens and finished flags the
+    scheduler needs. Slot rows are independent through the whole step,
+    so a request's tokens are the same whether it shares the batch or
+    runs alone.
+
+    Single-threaded by design: serialise calls externally (the serving
+    tier holds one dispatch lock)."""
+
+    def __init__(self, session):
+        s = self._s = session
+        B, H, C, L, dev = (s.batch_size, s.n_heads, s.cache_capacity, s._L,
+                           s.device)
+        dp = decode_row_width(s.d_key, torch.float32)
+        self._tok = torch.full((B, 1), s.end_id, dtype=torch.int32,
+                               device=dev)
+        self._fin = torch.ones(B, 1, dtype=torch.bool, device=dev)
+        # idle slots sit at cache_len=1 over zero caches: attention sees
+        # one all-zero key (a finite softmax), and their position ids stay
+        # in range however long the stream runs (``_clamp_idle``)
+        self._len = torch.ones(B, dtype=torch.int32, device=dev)
+        self._hlen = np.ones(B, np.int64)
+        self._kc = [torch.zeros(B, H, C, dp, device=dev) for _ in range(L)]
+        self._vc = [torch.zeros(B, H, C, dp, device=dev) for _ in range(L)]
+        self._cross = [torch.zeros(B, H, s.src_len, s.d_key, device=dev)
+                       for _ in range(2 * L)]
+        self._slots = [None] * B    # _SlotState or None (vacant)
+
+    @property
+    def width(self):
+        return self._s.batch_size
+
+    @property
+    def active_count(self):
+        return sum(st is not None for st in self._slots)
+
+    def vacant_slots(self):
+        return [i for i, st in enumerate(self._slots) if st is None]
+
+    @torch.no_grad()
+    def join(self, src, prompt, prompt_len=None, max_new_tokens=1):
+        """Prefill ONE request into a vacant slot while the rest of the
+        batch keeps its decode state. src: [src_len] or [1, src_len];
+        prompt likewise. Returns ``(slot, done)`` where ``done`` is None
+        while the request decodes, or ``(tokens [n] int64, finished)`` if
+        it completed at join (budget 1, or the first token is end_id).
+        Raises RuntimeError when no slot is vacant: callers queue and
+        retry after a ``step`` retires one."""
+        s = self._s
+        vacant = self.vacant_slots()
+        if not vacant:
+            raise RuntimeError(
+                "no vacant slot (all %d active) — step() until one "
+                "retires" % s.batch_size)
+        if int(max_new_tokens) < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        src = np.ascontiguousarray(src, np.int64).reshape(1, s.src_len)
+        prompt = np.ascontiguousarray(prompt, np.int64).reshape(
+            1, s.prompt_len)
+        plen = int(s.prompt_len if prompt_len is None else prompt_len)
+        if not 1 <= plen <= s.prompt_len:
+            raise ValueError("prompt_len must be in [1, %d], got %d"
+                             % (s.prompt_len, plen))
+        _check_positions(s.model, s.src_len, s.prompt_len,
+                         plen + int(max_new_tokens) - 2)
+        _check_ids(s.model, src, prompt)
+        slot = vacant[0]
+        outs = s._prefill(src, prompt, s._caches1)
+        first = int(outs[0][0, plen - 1].argmax())
+        _M_SLOT_JOIN.inc()
+        if int(max_new_tokens) == 1 or first == s.end_id:
+            _M_SLOT_RETIRE.inc()
+            return slot, (np.array([first], np.int64), first == s.end_id)
+        L = s._L
+        _slot_scatter(self._kc + self._vc + self._cross, outs[1:1 + 4 * L],
+                      slot)
+        _M_SCATTER_DISPATCH.inc()
+        self._tok[slot, 0] = first
+        self._fin[slot, 0] = False
+        self._len[slot] = plen
+        self._hlen[slot] = plen
+        self._slots[slot] = _SlotState([first], max_new_tokens)
+        return slot, None
+
+    @torch.no_grad()
+    def step(self):
+        """ONE decode step of the whole batch. Appends each active slot's
+        new token, retires slots that finished or exhausted their budget,
+        and returns the completions ``[(slot, tokens [n] int64,
+        finished), ...]``."""
+        s = self._s
+        if self.active_count == 0:
+            raise RuntimeError("step() with no active slot — join first")
+        _M_SLOT_OCC.observe(self.active_count / float(s.batch_size))
+        self._clamp_idle()
+        t0 = time.perf_counter()
+        outs = s.model.decode_step(
+            self._tok, self._fin, s._end_ids, self._len, *self._cross,
+            *self._kc, *self._vc, longest=int(self._hlen.max()) + 1)
+        L = s._L
+        self._tok, self._len, self._fin = outs[0], outs[1], outs[2]
+        self._kc = list(outs[3:3 + L])
+        self._vc = list(outs[3 + L:3 + 2 * L])
+        self._hlen += 1
+        _M_DECODE_STEPS.inc()
+        _M_DECODE_SECONDS.observe(time.perf_counter() - t0)
+        # the step's one sync: tokens and finished flags in one copy
+        got = torch.cat([self._tok, self._fin.to(torch.int32)],
+                        dim=1).cpu().numpy()
+        completed = []
+        for slot, st in enumerate(self._slots):
+            if st is None:
+                continue
+            st.tokens.append(int(got[slot, 0]))
+            finished = bool(got[slot, 1])
+            if finished or len(st.tokens) >= st.budget:
+                completed.append((slot, np.array(st.tokens, np.int64),
+                                  finished))
+                self._slots[slot] = None
+                self._fin[slot, 0] = True
+                _M_SLOT_RETIRE.inc()
+        return completed
+
+    def _clamp_idle(self):
+        """Pin idle slots to cache_len=1 before each step, so a long-lived
+        stream never walks their (discarded) position ids past the
+        position table. A slot is idle exactly where its finished flag is
+        set (a step retires every slot it finishes, and a retired slot's
+        flag is set), so the card clamps by that flag and the host sends
+        nothing."""
+        self._hlen[[st is None for st in self._slots]] = 1
+        self._len = torch.where(self._fin.view(-1), 1, self._len)
 
 
 def _paged_pack(pools, caches, rows):
@@ -1001,3 +1239,163 @@ class PagedDecodeSession:
         for b, st in enumerate(self._slots):
             if st is None:
                 self._len[b] = 1
+
+
+# ---------------------------------------------------------------------------
+# Greedy self-speculative decoding over a dense session.
+# ---------------------------------------------------------------------------
+
+_M_SPEC_ACCEPT = monitor.histogram(
+    "decode_spec_accepted_tokens", "tokens emitted per speculative "
+    "verify step (1 = draft rejected at the first proposal, k = whole "
+    "window accepted)", buckets=(1, 2, 3, 4, 6, 8, 12, 16))
+
+
+def build_speculative_session(model, session, k=4, draft_layers=None):
+    """Wrap a dense ``DecodeSession`` in a ``SpeculativeDecodeSession``: a
+    self-speculative draft (the first ``draft_layers`` decoder layers,
+    default L // 2 and at least 1, with the shared embeddings and output
+    projection: no second model) proposes ``k`` tokens a round, and the
+    full model verifies them in one step (q_len k with the per-row causal
+    window), accepting the longest matching greedy prefix. The tokens
+    equal ``session.generate``'s: the draft changes only how many
+    positions the target computes at once. ``model`` is the session's
+    model; puts it in eval() mode."""
+    k = int(k)
+    if k < 2:
+        raise ValueError(
+            "speculative k must be >= 2 (k=1 is the plain decode step)")
+    L = session._L
+    Ld = int(draft_layers) if draft_layers is not None else max(1, L // 2)
+    if not 1 <= Ld <= L:
+        raise ValueError("draft_layers must be in [1, %d], got %d"
+                         % (L, Ld))
+    model.eval()
+    return SpeculativeDecodeSession(session, k, Ld)
+
+
+class SpeculativeDecodeSession:
+    """Greedy speculative decoding over a base ``DecodeSession``.
+
+    A round: the draft runs k single-token steps (k-1 proposals, then one
+    that only writes the last proposal into its caches, so they never
+    hold a gap), then the target verifies the k-token window in one step
+    and the host accepts the longest prefix where the draft's proposal
+    equals the target's greedy choice, so each target step emits between
+    1 and k tokens. The proposals stay on the device until the round's
+    one sync. Rollback is a host-side length edit: rejected cache rows
+    sit above the rolled-back length, masked until overwritten, which is
+    why a generation must never wrap the ring (checked in generate)."""
+
+    def __init__(self, session, k, draft_layers):
+        s = self._s = session
+        self.k = int(k)
+        self.draft_layers = Ld = int(draft_layers)
+        B, H, C = s.batch_size, s.n_heads, s.cache_capacity
+        dp = decode_row_width(s.d_key, torch.float32)
+        self._dcaches = [torch.zeros(B, H, C, dp, device=s.device)
+                         for _ in range(2 * Ld)]
+        self._step_ids = torch.arange(self.k, dtype=torch.int32,
+                                      device=s.device).reshape(1, -1)
+
+    @torch.no_grad()
+    def generate(self, src, prompt, prompt_lens, max_new_tokens):
+        """Drop-in for ``DecodeSession.generate``: the same arguments, the
+        same greedy tokens, fewer target steps. Requires max(prompt_lens)
+        + max_new_tokens + k <= cache_capacity: the verify window must
+        never wrap the ring (rollback only moves the length, which is
+        sound only while every stale row sits above it)."""
+        s, k, Ld, L = self._s, self.k, self.draft_layers, self._s._L
+        B, dev, model = s.batch_size, s.device, s.model
+        src, prompt, plens = s._check_request(src, prompt, prompt_lens,
+                                              max_new_tokens)
+        need = int(max_new_tokens)
+        if int(plens.max()) + need + k > s.cache_capacity:
+            raise ValueError(
+                "speculative decode must not wrap the KV ring: "
+                "max prompt_len %d + max_new_tokens %d + k %d > "
+                "cache_capacity %d"
+                % (plens.max(), need, k, s.cache_capacity))
+        # a row that stops early keeps stepping (its outputs discarded)
+        # for up to two more windows past its last live position
+        _check_positions(model, s.src_len, s.prompt_len,
+                         int(plens.max()) + need + 2 * k - 3)
+
+        outs = s._prefill(src, prompt, s._caches)
+        kc, vc = outs[1:1 + L], outs[1 + L:1 + 2 * L]
+        cross = outs[1 + 2 * L:1 + 4 * L]
+        dcross = cross[:Ld] + cross[L:L + Ld]
+        last = torch.from_numpy(plens - 1).to(dev)
+        first = outs[0][torch.arange(B, device=dev), last].argmax(-1).to(
+            torch.int32).cpu().numpy()
+        cur = first[:, None].copy()          # [B, 1] pending token
+        emitted = [[int(t)] for t in first]
+        fin = first == s.end_id              # [B] host finished mask
+        tlen = plens.astype(np.int32)        # target cache lengths
+
+        # draft prompt ingestion: the prompt through the draft one position
+        # a step; rows shorter than the longest prompt rewrite their last
+        # prompt position, which changes nothing
+        dkc, dvc = self._dcaches[:Ld], self._dcaches[Ld:]
+        for c in self._dcaches:
+            c.zero_()
+        no_fin = torch.zeros(B, 1, dtype=torch.bool, device=dev)
+        steps = int(plens.max())
+        lens = np.minimum(np.arange(steps)[:, None], plens - 1)   # [T, B]
+        toks = prompt[np.arange(B), lens]
+        ingest = torch.from_numpy(np.stack([lens, toks], axis=1).astype(
+            np.int32)).to(dev)                                 # [T, 2, B]
+        for t in range(steps):
+            model.decode_step_draft(ingest[t, 1, :, None], no_fin,
+                                    s._end_ids, ingest[t, 0], *dcross,
+                                    *dkc, *dvc,
+                                    longest=int(lens[t].max()) + 1)
+
+        while any(len(emitted[b]) < need and not fin[b] for b in range(B)):
+            # draft: k-1 proposals, then one step that writes the last
+            longest = int(tlen.max())
+            both = torch.from_numpy(np.stack([cur[:, 0], tlen])).to(dev)
+            dt, tlen_dev = both[0, :, None], both[1]
+            dlen = tlen_dev
+            d_toks = [dt]
+            for i in range(k):
+                outs = model.decode_step_draft(
+                    dt, no_fin, s._end_ids, dlen, *dcross, *dkc, *dvc,
+                    longest=longest + i + 1)
+                if i < k - 1:
+                    dt, dlen = outs[0], outs[1]
+                    d_toks.append(dt)
+            # target: the whole window in one step
+            toks = torch.cat(d_toks, dim=1)                  # [B, k] int32
+            outs = model.verify_step(toks, self._step_ids, tlen_dev, *cross,
+                                     *kc, *vc, longest=longest + k)
+            # the round's one sync: proposals and greedy choices together
+            got = torch.cat([toks, outs[0]], dim=1).cpu().numpy()
+            toks_np, g = got[:, :k], got[:, k:]
+
+            new_tlen = tlen.copy()
+            for b in range(B):
+                if len(emitted[b]) >= need or fin[b]:
+                    continue        # frozen: length pinned, writes inert
+                a = 1
+                while a < k and int(toks_np[b, a]) == int(g[b, a - 1]):
+                    a += 1
+                _M_SPEC_ACCEPT.observe(a)
+                for t in g[b, :a]:
+                    t = s.end_id if fin[b] else int(t)
+                    emitted[b].append(t)
+                    if t == s.end_id:
+                        fin[b] = True
+                    if len(emitted[b]) >= need:
+                        break
+                cur[b, 0] = g[b, a - 1]
+                new_tlen[b] = tlen[b] + a
+            tlen = new_tlen
+
+        tokens = np.full((B, need), s.end_id, np.int64)
+        for b in range(B):
+            t = emitted[b][:need]
+            tokens[b, :len(t)] = t
+        _M_DECODE_CACHE.set(float(np.minimum(
+            plens + need, s.cache_capacity).sum()))
+        return tokens, fin.copy()

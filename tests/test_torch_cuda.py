@@ -362,6 +362,77 @@ def test_sessions_on_card_match_cpu(cuda_device):
     assert out["card"][1] == out["cpu"][1]
 
 
+@pytest.mark.parametrize("longest,splits", [(132, None), (None, 1),
+                                            (None, 2), (None, 8)])
+def test_verify_window_on_the_decode_kernel(cuda_device, longest, splits):
+    """The speculative verify step's shape on the dense kernel: Q 4 rows
+    under the causal window, fp32, lengths on both sides of 128 columns
+    (the rule cuts 132 columns into pieces of 128 here, so a row's
+    window may end in either piece) and one rolled-back row of length
+    68, whose rejected rows above it hold values 100 times the live
+    ones, as every row above a length does here; at the rule's pieces
+    for the host's longest length and at forced counts over the
+    capacity, against the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    B, H, Q, C, d = 9, 16, 4, 1024, 64
+    lens = list(range(125, 133)) + [68]
+    q, k, v = (torch.randn(*s, device=cuda_device, generator=g)
+               for s in ((B, H, Q, d), (B, H, C, d), (B, H, C, d)))
+    cache_len = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    stale = (torch.arange(C, device=cuda_device).view(1, C) >=
+             cache_len.view(B, 1)).view(B, 1, C, 1)
+    k, v = (torch.where(stale, 100 * t, t) for t in (k, v))
+    if longest is not None:
+        assert A.decode_pieces(B, H, Q, C, d, torch.float32,
+                               A._sm_count(q.device), longest) == (128, 2)
+    got = A.decode_attention_kernel(q, k, v, cache_len, d ** -0.5, True,
+                                    longest=longest, _splits=splits)
+    want = A._ref_attention_cache(q, k, v, cache_len, d ** -0.5, True)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 2e-5
+
+
+def test_stream_and_speculative_on_card_match_dense(cuda_device):
+    """Transformer.tiny on the card: a short dense stream (a retire at
+    join, idle slots, a join while a slot decodes) gives each request
+    the dense session's tokens, and speculative generate at k 3 with
+    draft depth 1 and 2 equals the dense generate; the draft and verify
+    steps launch the decode kernel."""
+    rng = np.random.RandomState(0)
+    B, S, P, C = 3, 6, 4, 16
+    src = rng.randint(2, 512, (B, S))
+    prompt = rng.randint(2, 512, (B, P))
+    plens = np.array([4, 3, 2])
+    model = T.Transformer.tiny(device="cpu", seed=7).to(cuda_device)
+    sess = T.build_decode_session(model, B, S, P, C, slot_prefill=True)
+    dense, dense_fin = sess.generate(src, prompt, plens, 8)
+    for Ld in (1, 2):
+        spec = T.build_speculative_session(model, sess, k=3,
+                                           draft_layers=Ld)
+        n0 = A.decode_attention_kernel.launches
+        toks, fin = spec.generate(src, prompt, plens, 8)
+        assert A.decode_attention_kernel.launches > n0
+        np.testing.assert_array_equal(toks, dense)
+        np.testing.assert_array_equal(fin, dense_fin)
+    stream = sess.open_stream()
+    done = {}
+    for b, budget in ((0, 8), (1, 1)):
+        slot, out = stream.join(src[b], prompt[b], prompt_len=int(plens[b]),
+                                max_new_tokens=budget)
+        if out is not None:
+            done[b] = list(out[0])
+    slots = {0: 0}
+    stream.step()
+    slot, _ = stream.join(src[2], prompt[2], prompt_len=int(plens[2]),
+                          max_new_tokens=8)
+    slots[slot] = 2
+    while stream.active_count:
+        for slot, toks, _ in stream.step():
+            done[slots.pop(slot)] = list(toks)
+    assert done == {0: list(dense[0]), 1: list(dense[1, :1]),
+                    2: list(dense[2])}
+
+
 def _attn_inputs(dev, dtype, B, H, S, d, bias_shape, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, do = (torch.randn(B, H, S, d, device=dev, generator=g)

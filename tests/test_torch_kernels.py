@@ -176,6 +176,9 @@ def test_port_imports_without_jax_triton_or_nvcc():
     code = (
         "import sys\n"
         "import paddle_tpu_torch, paddle_tpu_torch.models.transformer\n"
+        "from paddle_tpu_torch.models.transformer import (\n"
+        "    ContinuousDecodeSession, SpeculativeDecodeSession,\n"
+        "    build_speculative_session)\n"
         "import paddle_tpu_torch.inference.serving\n"
         "import paddle_tpu_torch.inference\n"
         "import paddle_tpu_torch.kernels.attention\n"

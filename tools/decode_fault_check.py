@@ -114,7 +114,7 @@ def run_copy(copy, name, timed):
         del flush
     failed = False
     for case, fn, args, kw in smoke.decode_case_list():
-        kw = {k: v for k, v in kw.items() if k != "sweep"}
+        kw = {k: v for k, v in kw.items() if k not in ("sweep", "timed")}
         try:
             if fn is smoke.decode_width_check:
                 fn(A, dev, gen, *args)
