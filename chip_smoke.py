@@ -169,7 +169,31 @@ wrappers') and ``replay_launches`` (the traced replay's).
              hand-written kernel runs here: the reference has no Pallas
              convolution, pooling or batch norm, so these lower to
              cuDNN and ATen.
-12. stream   the dense continuous stream, GenerativePredictor(...,
+12. deepfm   BASELINE config 4 as bench.py's bench_deepfm feeds it:
+             DeepFMConfig() (vocabulary 100,000, 26 fields, 13 dense
+             features, embedding 10, MLP 400x3), is_sparse=True, Adam
+             lr 1e-3, batch 4096, graphed. 3 graphed steps against 3
+             eager ones from one state (losses and every persistable
+             equal to the bit); an eager step's SelectedRows gradients
+             ([106496, dim] values, [106496] rows) with no aten op
+             making a [vocab, ...] tensor, and after 3 graphed steps the
+             rows the batch does not touch, and their Adam moments,
+             equal to the bit; sparse against dense over 5 steps on one
+             batch (losses within DEEPFM_SPARSE_DENSE_RTOL, every
+             persistable within DEEPFM_SPARSE_DENSE_STATE_RTOL); 3
+             steps on the card against the port's CPU path and its
+             float64 run (every loss, and the state after step 1,
+             within DEEPFM_CPU_RTOL or 3x the fp32 noise; after steps
+             2-3 each tensor's L2 difference over the L2 norm of its
+             update within DEEPFM_CPU_UPDATE_RTOL or 3x the CPU's own
+             against float64); step
+             ms and examples/s eager, graphed and in iters=100 windows,
+             the idle share, device kernels and host launch calls a step
+             from traces, peak GB; the trained pred served by a
+             Predictor at batch 4096 against a training step's pred
+             (DEEPFM_SERVE_ATOL), its request ms. No attention kernel
+             runs (counted: 0); the ops lower to torch's own calls.
+13. stream   the dense continuous stream, GenerativePredictor(...,
              slot_prefill=True).open_stream() at width 8 (bench.py's
              decode-engine legs): 16 requests of ragged prompt lengths
              and budgets joined and stepped, each equal to its solo run
@@ -182,7 +206,7 @@ wrappers') and ``replay_launches`` (the traced replay's).
              the idle share of a traced window of steps; then the same
              requests through GenerativeServer from 4 threads (p50, p99,
              each equal to its solo run).
-13. speculative  build_speculative_session over a dense session at batch
+14. speculative  build_speculative_session over a dense session at batch
              8, k 4, full prompts, 12 and 32 new tokens, draft depth 3
              (the default, L // 2) and 6: tokens equal to the dense
              session's row by row (a row may differ only where the dense
@@ -194,7 +218,7 @@ wrappers') and ``replay_launches`` (the traced replay's).
              state; rounds, accepted mean, target and draft launches,
              tokens/s beside the dense session's, the idle share of a
              traced generate.
-14. summary  the kernels line, the card line, then the result line.
+15. summary  the kernels line, the card line, then the result line.
 """
 
 import collections
@@ -3439,6 +3463,77 @@ def float64_program(main):
     return framework.Program.from_desc(desc)
 
 
+def card_vs_cpu(fluid, dev, main, loss, cpu, feeds, wide):
+    """``main`` a step a feed from the CPU scope ``cpu``'s state: graphed
+    on the card, on the CPU, and on the CPU in float64 (``wide(feed)``
+    is the float64 program's feed). Returns each step's (card, CPU,
+    float64) loss and rows (card vs CPU, CPU vs float64, step, name,
+    card vs CPU, CPU vs float64): the loss's relative difference, twice;
+    each persistable's largest difference over its largest float64
+    magnitude, then the L2 norm of the difference over the L2 norm of
+    what the float64 run moved it since the start."""
+    card, c64 = fluid.Scope(), fluid.Scope()
+    begin = {}
+    for n in cpu.local_var_names():
+        t = cpu.find_var(n)
+        card.set_var(n, t.to(dev, copy=True))
+        c64.set_var(n, t.double() if t.dtype == torch.float32 else t.clone())
+        begin[n] = t.to(torch.float64, copy=True)
+    m64 = float64_program(main)
+    cexe, gexe = fluid.Executor("cpu"), fluid.Executor(dev)
+    losses, rows = [], []
+    for step, f in enumerate(feeds):
+        got = fetch_losses(gexe, main, f, [loss], card, 1)[0]
+        want = fetch_losses(cexe, main, f, [loss], cpu, 1)[0]
+        truth = fetch_losses(cexe, m64, wide(f), [loss.name], c64, 1)[0]
+        losses.append((got, want, truth))
+        rel = (abs(got - want) / abs(want), abs(want - truth) / abs(truth))
+        rows.append(rel + (step, "loss") + rel)
+        for n in cpu.local_var_names():
+            w, t = cpu.find_var(n).double(), c64.find_var(n).double()
+            scale = max(t.abs().max().item(), 1e-30)
+            moved = max((t - begin[n]).norm().item(), 1e-30)
+            d = (card.find_var(n).cpu().double() - w, w - t)
+            rows.append(tuple(x.abs().max().item() / scale for x in d) + (
+                step, n) + tuple(x.norm().item() / moved for x in d))
+    gexe.close()
+    return losses, rows
+
+
+def card_vs_cpu_record(losses, rows, rtol, state_steps=None,
+                       update_rtol=None, **where):
+    """The record of ``card_vs_cpu``'s readings; ``over`` lists the
+    rows past max(rtol, 3 x the fp32 noise): every loss, and the
+    persistables after the first ``state_steps`` steps (all by
+    default). A later persistable is judged by its L2 difference over
+    what it moved instead, against max(update_rtol, 3 x the CPU's own
+    against float64)."""
+    judged = [r for r in rows if r[3] == "loss" or state_steps is None
+              or r[2] < state_steps]
+    over = [r for r in judged if r[0] > max(rtol, 3 * r[1])]
+    worst = max(judged)
+    later = [r for r in rows if r not in judged]
+    if later:
+        most = max(later, key=lambda r: r[4])
+        over += [r for r in later if r[4] > max(update_rtol, 3 * r[5])]
+        where = dict(where, state_steps=state_steps,
+                     later_state_max_rel=max(r[0] for r in later),
+                     later_update_rel_l2=most[4],
+                     later_update_rel_l2_noise=most[5],
+                     later_update_rel_l2_at=[most[2], most[3]],
+                     update_rtol=update_rtol)
+    return dict(where, check="card_vs_cpu", steps=len(losses),
+                losses_card=[x[0] for x in losses],
+                losses_cpu=[x[1] for x in losses],
+                losses_cpu_float64=[x[2] for x in losses],
+                loss_rel=max(r[0] for r in rows if r[3] == "loss"),
+                max_rel=worst[0], max_rel_fp32_noise=worst[1],
+                max_rel_at=[worst[2], worst[3]],
+                past_rtol=sum(r[0] > rtol for r in rows),
+                compared=len(judged), over=[list(r) for r in over[:8]],
+                rtol=rtol)
+
+
 def resnet_card_vs_cpu(fluid, resnet, dev):
     """ResNet-18, fp32, CARD_CPU_SIZE, batch CARD_CPU_BATCH, CHECK_STEPS
     steps (a fresh seeded batch each) from one startup state, graphed on
@@ -3455,50 +3550,19 @@ def resnet_card_vs_cpu(fluid, resnet, dev):
         lr=0.01)
     cpu = fluid.Scope()
     fluid.Executor("cpu").run(startup, scope=cpu)
-    card, c64 = fluid.Scope(), fluid.Scope()
-    for n in cpu.local_var_names():
-        t = cpu.find_var(n)
-        card.set_var(n, t.to(dev, copy=True))
-        c64.set_var(n, t.double() if t.dtype == torch.float32 else t.clone())
-    m64 = float64_program(main)
     rng = np.random.RandomState(1)
     feeds = [{"img": rng.rand(CARD_CPU_BATCH, 3, CARD_CPU_SIZE,
                               CARD_CPU_SIZE).astype(np.float32),
               "label": rng.randint(0, RESNET_CLASSES, (CARD_CPU_BATCH, 1))
               .astype(np.int64)} for _ in range(CHECK_STEPS)]
-    cexe, gexe = fluid.Executor("cpu"), fluid.Executor(dev)
-    losses, rows = [], []
-    for step, f in enumerate(feeds):
-        got = fetch_losses(gexe, main, f, [loss], card, 1)[0]
-        want = fetch_losses(cexe, main, f, [loss], cpu, 1)[0]
-        truth = fetch_losses(cexe, m64, dict(f, img=f["img"].astype(
-            np.float64)), [loss.name], c64, 1)[0]
-        losses.append((got, want, truth))
-        rows.append((abs(got - want) / abs(want),
-                     abs(want - truth) / abs(truth), step, "loss"))
-        for n in cpu.local_var_names():
-            w, t = cpu.find_var(n).double(), c64.find_var(n).double()
-            scale = max(t.abs().max().item(), 1e-30)
-            rows.append((
-                (card.find_var(n).cpu().double() - w).abs().max().item()
-                / scale, (w - t).abs().max().item() / scale, step, n))
-    gexe.close()
-    over = [r for r in rows if r[0] > max(CARD_CPU_RTOL, 3 * r[1])]
-    worst = max(rows)
-    rec = dict(phase="resnet", check="card_vs_cpu", depth=18,
-               image_size=CARD_CPU_SIZE, batch=CARD_CPU_BATCH,
-               dtype="float32", steps=CHECK_STEPS,
-               losses_card=[x[0] for x in losses],
-               losses_cpu=[x[1] for x in losses],
-               losses_cpu_float64=[x[2] for x in losses],
-               loss_rel=max(r[0] for r in rows if r[3] == "loss"),
-               max_rel=worst[0], max_rel_fp32_noise=worst[1],
-               max_rel_at=[worst[2], worst[3]],
-               past_rtol=sum(r[0] > CARD_CPU_RTOL for r in rows),
-               compared=len(rows), over=[list(r) for r in over[:8]],
-               rtol=CARD_CPU_RTOL)
+    losses, rows = card_vs_cpu(
+        fluid, dev, main, loss, cpu, feeds,
+        lambda f: dict(f, img=f["img"].astype(np.float64)))
+    rec = card_vs_cpu_record(losses, rows, CARD_CPU_RTOL, phase="resnet",
+                             depth=18, image_size=CARD_CPU_SIZE,
+                             batch=CARD_CPU_BATCH, dtype="float32")
     emit(**rec)
-    if over:
+    if rec["over"]:
         raise AssertionError("resnet: card vs CPU past max(%g, 3 x fp32 "
                              "noise): %s" % (CARD_CPU_RTOL, rec))
 
@@ -3603,6 +3667,334 @@ def resnet_path(inference, dev):
     return rounds
 
 
+# -- DeepFM, BASELINE config 4: the sparse embedding engine's device tier ----
+DEEPFM_BATCH = 4096                # bench.py's bench_deepfm
+DEEPFM_WARM, DEEPFM_TIMED = 2, 20
+DEEPFM_ITERS, DEEPFM_WINDOWS = 100, 3
+DEEPFM_SPARSE_DENSE_STEPS = 5
+# the reference's own tolerance between its sparse and dense DeepFM runs
+# (tests/test_sparse.py); on one repeated batch the untouched rows keep
+# zero moments either way, so the two differ by rounding alone
+DEEPFM_SPARSE_DENSE_RTOL = 2e-3
+# and every persistable, over its largest magnitude (1.26e-6 on the H100)
+DEEPFM_SPARSE_DENSE_STATE_RTOL = 1e-4
+# card vs CPU: as the resnet check, max(rtol, 3 x the fp32 noise); from
+# step 2 on, each tensor's L2 difference over the L2 norm of its update
+# (at most 6.1e-4 after step 2 and 2.5e-3 after step 3 on the H100)
+DEEPFM_CPU_RTOL = 1e-4
+DEEPFM_CPU_UPDATE_RTOL = 1e-2
+# the served pred against the training program's: the same fp32 ops
+# (TF32 off) on the same card
+DEEPFM_SERVE_ATOL = 1e-6
+
+
+def deepfm_program(fluid, deepfm, is_sparse=True):
+    with fluid.unique_name.guard():
+        return deepfm.build_train_program(deepfm.DeepFMConfig(),
+                                          is_sparse=is_sparse)
+
+
+def deepfm_feed(deepfm, batch, seed, dev=None):
+    """``deepfm.synthetic_batch`` at the full config, on ``dev`` (numpy
+    when None)."""
+    f = deepfm.synthetic_batch(deepfm.DeepFMConfig(), batch, seed=seed)
+    return f if dev is None else {k: torch.from_numpy(v).to(dev)
+                                  for k, v in f.items()}
+
+
+def vocab_sized_outputs(fn, vocab, scope):
+    """The aten ops of one call of ``fn`` whose output has ``vocab`` rows
+    and does not alias a tensor of ``scope`` (a table or an accumulator
+    updated in place): a dense [vocab, dim] gradient would be one."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    own = {scope.find_var(n).untyped_storage().data_ptr()
+           for n in scope.local_var_names()}
+    seen = []
+
+    class Spy(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(t, torch.Tensor) and t.dim() and \
+                        t.shape[0] == vocab and \
+                        t.untyped_storage().data_ptr() not in own:
+                    seen.append(str(func))
+            return out
+
+    with Spy():
+        fn()
+    return seen
+
+
+def sparse_tables(main):
+    """{table: [its accumulators]} of the program's sparse lookups'
+    tables, from their optimizer ops."""
+    from paddle_tpu_torch.embedding import find_sparse_lookup_ops
+
+    tables = {op.input("W")[0] for op in find_sparse_lookup_ops(main)}
+    return {op.input("Param")[0]: [n for slot, names in op.inputs.items()
+                                   for n in names
+                                   if slot.startswith(("Moment",
+                                                       "Velocity"))]
+            for op in main.global_block().ops
+            if op.input("Param") and op.input("Param")[0] in tables}
+
+
+def deepfm_sparse_step(fluid, dev, main, feed, loss, scope, vocab):
+    """One eager sparse step from a clone of ``scope``: the SelectedRows
+    gradients' shapes, and no aten op making a [vocab, ...] tensor
+    (``vocab_sized_outputs``); then CHECK_STEPS graphed steps from another
+    clone (eager, captured, replayed): the rows the batch does not touch
+    keep their values and their moments to the bit, and every touched
+    row of a table moved."""
+    sc = clone_scope(fluid, scope)
+    exe = fluid.Executor(dev, cuda_graphs=False)
+    names = sorted(sparse_tables(main))
+    grads = [n + "@GRAD" for n in names]
+    out = []
+    dense = vocab_sized_outputs(lambda: out.extend(exe.run(
+        main, feed=feed, fetch_list=grads + [n + "@ROWS" for n in grads],
+        scope=sc, return_numpy=False)), vocab, sc)
+    shapes = {n: list(t.shape) for n, t in zip(grads + [
+        n + "@ROWS" for n in grads], out)}
+    del sc, out
+    sc = clone_scope(fluid, scope)
+    gexe = fluid.Executor(dev)
+    fetch_losses(gexe, main, feed, [loss], sc, CHECK_STEPS)
+    gexe.close()
+    touched = torch.zeros(vocab, dtype=torch.bool, device=dev)
+    touched[feed["sparse_ids"].reshape(-1)] = True
+    moved_untouched, frozen_touched = [], {}
+    for table, slots in sparse_tables(main).items():
+        for n in [table] + slots:
+            if not torch.equal(sc.find_var(n)[~touched],
+                               scope.find_var(n)[~touched]):
+                moved_untouched.append(n)
+        still = (sc.find_var(table)[touched] ==
+                 scope.find_var(table)[touched]).all(dim=1)
+        frozen_touched[table] = int(still.sum())
+    n_rows = feed["sparse_ids"].numel()
+    rec = dict(phase="deepfm", check="sparse_step", grad_shapes=shapes,
+               vocab_sized_ops=dense[:8], vocab_sized_count=len(dense),
+               rows_touched=int(touched.sum()), vocab=vocab,
+               untouched_moved=moved_untouched,
+               touched_rows_unmoved=frozen_touched, steps=CHECK_STEPS)
+    emit(**rec)
+    bad = [n for n in grads if shapes[n][0] != n_rows or
+           shapes[n + "@ROWS"] != [n_rows]]
+    if dense or moved_untouched or bad or any(frozen_touched.values()):
+        raise AssertionError("deepfm: SelectedRows step: %s" % rec)
+
+
+def deepfm_sparse_vs_dense(fluid, deepfm, dev, scope, feed):
+    """DEEPFM_SPARSE_DENSE_STEPS graphed steps of the sparse and the
+    dense program on one batch from one state: losses within
+    DEEPFM_SPARSE_DENSE_RTOL, falling, and every persistable within
+    DEEPFM_SPARSE_DENSE_STATE_RTOL of its largest magnitude."""
+    got = {}
+    for sparse in (True, False):
+        main, _, loss, _ = deepfm_program(fluid, deepfm, is_sparse=sparse)
+        sc, exe = clone_scope(fluid, scope), fluid.Executor(dev)
+        got[sparse] = (fetch_losses(exe, main, feed, [loss], sc,
+                                    DEEPFM_SPARSE_DENSE_STEPS), sc)
+        exe.close()
+    (ls, ss), (ld, sd) = got[True], got[False]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(ls, ld))
+    state_gap = max(rel_diff(ss.find_var(n), sd.find_var(n))
+                    for n in ss.local_var_names())
+    rec = dict(phase="deepfm", check="sparse_vs_dense",
+               steps=DEEPFM_SPARSE_DENSE_STEPS, losses_sparse=ls,
+               losses_dense=ld, loss_max_rel_gap=gap,
+               persistable_max_rel_gap=state_gap,
+               rtol=DEEPFM_SPARSE_DENSE_RTOL,
+               state_rtol=DEEPFM_SPARSE_DENSE_STATE_RTOL)
+    emit(**rec)
+    if not (gap <= DEEPFM_SPARSE_DENSE_RTOL and ls[-1] < ls[0] and
+            state_gap <= DEEPFM_SPARSE_DENSE_STATE_RTOL):
+        raise AssertionError("deepfm: sparse vs dense: %s" % rec)
+
+
+def deepfm_card_vs_cpu(fluid, deepfm, dev, scope):
+    """The full config at DEEPFM_BATCH, CHECK_STEPS steps (a fresh seeded
+    batch each) from the card's startup state: graphed on the card
+    against the port's CPU path and its float64 run (``card_vs_cpu``).
+    Every loss, and every persistable after the first step (tables,
+    Adam moments, MLP), within max(DEEPFM_CPU_RTOL, 3 x the fp32 noise);
+    after later steps, each persistable's L2 difference over the L2 norm
+    of what it moved within max(DEEPFM_CPU_UPDATE_RTOL, 3 x the CPU's
+    own against float64). A relu input within rounding of 0 can take
+    the other sign on the card, and then that example's gradient goes
+    another way: from step 2 on, a few elements part by up to a share of
+    lr while the rest agree (tools/deepfm_divergence.py; PERF.md §6)."""
+    main, _, loss, _ = deepfm_program(fluid, deepfm)
+    cpu = fluid.Scope()
+    for n in scope.local_var_names():
+        cpu.set_var(n, scope.find_var(n).cpu())
+    feeds = [deepfm_feed(deepfm, DEEPFM_BATCH, seed=11 + i)
+             for i in range(CHECK_STEPS)]
+    losses, rows = card_vs_cpu(
+        fluid, dev, main, loss, cpu, feeds,
+        lambda f: dict(f, dense_x=f["dense_x"].astype(np.float64)))
+    rec = card_vs_cpu_record(losses, rows, DEEPFM_CPU_RTOL, state_steps=1,
+                             update_rtol=DEEPFM_CPU_UPDATE_RTOL,
+                             phase="deepfm", batch=DEEPFM_BATCH,
+                             dtype="float32")
+    emit(**rec)
+    if rec["over"]:
+        raise AssertionError("deepfm: card vs CPU past max(%g, 3 x fp32 "
+                             "noise): %s" % (DEEPFM_CPU_RTOL, rec))
+
+
+def deepfm_timing(fluid, dev, main, feed, loss, scope):
+    """From a clone of ``scope``: DEEPFM_TIMED eager steps (after
+    DEEPFM_WARM) and a traced one; the same graphed (the warm steps run
+    eagerly and capture), TRACE_TRIES traced replays; then DEEPFM_WINDOWS
+    ``iters=DEEPFM_ITERS`` windows. Step ms (median), examples/s, device
+    busy ms and idle share, device kernels and host launch calls a step,
+    peak allocated GB."""
+    sc = clone_scope(fluid, scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = dict(phase="deepfm", check="step_times", batch=DEEPFM_BATCH,
+               config="DeepFM (BASELINE config 4), is_sparse=True, Adam "
+                      "lr 1e-3")
+    losses = []
+    for mode, graphs in (("eager", False), ("graphed", True)):
+        exe = fluid.Executor(dev, cuda_graphs=graphs)
+        losses += fetch_losses(exe, main, feed, [loss], sc, DEEPFM_WARM)
+        step_s = []
+        for _ in range(DEEPFM_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses += fetch_losses(exe, main, feed, [loss], sc, 1)
+            step_s.append(time.perf_counter() - t0)
+        api, kern, totals, _ = complete_trace(
+            lambda: fetch_losses(exe, main, feed, [loss], sc, 1))
+        steady = statistics.median(step_s)
+        busy_ms = sum(us for us, _ in kern.values()) / 1e3
+        rec[mode] = dict(
+            step_ms=steady * 1e3, step_ms_all=[t * 1e3 for t in step_s],
+            examples_per_s=DEEPFM_BATCH / steady,
+            device_busy_ms=busy_ms if kern else "not measured",
+            idle_share=1.0 - busy_ms / (steady * 1e3) if kern
+            else "not measured",
+            device_kernels_per_step=sum(n for _, n in kern.values()),
+            kernels_per_trace=totals, host_launch_calls_per_step=api,
+            top_kernels=[dict(name=k[:120], ms=us / 1e3, calls=n)
+                         for k, (us, n) in sorted(
+                             kern.items(), key=lambda kv: -kv[1][0])[
+                                 :TOP_KERNELS]])
+        if graphs:
+            window_s = []
+            for _ in range(DEEPFM_WINDOWS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                traj = exe.run(main, feed=feed, fetch_list=[loss], scope=sc,
+                               iters=DEEPFM_ITERS)[0]
+                torch.cuda.synchronize()
+                window_s.append(time.perf_counter() - t0)
+                losses += np.asarray(traj).reshape(-1).tolist()
+            step = statistics.median(window_s) / DEEPFM_ITERS
+            rec["iters_windows"] = dict(
+                iters=DEEPFM_ITERS, window_s=window_s, step_ms=step * 1e3,
+                examples_per_s=DEEPFM_BATCH / step)
+        exe.close()
+    rec.update(max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+               / 2 ** 30, first_loss=losses[0], last_loss=losses[-1],
+               steps=len(losses))
+    emit(**rec)
+    if not (all(math.isfinite(x) for x in losses) and
+            losses[-1] < losses[0]):
+        raise AssertionError("deepfm: losses not finite and falling: %s"
+                             % losses[::20])
+    return rec, sc
+
+
+def deepfm_serving(fluid, inference, dev, prog, scope, feed):
+    """The trained ``pred`` saved with save_inference_model (fed
+    sparse_ids and dense_x) and served by a Predictor at DEEPFM_BATCH
+    (run 1 eager, run 2 captured, then replays), against the ``pred`` a
+    training step computes from the same state (a clone of ``scope``),
+    within DEEPFM_SERVE_ATOL."""
+    import tempfile
+
+    main, _, _, pred = prog
+    eager = fluid.Executor(dev, cuda_graphs=False)
+    want = eager.run(main, feed=feed, fetch_list=[pred],
+                     scope=clone_scope(fluid, scope))[0]
+    served = {k: feed[k].cpu().numpy() for k in ("sparse_ids", "dense_x")}
+    with tempfile.TemporaryDirectory() as model_dir:
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(model_dir, list(served), [pred],
+                                          eager, main_program=main)
+        predictor = inference.create_predictor(
+            inference.Config(model_dir, place=dev))
+        ops = [op.type for op in predictor.program.global_block().ops]
+        run_s, outs = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            outs.append(predictor.run(served)[0])
+            run_s.append(time.perf_counter() - t0)
+    err = max(float(np.abs(o - want).max()) for o in outs)
+    steady = statistics.median(run_s[2:])
+    rec = dict(phase="deepfm", check="serving", batch=DEEPFM_BATCH,
+               run_s=run_s, request_ms=steady * 1e3,
+               examples_per_s=DEEPFM_BATCH / steady,
+               pred_shape=list(outs[-1].shape), vs_program_max_abs_err=err,
+               atol=DEEPFM_SERVE_ATOL, lookups=ops.count("embedding_lookup"),
+               backward_ops=[t for t in ops if t in ("autodiff", "adam")])
+    emit(**rec)
+    if not (outs[-1].shape == (DEEPFM_BATCH, 1) and rec["lookups"] == 2 and
+            not rec["backward_ops"] and
+            all(np.isfinite(o).all() for o in outs) and
+            err <= DEEPFM_SERVE_ATOL):
+        raise AssertionError("deepfm serving: %s" % rec)
+
+
+def deepfm_path(A, inference, dev):
+    """BASELINE config 4 as bench.py's bench_deepfm feeds it:
+    ``build_train_program(DeepFMConfig())``, is_sparse=True, Adam lr
+    1e-3, batch 4096, one synthetic batch on the card, the port's seeded
+    startup. Graphed against eager from one state (``graphed_vs_eager``);
+    the SelectedRows step (``deepfm_sparse_step``); sparse against dense;
+    the card against the CPU; step times eager, graphed and in
+    ``iters=k`` windows; the trained ``pred`` served. None of the 14
+    attention kernels runs here (their counts stay 0): the reference
+    reaches no ``pallas_call`` on this path (``jnp.unique``,
+    ``jnp.take``, scatter-adds), so the ops lower to torch's own
+    calls."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import deepfm
+
+    reset_launches(A)
+    t0 = time.perf_counter()
+    prog = main, startup, loss, _ = deepfm_program(fluid, deepfm)
+    build_s = time.perf_counter() - t0
+    vocab = deepfm.DeepFMConfig().sparse_feature_dim
+    feed = deepfm_feed(deepfm, DEEPFM_BATCH, seed=0, dev=dev)
+    scope = fluid.Scope()
+    fluid.Executor(dev, cuda_graphs=False).run(startup, scope=scope)
+    graphed_vs_eager(fluid, dev, main, feed, loss, scope, "deepfm",
+                     build_s=build_s)
+    deepfm_sparse_step(fluid, dev, main, feed, loss, scope, vocab)
+    deepfm_sparse_vs_dense(fluid, deepfm, dev, scope, feed)
+    deepfm_card_vs_cpu(fluid, deepfm, dev, scope)
+    torch.cuda.empty_cache()
+    rec, trained = deepfm_timing(fluid, dev, main, feed, loss, scope)
+    deepfm_serving(fluid, inference, dev, prog, trained, feed)
+    attention = launches(A, ["decode_attention_kernel",
+                             "paged_attention_kernel", *FUSED_KERNELS])
+    emit(phase="deepfm", check="attention_launches", launches=attention,
+         phase_s=time.perf_counter() - t0)
+    if any(attention.values()):
+        raise AssertionError("deepfm: an attention kernel ran: %s"
+                             % attention)
+    del trained, scope
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3656,6 +4048,8 @@ def main():
     lenet_path(dev)
     torch.cuda.empty_cache()
     resnet_path(inference, dev)
+    torch.cuda.empty_cache()
+    deepfm_path(A, inference, dev)
     torch.cuda.empty_cache()
     # the dense phase's model again (the same seed)
     model = T.Transformer.big(device=dev, seed=0)

@@ -13,9 +13,11 @@ in a row the scale is multiplied by ``decr_ratio``; after
 ``incr_every_n_steps`` clean steps by ``incr_ratio``. Every update is an
 op of the program, on the device.
 
-Not ported: the parameter-server ``distributed_push`` payloads and
-SelectedRows gradients the reference also unscales (the port has
-neither yet).
+A SelectedRows gradient is unscaled and gated like a dense one, on its
+values; each derived gradient keeps the ``selected_rows`` type and its
+rows (an ``assign`` of ``<grad>@ROWS``). Not ported: the
+parameter-server ``distributed_push`` payloads the reference also
+unscales (the port has no PS tier yet).
 """
 
 from ... import unique_name
@@ -114,10 +116,24 @@ class OptimizerWithMixedPrecision:
                 new_pg.append((p, g))
                 continue
 
-            def derive(suffix, g=g):
-                return g.block.create_var(
+            sparse = getattr(g, "type", "lod_tensor") == "selected_rows"
+
+            def derive(suffix, rows=True, g=g):
+                """A var derived from ``g``; a SelectedRows gradient's
+                keeps its type and binds its rows (``<name>@ROWS``), or
+                the optimizer would take its [n, dim] values for a dense
+                gradient."""
+                keep = sparse and rows
+                nv = g.block.create_var(
                     name=g.name + suffix, shape=g.shape, dtype=g.dtype,
-                    stop_gradient=True)
+                    stop_gradient=True,
+                    type="selected_rows" if keep else "lod_tensor")
+                if keep:
+                    g.block.create_var(name=nv.name + "@ROWS", shape=(-1,),
+                                       dtype="int32", stop_gradient=True)
+                    block.append_op("assign", {"X": [g.name + "@ROWS"]},
+                                    {"Out": [nv.name + "@ROWS"]})
+                return nv
 
             scaled = derive(".unscaled")
             if self._use_dynamic:
@@ -125,7 +141,7 @@ class OptimizerWithMixedPrecision:
                                 {"X": [g.name], "Y": [pre]},
                                 {"Out": [scaled.name]}, {"axis": -1})
                 # select, not multiply: inf * 0 is nan
-                zeros = derive(".zeros")
+                zeros = derive(".zeros", rows=False)
                 block.append_op("zeros_like", {"X": [g.name]},
                                 {"Out": [zeros.name]})
                 gated = derive(".gated")

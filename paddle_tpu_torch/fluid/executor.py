@@ -31,7 +31,9 @@ with host-side ops) lowers the block op by op:
 2. the program's persistables are gathered from the scope;
 3. each ``wrt`` parameter of the block's ``autodiff`` op is bound as a
    fresh autograd leaf that shares the scope tensor's storage, so the
-   forward ops build the graph as they run;
+   forward ops build the graph as they run; a parameter with a
+   SelectedRows gradient (``sparse_wrt``) is not: its sparse lookup
+   binds its output as the leaf instead;
 4. the ops are lowered in order: those before ``autodiff`` with
    autograd on, each ``stop_gradient`` output detached where it is
    produced, the rest under ``torch.no_grad()``; an environment entry is
@@ -380,8 +382,9 @@ class GraphCaptureError(RuntimeError):
 class _Plan:
     """What a run of one block needs besides the tensors, fixed by the
     program and the fetch list: the ops, the index of the ``autodiff``
-    op and its ``wrt`` leaves, the environment entries to drop after
-    each op, and the persistables the ops write."""
+    op, its dense ``wrt`` leaves and the sparse lookups' outputs it
+    reads SelectedRows gradients at, the environment entries to drop
+    after each op, and the persistables the ops write."""
 
     def __init__(self, program, fetch_names):
         block = program.global_block()
@@ -392,8 +395,14 @@ class _Plan:
                             if v.persistable}
         self.grad_at = next((i for i, op in enumerate(self.ops)
                              if op.type == "autodiff"), len(self.ops))
-        self.wrt = set(self.ops[self.grad_at].attr("wrt")) \
-            if self.grad_at < len(self.ops) else set()
+        grad_op = self.ops[self.grad_at] \
+            if self.grad_at < len(self.ops) else None
+        sparse_wrt = (grad_op.attr("sparse_wrt") or ()) if grad_op else ()
+        # a SelectedRows gradient's parameter is no autograd leaf: its
+        # lookup's output is (tensor_ops.sparse_leaf)
+        self.sparse_outs = frozenset(s[2] for s in sparse_wrt)
+        self.wrt = set(grad_op.attr("wrt")) - {s[0] for s in sparse_wrt} \
+            if grad_op else set()
         self.drop_after = _last_readers(
             self.ops, set(fetch_names) | self.persistable)
         self.written = sorted({n for op in self.ops
@@ -689,6 +698,7 @@ class Executor:
             env[n] = env[n].detach().requires_grad_(True)
         ctx = LowerCtx(plan.block, env, gen, self.place)
         ctx.promote_products = self.promote_products
+        ctx.sparse_outs = plan.sparse_outs
         ops, grad_at = plan.ops, plan.grad_at
         for i, op in enumerate(ops):
             with torch.set_grad_enabled(i <= grad_at < len(ops)):
@@ -867,9 +877,13 @@ def _last_readers(ops, keep):
     for i, op in enumerate(ops):
         for n in op.input_arg_names() + op.output_arg_names():
             last[n] = i
+            v = op.block._find_var_recursive(n)
+            if getattr(v, "type", None) == "selected_rows":
+                last[n + "@ROWS"] = i     # a SelectedRows var's rows
         if op.type == "autodiff":
             for n in [op.attr("loss"), op.attr("loss_scale_var")] + list(
-                    op.attr("wrt")):
+                    op.attr("wrt")) + [s[1] for s in op.attr(
+                        "sparse_wrt") or ()]:
                 if n:
                     last[n] = i
     out = [[] for _ in ops]

@@ -77,10 +77,17 @@ def dtype_str(dtype):
 class Variable:
     """A named tensor slot in a Block: static metadata only. At run time
     the value lives in a Scope (persistables) or in the executor's
-    environment. ``shape`` may hold -1 for the batch dimension."""
+    environment. ``shape`` may hold -1 for the batch dimension.
+
+    ``type`` is "lod_tensor" (dense) or "selected_rows": a SelectedRows
+    gradient, whose NAME binds the [n, dim...] values and NAME + "@ROWS"
+    the int32 row ids, one per lookup position (the reference's
+    encoding). As in the reference, ``to_desc`` does not record it;
+    ``Program.from_desc`` reads it back from the "@ROWS" var beside."""
 
     def __init__(self, block, name=None, shape=None, dtype="float32",
-                 persistable=False, stop_gradient=False, is_data=False):
+                 persistable=False, stop_gradient=False, is_data=False,
+                 type="lod_tensor"):
         self.block = block
         self.name = name or unique_name.generate("_generated_var")
         self.shape = tuple(shape) if shape is not None else ()
@@ -88,6 +95,7 @@ class Variable:
         self.persistable = persistable
         self.stop_gradient = stop_gradient
         self.is_data = is_data
+        self.type = type
         self.op = None  # producing op, set by append_op
 
     def __repr__(self):
@@ -415,6 +423,11 @@ class Program:
                         stop_gradient=vdesc.get("stop_gradient", False),
                         is_data=vdesc.get("is_data", False))
                 blk.vars[v.name] = v
+            # the desc records no var type (as in the reference's): a var
+            # beside its "@ROWS" var is a SelectedRows var
+            for name, v in blk.vars.items():
+                if name + "@ROWS" in blk.vars:
+                    v.type = "selected_rows"
             for odesc in bdesc["ops"]:
                 blk.ops.append(Operator(blk, odesc["type"], odesc["inputs"],
                                         odesc["outputs"], odesc["attrs"]))

@@ -2,7 +2,7 @@
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["softmax_with_cross_entropy"]
+__all__ = ["softmax_with_cross_entropy", "sigmoid_cross_entropy_with_logits"]
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,
@@ -20,3 +20,14 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax
     return loss
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None,
+                                      normalize=False):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="sigmoid_cross_entropy_with_logits",
+        inputs={"X": [x], "Label": [label]}, outputs={"Out": [out]},
+        attrs={"ignore_index": ignore_index, "normalize": normalize})
+    return out

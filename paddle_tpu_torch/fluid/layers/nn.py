@@ -1,5 +1,5 @@
 """NN layers (counterparts in ``paddle_tpu/fluid/layers/nn.py``): the
-subset the BERT, LeNet and ResNet programs emit. Each validates its arguments,
+subset the BERT, LeNet, ResNet and DeepFM programs emit. Each validates its arguments,
 creates parameters through LayerHelper and appends its ops; the math is
 in the op lowerings (``fluid/ops``)."""
 
@@ -13,7 +13,8 @@ __all__ = [
     "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
     "dropout", "fused_attention", "reshape", "transpose", "unsqueeze",
     "scale", "gather", "matmul", "topk", "mean", "relu", "sign",
-    "reduce_sum", "elementwise_add", "elementwise_mul", "elementwise_div",
+    "reduce_sum", "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div",
     "softmax", "einsum",
 ]
 
@@ -68,20 +69,45 @@ def _append_bias(helper, x, bias_attr, dim_start=1, channel_dim=None):
 
 
 def embedding(input, size, is_sparse=False, is_distributed=False,
-              padding_idx=None, param_attr=None, dtype="float32"):
-    """Dense embedding lookup. The sparse engine, host tables and the PS
-    tier are not ported yet."""
-    if is_sparse or is_distributed:
-        raise NotImplementedError("sparse and distributed embeddings are "
-                                  "not ported yet")
+              padding_idx=None, param_attr=None, dtype="float32",
+              table_lr=0.01, table_optimizer="sgd", residence=None):
+    """Embedding lookup. ``is_sparse=True`` routes onto the sparse
+    embedding engine's device tier: the ``embedding_lookup`` op (with
+    the reference's ``dedup`` attr), whose gradient is a SelectedRows pair that the optimizer applies
+    as a fused row-sparse update. ``residence`` picks the tier (None or
+    "device"; "host", the host tier, is not ported yet, and neither is
+    ``is_distributed=True``, the parameter-server tier, which
+    ``table_lr`` and ``table_optimizer`` configure)."""
     helper = LayerHelper("embedding", **locals())
+    if is_distributed:
+        raise NotImplementedError(
+            "embedding(is_distributed=True): the parameter-server tier is "
+            "not ported yet (ROADMAP queue 8)")
+    if residence not in (None, "device", "host"):
+        raise ValueError(
+            "embedding residence must be None, 'device' or 'host', got %r"
+            % (residence,))
+    if residence == "host":
+        from ...embedding import HOST_TIER_ITEM
+
+        raise NotImplementedError(
+            "embedding(residence='host'): the host embedding tier is not "
+            "ported yet (%s)" % HOST_TIER_ITEM)
     w = helper.create_parameter(param_attr, size, dtype)
     out = helper.create_variable_for_type_inference(dtype)
+    padding_idx = -1 if padding_idx is None else padding_idx
+    if is_sparse:
+        helper.append_op(
+            type="embedding_lookup", inputs={"W": [w], "Ids": [input]},
+            outputs={"Out": [out]},
+            attrs={"is_sparse": True, "dedup": True,
+                   "padding_idx": padding_idx})
+        return out
     helper.append_op(
         type="lookup_table", inputs={"W": [w], "Ids": [input]},
         outputs={"Out": [out]},
         attrs={"is_sparse": is_sparse, "is_distributed": is_distributed,
-               "padding_idx": -1 if padding_idx is None else padding_idx})
+               "padding_idx": padding_idx})
     return out
 
 
@@ -349,6 +375,10 @@ def _elementwise_layer(op_type, x, y, axis=-1, act=None, name=None):
 
 def elementwise_add(x, y, axis=-1, act=None, name=None):
     return _elementwise_layer("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise_layer("elementwise_sub", x, y, axis, act, name)
 
 
 def elementwise_mul(x, y, axis=-1, act=None, name=None):

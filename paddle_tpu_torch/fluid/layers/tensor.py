@@ -4,7 +4,7 @@ from .. import framework
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
-__all__ = ["create_parameter", "fill_constant"]
+__all__ = ["create_parameter", "fill_constant", "cast", "concat"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -26,4 +26,22 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
         attrs={"shape": list(shape),
                "dtype": framework.dtype_str(framework.convert_dtype(dtype)),
                "value": float(value)})
+    return out
+
+
+def cast(x, dtype):
+    helper = LayerHelper("cast", x=x, dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
+        attrs={"out_dtype": framework.dtype_str(
+            framework.convert_dtype(dtype))})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", **locals())
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op(type="concat", inputs={"X": input},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
     return out

@@ -1,6 +1,6 @@
 """Activations (counterpart in ``paddle_tpu/fluid/ops/activations.py``):
-gelu, the exact erf form unless ``approximate``; relu; sign (for
-``L1Decay``)."""
+gelu, the exact erf form unless ``approximate``; relu; sigmoid; sign
+(for ``L1Decay``)."""
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +19,11 @@ def _gelu(ctx, op):
 @register("relu")
 def _relu(ctx, op):
     ctx.set_output(op, "Out", F.relu(ctx.get_input(op, "X")))
+
+
+@register("sigmoid")
+def _sigmoid(ctx, op):
+    ctx.set_output(op, "Out", torch.sigmoid(ctx.get_input(op, "X")))
 
 
 @register("sign")

@@ -22,8 +22,8 @@ def broadcast_y(x, y, axis):
     return y.reshape(new_shape)
 
 
-_FNS = {"elementwise_add": torch.add, "elementwise_mul": torch.mul,
-        "elementwise_div": torch.div}
+_FNS = {"elementwise_add": torch.add, "elementwise_sub": torch.sub,
+        "elementwise_mul": torch.mul, "elementwise_div": torch.div}
 
 
 def _make(name):

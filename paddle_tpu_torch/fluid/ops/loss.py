@@ -1,6 +1,7 @@
-"""softmax_with_cross_entropy (counterpart in
-``paddle_tpu/fluid/ops/loss.py``): Loss [..., 1] and Softmax, hard
-labels with ``ignore_index`` or soft labels."""
+"""Losses (counterparts in ``paddle_tpu/fluid/ops/loss.py``):
+softmax_with_cross_entropy (Loss [..., 1] and Softmax, hard labels with
+``ignore_index`` or soft labels) and sigmoid_cross_entropy_with_logits
+(elementwise, in the reference's stable form)."""
 
 import torch
 import torch.nn.functional as F
@@ -30,3 +31,18 @@ def _softmax_with_cross_entropy(ctx, op):
         loss = (-picked).masked_fill(ignored, 0.0)
     ctx.set_output(op, "Softmax", logp.exp())
     ctx.set_output(op, "Loss", loss)
+
+
+@register("sigmoid_cross_entropy_with_logits")
+def _sigmoid_cross_entropy_with_logits(ctx, op):
+    """max(x, 0) - x * label + log(1 + exp(-|x|)); zero where the label
+    is ``ignore_index``, divided by the count of the others when
+    ``normalize``."""
+    x = ctx.get_input(op, "X")
+    label = ctx.get_input(op, "Label")
+    loss = x.clamp_min(0.0) - x * label + F.softplus(-x.abs())
+    keep = label != op.attr("ignore_index", -100)
+    loss = torch.where(keep, loss, 0.0)
+    if op.attr("normalize", False):
+        loss = loss / keep.to(x.dtype).sum().clamp_min(1.0)
+    ctx.set_output(op, "Out", loss)

@@ -5,7 +5,10 @@ persistable vars that the startup program fills.
 
 Ported: the ``Optimizer`` base with weight decay (``regularization``,
 ``regularizer.py``: applied in ``apply_gradients`` to every parameter,
-norms' scales and biases included), ``Adam`` and ``Momentum``.
+norms' scales and biases included; skipped, with a warning, for a
+SelectedRows gradient), ``SGD``, ``Momentum``, ``Adagrad`` and
+``Adam``. A SelectedRows gradient passes through ``apply_gradients`` to
+its update op, which applies it row-sparse (``ops/optimizer_ops.py``).
 Gradient clipping, the other optimizers and dygraph updates wait for
 later slices.
 """
@@ -17,7 +20,8 @@ from .initializer import Constant
 from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
 
-__all__ = ["Adam", "AdamOptimizer", "Momentum", "MomentumOptimizer"]
+__all__ = ["SGD", "SGDOptimizer", "Momentum", "MomentumOptimizer",
+           "Adagrad", "AdagradOptimizer", "Adam", "AdamOptimizer"]
 
 
 class Optimizer:
@@ -101,9 +105,55 @@ class Optimizer:
         return self.apply_gradients(params_grads), params_grads
 
 
+class SGDOptimizer(Optimizer):
+    """p -= lr g, one ``sgd`` op a parameter."""
+
+    def __init__(self, learning_rate, regularization=None, name=None):
+        super().__init__(learning_rate, regularization, name)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        return block.append_op(
+            "sgd",
+            inputs={"Param": [param], "Grad": [grad],
+                    "LearningRate": [self._lr_for(param)]},
+            outputs={"ParamOut": [param]})
+
+
+class AdagradOptimizer(Optimizer):
+    """m += g^2; p -= lr g / (sqrt(m) + eps), one ``adagrad`` op a
+    parameter with a ``moment`` accumulator filled with
+    ``initial_accumulator_value``."""
+
+    def __init__(self, learning_rate, epsilon=1e-6, regularization=None,
+                 name=None, initial_accumulator_value=0.0):
+        super().__init__(learning_rate, regularization, name)
+        self._epsilon = epsilon
+        self._initial = initial_accumulator_value
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p, fill_value=self._initial)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        moment = self._get_accumulator("moment", param)
+        return block.append_op(
+            "adagrad",
+            inputs={"Param": [param], "Grad": [grad], "Moment": [moment],
+                    "LearningRate": [self._lr_for(param)]},
+            outputs={"ParamOut": [param], "MomentOut": [moment]},
+            attrs={"epsilon": self._epsilon})
+
+
 class AdamOptimizer(Optimizer):
+    """Adam; a SelectedRows gradient always takes the lazy update (only
+    the touched rows' moments decay), as in the reference, which accepts
+    ``lazy_mode`` and records nothing of it."""
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, regularization=None, name=None):
+                 epsilon=1e-8, regularization=None, name=None,
+                 lazy_mode=False):
         super().__init__(learning_rate, regularization, name)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 
@@ -160,5 +210,7 @@ class MomentumOptimizer(Optimizer):
                    "use_nesterov": self._use_nesterov})
 
 
-Adam = AdamOptimizer
+SGD = SGDOptimizer
 Momentum = MomentumOptimizer
+Adagrad = AdagradOptimizer
+Adam = AdamOptimizer

@@ -55,7 +55,11 @@ class LowerCtx:
       ``device``; None under shape inference, where ``device`` is meta
       and draws give shapes only;
     - ``promote_products``: whether mul and matmul promote operands of
-      two float types to their common type (else they raise).
+      two float types to their common type (else they raise);
+    - ``sparse_outs``: the outputs of the sparse lookups whose cotangent
+      the block's ``autodiff`` op reads as a SelectedRows gradient; each
+      such lookup binds its output as an autograd leaf in
+      ``sparse_leaves`` (``ops/tensor_ops.py``, ``sparse_leaf``).
     """
 
     def __init__(self, block, env, generator, device):
@@ -66,6 +70,8 @@ class LowerCtx:
         self.device = torch.device(device)
         self.written = set()
         self.promote_products = False
+        self.sparse_outs = frozenset()
+        self.sparse_leaves = {}
 
     def get(self, name):
         if name not in self.env:
@@ -160,6 +166,11 @@ class EnforceError(RuntimeError):
     it."""
 
 
+class EnforceNotImplementedError(EnforceError, NotImplementedError):
+    """Op-attributed error of a lowering that met something the port
+    has not ported yet: a NotImplementedError as well."""
+
+
 def attribute_op_error(op, exc):
     """Re-raise ``exc`` wrapped with the op's identity and creation site."""
     lines = ["op %r failed during lowering: %s: %s"
@@ -171,7 +182,9 @@ def attribute_op_error(op, exc):
     if stack:
         lines.append("  created at (most recent user frame first):")
         lines.extend("    " + s for s in stack)
-    raise EnforceError("\n".join(lines)) from exc
+    cls = EnforceNotImplementedError if isinstance(
+        exc, NotImplementedError) else EnforceError
+    raise cls("\n".join(lines)) from exc
 
 
 def lower_op(ctx, op):

@@ -1,6 +1,7 @@
 """paddle_tpu_torch on the card: each CUDA kernel against its plain
 PyTorch version, and the decode sessions and a BERT-tiny training step
-on the card against the same on the CPU. Every test needs a CUDA device
+on the card against the same on the CPU; DeepFM's sparse step graphed
+against eager, its untouched rows and an out-of-range id. Every test needs a CUDA device
 and skips without one. This file imports neither jax nor paddle_tpu, so it also runs on a
 machine without them, skipping the suite's conftest (which imports jax):
 
@@ -1633,3 +1634,115 @@ def test_resnet18_on_card_matches_cpu(cuda_device):
     from paddle_tpu_torch.models import resnet
 
     smoke.resnet_card_vs_cpu(fluid, resnet, cuda_device)
+
+
+# -- DeepFM: the sparse embedding engine's device tier on the card -----------
+DEEPFM_CARD_BATCH = 1024
+
+
+def _deepfm_start(fluid, device, is_sparse=True):
+    from paddle_tpu_torch.models import deepfm
+
+    prog = smoke.deepfm_program(fluid, deepfm, is_sparse=is_sparse)
+    scope = fluid.Scope()
+    fluid.Executor(device, cuda_graphs=False).run(prog[1], scope=scope)
+    feed = smoke.deepfm_feed(deepfm, DEEPFM_CARD_BATCH, seed=5, dev=device)
+    return prog, scope, feed
+
+
+def test_deepfm_sparse_graphed_matches_eager(cuda_device):
+    """DeepFMConfig(), is_sparse=True, batch 1024: 4 graphed steps (run
+    1 eager, run 2 captured, then replays) against 4 eager ones from one
+    state: the losses and every persistable (tables, Adam moments, MLP)
+    equal to the bit, with 3 replays. The static-size unique, the
+    per-row sums and the scatters take no host sync and one fixed
+    order."""
+    from paddle_tpu_torch import fluid
+
+    (main, _, loss, _), scope, feed = _deepfm_start(fluid, cuda_device)
+    graphed, eager = (smoke.clone_scope(fluid, scope) for _ in range(2))
+    r0 = _replays()
+    got = _losses(fluid.Executor(cuda_device), main, loss, feed, graphed, 4)
+    assert _replays() - r0 == 3
+    want = _losses(fluid.Executor(cuda_device, cuda_graphs=False), main,
+                   loss, feed, eager, 4)
+    assert got == want and all(np.isfinite(got))
+    assert smoke.unequal(graphed, eager) == []
+
+
+def test_deepfm_rows_named_from_both_ends_graphed_matches_eager(
+        cuda_device):
+    """DeepFMConfig(), is_sparse=True, batch 1024, every other lookup's
+    id written as id - vocab (the same row, counted from the end), so
+    most touched rows take two Adam updates a step, as in the reference:
+    3 graphed steps against 3 eager ones and 3 eager again from one
+    state, the losses and every persistable equal to the bit
+    (``chip_smoke.graphed_vs_eager``). The two updates of a row land in
+    two scatters, one after the other, never in one atomic race."""
+    from paddle_tpu_torch import fluid
+
+    (main, _, loss, _), scope, feed = _deepfm_start(fluid, cuda_device)
+    ids = feed["sparse_ids"].clone()
+    ids.view(-1)[::2] -= 100000
+    smoke.graphed_vs_eager(fluid, cuda_device, main,
+                           dict(feed, sparse_ids=ids), loss, scope,
+                           "deepfm_both_ends")
+
+
+def test_deepfm_untouched_rows_frozen_on_card(cuda_device):
+    """chip_smoke.py's SelectedRows step check at batch 1024: [n, dim]
+    gradients with their rows, no [vocab, ...] tensor made, and after 3
+    graphed steps the untouched rows of both tables and of their Adam
+    moments equal to the bit, every touched row moved."""
+    from paddle_tpu_torch import fluid
+
+    (main, _, loss, _), scope, feed = _deepfm_start(fluid, cuda_device)
+    smoke.deepfm_sparse_step(fluid, cuda_device, main, feed, loss, scope,
+                             100000)
+
+
+@pytest.mark.parametrize("is_sparse", [True, False],
+                         ids=["sparse", "dense"])
+def test_out_of_range_id_reads_nan_without_device_assert(cuda_device,
+                                                         is_sparse):
+    """Vocabulary 10, Adam, ids 12 and -11 beside in-range ones (-1
+    counts from the end): the lookup reads NaN rows there, graphed and
+    eager, and no device assert fires; those positions' updates are
+    dropped and every parameter stays finite and equal to the port's CPU
+    run within 1e-6; a later step in the same process still runs."""
+    from paddle_tpu_torch import fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = 4
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = fluid.layers.data("ids", shape=[3], dtype="int64")
+        emb = fluid.layers.embedding(ids, size=[10, 2], is_sparse=is_sparse,
+                                     param_attr=fluid.ParamAttr(name="w"))
+        loss = fluid.layers.mean(fluid.layers.reduce_sum(emb, dim=-1))
+        fluid.optimizer.Adam(learning_rate=0.1).minimize(loss)
+    cpu = fluid.Scope()
+    fluid.Executor("cpu").run(startup, scope=cpu)
+    card = fluid.Scope()
+    for n in cpu.local_var_names():
+        card.set_var(n, cpu.find_var(n).to(cuda_device))
+    w0 = cpu.find_var("w").clone()
+    bad = {"ids": np.array([[1, 12, 2], [-11, 1, -1]], np.int64)}
+    exe, cexe = fluid.Executor(cuda_device), fluid.Executor("cpu")
+    for _ in range(3):             # eager, captured, replayed
+        out = exe.run(main, feed=bad, fetch_list=[emb], scope=card)[0]
+        want = cexe.run(main, feed=bad, fetch_list=[emb], scope=cpu)[0]
+        torch.cuda.synchronize()
+        nan = np.isnan(out)
+        assert nan[0, 1].all() and nan[1, 0].all() and nan.sum() == 4
+        np.testing.assert_array_equal(nan, np.isnan(want))
+    for n in cpu.local_var_names():
+        got = card.find_var(n).cpu()
+        assert torch.isfinite(got).all(), n
+        np.testing.assert_allclose(got.numpy(), cpu.find_var(n).numpy(),
+                                   atol=1e-6, err_msg=n)
+    moved = (card.find_var("w").cpu() != w0).any(dim=1)
+    assert moved[[1, 2, 9]].all() and not moved[[0, 3, 4, 5, 6, 7, 8]].any()
+    good = {"ids": np.array([[3, 4, 5], [6, 7, 8]], np.int64)}
+    assert np.isfinite(exe.run(main, feed=good, fetch_list=[loss],
+                               scope=card)[0]).all()
+    torch.cuda.synchronize()
