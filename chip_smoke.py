@@ -193,7 +193,30 @@ wrappers') and ``replay_launches`` (the traced replay's).
              Predictor at batch 4096 against a training step's pred
              (DEEPFM_SERVE_ATOL), its request ms. No attention kernel
              runs (counted: 0); the ops lower to torch's own calls.
-13. stream   the dense continuous stream, GenerativePredictor(...,
+13. transformer_train  BASELINE config 5's training as bench.py's
+             bench_transformer runs it: Transformer.big(32000, 32000)
+             under dygraph.guard() (seed 0), one synthetic batch of 32 x
+             64 tokens. 3 eager dygraph steps of Adam(1e-4) through
+             opt.minimize(loss, parameter_list=model.parameters())
+             (losses falling, step ms, ops traced a step); in eval() the
+             eager output against jit.trace's program run by the executor
+             (TFM_TRACE_RTOL); the program traced in training mode
+             (dropout 0.1) with the loss and mixed_precision.decorate(
+             Adam(1e-4)) appended, its scope binding the model's own
+             parameter storage: graphed against eager over 3 steps from
+             one state (losses and every persistable equal to the bit),
+             then step ms, tokens/s, device busy and idle share, kernels
+             and launch calls a step, peak GB and MFU against 989 TFLOP/s
+             (bench.py's FLOP count, ``transformer_train_flops_per_step``),
+             graphed and by the eager executor; full width at depth 2,
+             batch 4, fp32, p 0, 3 Adam steps graphed on the card against
+             the port's CPU path and its float64 run (every loss within
+             TFM_CPU_RTOL, every state by the L2 of its update within
+             TFM_CPU_UPDATE_RTOL, each or 3x the CPU's own against
+             float64). No attention kernel runs (counted: 0, by the
+             wrappers and by name in the traced steps): the reference's
+             training forward has matmul / softmax attention.
+14. stream   the dense continuous stream, GenerativePredictor(...,
              slot_prefill=True).open_stream() at width 8 (bench.py's
              decode-engine legs): 16 requests of ragged prompt lengths
              and budgets joined and stepped, each equal to its solo run
@@ -206,7 +229,7 @@ wrappers') and ``replay_launches`` (the traced replay's).
              the idle share of a traced window of steps; then the same
              requests through GenerativeServer from 4 threads (p50, p99,
              each equal to its solo run).
-14. speculative  build_speculative_session over a dense session at batch
+15. speculative  build_speculative_session over a dense session at batch
              8, k 4, full prompts, 12 and 32 new tokens, draft depth 3
              (the default, L // 2) and 6: tokens equal to the dense
              session's row by row (a row may differ only where the dense
@@ -218,7 +241,7 @@ wrappers') and ``replay_launches`` (the traced replay's).
              state; rounds, accepted mean, target and draft launches,
              tokens/s beside the dense session's, the idle share of a
              traced generate.
-15. summary  the kernels line, the card line, then the result line.
+16. summary  the kernels line, the card line, then the result line.
 """
 
 import collections
@@ -3995,6 +4018,315 @@ def deepfm_path(A, inference, dev):
     return rec
 
 
+# -- transformer_train: BASELINE config 5's training (bench.py:797) ---------
+TFM_VOCAB = 32000
+TFM_BATCH, TFM_SEQ = 32, 64        # bench.py's bench_transformer
+TFM_EAGER_STEPS = 3
+TFM_WARM, TFM_TIMED = 2, 10
+# eager against traced: the same lowerings on the same card
+TFM_TRACE_RTOL = 1e-6
+# the card against the port's CPU path: full width, depth 2, batch 4.
+# The losses are held to TFM_CPU_RTOL; every state, from step 1 on, by
+# the L2 norm of card minus CPU over what the float64 run moved it
+# (TFM_CPU_UPDATE_RTOL). Adam's first update is about lr * sign(g), so
+# an element whose gradient is rounding noise (a key bias's, which
+# softmax cancels, or one near eps) moves by +-lr on either side, and
+# the largest difference over the largest magnitude of a bias that
+# starts at 0 can reach 2 (0.354 at linear.b_3, H100 against the CPU).
+TFM_CPU_LAYERS, TFM_CPU_BATCH = 2, 4
+TFM_CPU_RTOL = 1e-5
+TFM_CPU_UPDATE_RTOL = 0.1
+
+
+def transformer_train_flops_per_step(batch, s, d, di, L, V):
+    """The port's copy of ``bench.py:783-794``: the products of one
+    Transformer train step, 3x the forward's (2 operations a
+    multiply-add): per layer the q/k/v/out projections, the two attention
+    products and the FFN, the decoder adding cross-attention, then the
+    vocabulary head."""
+    attn_proj = 4 * 2 * batch * s * d * d
+    attn_mm = 4 * batch * s * s * d
+    ffn = 2 * 2 * batch * s * d * di
+    enc_layer = attn_proj + attn_mm + ffn
+    dec_layer = 2 * (attn_proj + attn_mm) + ffn
+    head = 2 * batch * s * d * V
+    return 3 * (L * enc_layer + L * dec_layer + head)
+
+
+def transformer_args(T, batch, seq, seed=0):
+    """(src, tgt, pos, pos, causal bias) and the labels of one synthetic
+    batch, numpy (``synthetic_batch``, ``make_causal_bias``)."""
+    src, tgt, labels, pos = T.synthetic_batch(TFM_VOCAB, TFM_VOCAB, batch,
+                                              seq, seed=seed)
+    return (src, tgt, pos, pos, T.make_causal_bias(seq)), labels
+
+
+def transformer_static(fluid, traced, seq, amp, vocab=TFM_VOCAB):
+    """``bench.py:818-838`` on a TracedLayer: the loss (reshape to
+    [-1, vocab], ``softmax_with_cross_entropy``, ``mean``) and
+    Adam(1e-4), AMP-decorated when ``amp``, appended to the traced
+    program. Returns (startup, loss)."""
+    from paddle_tpu_torch.fluid import layers, optimizer
+    from paddle_tpu_torch.fluid.contrib import mixed_precision
+
+    startup = fluid.Program()
+    with fluid.program_guard(traced.program, startup):
+        logits = traced.program.global_block().var(traced._fetch_names[0])
+        label = layers.data("tfm_label", [seq, 1], dtype="int64")
+        flat = layers.reshape(logits, [-1, vocab])
+        ce = layers.softmax_with_cross_entropy(
+            flat, layers.reshape(label, [-1, 1]))
+        loss = layers.mean(ce)
+        opt = optimizer.Adam(learning_rate=1e-4)
+        if amp:
+            opt = mixed_precision.decorate(opt)
+        opt.minimize(loss)
+    return startup, loss
+
+
+def transformer_feed(traced, args, labels, dev=None):
+    feed = dict(zip(traced._feed_names, args))
+    feed["tfm_label"] = labels
+    if dev is not None:
+        feed = {n: torch.from_numpy(v).to(dev) for n, v in feed.items()}
+    return feed
+
+
+def transformer_eager(T, fluid, dygraph, model, args, labels):
+    """TFM_EAGER_STEPS eager dygraph steps of Adam(1e-4) on one batch
+    through ``opt.minimize(loss, parameter_list=model.parameters())``:
+    each step's wall ms (ending in the loss's fetch) and ops traced."""
+    from paddle_tpu_torch.fluid import optimizer
+
+    tracer = fluid.framework._dygraph_tracer()
+    opt = optimizer.Adam(learning_rate=1e-4)
+    feeds = [dygraph.to_variable(a) for a in args]
+    lab = dygraph.to_variable(labels)
+    losses, step_ms, ops = [], [], []
+    for _ in range(TFM_EAGER_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n0 = tracer.traced_ops
+        loss = T.loss_fn(model(*feeds), lab)
+        model.clear_gradients()
+        opt.minimize(loss, parameter_list=model.parameters())
+        losses.append(float(loss.numpy()))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        ops.append(tracer.traced_ops - n0)
+    model.clear_gradients()
+    rec = dict(phase="transformer_train", check="eager_dygraph",
+               mode="dygraph.guard() + opt.minimize", steps=TFM_EAGER_STEPS,
+               batch=TFM_BATCH, seq=TFM_SEQ, losses=losses,
+               step_ms=step_ms, tokens_per_s=[
+                   TFM_BATCH * TFM_SEQ / (ms / 1e3) for ms in step_ms],
+               ops_traced_per_step=ops,
+               parameters=len(model.parameters()))
+    emit(**rec)
+    if not (all(math.isfinite(x) for x in losses) and
+            losses[-1] < losses[0]):
+        raise AssertionError("transformer_train: eager losses not finite "
+                             "and falling: %s" % losses)
+    return rec
+
+
+def transformer_eager_vs_traced(fluid, dygraph, model, args):
+    """The model in eval() (dropout off): its eager fp32 output against
+    ``jit.trace``'s program run by the executor, within TFM_TRACE_RTOL
+    relative to the output's largest magnitude."""
+    model.eval()
+    with dygraph.no_grad():
+        feeds = [dygraph.to_variable(a) for a in args]
+        want = model(*feeds).numpy()
+        _, traced = dygraph.jit.trace(model, feeds)
+    got = traced(list(args))[0]
+    traced._exe.close()
+    model.train()
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    rec = dict(phase="transformer_train", check="eager_vs_traced",
+               shape=list(got.shape), max_rel=rel, rtol=TFM_TRACE_RTOL,
+               traced_ops=len(traced.program.global_block().ops))
+    emit(**rec)
+    if not (np.isfinite(got).all() and rel <= TFM_TRACE_RTOL):
+        raise AssertionError("transformer_train: traced vs eager: %s" % rec)
+
+
+def transformer_timing(fluid, dev, main, feed, loss, scope):
+    """Graphed steps on ``scope`` (the model's own tensors): TFM_WARM
+    warm (run 1 eager, run 2 captured), TFM_TIMED timed, the fullest of
+    TRACE_TRIES traced; TFM_TIMED eager-executor steps on a clone. Step
+    ms (median), tokens/s, device busy and idle share, kernels and host
+    launch calls a step, peak GB, MFU against BF16_PEAK_OPS_PER_S."""
+    flops = transformer_train_flops_per_step(TFM_BATCH, TFM_SEQ, 1024, 4096,
+                                             6, TFM_VOCAB)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = dict(phase="transformer_train", check="step_times",
+               config="Transformer.big (BASELINE config 5), jit.trace -> "
+                      "AMP (bf16) Adam 1e-4, dropout 0.1",
+               batch=TFM_BATCH, seq=TFM_SEQ, train_flops_per_step=flops)
+    losses = []
+    for mode, graphs, sc in (("graphed", True, scope),
+                             ("eager_executor", False,
+                              clone_scope(fluid, scope))):
+        exe = fluid.Executor(dev, cuda_graphs=graphs)
+        losses += fetch_losses(exe, main, feed, [loss], sc, TFM_WARM)
+        step_s = []
+        for _ in range(TFM_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses += fetch_losses(exe, main, feed, [loss], sc, 1)
+            step_s.append(time.perf_counter() - t0)
+        api, kern, totals, _ = complete_trace(
+            lambda: fetch_losses(exe, main, feed, [loss], sc, 1))
+        steady = statistics.median(step_s)
+        busy_ms = sum(us for us, _ in kern.values()) / 1e3
+        rec[mode] = dict(
+            step_ms=steady * 1e3, step_ms_all=[t * 1e3 for t in step_s],
+            tokens_per_s=TFM_BATCH * TFM_SEQ / steady,
+            mfu=flops / steady / BF16_PEAK_OPS_PER_S,
+            device_busy_ms=busy_ms if kern else "not measured",
+            idle_share=1.0 - busy_ms / (steady * 1e3) if kern
+            else "not measured",
+            device_kernels_per_step=sum(n for _, n in kern.values()),
+            kernels_per_trace=totals, host_launch_calls_per_step=api,
+            attention_kernels_traced=traced_launches(kern),
+            top_kernels=[dict(name=k[:120], ms=us / 1e3, calls=n)
+                         for k, (us, n) in sorted(
+                             kern.items(), key=lambda kv: -kv[1][0])[
+                                 :TOP_KERNELS]])
+        exe.close()
+    rec.update(max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+               / 2 ** 30, first_loss=losses[0], last_loss=losses[-1],
+               steps=len(losses))
+    emit(**rec)
+    if not (all(math.isfinite(x) for x in losses) and
+            losses[-1] < losses[0]):
+        raise AssertionError("transformer_train: static losses not finite "
+                             "and falling: %s" % losses)
+    return rec
+
+
+def transformer_card_vs_cpu(T, fluid, dygraph, dev):
+    """Full width at depth TFM_CPU_LAYERS, batch TFM_CPU_BATCH, S
+    TFM_SEQ, fp32, p 0: the traced program with Adam(1e-4), CHECK_STEPS
+    steps (a fresh seeded batch each) from the card's startup state,
+    graphed on the card against the port's CPU path and its float64 run
+    (``card_vs_cpu``), under DeepFM's rules: every loss within
+    max(TFM_CPU_RTOL, 3 x the fp32 noise), and every state by the L2 of
+    what it moved, within max(TFM_CPU_UPDATE_RTOL, 3 x the CPU's own
+    against float64), from step 1 on (TFM_CPU_UPDATE_RTOL's comment
+    says why step 1 too)."""
+    with fluid.unique_name.guard(), dygraph.guard(dev):
+        model = T.Transformer(TFM_VOCAB, TFM_VOCAB, d_model=1024,
+                              n_heads=16, d_inner=4096,
+                              n_layers=TFM_CPU_LAYERS, dropout_rate=0.0,
+                              seed=1)
+        args, _ = transformer_args(T, TFM_CPU_BATCH, TFM_SEQ)
+        with dygraph.no_grad():
+            _, traced = dygraph.jit.trace(model, list(args))
+    with fluid.unique_name.guard():
+        startup, loss = transformer_static(fluid, traced, TFM_SEQ, amp=False)
+    traced._materialize_scope()
+    fluid.Executor(dev, cuda_graphs=False).run(startup, scope=traced._scope)
+    cpu = fluid.Scope()
+    for n in traced._scope.local_var_names():
+        cpu.set_var(n, traced._scope.find_var(n).cpu())
+    feeds = []
+    for i in range(CHECK_STEPS):
+        a, lab = transformer_args(T, TFM_CPU_BATCH, TFM_SEQ, seed=11 + i)
+        feeds.append(transformer_feed(traced, a, lab))
+    bias = traced._feed_names[4]
+    losses, rows = card_vs_cpu(
+        fluid, dev, traced.program, loss, cpu, feeds,
+        lambda f: dict(f, **{bias: f[bias].astype(np.float64)}))
+    worst = sorted((r for r in rows if r[3] != "loss"),
+                   key=lambda r: r[5] - r[4])
+    rec = card_vs_cpu_record(
+        losses, rows, TFM_CPU_RTOL, state_steps=0,
+        update_rtol=TFM_CPU_UPDATE_RTOL, phase="transformer_train",
+        layers=TFM_CPU_LAYERS, batch=TFM_CPU_BATCH, seq=TFM_SEQ,
+        dtype="float32",
+        update_rel_l2_by_step=[max(r[4] for r in rows if r[2] == step
+                                   and r[3] != "loss" and r[4] > 3 * r[5])
+                               if any(r[2] == step and r[3] != "loss"
+                                      and r[4] > 3 * r[5] for r in rows)
+                               else 0.0 for step in range(CHECK_STEPS)],
+        largest_update_rel_l2_over_noise=[
+            [r[2], r[3], r[4], r[5]] for r in worst[:10]])
+    emit(**rec)
+    del model, traced, cpu
+    if rec["over"]:
+        raise AssertionError("transformer_train: card vs CPU past max(%g, 3 "
+                             "x fp32 noise): %s" % (TFM_CPU_RTOL, rec))
+
+
+def transformer_train_path(A, dev):
+    """BASELINE config 5's training as bench.py's bench_transformer runs
+    it: ``Transformer.big(32000, 32000)`` (d 1024, 16 heads, d_inner
+    4096, 6 + 6 layers) on the card under ``dygraph.guard()`` from a
+    seeded generator, one synthetic batch of 32 x 64 tokens. Eager
+    dygraph steps; the eager output against the traced program's; the
+    program traced in training mode (dropout 0.1) with the loss and
+    ``mixed_precision.decorate(Adam(1e-4))`` appended, graphed against
+    eager to the bit from one state, then timed; the card against the
+    CPU at depth 2. None of the 14 attention kernels runs: the
+    reference's training forward computes attention as matmul, softmax,
+    dropout and matmul, which lower to cuBLAS and ATen."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import dygraph
+    from paddle_tpu_torch.models import transformer as T
+
+    reset_launches(A)
+    t0 = time.perf_counter()
+    args, labels = transformer_args(T, TFM_BATCH, TFM_SEQ)
+    with fluid.unique_name.guard(), dygraph.guard(dev):
+        model = T.Transformer.big(TFM_VOCAB, TFM_VOCAB, seed=0)
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        build_s = time.perf_counter() - t0
+        eager_rec = transformer_eager(T, fluid, dygraph, model, args, labels)
+        model.set_dict(start)
+        transformer_eager_vs_traced(fluid, dygraph, model, args)
+        model.set_dict(start)
+        _, traced = dygraph.jit.trace(
+            model, [dygraph.to_variable(a) for a in args])
+    with fluid.unique_name.guard():
+        startup, loss = transformer_static(fluid, traced, TFM_SEQ, amp=True)
+    del start
+    traced._materialize_scope()
+    scope = traced._scope
+    fluid.Executor(dev, cuda_graphs=False).run(startup, scope=scope)
+    bound = [n for n, p in model.named_parameters()
+             if scope.find_var(p.name).data_ptr() != p.data_ptr()]
+    feed = transformer_feed(traced, args, labels, dev)
+    graphed_vs_eager(fluid, dev, traced.program, feed, loss, scope,
+                     "transformer_train", amp="bfloat16", build_s=build_s,
+                     program_ops=len(traced.program.global_block().ops))
+    rec = transformer_timing(fluid, dev, traced.program, feed, loss, scope)
+    moved = [n for n, p in model.named_parameters()
+             if scope.find_var(p.name).data_ptr() != p.data_ptr()]
+    del traced, scope, feed, model
+    torch.cuda.empty_cache()
+    transformer_card_vs_cpu(T, fluid, dygraph, dev)
+    attention = launches(A, ["decode_attention_kernel",
+                             "paged_attention_kernel", *FUSED_KERNELS])
+    traced_attention = {mode: rec[mode]["attention_kernels_traced"]
+                        for mode in ("graphed", "eager_executor")}
+    emit(phase="transformer_train", check="attention_launches",
+         launches=attention, traced=traced_attention,
+         scope_not_the_model_storage=bound + moved,
+         phase_s=time.perf_counter() - t0)
+    if any(attention.values()) or any(
+            v for t in traced_attention.values() for v in t.values()):
+        raise AssertionError("transformer_train: an attention kernel ran: "
+                             "%s %s" % (attention, traced_attention))
+    if bound or moved:
+        raise AssertionError("transformer_train: the traced scope does not "
+                             "hold the model's parameter storage: %s"
+                             % (bound + moved))
+    torch.cuda.empty_cache()
+    return dict(rec, eager=eager_rec)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4050,6 +4382,8 @@ def main():
     resnet_path(inference, dev)
     torch.cuda.empty_cache()
     deepfm_path(A, inference, dev)
+    torch.cuda.empty_cache()
+    transformer_train_path(A, dev)
     torch.cuda.empty_cache()
     # the dense phase's model again (the same seed)
     model = T.Transformer.big(device=dev, seed=0)

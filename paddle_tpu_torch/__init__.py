@@ -14,8 +14,10 @@ __all__ = ["resolve_device"]
 
 def resolve_device(device):
     """``torch.device`` for ``device``; raises if it names CUDA and no
-    card is present (the port never falls back to the CPU on its own)."""
-    device = torch.device(device)
+    card is present (the port never falls back to the CPU on its own).
+    ``device`` is a ``torch.device``, its name, or a ``fluid.CPUPlace`` /
+    ``fluid.CUDAPlace``."""
+    device = torch.device(getattr(device, "_device", device))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device %r requested but torch sees no CUDA "
                            "device" % str(device))

@@ -7,11 +7,13 @@ per program and feed signature), directly or as a one-device
 ``CompiledProgram``; ``io`` saves and loads variables and inference
 models. ``set_flags`` / ``get_flags`` hold the anomaly
 policy, ``profiler`` times runs, run hooks observe them; the serving
-slices also use ``monitor`` and ``resilience``.
+slices also use ``monitor`` and ``resilience``. ``dygraph`` is eager
+mode: ``dygraph.guard()``, layers, the eager optimizers, and
+``dygraph.jit.trace`` to a Program.
 """
 
-from . import (contrib, framework, initializer, io, layers,  # noqa: F401
-               ops, optimizer, profiler, regularizer, unique_name)
+from . import (contrib, dygraph, framework, initializer, io,  # noqa: F401
+               layers, ops, optimizer, profiler, regularizer, unique_name)
 from .backward import append_backward  # noqa: F401
 from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
                        ExecutionStrategy)
@@ -19,7 +21,8 @@ from .executor import (Executor, FetchHandle, Scope, copy_scope,  # noqa: F401
                        global_scope, register_run_hook, scope_guard,
                        unregister_run_hook)
 from .flags import get_flags, set_flags  # noqa: F401
-from .framework import (Parameter, Program, Variable,  # noqa: F401
-                        default_main_program, default_startup_program,
+from .framework import (CPUPlace, CUDAPlace, Parameter,  # noqa: F401
+                        Program, Variable, default_main_program,
+                        default_startup_program, in_dygraph_mode,
                         program_guard)
 from .param_attr import ParamAttr  # noqa: F401

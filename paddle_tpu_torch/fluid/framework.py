@@ -13,8 +13,9 @@ reference's protobuf bytes through the port's own wire codec
 (``core/proto_io.py``); ``_prune`` cuts a program to the ops its fetch
 targets need (``io.save_inference_model``).
 
-Not carried over yet: name scopes, sub-blocks' control flow and the
-dygraph switch.
+The dygraph switch (``_dygraph_tracer``, ``in_dygraph_mode``,
+``_dygraph_guard``) is the one ``dygraph.guard()`` sets. Not carried
+over yet: name scopes and sub-blocks' control flow.
 """
 
 import contextlib
@@ -479,3 +480,48 @@ def program_guard(main_program, startup_program=None):
         switch_main_program(old_main)
         if old_startup is not None:
             switch_startup_program(old_startup)
+
+
+class CPUPlace:
+    """The host (``fluid.CPUPlace()``): where ``Executor``,
+    ``dygraph.guard`` and ``resolve_device`` run when asked."""
+
+    _device = "cpu"
+
+    def __repr__(self):
+        return "CPUPlace"
+
+
+class CUDAPlace:
+    """One card (``fluid.CUDAPlace(i)``)."""
+
+    def __init__(self, device_id=0):
+        self.device_id = int(device_id)
+        self._device = "cuda:%d" % self.device_id
+
+    def __repr__(self):
+        return "CUDAPlace(%d)" % self.device_id
+
+
+# -- the dygraph switch (set by dygraph.guard) ---------------------------------
+
+_dygraph_tracer_ = None
+
+
+def _dygraph_tracer():
+    return _dygraph_tracer_
+
+
+def in_dygraph_mode():
+    return _dygraph_tracer_ is not None
+
+
+@contextlib.contextmanager
+def _dygraph_guard(tracer):
+    global _dygraph_tracer_
+    old = _dygraph_tracer_
+    _dygraph_tracer_ = tracer
+    try:
+        yield
+    finally:
+        _dygraph_tracer_ = old

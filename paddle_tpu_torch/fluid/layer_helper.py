@@ -42,6 +42,7 @@ class LayerHelper:
         param = self.block.create_parameter(
             shape=shape, dtype=dtype, name=name, trainable=attr.trainable,
             learning_rate=attr.learning_rate)
+        param.regularizer = attr.regularizer
         # mirror the parameter and its init op into the startup program
         startup_block = self.startup_program.global_block()
         sp = framework.Parameter(startup_block, shape=shape, dtype=dtype,

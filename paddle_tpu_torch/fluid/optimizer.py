@@ -9,28 +9,57 @@ norms' scales and biases included; skipped, with a warning, for a
 SelectedRows gradient), ``SGD``, ``Momentum``, ``Adagrad`` and
 ``Adam``. A SelectedRows gradient passes through ``apply_gradients`` to
 its update op, which applies it row-sparse (``ops/optimizer_ops.py``).
-Gradient clipping, the other optimizers and dygraph updates wait for
+
+In dygraph mode (``dygraph.guard()``) ``minimize`` takes the eager
+branch (``_dygraph_minimize``): the raw gradients (``loss.backward()``
+if it has not run), then weight decay, then the update of each
+parameter in ``parameter_list``, in place under ``torch.no_grad()``,
+by the same ``sgd`` / ``momentum`` / ``adam`` lowering the static
+program runs. Eager updates exist for SGD, Momentum and Adam, as in the
+reference; the others raise. ``state_dict`` / ``set_dict`` checkpoint
+the eager accumulators as ``"<param>@<slot>"`` and a learning-rate decay
+object's step. Gradient clipping (``clip.py``, ROADMAP queue 1 item 4;
+``dygraph_grad_clip.py``, item 6) and the other optimizers wait for
 later slices.
 """
 
-from . import unique_name
+import logging
+
+import numpy as np
+import torch
+
+from . import framework, unique_name
 from .backward import append_backward
 from .framework import Variable, default_main_program
 from .initializer import Constant
 from .layer_helper import LayerHelper
-from .regularizer import append_regularization_ops
+from .regularizer import L1DecayRegularizer, append_regularization_ops
 
 __all__ = ["SGD", "SGDOptimizer", "Momentum", "MomentumOptimizer",
            "Adagrad", "AdagradOptimizer", "Adam", "AdamOptimizer"]
 
 
+def _refuse_clip(grad_clip):
+    if grad_clip is not None:
+        raise NotImplementedError(
+            "grad_clip is not ported yet: the static clip ops (clip.py) "
+            "are ROADMAP queue 1 item 4, the dygraph strategies "
+            "(dygraph_grad_clip.py) item 6")
+
+
 class Optimizer:
-    def __init__(self, learning_rate, regularization=None, name=None):
+    def __init__(self, learning_rate, regularization=None, name=None,
+                 grad_clip=None):
+        _refuse_clip(grad_clip)
         self._learning_rate = learning_rate
         self.regularization = regularization
         self._name = name
         self._accumulators = {}  # acc_name -> {param_name: var}
         self._lr_var = None
+        # eager state: id(param) -> (param, {slot: tensor}); state that
+        # set_dict restored, by "<param>@<slot>", until its first use
+        self._eager_state = {}
+        self._loaded_state = {}
 
     def _create_global_learning_rate(self):
         if isinstance(self._learning_rate, Variable):
@@ -99,10 +128,136 @@ class Optimizer:
         return params_grads
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
-                 no_grad_set=None):
+                 no_grad_set=None, grad_clip=None):
+        _refuse_clip(grad_clip)
+        if framework.in_dygraph_mode():
+            return self._dygraph_minimize(loss, parameter_list)
         params_grads = self.backward(loss, startup_program, parameter_list,
                                      no_grad_set)
         return self.apply_gradients(params_grads), params_grads
+
+    # -- the dygraph (eager) branch --------------------------------------------
+    def _dygraph_minimize(self, loss, parameter_list):
+        """Raw gradients (``loss.backward()`` when ops were recorded since
+        the last backward), then each parameter's regularizer or
+        ``regularization``, then the eager update, in place. Returns
+        (None, [(param, the gradient the update took)])."""
+        from .dygraph.base import VarBase
+
+        tracer = framework._dygraph_tracer()
+        if parameter_list is None:
+            raise ValueError("dygraph minimize needs parameter_list "
+                             "(e.g. model.parameters())")
+        if tracer._recorded:
+            loss.backward()
+        if isinstance(self._learning_rate, VarBase):
+            lr = float(self._learning_rate.numpy().reshape(-1)[0])
+        elif callable(self._learning_rate):
+            lr = float(self._learning_rate())
+        else:
+            lr = float(self._learning_rate)
+        params_grads = []
+        with torch.no_grad():
+            for p in parameter_list:
+                if p is None or p.stop_gradient or p._ivar.grad is None:
+                    continue
+                g = p._ivar.grad
+                reg = getattr(p, "regularizer", None) or self.regularization
+                if reg is not None:
+                    decay = torch.sign(p._ivar) if isinstance(
+                        reg, L1DecayRegularizer) else p._ivar
+                    g = g + decay * reg._coeff
+                params_grads.append((p, g))
+            lrs = {}
+            for p, g in params_grads:
+                t = p._ivar
+                if t.device not in lrs:
+                    lrs[t.device] = torch.full((1,), lr, dtype=torch.float32,
+                                               device=t.device)
+                self._eager_update(p, g, lrs[t.device])
+        return None, params_grads
+
+    def _eager_op(self, p, op_type, inputs, attrs):
+        """Run the static update op's lowering on ``p``'s tensors (it
+        updates them in place)."""
+        from .dygraph.base import run_op
+
+        run_op(op_type, {k: [v] for k, v in inputs.items()}, [], attrs,
+               None, p._ivar.device)
+
+    def _eager_state_for(self, p, slots):
+        """``p``'s eager accumulators {slot: tensor}, made at first use:
+        restored by name from ``set_dict``, else a [1] tensor filled with
+        a scalar init, or zeros of ``p``'s shape (init None)."""
+        entry = self._eager_state.get(id(p))
+        if entry is None:
+            t = p._ivar
+            st = {}
+            for slot, init in slots:
+                key = "%s@%s" % (p.name, slot)
+                if key in self._loaded_state:
+                    st[slot] = torch.tensor(
+                        np.asarray(self._loaded_state.pop(key)),
+                        dtype=t.dtype, device=t.device)
+                elif init is None:
+                    st[slot] = torch.zeros_like(t)
+                else:
+                    st[slot] = torch.full((1,), init, dtype=t.dtype,
+                                          device=t.device)
+            entry = self._eager_state[id(p)] = (p, st)
+        return entry[1]
+
+    def _eager_update(self, p, g, lr):
+        raise NotImplementedError(
+            "%s has no eager update; use static graph mode"
+            % type(self).__name__)
+
+    def state_dict(self):
+        """The eager accumulators as numpy, keyed "<param>@<slot>", with
+        ``global_step`` when the learning rate is a decay object; state
+        restored by ``set_dict`` and not used yet is kept."""
+        from .dygraph.learning_rate_scheduler import LearningRateDecay
+
+        if not framework.in_dygraph_mode():
+            raise RuntimeError(
+                "optimizer.state_dict() is dygraph-only; static graph "
+                "optimizer state lives in scope persistables")
+        out = dict(self._loaded_state)
+        for p, st in self._eager_state.values():
+            for slot, t in st.items():
+                out["%s@%s" % (p.name, slot)] = t.detach().cpu().numpy()
+        if isinstance(self._learning_rate, LearningRateDecay):
+            out["global_step"] = np.asarray(
+                [self._learning_rate.step_num], np.int64)
+        return out
+
+    def set_dict(self, state_dict):
+        """Restore ``state_dict``: accumulators by parameter name (copied
+        in place where they exist, else at their first use), and a
+        decay object's step from ``global_step``."""
+        from .dygraph.learning_rate_scheduler import LearningRateDecay
+
+        state = dict(state_dict)
+        gs = state.pop("global_step", None)
+        if gs is not None:
+            step = int(np.asarray(gs).ravel()[0])
+            if isinstance(self._learning_rate, LearningRateDecay):
+                self._learning_rate.step_num = step
+            else:
+                logging.getLogger(__name__).warning(
+                    "set_dict: the checkpoint carries global_step=%d but "
+                    "this optimizer's learning_rate is not a "
+                    "LearningRateDecay object; the schedule position is "
+                    "dropped", step)
+        self._loaded_state = state
+        for p, st in self._eager_state.values():
+            for slot, t in st.items():
+                key = "%s@%s" % (p.name, slot)
+                if key in state:
+                    t.copy_(torch.tensor(np.asarray(state.pop(key)),
+                                         dtype=t.dtype))
+
+    set_state_dict = set_dict
 
 
 class SGDOptimizer(Optimizer):
@@ -110,6 +265,10 @@ class SGDOptimizer(Optimizer):
 
     def __init__(self, learning_rate, regularization=None, name=None):
         super().__init__(learning_rate, regularization, name)
+
+    def _eager_update(self, p, g, lr):
+        self._eager_op(p, "sgd", {"Param": p._ivar, "Grad": g,
+                                  "LearningRate": lr}, {})
 
     def _append_optimize_op(self, block, param_and_grad):
         param, grad = param_and_grad
@@ -157,6 +316,17 @@ class AdamOptimizer(Optimizer):
         super().__init__(learning_rate, regularization, name)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 
+    def _eager_update(self, p, g, lr):
+        st = self._eager_state_for(p, [("m", None), ("v", None),
+                                       ("b1p", self._beta1),
+                                       ("b2p", self._beta2)])
+        self._eager_op(p, "adam", {
+            "Param": p._ivar, "Grad": g, "Moment1": st["m"],
+            "Moment2": st["v"], "Beta1Pow": st["b1p"],
+            "Beta2Pow": st["b2p"], "LearningRate": lr},
+            {"beta1": self._beta1, "beta2": self._beta2,
+             "epsilon": self._epsilon})
+
     def _create_accumulators(self, block, parameters):
         for p in parameters:
             self._add_accumulator("moment1", p)
@@ -193,6 +363,13 @@ class MomentumOptimizer(Optimizer):
         super().__init__(learning_rate, regularization, name)
         self._momentum = momentum
         self._use_nesterov = use_nesterov
+
+    def _eager_update(self, p, g, lr):
+        st = self._eager_state_for(p, [("velocity", None)])
+        self._eager_op(p, "momentum", {
+            "Param": p._ivar, "Grad": g, "Velocity": st["velocity"],
+            "LearningRate": lr},
+            {"mu": self._momentum, "use_nesterov": self._use_nesterov})
 
     def _create_accumulators(self, block, parameters):
         for p in parameters:

@@ -1,20 +1,32 @@
-"""Transformer NMT model and its greedy decode sessions, in PyTorch.
+"""Transformer NMT model, its training forward through the dygraph
+tracer, and its greedy decode sessions, in PyTorch.
 
-Counterpart of ``paddle_tpu/models/transformer.py`` for serving: the
-encoder-decoder ``Transformer`` (``big`` is BASELINE config 5), its
-prefill / decode-step methods, the dense ring-cache ``DecodeSession``
-and the paged ``PagedDecodeSession`` with its page pool and prefix
-cache. There is no tracer or executor: a session calls the module's
-``prefill`` / ``decode_step`` / ``decode_step_paged`` methods eagerly,
-and the self-attention over the KV cache runs in the CUDA decode
-kernels of ``kernels/attention.py`` (their plain versions on the CPU).
+Counterpart of ``paddle_tpu/models/transformer.py``: the encoder-decoder
+``Transformer`` (``big`` is BASELINE config 5), ``loss_fn`` and
+``synthetic_batch`` for teacher-forced training, its prefill /
+decode-step methods, the dense ring-cache ``DecodeSession`` and the
+paged ``PagedDecodeSession`` with its page pool and prefix cache.
 
-Module and parameter names match the reference's ``named_parameters()``
-paths (``enc_0.attn.q_fc.weight``, ...), so ``load_jax_params`` carries
-a reference model's weights across unchanged. KV caches and pools are
-updated in place (see ``kernels/attention.py``); tokens and lengths
-cross the decode-step boundary as int32 device tensors, and the public
-results are int64 numpy arrays, as in the reference.
+The modules are dygraph ``Layer``s. Called on ``VarBase``s under
+``dygraph.guard()``, the training ``forward`` traces the reference's
+ops in the reference's order: the embedding's ``scale`` op, attention
+as ``matmul(alpha=1/sqrt(d))``, ``+ bias``, ``softmax``, ``dropout``,
+``matmul``, then ``transpose`` / ``reshape``, the residual adds from the
+VarBase sugar, so ``dygraph.jit.trace`` records the reference's program
+(no fused attention: the reference's training forward has none). Called
+on torch tensors, the same ``forward`` and every decode method compute
+directly in torch and never reach a tracer, guard or not; a session
+calls ``prefill`` / ``decode_step`` / ``decode_step_paged`` eagerly, and
+the self-attention over the KV cache runs in the CUDA decode kernels of
+``kernels/attention.py`` (their plain versions on the CPU).
+
+Module and parameter paths match the reference's ``named_parameters()``
+(``enc_0.attn.q_fc.weight``, ...), so ``load_jax_params`` carries a
+reference model's weights across unchanged; under one
+``unique_name.guard()`` the parameters' names match too. KV caches and
+pools are updated in place (see ``kernels/attention.py``); tokens and
+lengths cross the decode-step boundary as int32 device tensors, and the
+public results are int64 numpy arrays, as in the reference.
 """
 
 import collections
@@ -26,10 +38,10 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
 
-from .. import resolve_device
 from ..fluid import monitor
+from ..fluid.dygraph.base import VarBase, _tracer, device_of
+from ..fluid.dygraph.layers import Layer
 from ..fluid.dygraph.nn import Embedding, LayerNorm, Linear
 from ..fluid.resilience import Overloaded
 from ..kernels.attention import (attention_with_cache, decode_row_width,
@@ -42,12 +54,42 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
+def _op(type, inputs, outs, attrs=None):
+    return _tracer().trace_op(type, inputs, outs, attrs or {})
+
+
+def _reshape(x, shape):
+    (out,) = _op("reshape", {"X": [x]}, ["Out"], {"shape": list(shape)})
+    return out
+
+
+def _transpose(x, perm):
+    (out,) = _op("transpose", {"X": [x]}, ["Out"], {"axis": list(perm)})
+    return out
+
+
+def _matmul(x, y, transpose_y=False, alpha=1.0):
+    (out,) = _op("matmul", {"X": [x], "Y": [y]}, ["Out"],
+                 {"transpose_X": False, "transpose_Y": transpose_y,
+                  "alpha": alpha})
+    return out
+
+
 def _dropout(x, p, training):
-    return F.dropout(x, p) if training and p else x
+    """Dropout at ``p`` in training: the ``dropout`` op (upscale in
+    train) on a VarBase, ``F.dropout`` on a tensor."""
+    if not (training and p):
+        return x
+    if isinstance(x, VarBase):
+        (out,) = _op("dropout", {"X": [x]}, ["Out"],
+                     {"dropout_prob": p,
+                      "dropout_implementation": "upscale_in_train"})
+        return out
+    return F.dropout(x, p)
 
 
-class MultiHeadAttention(nn.Module):
-    def __init__(self, d_model, n_heads, dropout_rate=0.1, device="cuda",
+class MultiHeadAttention(Layer):
+    def __init__(self, d_model, n_heads, dropout_rate=0.1, *, device=None,
                  generator=None):
         super().__init__()
         self.n_heads = n_heads
@@ -61,6 +103,9 @@ class MultiHeadAttention(nn.Module):
 
     def _split(self, t):
         """[B, S, H*d] -> [B, H, S, d]."""
+        if isinstance(t, VarBase):
+            t = _reshape(t, [t.shape[0], -1, self.n_heads, self.d_key])
+            return _transpose(t, [0, 2, 1, 3])
         t = t.reshape(t.shape[0], -1, self.n_heads, self.d_key)
         return t.transpose(1, 2)
 
@@ -73,6 +118,14 @@ class MultiHeadAttention(nn.Module):
         return self._split(self.k_fc(kv)), self._split(self.v_fc(kv))
 
     def _attend(self, qh, kh, vh, bias):
+        if isinstance(qh, VarBase):
+            scores = _matmul(qh, kh, transpose_y=True,
+                             alpha=1.0 / math.sqrt(self.d_key))
+            if bias is not None:
+                scores = scores + bias
+            (w,) = _op("softmax", {"X": [scores]}, ["Out"], {"axis": -1})
+            w = _dropout(w, self.dropout_rate, self.training)
+            return self._merge_out(_matmul(w, vh))
         scores = torch.matmul(qh, kh.transpose(-1, -2)) * (
             1.0 / math.sqrt(self.d_key))
         if bias is not None:
@@ -82,6 +135,10 @@ class MultiHeadAttention(nn.Module):
         return self._merge_out(torch.matmul(w, vh))
 
     def _merge_out(self, ctx):
+        if isinstance(ctx, VarBase):
+            ctx = _transpose(ctx, [0, 2, 1, 3])
+            return self.out_fc(_reshape(
+                ctx, [ctx.shape[0], -1, self.n_heads * self.d_key]))
         ctx = ctx.transpose(1, 2)
         return self.out_fc(ctx.reshape(ctx.shape[0], -1,
                                        self.n_heads * self.d_key))
@@ -125,8 +182,8 @@ class MultiHeadAttention(nn.Module):
         return self._merge_out(ctx), k_pool, v_pool, new_len
 
 
-class FFN(nn.Module):
-    def __init__(self, d_model, d_inner, dropout_rate=0.1, device="cuda",
+class FFN(Layer):
+    def __init__(self, d_model, d_inner, dropout_rate=0.1, *, device=None,
                  generator=None):
         super().__init__()
         kw = dict(device=device, generator=generator)
@@ -139,9 +196,9 @@ class FFN(nn.Module):
                                  self.training))
 
 
-class EncoderLayer(nn.Module):
-    def __init__(self, d_model, n_heads, d_inner, dropout_rate=0.1,
-                 device="cuda", generator=None):
+class EncoderLayer(Layer):
+    def __init__(self, d_model, n_heads, d_inner, dropout_rate=0.1, *,
+                 device=None, generator=None):
         super().__init__()
         kw = dict(device=device, generator=generator)
         self.attn = MultiHeadAttention(d_model, n_heads, dropout_rate, **kw)
@@ -157,9 +214,9 @@ class EncoderLayer(nn.Module):
         return self.ln2(x + _dropout(y, self.dropout_rate, self.training))
 
 
-class DecoderLayer(nn.Module):
-    def __init__(self, d_model, n_heads, d_inner, dropout_rate=0.1,
-                 device="cuda", generator=None):
+class DecoderLayer(Layer):
+    def __init__(self, d_model, n_heads, d_inner, dropout_rate=0.1, *,
+                 device=None, generator=None):
         super().__init__()
         kw = dict(device=device, generator=generator)
         self.self_attn = MultiHeadAttention(d_model, n_heads, dropout_rate,
@@ -226,15 +283,21 @@ class DecoderLayer(nn.Module):
         return x, k_pool, v_pool, new_len
 
 
-class Transformer(nn.Module):
+class Transformer(Layer):
     """Encoder-decoder transformer (NMT). Weights are drawn from a
-    ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    ``torch.Generator`` seeded with ``seed`` on ``device`` (the guard's
+    under ``dygraph.guard()``, else the card)."""
 
     def __init__(self, src_vocab, tgt_vocab, d_model=512, n_heads=8,
                  d_inner=2048, n_layers=6, max_len=256, dropout_rate=0.1,
-                 device="cuda", seed=0):
+                 seq_parallel=False, model_axis=None, *, device=None, seed=0):
+        if model_axis is not None or seq_parallel:
+            raise NotImplementedError(
+                "model_axis (Megatron tensor parallelism) and seq_parallel "
+                "(ring / Ulysses attention) need a device mesh, which the "
+                "port has not ported yet (ROADMAP queue 7)")
         super().__init__()
-        device = resolve_device(device)
+        device = device_of(device)
         gen = torch.Generator(device=device).manual_seed(int(seed))
         kw = dict(device=device, generator=gen)
         self.d_model = d_model
@@ -250,9 +313,9 @@ class Transformer(nn.Module):
                                         dropout_rate, **kw)
                            for _ in range(n_layers)]
         for i, l in enumerate(self.enc_layers):
-            self.add_module("enc_%d" % i, l)
+            self.add_sublayer("enc_%d" % i, l)
         for i, l in enumerate(self.dec_layers):
-            self.add_module("dec_%d" % i, l)
+            self.add_sublayer("dec_%d" % i, l)
         self.proj = Linear(d_model, tgt_vocab, **kw)
         self.dropout_rate = dropout_rate
 
@@ -267,7 +330,14 @@ class Transformer(nn.Module):
                            d_inner=64, n_layers=2, max_len=64, **kw)
 
     def _embed(self, ids, emb, pos_ids):
-        x = emb(ids) * math.sqrt(self.d_model) + self.pos_emb(pos_ids)
+        x = emb(ids)
+        if isinstance(x, VarBase):
+            (x,) = _op("scale", {"X": [x]}, ["Out"],
+                       {"scale": math.sqrt(self.d_model), "bias": 0.0,
+                        "bias_after_scale": True})
+            x = x + self.pos_emb(pos_ids)
+        else:
+            x = x * math.sqrt(self.d_model) + self.pos_emb(pos_ids)
         return _dropout(x, self.dropout_rate, self.training)
 
     def _encode(self, src_ids, pos_src, src_bias):
@@ -279,7 +349,9 @@ class Transformer(nn.Module):
     def forward(self, src_ids, tgt_ids, pos_src, pos_tgt, causal_bias,
                 src_bias=None):
         """Teacher-forced logits [B, S_tgt, V]. src_bias: optional
-        [B, 1, 1, S_src] additive padding mask."""
+        [B, 1, 1, S_src] additive padding mask. On VarBases under
+        ``dygraph.guard()`` every op is traced (``jit.trace`` records
+        it); on torch tensors it runs in torch."""
         enc = self._encode(src_ids, pos_src, src_bias)
         dec = self._embed(tgt_ids, self.tgt_emb, pos_tgt)
         for l in self.dec_layers:
@@ -433,6 +505,32 @@ def make_causal_bias(seq_len):
     return m.reshape(1, 1, seq_len, seq_len)
 
 
+def loss_fn(logits, labels):
+    """Mean token cross-entropy of traced ``logits`` [B, S, V] against
+    ``labels`` [B, S, 1] int64: ``softmax_with_cross_entropy``, then
+    ``reduce_sum`` over everything and ``scale`` by 1 / (B * S)."""
+    ce = _op("softmax_with_cross_entropy", {"Logits": [logits],
+                                            "Label": [labels]},
+             ["Softmax", "Loss"], {"soft_label": False})[1]
+    (total,) = _op("reduce_sum", {"X": [ce]}, ["Out"],
+                   {"dim": [], "keep_dim": False, "reduce_all": True})
+    (loss,) = _op("scale", {"X": [total]}, ["Out"],
+                  {"scale": 1.0 / float(np.prod(labels.shape)), "bias": 0.0,
+                   "bias_after_scale": True})
+    return loss
+
+
+def synthetic_batch(src_vocab, tgt_vocab, batch, seq_len, seed=0):
+    """(src, tgt, labels [B, S, 1], pos) int64 numpy arrays, drawn as the
+    reference draws them."""
+    rng = np.random.RandomState(seed)
+    src = rng.randint(1, src_vocab, (batch, seq_len)).astype("int64")
+    tgt = rng.randint(1, tgt_vocab, (batch, seq_len)).astype("int64")
+    labels = rng.randint(1, tgt_vocab, (batch, seq_len, 1)).astype("int64")
+    pos = np.tile(np.arange(seq_len, dtype="int64"), (batch, 1))
+    return src, tgt, labels, pos
+
+
 @torch.no_grad()
 def load_jax_params(model, arrays):
     """Copy weights keyed by the reference model's ``named_parameters()``
@@ -499,7 +597,7 @@ _M_PREFIX_MISS = monitor.counter(
 
 
 def _model_device(model):
-    return next(model.parameters()).device
+    return model.proj.weight.device
 
 
 def _check_positions(model, src_len, prompt_len, last_pos):

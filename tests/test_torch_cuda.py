@@ -1,7 +1,9 @@
 """paddle_tpu_torch on the card: each CUDA kernel against its plain
 PyTorch version, and the decode sessions and a BERT-tiny training step
 on the card against the same on the CPU; DeepFM's sparse step graphed
-against eager, its untouched rows and an out-of-range id. Every test needs a CUDA device
+against eager, its untouched rows and an out-of-range id; dygraph on the
+card by default, and a traced Transformer-tiny's AMP step graphed against
+eager and its first loss against the eager dygraph loss. Every test needs a CUDA device
 and skips without one. This file imports neither jax nor paddle_tpu, so it also runs on a
 machine without them, skipping the suite's conftest (which imports jax):
 
@@ -1746,3 +1748,73 @@ def test_out_of_range_id_reads_nan_without_device_assert(cuda_device,
     assert np.isfinite(exe.run(main, feed=good, fetch_list=[loss],
                                scope=card)[0]).all()
     torch.cuda.synchronize()
+
+
+def test_dygraph_defaults_to_the_card(cuda_device):
+    """``dygraph.guard()`` with no place, its variables and layers, and
+    a Transformer built under it, all on the card."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import dygraph
+
+    with dygraph.guard():
+        assert fluid.framework._dygraph_tracer().device.type == "cuda"
+        x = dygraph.to_variable(np.ones((2, 3), np.float32))
+        lin = dygraph.nn.Linear(3, 2)
+        assert x._ivar.is_cuda and lin.weight.is_cuda
+        assert lin(x)._ivar.is_cuda
+        model = T.Transformer.tiny()
+        assert all(p.is_cuda for p in model.parameters())
+    assert dygraph.nn.Linear(3, 2).weight.is_cuda
+
+
+def _traced_tiny(fluid, dygraph, dev, dropout, amp):
+    """Transformer.tiny traced on the card in training mode, with
+    chip_smoke's loss and (AMP) Adam appended; its startup run."""
+    args, labels = smoke.transformer_args(T, 4, 16)
+    args = (args[0] % 512, args[1] % 512) + args[2:]
+    labels = labels % 512
+    with fluid.unique_name.guard(), dygraph.guard(dev):
+        model = T.Transformer.tiny(dropout_rate=dropout, seed=3)
+        _, traced = dygraph.jit.trace(
+            model, [dygraph.to_variable(a) for a in args])
+    with fluid.unique_name.guard():
+        startup, loss = smoke.transformer_static(fluid, traced, 16, amp=amp,
+                                                 vocab=512)
+    traced._materialize_scope()
+    fluid.Executor(dev, cuda_graphs=False).run(startup, scope=traced._scope)
+    return model, traced, loss, args, labels
+
+
+def test_traced_transformer_graphed_equals_eager(cuda_device):
+    """A traced Transformer-tiny's AMP step (dropout 0.1): graphed equals
+    eager to the bit over chip_smoke's CHECK_STEPS steps, losses and
+    every persistable (``chip_smoke.graphed_vs_eager``)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import dygraph
+
+    _, traced, loss, args, labels = _traced_tiny(fluid, dygraph, cuda_device,
+                                                 0.1, True)
+    feed = smoke.transformer_feed(traced, args, labels, cuda_device)
+    smoke.graphed_vs_eager(fluid, cuda_device, traced.program, feed, loss,
+                           traced._scope, "transformer_tiny")
+
+
+def test_eager_dygraph_loss_equals_traced_first_loss(cuda_device):
+    """At p 0, the eager dygraph loss of the model (``loss_fn``) and the
+    traced program's first loss (``mean`` of the same cross-entropy)
+    agree on the card, and the model's parameters are the program's."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import dygraph
+
+    model, traced, loss, args, labels = _traced_tiny(fluid, dygraph,
+                                                     cuda_device, 0.0, False)
+    with dygraph.guard(cuda_device), dygraph.no_grad():
+        want = float(T.loss_fn(model(*[dygraph.to_variable(a) for a in args]),
+                               dygraph.to_variable(labels)).numpy())
+    exe = fluid.Executor(cuda_device)
+    got = smoke.fetch_losses(exe, traced.program, smoke.transformer_feed(
+        traced, args, labels, cuda_device), [loss], traced._scope, 1)[0]
+    exe.close()
+    assert abs(got - want) <= 1e-6 * abs(want), (got, want)
+    for _, p in model.named_parameters():
+        assert traced._scope.find_var(p.name).data_ptr() == p.data_ptr()
