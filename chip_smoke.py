@@ -193,7 +193,35 @@ wrappers') and ``replay_launches`` (the traced replay's).
              Predictor at batch 4096 against a training step's pred
              (DEEPFM_SERVE_ATOL), its request ms. No attention kernel
              runs (counted: 0); the ops lower to torch's own calls.
-13. transformer_train  BASELINE config 5's training as bench.py's
+13. host_embedding  the host embedding tier and dataset feeding, on the
+             card with no CPU fallback: bench.py's bench_embedding shape
+             (vocabulary 65,536, 16x a 4096-row budget, batch 256, 8
+             fields, 8 dense, embedding 16, fc 64x64, Adam, fresh uniform
+             ids every step): 30 graphed steps without prefetch and 30
+             with embedding.prefetch(main, next_feed), steps/s both ways,
+             lookup p50/p99 (embedding_lookup_seconds), prefetch hits and
+             evictions (both > 0), no state copied into a graph; then
+             grow(2 x vocab) and 3 steps with no new capture and no new
+             compile-cache miss. Config 4's widths at batch 4096 with
+             fm_emb on a table of 33,762,577 rows (the Criteo Kaggle
+             set's distinct values, DLRM's count) behind a 262,144-row
+             cache, fm_w1 on the device tier: 5 warm and 20 timed graphed
+             steps with prefetch, steps/s, examples/s, lookup p50/p99,
+             evictions a step, the prefetch hit share, the idle share of
+             a trace of 3 steps, peak device GB, host store GB. Config 4
+             (vocabulary 100,000) at batch 1024 with a 32,768-row cache
+             against the device tier from one state over 10 graphed
+             steps: losses and the flushed host store and moments within
+             HOST_VS_DEVICE_RTOL, evictions, bit-equality printed; the
+             host tier graphed against eager, to the bit. Eight batches
+             of config-4 samples at batch 4096 written as MultiSlot
+             files, one pass of a host-tier program (vocabulary
+             1,000,000, 131,072-row cache) by train_from_dataset against
+             a plain exe.run loop in a fresh scope: the flushed host
+             store, its moments and every device persistable equal to
+             the bit; wall, examples/s, reader_prefetch_stall_seconds
+             p50. No attention kernel runs (counted: 0).
+14. transformer_train  BASELINE config 5's training as bench.py's
              bench_transformer runs it: Transformer.big(32000, 32000)
              under dygraph.guard() (seed 0), one synthetic batch of 32 x
              64 tokens. 3 eager dygraph steps of Adam(1e-4) through
@@ -216,7 +244,7 @@ wrappers') and ``replay_launches`` (the traced replay's).
              float64). No attention kernel runs (counted: 0, by the
              wrappers and by name in the traced steps): the reference's
              training forward has matmul / softmax attention.
-14. stream   the dense continuous stream, GenerativePredictor(...,
+15. stream   the dense continuous stream, GenerativePredictor(...,
              slot_prefill=True).open_stream() at width 8 (bench.py's
              decode-engine legs): 16 requests of ragged prompt lengths
              and budgets joined and stepped, each equal to its solo run
@@ -229,7 +257,7 @@ wrappers') and ``replay_launches`` (the traced replay's).
              the idle share of a traced window of steps; then the same
              requests through GenerativeServer from 4 threads (p50, p99,
              each equal to its solo run).
-15. speculative  build_speculative_session over a dense session at batch
+16. speculative  build_speculative_session over a dense session at batch
              8, k 4, full prompts, 12 and 32 new tokens, draft depth 3
              (the default, L // 2) and 6: tokens equal to the dense
              session's row by row (a row may differ only where the dense
@@ -241,7 +269,7 @@ wrappers') and ``replay_launches`` (the traced replay's).
              state; rounds, accepted mean, target and draft launches,
              tokens/s beside the dense session's, the idle share of a
              traced generate.
-16. summary  the kernels line, the card line, then the result line.
+17. summary  the kernels line, the card line, then the result line.
 """
 
 import collections
@@ -250,6 +278,7 @@ import json
 import math
 import os
 import re
+import resource
 import statistics
 import subprocess
 import sys
@@ -4018,6 +4047,507 @@ def deepfm_path(A, inference, dev):
     return rec
 
 
+# -- host_embedding: the host tier and dataset feeding (bench.py:677) --------
+# bench.py's bench_embedding shape: a vocabulary 16x a 4096-row budget
+HOST_BENCH = dict(vocab=65536, budget=4096, batch=256, fields=8, dense=8,
+                  dim=16, fc=(64, 64), steps=30, grown_steps=3)
+# config 4's widths with the distinct categorical values of the Criteo
+# Kaggle display-advertising set (DLRM's Kaggle setting) as the
+# vocabulary, behind a 262,144-row cache
+HOST_FULL_ROWS = 33762577
+HOST_FULL_BUDGET = 262144
+HOST_FULL_WARM, HOST_FULL_TIMED, HOST_FULL_TRACED = 5, 20, 3
+# host tier against device tier: config 4's own vocabulary
+HOST_VS_DEVICE = dict(batch=1024, budget=32768, steps=10)
+HOST_VS_DEVICE_RTOL = 1e-6
+# train_from_dataset: config-4 samples, a vocabulary 10x the budget
+HOST_DATASET = dict(vocab=1000000, budget=131072, batch=4096, batches=8)
+
+
+def host_cfg(deepfm, vocab, fields=26, dense=13, dim=10,
+             fc=(400, 400, 400)):
+    return deepfm.DeepFMConfig(sparse_feature_dim=vocab, num_fields=fields,
+                               num_dense=dense, embedding_size=dim,
+                               fc_sizes=fc)
+
+
+def host_program(fluid, deepfm, embedding, cfg, budget, seed=1, init=None):
+    """A fresh HostEmbeddingTable "fm_emb" (``init`` loaded when given)
+    and the DeepFM program with fm_emb on it: (table, main, startup,
+    loss)."""
+    embedding.reset_tables()
+    table = embedding.HostEmbeddingTable(
+        "fm_emb", num_rows=cfg.sparse_feature_dim, dim=cfg.embedding_size,
+        resident_budget=budget, seed=seed)
+    if init is not None:
+        table.load(init)
+    with fluid.unique_name.guard():
+        main, startup, loss, _ = deepfm.build_train_program(
+            cfg, residence="host")
+    return table, main, startup, loss
+
+
+def host_series(monitor):
+    """The host tier's and the executor's series this phase reads."""
+    h = monitor.histogram("embedding_lookup_seconds",
+                          labels={"table": "fm_emb"})
+    get = {n: monitor.counter(n, labels={"table": "fm_emb"}).value for n in (
+        "embedding_prefetch_hit_total", "embedding_prefetch_miss_total",
+        "embedding_evictions_total")}
+    get.update({n: monitor.counter(n).value for n in (
+        "executor_graph_capture_total", "executor_compile_cache_miss_total",
+        "executor_graph_state_copy_total", "executor_graph_replay_total")})
+    return h, get
+
+
+@contextlib.contextmanager
+def lookup_times(table):
+    """Each ``table.prepare`` call's host seconds, in a list: the span
+    embedding_lookup_seconds observes, read exactly (the histogram's
+    buckets are a factor of 4 apart) and for this window alone."""
+    samples, prepare = [], table.prepare
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return prepare(*args, **kwargs)
+        finally:
+            samples.append(time.perf_counter() - t0)
+
+    table.prepare = timed
+    try:
+        yield samples
+    finally:
+        del table.prepare
+
+
+def quantiles_ms(samples):
+    return dict(p50_ms=float(np.percentile(samples, 50)) * 1e3,
+                p99_ms=float(np.percentile(samples, 99)) * 1e3,
+                max_ms=max(samples) * 1e3, n=len(samples)) \
+        if samples else "not measured"
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def series_delta(before, after):
+    return {k: after[k] - before[k] for k in before}
+
+
+def host_bench(fluid, deepfm, embedding, monitor, dev):
+    """bench.py's bench_embedding on the card: fresh uniform ids every
+    step, 3 warm steps (eager, capture, replay), 30 steps without
+    prefetch and 30 with ``embedding.prefetch(main, next_feed)`` after
+    each, steps/s both ways, lookup p50/p99; then grow(2 x vocab) and 3
+    more steps (ids inside the first range, as bench.py: fm_w1 shares
+    the feed and stays on the device) with no new capture and no new
+    compile-cache miss."""
+    b = HOST_BENCH
+    cfg = host_cfg(deepfm, b["vocab"], b["fields"], b["dense"], b["dim"],
+                   b["fc"])
+    table, main, startup, loss = host_program(fluid, deepfm, embedding, cfg,
+                                              b["budget"])
+    rng = np.random.RandomState(0)
+
+    def fresh():
+        return {"sparse_ids": rng.randint(0, b["vocab"], (
+                    b["batch"], b["fields"])).astype(np.int64),
+                "dense_x": rng.rand(b["batch"], b["dense"]).astype(
+                    np.float32),
+                "label": rng.randint(0, 2, (b["batch"], 1)).astype(np.int64)}
+
+    exe, scope = fluid.Executor(dev), fluid.Scope()
+    exe.run(startup, scope=scope)
+    losses = []
+
+    def timed(n, prefetch):
+        feeds = [fresh() for _ in range(n + 1)]
+        sync(dev)
+        with lookup_times(table) as lookups:
+            t0 = time.perf_counter()
+            for i in range(n):
+                lv = exe.run(main, feed=feeds[i], fetch_list=[loss],
+                             scope=scope, return_numpy=False)[0]
+                if prefetch:
+                    embedding.prefetch(main, feeds[i + 1])
+            losses.append(float(lv.reshape(-1)[0]))
+            wall = time.perf_counter() - t0
+        return n / wall, quantiles_ms(lookups[1:] if prefetch else lookups)
+
+    # warm: the first run (eager), the capture, then both modes once (the
+    # side stream, the pinned host blocks and the staged rows' first use)
+    timed(3, False)
+    timed(3, True)
+    h, before = host_series(monitor)
+    lookups0 = h.count
+    sps_cold, lookup_cold = timed(b["steps"], False)
+    sps, lookup = timed(b["steps"], True)
+    _, warm = host_series(monitor)
+    table.grow(2 * b["vocab"])
+    for _ in range(b["grown_steps"]):
+        losses += fetch_losses(exe, main, fresh(), [loss], scope, 1)
+    table.close()
+    _, after = host_series(monitor)
+    moved, grown = series_delta(before, warm), series_delta(warm, after)
+    rec = dict(phase="host_embedding", check="bench_shape", **{
+        k: v for k, v in b.items() if k != "fc"}, fc=list(b["fc"]),
+        steps_per_s=sps, steps_per_s_no_prefetch=sps_cold,
+        examples_per_s=sps * b["batch"],
+        examples_per_s_no_prefetch=sps_cold * b["batch"],
+        lookup=lookup, lookup_no_prefetch=lookup_cold,
+        lookup_seconds_histogram=dict(
+            p50_ms=1e3 * (h.quantile(0.5) or 0),
+            p99_ms=1e3 * (h.quantile(0.99) or 0), count=h.count,
+            window_count=h.count - lookups0),
+        prefetch_hits=moved["embedding_prefetch_hit_total"],
+        prefetch_misses=moved["embedding_prefetch_miss_total"],
+        evictions=moved["embedding_evictions_total"],
+        state_copies=moved["executor_graph_state_copy_total"],
+        after_grow=dict(rows=table.num_rows, **grown),
+        first_loss=losses[0], last_loss=losses[-1])
+    emit(**rec)
+    exe.close()
+    if not (rec["prefetch_hits"] > 0 and rec["evictions"] > 0 and
+            not rec["state_copies"] and
+            not grown["executor_graph_capture_total"] and
+            not grown["executor_compile_cache_miss_total"] and
+            grown["executor_graph_replay_total"] == b["grown_steps"] and
+            all(math.isfinite(x) for x in losses)):
+        raise AssertionError("host_embedding: bench shape: %s" % rec)
+    return rec
+
+
+def host_full(fluid, deepfm, embedding, monitor, dev):
+    """Config 4's widths at batch 4096 (106,496 ids a step) with fm_emb
+    on a table of HOST_FULL_ROWS rows behind HOST_FULL_BUDGET: LRU
+    eviction from step 3. HOST_FULL_WARM steps, then HOST_FULL_TIMED
+    graphed steps with prefetch: steps/s, examples/s, lookup p50/p99,
+    evictions a step, the prefetch hit share, the idle share of a trace
+    of HOST_FULL_TRACED steps, peak device GB, host store GB."""
+    cfg = host_cfg(deepfm, HOST_FULL_ROWS)
+    t0 = time.perf_counter()
+    table, main, startup, loss = host_program(fluid, deepfm, embedding, cfg,
+                                              HOST_FULL_BUDGET)
+    build_s = time.perf_counter() - t0
+    # each step prefetches the next step's batch
+    n = HOST_FULL_WARM + HOST_FULL_TIMED + 1 + HOST_FULL_TRACED + 1
+    feeds = [deepfm.synthetic_batch(cfg, DEEPFM_BATCH, seed=100 + i)
+             for i in range(n)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    exe, scope = fluid.Executor(dev), fluid.Scope()
+    exe.run(startup, scope=scope)
+    h, before = host_series(monitor)
+    lookups0 = h.count
+    losses, i = [], 0
+
+    prefetch_s, run_s = [], []
+
+    def step():
+        nonlocal i
+        t = time.perf_counter()
+        lv = exe.run(main, feed=feeds[i], fetch_list=[loss], scope=scope,
+                     return_numpy=False)[0]
+        t1 = time.perf_counter()
+        embedding.prefetch(main, feeds[i + 1])
+        prefetch_s.append(time.perf_counter() - t1)
+        run_s.append(t1 - t)
+        i += 1
+        return lv
+
+    for _ in range(HOST_FULL_WARM):
+        losses.append(float(step().reshape(-1)[0]))
+    _, warm = host_series(monitor)
+    del prefetch_s[:], run_s[:]
+    torch.cuda.synchronize()
+    with lookup_times(table) as lookups:
+        t1 = time.perf_counter()
+        for _ in range(HOST_FULL_TIMED):
+            step()
+        losses.append(float(step().reshape(-1)[0]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    window_run, window_prefetch = list(run_s), list(prefetch_s)
+    timed = HOST_FULL_TIMED + 1
+    _, after = host_series(monitor)
+    moved = series_delta(warm, after)
+    api, kern, _, _ = complete_trace(
+        lambda: [step() for _ in range(HOST_FULL_TRACED)], tries=1)
+    table.close()
+    busy_ms = sum(us for us, _ in kern.values()) / 1e3 / HOST_FULL_TRACED
+    step_ms = 1e3 * wall / timed
+    hits = moved["embedding_prefetch_hit_total"]
+    store_gb = (table._values.nbytes + sum(
+        a.nbytes for a in table._slot_stores.values())) / 1e9
+    rec = dict(phase="host_embedding", check="full_width",
+               rows=HOST_FULL_ROWS, budget=HOST_FULL_BUDGET,
+               batch=DEEPFM_BATCH, ids_per_step=DEEPFM_BATCH * cfg.num_fields,
+               fields=cfg.num_fields, dense=cfg.num_dense,
+               dim=cfg.embedding_size, fc=list(cfg.fc_sizes),
+               build_s=build_s, step_ms=step_ms,
+               steps_per_s=1e3 / step_ms,
+               examples_per_s=1e3 * DEEPFM_BATCH / step_ms,
+               lookup=quantiles_ms(lookups),
+               run_call=quantiles_ms(window_run),
+               prefetch_call=quantiles_ms(window_prefetch),
+               run_ms_all=[s * 1e3 for s in window_run],
+               lookups=h.count - lookups0,
+               evictions_per_step=moved["embedding_evictions_total"] / timed,
+               prefetch_hit_share=hits / max(1, hits + moved[
+                   "embedding_prefetch_miss_total"]),
+               replays=moved["executor_graph_replay_total"],
+               state_copies=moved["executor_graph_state_copy_total"],
+               device_busy_ms=busy_ms if kern else "not measured",
+               idle_share=1.0 - busy_ms / step_ms if kern
+               else "not measured",
+               host_launch_calls_per_step={
+                   k: v / HOST_FULL_TRACED for k, v in api.items()},
+               top_kernels=[dict(name=k[:100], ms=us / 1e3 /
+                                 HOST_FULL_TRACED, calls=c)
+                            for k, (us, c) in sorted(
+                                kern.items(), key=lambda kv: -kv[1][0])[
+                                    :TOP_KERNELS]],
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+               / 1e9, host_store_gb=store_gb,
+               process_peak_rss_gb=resource.getrusage(
+                   resource.RUSAGE_SELF).ru_maxrss / 1e6,
+               evictions_total=after["embedding_evictions_total"] -
+               before["embedding_evictions_total"],
+               first_loss=losses[0], last_loss=losses[-1])
+    emit(**rec)
+    exe.close()
+    del scope, table
+    embedding.reset_tables()
+    if not (rec["replays"] == timed and not rec["state_copies"] and
+            rec["evictions_per_step"] > 0 and hits > 0 and
+            all(math.isfinite(x) for x in losses)):
+        raise AssertionError("host_embedding: full width: %s" % rec)
+    return rec
+
+
+def host_run(fluid, dev, main, loss, scope, feeds, graphs):
+    exe = fluid.Executor(dev, cuda_graphs=graphs)
+    losses = [float(np.asarray(exe.run(main, feed=f, fetch_list=[loss],
+                                       scope=scope)[0]).reshape(-1)[0])
+              for f in feeds]
+    exe.close()
+    return losses
+
+
+def host_vs_device(fluid, deepfm, embedding, monitor, dev):
+    """Config 4 (vocabulary 100,000) at batch 1024 with fm_emb on a
+    32,768-row cache against the device tier, from one state (the host
+    store loaded with the device tier's initial fm_emb), over
+    HOST_VS_DEVICE steps, graphed: losses within HOST_VS_DEVICE_RTOL
+    relative, and after flush() the host store and its moments against
+    the device table and moments within HOST_VS_DEVICE_RTOL of their
+    largest magnitude, with evictions; whether each is equal to the bit
+    is printed. The host tier graphed against eager, to the bit."""
+    v = HOST_VS_DEVICE
+    cfg = deepfm.DeepFMConfig()
+    feeds = [deepfm.synthetic_batch(cfg, v["batch"], seed=200 + i)
+             for i in range(v["steps"])]
+    embedding.reset_tables()
+    main, startup, loss, _ = deepfm_program(fluid, deepfm)
+    dev_scope = fluid.Scope()
+    fluid.Executor(dev, cuda_graphs=False).run(startup, scope=dev_scope)
+    start = clone_scope(fluid, dev_scope)
+    init = start.find_var("fm_emb").cpu().numpy()
+    dev_losses = host_run(fluid, dev, main, loss, dev_scope, feeds, True)
+    runs = {}
+    for mode, graphs in (("graphed", True), ("eager", False)):
+        table, hmain, hstart, hloss = host_program(
+            fluid, deepfm, embedding, cfg, v["budget"], init=init)
+        sc = fluid.Scope()
+        fluid.Executor(dev, cuda_graphs=False).run(hstart, scope=sc)
+        # the shared state, and the cache's beta powers from fm_emb's (the
+        # cache and its moments are admitted from the host store)
+        for n in sc.local_var_names():
+            src = start.find_var(n.replace("fm_emb@CACHE", "fm_emb"))
+            if src is not None and src.shape == sc.find_var(n).shape:
+                sc.set_var(n, src.clone())
+        _, before = host_series(monitor)
+        losses = host_run(fluid, dev, hmain, hloss, sc, feeds, graphs)
+        _, after = host_series(monitor)
+        state = {"fm_emb": table.snapshot(),
+                 "fm_emb_moment1_0": table.slot_snapshot("adam:Moment1"),
+                 "fm_emb_moment2_0": table.slot_snapshot("adam:Moment2")}
+        state.update({n: sc.find_var(n).cpu().numpy()
+                      for n in sc.local_var_names()
+                      if not n.startswith("fm_emb@CACHE")})
+        runs[mode] = (losses, state, series_delta(before, after))
+        embedding.reset_tables()
+    hl, hs, moved = runs["graphed"]
+    el, es, _ = runs["eager"]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(hl, dev_losses))
+    gaps, equal = {}, {}
+    for n, a in hs.items():
+        want = dev_scope.find_var(n).cpu().numpy()
+        gaps[n] = float(np.abs(a - want).max() / np.abs(want).max()) \
+            if np.abs(want).max() else float(np.abs(a).max())
+        equal[n] = bool(np.array_equal(a, want))
+    eager_unequal = sorted(n for n in hs if not np.array_equal(hs[n], es[n]))
+    rec = dict(phase="host_embedding", check="host_vs_device",
+               vocab=cfg.sparse_feature_dim, **v,
+               losses_host=hl, losses_device=dev_losses,
+               loss_max_rel_gap=loss_gap,
+               losses_equal_to_the_bit=hl == dev_losses,
+               table_gaps={n: gaps[n] for n in (
+                   "fm_emb", "fm_emb_moment1_0", "fm_emb_moment2_0")},
+               state_max_rel_gap=max(gaps.values()),
+               state_unequal=sorted(n for n, e in equal.items() if not e),
+               evictions=moved["embedding_evictions_total"],
+               host_graphed_vs_eager=dict(
+                   losses_equal=hl == el, unequal=eager_unequal),
+               rtol=HOST_VS_DEVICE_RTOL)
+    emit(**rec)
+    if not (loss_gap <= HOST_VS_DEVICE_RTOL and
+            rec["state_max_rel_gap"] <= HOST_VS_DEVICE_RTOL and
+            rec["evictions"] > 0 and hl == el and not eager_unequal):
+        raise AssertionError("host_embedding: host vs device: %s" % rec)
+    return rec
+
+
+def write_multislot(path, deepfm, cfg, batches, batch, seed):
+    """MultiSlot lines of config-4 samples: the fields as one slot of
+    num_fields ids, the dense features, the label; ``batches`` seeded
+    batches of ``batch`` (``deepfm.synthetic_batch``)."""
+    with open(path, "w") as fh:
+        for b in range(batches):
+            f = deepfm.synthetic_batch(cfg, batch, seed=seed + b)
+            ids = f["sparse_ids"].astype(str)
+            dense = np.char.mod("%.6f", f["dense_x"])
+            label = f["label"][:, 0].astype(str)
+            head, mid = str(cfg.num_fields), str(cfg.num_dense)
+            fh.write("\n".join(
+                "%s %s %s %s 1 %s" % (head, " ".join(ids[i]), mid,
+                                      " ".join(dense[i]), label[i])
+                for i in range(batch)) + "\n")
+
+
+def host_dataset(fluid, deepfm, embedding, monitor, dev):
+    """HOST_DATASET["batches"] batches of config-4 samples written as
+    MultiSlot files, loaded into an InMemoryDataset, one pass of the
+    host-tier program by Executor.train_from_dataset; the same pass in a
+    fresh scope by a plain exe.run loop over the same batches in order.
+    The flushed host store and its moments, and every device persistable,
+    equal to the bit; the pass's wall, examples/s and
+    reader_prefetch_stall_seconds p50."""
+    import tempfile
+
+    d = HOST_DATASET
+    cfg = host_cfg(deepfm, d["vocab"])
+    stall = monitor.histogram("reader_prefetch_stall_seconds")
+    with tempfile.TemporaryDirectory() as tmp:
+        files = []
+        for k in range(2):
+            files.append(os.path.join(tmp, "part-%d" % k))
+            write_multislot(files[-1], deepfm, cfg, d["batches"] // 2,
+                            d["batch"],
+                            seed=300 + k * d["batches"])
+        t0 = time.perf_counter()
+        out = {}
+        for mode in ("train_from_dataset", "run_loop"):
+            table, main, startup, loss = host_program(
+                fluid, deepfm, embedding, cfg, d["budget"])
+            block = main.global_block()
+            if mode == "train_from_dataset":
+                ds = fluid.DatasetFactory().create_dataset("InMemoryDataset")
+                ds.set_batch_size(d["batch"])
+                ds.set_use_var([block.var(n) for n in (
+                    "sparse_ids", "dense_x", "label")])
+                ds.set_filelist(files)
+                ds.load_into_memory()
+                load_s = time.perf_counter() - t0
+            exe, scope = fluid.Executor(dev), fluid.Scope()
+            fluid.Executor(dev, cuda_graphs=False).run(startup, scope=scope)
+            if mode == "train_from_dataset":
+                start = clone_scope(fluid, scope)
+            else:
+                for n in start.local_var_names():
+                    scope.set_var(n, start.find_var(n).clone())
+            _, before = host_series(monitor)
+            stalls0 = stall.count
+            sync(dev)
+            t1 = time.perf_counter()
+            if mode == "train_from_dataset":
+                n_batches = exe.train_from_dataset(main, ds, scope=scope,
+                                                   fetch_list=[loss])
+            else:
+                n_batches = 0
+                for feed in ds.batch_reader()():
+                    exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                            return_numpy=False)
+                    n_batches += 1
+            sync(dev)
+            wall = time.perf_counter() - t1
+            _, after = host_series(monitor)
+            state = {"host:values": table.snapshot()}
+            state.update({"host:" + k: table.slot_snapshot(k) for k in (
+                "adam:Moment1", "adam:Moment2")})
+            state.update({n: scope.find_var(n).cpu().numpy()
+                          for n in scope.local_var_names()})
+            out[mode] = dict(state=state, wall_s=wall, batches=n_batches,
+                             examples_per_s=n_batches * d["batch"] / wall,
+                             stalls=stall.count - stalls0,
+                             **series_delta(before, after))
+            exe.close()
+            embedding.reset_tables()
+    tfd, loop = out["train_from_dataset"], out["run_loop"]
+    unequal = sorted(n for n in tfd["state"]
+                     if not np.array_equal(tfd["state"][n],
+                                           loop["state"][n]))
+    rec = dict(phase="host_embedding", check="train_from_dataset", **d,
+               samples=ds.get_memory_data_size(), load_s=load_s,
+               **{m: {k: v for k, v in r.items() if k != "state"}
+                  for m, r in out.items()},
+               reader_prefetch_stall_p50_ms=1e3 * (stall.quantile(0.5) or 0),
+               states=len(tfd["state"]), unequal=unequal)
+    emit(**rec)
+    if unequal or tfd["batches"] != d["batches"] or \
+            loop["batches"] != d["batches"] or \
+            not tfd["embedding_evictions_total"]:
+        raise AssertionError("host_embedding: train_from_dataset: %s" % rec)
+    return rec
+
+
+def host_embedding_path(A, dev):
+    """The host embedding tier and dataset feeding on the card, with no
+    CPU fallback: bench.py's embedding bench (``host_bench``), config 4's
+    widths behind a device row cache at the Criteo Kaggle vocabulary
+    (``host_full``), host tier against device tier (``host_vs_device``)
+    and ``train_from_dataset`` against a plain loop
+    (``host_dataset``). None of the 14 attention kernels runs: the host
+    tier's lookup is a gather and its admissions and evictions row
+    copies, which the reference computes with ``jnp.take`` and
+    ``.at[].set`` outside any Pallas kernel."""
+    from paddle_tpu_torch import embedding
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import monitor
+    from paddle_tpu_torch.models import deepfm
+
+    reset_launches(A)
+    t0 = time.perf_counter()
+    host_bench(fluid, deepfm, embedding, monitor, dev)
+    torch.cuda.empty_cache()
+    host_full(fluid, deepfm, embedding, monitor, dev)
+    torch.cuda.empty_cache()
+    host_vs_device(fluid, deepfm, embedding, monitor, dev)
+    torch.cuda.empty_cache()
+    host_dataset(fluid, deepfm, embedding, monitor, dev)
+    torch.cuda.empty_cache()
+    attention = launches(A, ["decode_attention_kernel",
+                             "paged_attention_kernel", *FUSED_KERNELS])
+    emit(phase="host_embedding", check="attention_launches",
+         launches=attention, phase_s=time.perf_counter() - t0)
+    if any(attention.values()):
+        raise AssertionError("host_embedding: an attention kernel ran: %s"
+                             % attention)
+
+
 # -- transformer_train: BASELINE config 5's training (bench.py:797) ---------
 TFM_VOCAB = 32000
 TFM_BATCH, TFM_SEQ = 32, 64        # bench.py's bench_transformer
@@ -4382,6 +4912,8 @@ def main():
     resnet_path(inference, dev)
     torch.cuda.empty_cache()
     deepfm_path(A, inference, dev)
+    torch.cuda.empty_cache()
+    host_embedding_path(A, dev)
     torch.cuda.empty_cache()
     transformer_train_path(A, dev)
     torch.cuda.empty_cache()

@@ -9,12 +9,17 @@ models. ``set_flags`` / ``get_flags`` hold the anomaly
 policy, ``profiler`` times runs, run hooks observe them; the serving
 slices also use ``monitor`` and ``resilience``. ``dygraph`` is eager
 mode: ``dygraph.guard()``, layers, the eager optimizers, and
-``dygraph.jit.trace`` to a Program.
+``dygraph.jit.trace`` to a Program. Input: ``DatasetFactory`` datasets
+over MultiSlot files (``Executor.train_from_dataset``), ``DataLoader``
+and ``DataFeeder``.
 """
 
 from . import (contrib, dygraph, framework, initializer, io,  # noqa: F401
                layers, ops, optimizer, profiler, regularizer, unique_name)
 from .backward import append_backward  # noqa: F401
+from .data_feeder import DataFeeder  # noqa: F401
+from .dataset import (DatasetFactory, FileInstantDataset,  # noqa: F401
+                      InMemoryDataset, QueueDataset)
 from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
                        ExecutionStrategy)
 from .executor import (Executor, FetchHandle, Scope, copy_scope,  # noqa: F401
@@ -26,3 +31,4 @@ from .framework import (CPUPlace, CUDAPlace, Parameter,  # noqa: F401
                         default_startup_program, in_dygraph_mode,
                         program_guard)
 from .param_attr import ParamAttr  # noqa: F401
+from .reader import DataLoader  # noqa: F401

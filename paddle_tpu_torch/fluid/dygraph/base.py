@@ -31,7 +31,7 @@ import itertools
 import numpy as np
 import torch
 
-from ... import resolve_device
+from ... import fp32_products, resolve_device
 from .. import framework
 from ..registry import LowerCtx, lower_op, to_numpy_dtype
 
@@ -342,9 +342,10 @@ def enabled():
 @contextlib.contextmanager
 def guard(place=None):
     """Eager mode on ``place``: the card unless the caller passes the
-    CPU (``"cpu"`` or ``fluid.CPUPlace()``)."""
+    CPU (``"cpu"`` or ``fluid.CPUPlace()``); fp32 products without TF32
+    inside (``fp32_products``)."""
     tracer = Tracer(device_of("cuda" if place is None else place))
-    with framework._dygraph_guard(tracer):
+    with framework._dygraph_guard(tracer), fp32_products():
         yield
 
 

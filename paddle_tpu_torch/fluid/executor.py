@@ -67,11 +67,25 @@ Also ported: ``iters=k`` (k steps in one call, stacked ``[k, ...]`` or
 loop-invariant feeds, each fetch a ``[k, ...]`` trajectory),
 ``fetch_mode="async"`` (``FetchHandle``), run hooks, the executor's
 monitor series, ``FLAGS_check_nan_inf`` and the ``raise`` / ``skip_step``
-anomaly policies, the profiler's ``executor_run[...]`` records and
-``CompiledProgram`` on one device (``compiler.py``). Not ported yet
-(ROADMAP queue 5): the ``rollback`` policy and ``checkpoint=`` (no
-``CheckpointManager``), ``prefetch=True`` (no py_reader or DataLoader
-staging), ``train_from_dataset`` and ``as_function``.
+anomaly policies, the profiler's ``executor_run[...]`` records,
+``CompiledProgram`` on one device (``compiler.py``), the host embedding
+tier's hooks and ``train_from_dataset`` / ``infer_from_dataset``.
+
+The host embedding tier (``embedding/host.py``): a run whose block holds
+``host_embedding_init`` (a startup program) resets that table's
+residency on the host first; before the feeds are normalised, each
+host-tier binding maps its raw-ids feed to ``<table>@SLOTS``, admitting
+and evicting rows in place in the scope's cache tensors (an ``iters=k``
+window as one transaction over its k batches). The slots are a feed
+like any other, so ids, residency and ``grow()`` never change a step's
+key: no new capture, no new cache miss.
+
+Every run turns TF32 off for its fp32 products while it runs
+(``fp32_products``), and leaves the process's flags as they were.
+
+Not ported yet (ROADMAP queue 1 item 5, the rest): the ``rollback``
+policy and ``checkpoint=`` (no ``CheckpointManager``), ``prefetch=True``
+(no py_reader) and ``as_function``.
 """
 
 import contextlib
@@ -84,7 +98,7 @@ import weakref
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import fp32_products, resolve_device
 from . import flags as _flags
 from . import framework
 from . import monitor as _monitor
@@ -95,11 +109,6 @@ from .registry import LowerCtx, lower_op, to_torch_dtype
 __all__ = ["Scope", "global_scope", "scope_guard", "Executor", "copy_scope",
            "FetchHandle", "GraphCaptureError", "register_run_hook",
            "unregister_run_hook"]
-
-# Programs are held to the reference in fp32, so fp32 products must not
-# drop to TF32 on the card (AMP programs cast to bf16 explicitly).
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
 
 # -- monitor series (the reference's names; process-wide) --------------------
 _M_RUN_SECONDS = _monitor.histogram(
@@ -148,6 +157,13 @@ _M_ANOMALY_ROLLBACKS = _monitor.counter(
 _M_REPLAYS = _monitor.counter(
     "executor_graph_replay_total",
     help="steps run as one replay of a captured CUDA graph")
+_M_CAPTURES = _monitor.counter(
+    "executor_graph_capture_total",
+    help="steps captured into a CUDA graph")
+_M_STATE_COPIES = _monitor.counter(
+    "executor_graph_state_copy_total",
+    help="scope vars replaced between runs, copied into a graph's "
+         "captured storage before its replay")
 
 
 def _m_eager_by_rule(rule):
@@ -507,8 +523,18 @@ class Executor:
         between numpy and device tensors (copies, never the graph's
         static outputs).
 
+        A program with host-tier embedding lookups takes the raw ids as
+        its feed; the run maps them to cache slots first (module
+        docstring).
+
         Not ported (ROADMAP queue 5): ``prefetch=True`` and
         ``checkpoint=`` raise ``NotImplementedError``."""
+        with fp32_products():
+            return self._run(program, feed, fetch_list, scope, return_numpy,
+                             iters, fetch_mode, prefetch, checkpoint)
+
+    def _run(self, program, feed, fetch_list, scope, return_numpy, iters,
+             fetch_mode, prefetch, checkpoint):
         t_run0 = time.perf_counter()
         if fetch_mode not in (None, "sync", "async"):
             raise ValueError("fetch_mode must be None, 'sync' or 'async', "
@@ -545,8 +571,9 @@ class Executor:
         block = program.global_block()
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
-        feed = {n: self._host_feed(block, n, v)
-                for n, v in (feed or {}).items()}
+        feed = dict(feed or {})
+        _host_tier(program, block, feed, scope, iters)
+        feed = {n: self._host_feed(block, n, v) for n, v in feed.items()}
         if iters > 1:
             stacked, invariant = _split_batched_feed(feed, block, iters)
         state_names = sorted(v.name for v in program.list_vars()
@@ -754,6 +781,7 @@ class Executor:
                 "capturing program %d's step into a CUDA graph failed: %s"
                 % (plan.block.program._uid, failed)) from failed
         step.graph, step.fetches = graph, fetches
+        _M_CAPTURES.inc()
 
     @staticmethod
     def _write_back(stored, value):
@@ -775,6 +803,7 @@ class Executor:
             if cur is not t:
                 t.copy_(cur)
                 scope.set_var(n, t)
+                _M_STATE_COPIES.inc()
         step.graph.replay()
         _M_REPLAYS.inc()
 
@@ -807,6 +836,63 @@ class Executor:
             for traj, f in zip(trajs, fetches):
                 traj[i].copy_(f)
         return trajs, False, {}
+
+    # -- datasets ------------------------------------------------------------------
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        """One pass over ``dataset``; returns the number of batches. Each
+        batch runs through ``run(..., return_numpy=False)``, so step i is
+        queued without waiting, while a ``reader.DeviceStager`` of
+        capacity 2 parses batch i+1 and copies it to the place on its
+        own stream (``reader.stage_feed``; the consumer's stream waits on
+        the copy before the step reads it). The raw-ids feeds a host-tier
+        embedding binding reads stay on the host: the table maps them to
+        cache slots there, with no copy back from the card. ``debug``
+        prints the first values of ``fetch_list`` every
+        ``print_period`` batches."""
+        if dataset is None:
+            raise ValueError("dataset is required")
+        if thread:
+            dataset.set_thread(thread)
+        fetch_list = list(fetch_list or [])
+        fetch_info = list(fetch_info or
+                          [getattr(v, "name", str(v)) for v in fetch_list])
+        from .. import embedding
+        from . import compiler
+        from .reader import DeviceStager, stage_feed
+
+        prog = program._program if isinstance(
+            program, compiler.CompiledProgram) else program
+        keep = embedding.host_ids_feeds(
+            prog or framework.default_main_program())
+        stager = DeviceStager(
+            dataset.batch_reader()(),
+            transform=lambda feed: stage_feed(feed, self.place,
+                                              keep_on_host=keep),
+            capacity=2, name="dataset")
+        n_batches = 0
+        try:
+            for staged in stager:
+                res = self.run(program, feed=staged, fetch_list=fetch_list,
+                               scope=scope, return_numpy=False)
+                n_batches += 1
+                if debug and fetch_list and n_batches % print_period == 0:
+                    print("batch %d: %s" % (n_batches, ", ".join(
+                        "%s=%s" % (info, _fetch_numpy(val).ravel()[:4])
+                        for info, val in zip(fetch_info, res))))
+        finally:
+            stager.close()
+        return n_batches
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        """``train_from_dataset``'s drive over an inference program (the
+        program decides what a step does, not the call)."""
+        return self.train_from_dataset(program, dataset, scope, thread,
+                                       debug, fetch_list, fetch_info,
+                                       print_period)
 
     # -- anomaly policy -------------------------------------------------------------
     @staticmethod
@@ -868,6 +954,23 @@ class Executor:
         self._pool = None
         if had_graphs:
             torch.cuda.empty_cache()
+
+
+def _host_tier(program, block, feed, scope, iters):
+    """The host embedding tier's hooks, before the feeds are normalised:
+    a ``host_embedding_init`` op (a startup program's) resets its
+    table's residency now, on the host; each host-tier binding adds its
+    ``<table>@SLOTS`` feed, admitting and evicting rows (one transaction
+    for an ``iters=k`` window)."""
+    inits = [op.attr("table_name") for op in block.ops
+             if op.type == "host_embedding_init"]
+    if not (inits or getattr(program, "_embedding_bindings", None)):
+        return
+    from .. import embedding
+
+    for name in inits:
+        embedding.get_host_table(name).reset_residency()
+    embedding.prepare_feed(program, feed, scope, iters=iters)
 
 
 def _last_readers(ops, keep):

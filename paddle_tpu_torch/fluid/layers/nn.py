@@ -73,26 +73,40 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
               table_lr=0.01, table_optimizer="sgd", residence=None):
     """Embedding lookup. ``is_sparse=True`` routes onto the sparse
     embedding engine's device tier: the ``embedding_lookup`` op (with
-    the reference's ``dedup`` attr), whose gradient is a SelectedRows pair that the optimizer applies
-    as a fused row-sparse update. ``residence`` picks the tier (None or
-    "device"; "host", the host tier, is not ported yet, and neither is
-    ``is_distributed=True``, the parameter-server tier, which
-    ``table_lr`` and ``table_optimizer`` configure)."""
+    the reference's ``dedup`` attr), whose gradient is a SelectedRows
+    pair that the optimizer applies as a fused row-sparse update.
+    ``residence`` picks the tier ("device" or "host"); by default a
+    lookup whose param name has a registered ``HostEmbeddingTable`` goes
+    to the host tier (the table in host memory behind a fixed device
+    row cache). ``is_distributed=True``, the parameter-server tier, which
+    ``table_lr`` and ``table_optimizer`` configure, is not ported yet."""
     helper = LayerHelper("embedding", **locals())
     if is_distributed:
         raise NotImplementedError(
             "embedding(is_distributed=True): the parameter-server tier is "
             "not ported yet (ROADMAP queue 8)")
+    pname = (param_attr.name if param_attr is not None
+             and getattr(param_attr, "name", None) else None)
     if residence not in (None, "device", "host"):
         raise ValueError(
             "embedding residence must be None, 'device' or 'host', got %r"
             % (residence,))
-    if residence == "host":
-        from ...embedding import HOST_TIER_ITEM
+    if residence is None and pname is not None:
+        from ... import embedding as _embedding
 
-        raise NotImplementedError(
-            "embedding(residence='host'): the host embedding tier is not "
-            "ported yet (%s)" % HOST_TIER_ITEM)
+        if _embedding.has_host_table(pname):
+            residence = "host"
+    if residence == "host":
+        if pname is None:
+            raise ValueError(
+                "residence='host' needs param_attr with a name matching a "
+                "registered HostEmbeddingTable")
+        from ... import embedding as _embedding
+        from ...embedding.host import append_host_lookup
+
+        return append_host_lookup(helper, input, size,
+                                  _embedding.get_host_table(pname),
+                                  padding_idx, dtype)
     w = helper.create_parameter(param_attr, size, dtype)
     out = helper.create_variable_for_type_inference(dtype)
     padding_idx = -1 if padding_idx is None else padding_idx

@@ -4,7 +4,8 @@ program). The fields are a dense [B, F] id matrix, so one lookup a table
 feeds every field; with ``is_sparse=True`` both tables go through the
 sparse embedding engine's device tier (``embedding_lookup``), their
 gradients are SelectedRows pairs and Adam updates only the rows a batch
-touches.
+touches. With ``residence="host"`` the second-order table lives in host
+memory behind a device row cache (``embedding/host.py``).
 """
 
 import operator
@@ -45,8 +46,9 @@ def deepfm_forward(sparse_ids, dense_x, label, cfg, is_sparse=True,
                    residence=None):
     """sparse_ids: [B, F] int64; dense_x: [B, D] float32; label: [B, 1].
     Returns (pred, loss). ``residence`` goes to ``layers.embedding`` for
-    the second-order table ``fm_emb`` ("host", the host tier, raises:
-    not ported yet)."""
+    the second-order table ``fm_emb`` (the big one): ``"host"`` puts it
+    on a registered ``HostEmbeddingTable``; the first-order table stays
+    on the device tier."""
     # ---- first order: per-field scalar weights
     w1 = layers.embedding(sparse_ids, size=[cfg.sparse_feature_dim, 1],
                           is_sparse=is_sparse,

@@ -26,7 +26,9 @@ reference model's weights across unchanged; under one
 ``unique_name.guard()`` the parameters' names match too. KV caches and
 pools are updated in place (see ``kernels/attention.py``); tokens and
 lengths cross the decode-step boundary as int32 device tensors, and the
-public results are int64 numpy arrays, as in the reference.
+public results are int64 numpy arrays, as in the reference. The
+model's entry points run their fp32 products without TF32
+(``fp32_products``), as the executor and the dygraph guard do.
 """
 
 import collections
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import fp32_products
 from ..fluid import monitor
 from ..fluid.dygraph.base import VarBase, _tracer, device_of
 from ..fluid.dygraph.layers import Layer
@@ -47,11 +50,6 @@ from ..fluid.resilience import Overloaded
 from ..kernels.attention import (attention_with_cache, decode_row_width,
                                  kv_cache_update, paged_attention_cache,
                                  paged_kv_cache_update)
-
-# The port is held to the reference in fp32 (tests compare logits and
-# greedy tokens), so fp32 products must not drop to TF32 on the card.
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
 
 
 def _op(type, inputs, outs, attrs=None):
@@ -346,6 +344,7 @@ class Transformer(Layer):
             enc = l(enc, src_bias)
         return enc
 
+    @fp32_products()
     def forward(self, src_ids, tgt_ids, pos_src, pos_tgt, causal_bias,
                 src_bias=None):
         """Teacher-forced logits [B, S_tgt, V]. src_bias: optional
@@ -359,6 +358,7 @@ class Transformer(Layer):
         return self.proj(dec)
 
     # -- incremental decode (prefill + per-token step) -----------------------
+    @fp32_products()
     def prefill(self, src_ids, tgt_ids, pos_src, pos_tgt, causal_bias,
                 cache_len, *rest):
         """Run the encoder and the prompt through the decoder stack once,
@@ -392,6 +392,7 @@ class Transformer(Layer):
         return self._embed(tok.reshape(B, 1, 1), self.tgt_emb,
                            cache_len.reshape(B, 1, 1))
 
+    @fp32_products()
     def decode_step(self, tok, finished, end_ids, cache_len, *rest,
                     longest=None):
         """ONE greedy decode step (q_len=1) against the KV ring caches.
@@ -423,6 +424,7 @@ class Transformer(Layer):
         nxt = torch.where(finished, end_ids, nxt)
         return nxt, finished | (nxt == end_ids)
 
+    @fp32_products()
     def decode_step_paged(self, tok, finished, end_ids, cache_len,
                           page_table, *rest, longest=None):
         """decode_step with the self-attention KV state in SHARED page
@@ -447,6 +449,7 @@ class Transformer(Layer):
         nxt, fin = self._next_token(self.proj(x), finished, end_ids)
         return tuple([nxt, new_len, fin] + new_k + new_v)
 
+    @fp32_products()
     def decode_step_draft(self, tok, finished, end_ids, cache_len, *rest,
                           longest=None):
         """decode_step through only the first len(rest)//4 decoder layers:
@@ -469,6 +472,7 @@ class Transformer(Layer):
         nxt, fin = self._next_token(self.proj(x), finished, end_ids)
         return tuple([nxt, new_len, fin] + new_k + new_v)
 
+    @fp32_products()
     def verify_step(self, toks, step_ids, cache_len, *rest, longest=None):
         """Speculative verify: consume k proposed tokens ``toks`` [B, k]
         int32 in one pass. They are embedded at positions cache_len +

@@ -3,7 +3,9 @@ PyTorch version, and the decode sessions and a BERT-tiny training step
 on the card against the same on the CPU; DeepFM's sparse step graphed
 against eager, its untouched rows and an out-of-range id; dygraph on the
 card by default, and a traced Transformer-tiny's AMP step graphed against
-eager and its first loss against the eager dygraph loss. Every test needs a CUDA device
+eager and its first loss against the eager dygraph loss; the host
+embedding tier's in-place admission, its prefetched rows waited on, and a
+stager-fed loop against an unstaged one. Every test needs a CUDA device
 and skips without one. This file imports neither jax nor paddle_tpu, so it also runs on a
 machine without them, skipping the suite's conftest (which imports jax):
 
@@ -1818,3 +1820,111 @@ def test_eager_dygraph_loss_equals_traced_first_loss(cuda_device):
     assert abs(got - want) <= 1e-6 * abs(want), (got, want)
     for _, p in model.named_parameters():
         assert traced._scope.find_var(p.name).data_ptr() == p.data_ptr()
+
+
+# -- the host embedding tier and dataset feeding on the card ------------------
+
+def _host_start(device, budget=4096, batch=256):
+    """bench.py's embedding bench shape (chip_smoke.HOST_BENCH) with
+    fm_emb on a fresh HostEmbeddingTable: (table, main, loss, scope after
+    startup, seeded feeds)."""
+    from paddle_tpu_torch import embedding, fluid
+    from paddle_tpu_torch.models import deepfm
+
+    b = smoke.HOST_BENCH
+    cfg = smoke.host_cfg(deepfm, b["vocab"], b["fields"], b["dense"],
+                         b["dim"], b["fc"])
+    table, main, startup, loss = smoke.host_program(fluid, deepfm, embedding,
+                                                    cfg, budget)
+    scope = fluid.Scope()
+    fluid.Executor(device).run(startup, scope=scope)
+    feeds = [deepfm.synthetic_batch(cfg, batch, seed=i) for i in range(21)]
+    return table, main, loss, scope, feeds
+
+
+def test_host_admission_writes_in_place(cuda_device):
+    """20 graphed steps with evictions: the cache and its moments keep
+    their storage (admission is index_copy_ into the scope's tensors), so
+    no replay copies state into the graph's captured storage."""
+    from paddle_tpu_torch import embedding, fluid
+    from paddle_tpu_torch.fluid import monitor
+
+    table, main, loss, scope, feeds = _host_start(cuda_device)
+    exe = fluid.Executor(cuda_device)
+    names = ["fm_emb@CACHE", "fm_emb@CACHE_moment1_0",
+             "fm_emb@CACHE_moment2_0"]
+    copies = monitor.counter("executor_graph_state_copy_total")
+    evictions = monitor.counter("embedding_evictions_total",
+                                labels={"table": "fm_emb"})
+    exe.run(main, feed=feeds[0], fetch_list=[loss], scope=scope)
+    ptrs = [scope.find_var(n).data_ptr() for n in names]
+    c0, e0 = copies.value, evictions.value
+    for f in feeds[1:]:
+        exe.run(main, feed=f, fetch_list=[loss], scope=scope)
+        embedding.prefetch(main, f)
+    table.close()
+    assert [scope.find_var(n).data_ptr() for n in names] == ptrs
+    assert copies.value == c0 and evictions.value > e0
+    embedding.reset_tables()
+
+
+def _host_losses(device, plant=None, monkeypatch=None):
+    from paddle_tpu_torch import embedding, fluid
+
+    table, main, loss, scope, feeds = _host_start(device)
+    if plant is not None:
+        monkeypatch.setattr(type(table), "_copy_rows", staticmethod(plant))
+    exe = fluid.Executor(device)
+    out = []
+    for i, f in enumerate(feeds):
+        out.append(exe.run(main, feed=f, fetch_list=[loss], scope=scope)[0])
+        if i + 1 < len(feeds):
+            embedding.prefetch(main, feeds[i + 1])
+    out.append(table.snapshot())
+    embedding.reset_tables()
+    return out
+
+
+def test_host_prefetched_rows_are_waited_on(cuda_device, monkeypatch):
+    """A slow copy planted on the prefetch's side stream (a sleep before
+    the rows' copies): prepare makes the current stream wait on the
+    stage's event, so the losses and the flushed host store equal an
+    unplanted run's to the bit."""
+    from paddle_tpu_torch.embedding import host
+
+    copy = host.HostEmbeddingTable._copy_rows
+
+    def slow(sources, device):
+        torch.cuda._sleep(50 * smoke.HOLD_CYCLES)   # on the side stream
+        return copy(sources, device)
+
+    want = _host_losses(cuda_device)
+    got = _host_losses(cuda_device, plant=slow, monkeypatch=monkeypatch)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_host_stager_fed_loop_equals_unstaged(cuda_device, monkeypatch):
+    """train_from_dataset (a DeviceStager copying each batch on its own
+    stream, a slow copy planted before each) against a plain exe.run loop
+    over the same batches: the flushed host store, its moments and every
+    device persistable equal to the bit."""
+    from paddle_tpu_torch import embedding, fluid
+    from paddle_tpu_torch.fluid import reader
+    from paddle_tpu_torch.models import deepfm
+
+    stage = reader.stage_feed
+
+    def slow(feed, place="cuda", **kw):
+        with torch.cuda.stream(reader._stage_stream(torch.device(place))):
+            torch.cuda._sleep(20 * smoke.HOLD_CYCLES)
+        return stage(feed, place, **kw)
+
+    monkeypatch.setattr(reader, "stage_feed", slow)
+    # 26 fields at batch 256: about 6300 distinct ids a batch
+    d = dict(vocab=65536, budget=16384, batch=256, batches=6)
+    monkeypatch.setattr(smoke, "HOST_DATASET", d)
+    rec = smoke.host_dataset(fluid, deepfm, embedding,
+                             fluid.monitor, cuda_device)
+    assert not rec["unequal"] and rec["states"] > 20
+    assert rec["train_from_dataset"]["batches"] == d["batches"]

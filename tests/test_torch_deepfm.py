@@ -699,29 +699,17 @@ def _autodiff_with(attr, value):
 
 @pytest.mark.parametrize("case,match", [
     ("is_distributed", "ROADMAP queue 8"),
-    ("residence_host", "ROADMAP queue 4, the host embedding tier"),
-    ("host_table", "ROADMAP queue 4, the host embedding tier"),
-    ("register_host_table", "ROADMAP queue 4, the host embedding tier"),
     ("checkpoints", "ROADMAP queue 1 item 3"),
     ("dist_push", "ROADMAP queue 8"),
-    ("deepfm_host", "ROADMAP queue 4, the host embedding tier"),
 ])
 def test_unported_tiers_raise_naming_their_roadmap_items(case, match):
     with pytest.raises(NotImplementedError, match=match):
         if case == "is_distributed":
             _sparse_embedding(is_distributed=True)
-        elif case == "residence_host":
-            _sparse_embedding(residence="host")
-        elif case == "host_table":
-            PE.HostEmbeddingTable("t", 10, 2)
-        elif case == "register_host_table":
-            PE.register_host_table(object())
         elif case == "checkpoints":
             _autodiff_with("checkpoints", ["x"])
-        elif case == "dist_push":
-            _autodiff_with("dist_push", [["t", "x", "x", 0.1, "sgd"]])
         else:
-            _deepfm(pfluid, PD, residence="host")
+            _autodiff_with("dist_push", [["t", "x", "x", 0.1, "sgd"]])
 
 
 def test_embedding_package_introspection():

@@ -192,6 +192,8 @@ def test_port_imports_without_jax_triton_or_nvcc():
         "import paddle_tpu_torch.fluid.ops.metrics\n"
         "import paddle_tpu_torch.models.lenet, paddle_tpu_torch.models.resnet\n"
         "import paddle_tpu_torch.models.deepfm, paddle_tpu_torch.embedding\n"
+        "import paddle_tpu_torch.embedding.host, paddle_tpu_torch.fluid.reader\n"
+        "import paddle_tpu_torch.fluid.dataset, paddle_tpu_torch.fluid.faults\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m in ('jax', 'triton') or\n"
         "       m == 'paddle_tpu' or m.startswith(('paddle_tpu.', 'jax.'))]\n"
