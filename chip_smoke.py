@@ -244,7 +244,36 @@ wrappers') and ``replay_launches`` (the traced replay's).
              float64). No attention kernel runs (counted: 0, by the
              wrappers and by name in the traced steps): the reference's
              training forward has matmul / softmax attention.
-15. stream   the dense continuous stream, GenerativePredictor(...,
+15. checkpoint  config 3 (BERT-base, batch 128, S 128, bf16 AMP,
+             packed, dropout 0.1) built by build_pretrain_program with
+             py_reader_batch=128, fed by its py_reader over 16 seeded
+             batches, every run from clones of one startup state:
+             prefetched iters=4 windows against inline ones in turns
+             (trajectories equal to the bit; step ms, tokens/s, the
+             executor_window_* series); 12 uninterrupted steps (and the
+             attention kernels of a traced replay by name, 12 each); the
+             same 12 with checkpoint=(CheckpointManager(max_to_keep=2,
+             background=True), 4) and a non-finite step 6 under the
+             rollback policy (back at the step-4 version to the bit,
+             scope, generator and reader; no state tensor rebound; the
+             next replay equal to a fresh eager step from the version;
+             the committed trajectory and final state equal to the
+             uninterrupted run's; each save's snapshot ms, write s,
+             sha256 s and bytes, the restore s); a child process
+             SIGTERM'd after step 6 (drain: force-save, marker, exit 0)
+             and a second resuming with restore_on_restart, its steps
+             7-12 and final state equal to the uninterrupted run's.
+16. recompute  BERT-base with RecomputeOptimizer(Adam), each encoder
+             layer's output a checkpoint: at S 512, batch 32, fp32,
+             dropout 0.1, 4 graphed steps with recompute equal to 4
+             without, to the bit (losses and every persistable); the
+             attention forward 24 launches a step (the eager step's
+             wrappers and a traced replay), dq and dk/dv 12; peak GB,
+             step ms, tokens/s both ways. At S 8192 in AMP: batch 2
+             both ways and batch 8 with recompute (or the largest batch
+             batch 2's peak says fits): peak GB and step ms, the peaks
+             lower with recompute.
+17. stream   the dense continuous stream, GenerativePredictor(...,
              slot_prefill=True).open_stream() at width 8 (bench.py's
              decode-engine legs): 16 requests of ragged prompt lengths
              and budgets joined and stepped, each equal to its solo run
@@ -257,7 +286,7 @@ wrappers') and ``replay_launches`` (the traced replay's).
              the idle share of a traced window of steps; then the same
              requests through GenerativeServer from 4 threads (p50, p99,
              each equal to its solo run).
-16. speculative  build_speculative_session over a dense session at batch
+18. speculative  build_speculative_session over a dense session at batch
              8, k 4, full prompts, 12 and 32 new tokens, draft depth 3
              (the default, L // 2) and 6: tokens equal to the dense
              session's row by row (a row may differ only where the dense
@@ -269,7 +298,7 @@ wrappers') and ``replay_launches`` (the traced replay's).
              state; rounds, accepted mean, target and draft launches,
              tokens/s beside the dense session's, the idle share of a
              traced generate.
-17. summary  the kernels line, the card line, then the result line.
+19. summary  the kernels line, the card line, then the result line.
 """
 
 import collections
@@ -4857,10 +4886,526 @@ def transformer_train_path(A, dev):
     return dict(rec, eager=eager_rec)
 
 
+# The checkpoint phase: config 3 (BERT-base, batch 128, S 128, bf16 AMP,
+# packed, dropout 0.1) built by build_pretrain_program as bert_packed
+# builds it, fed by its py_reader (py_reader_batch=) over CKPT_BATCHES
+# seeded numpy batches. Every run starts from clones of one startup
+# state and generator, so every trajectory below is one trajectory and
+# is held to the bit.
+CKPT_STEPS, CKPT_EVERY, CKPT_KEEP = 12, 4, 2
+CKPT_FAULT_AT, CKPT_DRAIN_AT = 6, 6
+# iters=4 windows a run, prefetched and inline in turns
+CKPT_WINDOW, CKPT_WINDOWS = 4, 4
+CKPT_ROUNDS = (False, True, True, False)
+CKPT_BATCHES = CKPT_WINDOW * CKPT_WINDOWS      # >= CKPT_STEPS + TRACE_TRIES
+CKPT_CHILD_TIMEOUT_S = 300
+
+
+def reader_program(fluid, bert, n_batches=CKPT_BATCHES):
+    """(cfg, main, startup, loss) of config 3 fed by a py_reader
+    (``main.py_reader``) over ``n_batches`` batches of seeds 100 on."""
+    cfg = bert.BertConfig.base()
+    cfg.use_fused_attention = "packed"
+    with fluid.unique_name.guard():
+        main, startup, loss = bert.build_pretrain_program(
+            cfg, seq_len=PACKED_SEQ, use_amp=True,
+            py_reader_batch=PACKED_BATCH)
+    batches = [bert.reader_batch(bert.synthetic_batch(
+        cfg, PACKED_BATCH, PACKED_SEQ, seed=100 + i))
+        for i in range(n_batches)]
+    main.py_reader.decorate_tensor_provider(lambda: iter(batches))
+    return cfg, main, startup, loss
+
+
+def reader_steps(exe, main, loss, scope, n, **kw):
+    """The losses of ``n`` single steps of a py_reader-fed ``main``."""
+    return [float(np.asarray(exe.run(main, fetch_list=[loss], scope=scope,
+                                     **kw)[0]).reshape(-1)[0])
+            for _ in range(n)]
+
+
+def state_digest(scope, names):
+    """{name: sha256 of the tensor's bytes}: states of two processes
+    compared to the bit."""
+    import hashlib
+    out = {}
+    for n in names:
+        t = scope.find_var(n).detach().contiguous().reshape(-1)
+        out[n] = hashlib.sha256(memoryview(
+            t.view(torch.uint8).cpu().numpy())).hexdigest()
+    return out
+
+
+def persistable_names(main):
+    return sorted(v.name for v in main.list_vars() if v.persistable)
+
+
+def checkpoint_child(mode, dirname, dev=None):
+    """A child process of the checkpoint phase (``python3 chip_smoke.py
+    --checkpoint-child MODE DIR``), on the kernels the parent built.
+    ``drain``: train the phase's run from its startup with
+    ``checkpoint=(manager, CKPT_STEPS)``, a SIGTERM planted after step
+    CKPT_DRAIN_AT (``worker.preempt``), one JSON line a step; the drain
+    saves and exits 0 (returns 3 if it never came). ``resume``: restore
+    with ``restore_on_restart`` and train to step CKPT_STEPS; print the
+    losses and the final state's digest. ``dev``: the card unless a CPU
+    rehearsal passes the CPU."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import faults
+    from paddle_tpu_torch.fluid.io import CheckpointManager
+    from paddle_tpu_torch.models import bert
+
+    dev = torch.device("cuda") if dev is None else dev
+    cfg, main, startup, loss = reader_program(fluid, bert)
+    exe, scope = fluid.Executor(dev), fluid.Scope()
+    fluid.Executor(dev, cuda_graphs=False).run(startup, scope=scope)
+    mgr = CheckpointManager(dirname, max_to_keep=CKPT_KEEP)
+    if mode == "drain":
+        faults.arm("worker.preempt", after_n=CKPT_DRAIN_AT - 1)
+        main.py_reader.start()
+        for step in range(1, CKPT_STEPS + 1):
+            (out,) = exe.run(main, fetch_list=[loss], scope=scope,
+                             checkpoint=(mgr, CKPT_STEPS))
+            print(json.dumps({"step": step,
+                              "loss": float(out.reshape(-1)[0])}),
+                  flush=True)
+            faults.check("worker.preempt")
+        return 3
+    start = mgr.restore_on_restart(exe, main, scope=scope)
+    main.py_reader.start()
+    losses = reader_steps(exe, main, loss, scope, CKPT_STEPS - start)
+    print(json.dumps({"restored": start, "position": main.py_reader.position,
+                      "losses": losses, "restore_s": mgr.last_restore_s,
+                      "digest": state_digest(scope,
+                                             persistable_names(main))}),
+          flush=True)
+    return 0
+
+
+def prefetch_windows(fluid, monitor, dev, main, loss, init):
+    """CKPT_ROUNDS runs of CKPT_WINDOWS iters=CKPT_WINDOW windows, with
+    and without prefetch in turns, each from a clone of ``init``: the
+    losses of each mode (two runs of a mode must agree), the window
+    seconds after each run's first (which runs the eager step and the
+    capture), and each run's prefetch series."""
+    reader, runs = main.py_reader, {}
+    stall = monitor.histogram("executor_window_stall_seconds")
+    names = ("executor_window_overlap_hit_total",
+             "executor_window_overlap_miss_total")
+    for prefetch in CKPT_ROUNDS:
+        sc, exe = clone_scope(fluid, init), fluid.Executor(dev)
+        before = [monitor.counter(n).value for n in names]
+        s0 = (stall.count, stall.sum)
+        reader.start()
+        losses, window_s = [], []
+        for _ in range(CKPT_WINDOWS):
+            sync(dev)
+            t0 = time.perf_counter()
+            (out,) = exe.run(main, fetch_list=[loss], scope=sc,
+                             iters=CKPT_WINDOW, prefetch=prefetch)
+            window_s.append(time.perf_counter() - t0)   # numpy fetch: synced
+            losses.extend(np.asarray(out).reshape(CKPT_WINDOW, -1)[:, 0]
+                          .tolist())
+        exe.close()
+        reader.reset()
+        run = runs.setdefault(prefetch, dict(losses=losses, window_s=[],
+                                             series=[]))
+        if run["losses"] != losses:
+            raise AssertionError("checkpoint: two runs with prefetch=%s "
+                                 "differ: %s %s" % (prefetch, losses,
+                                                    run["losses"]))
+        run["window_s"].extend(window_s[1:])
+        run["series"].append(dict(
+            zip(("overlap_hit", "overlap_miss"),
+                [monitor.counter(n).value - b
+                 for n, b in zip(names, before)]),
+            stall_count=stall.count - s0[0], stall_s=stall.sum - s0[1],
+            inflight=monitor.gauge(
+                "executor_window_prefetch_inflight").value))
+        del sc, exe
+        torch.cuda.empty_cache()
+    return runs
+
+
+def checkpoint_path(A, monitor, dev):
+    """Config 3 fed by a py_reader (``reader_program``), from one
+    startup state: prefetched iters=4 windows against inline ones in
+    turns (equal to the bit; step ms, tokens/s, the prefetch series); 12
+    uninterrupted steps (the reference trajectory and final state's
+    digest; the attention kernels of a traced replay by name, 12 each);
+    the same 12 steps with checkpoint=(CheckpointManager(max_to_keep=2,
+    background=True), 4) and a non-finite step planted at step 6 under
+    ``rollback``: the scope, the generator and the reader back at the
+    step-4 version to the bit, no state tensor rebound (the next replay
+    copies the restored values into the captured storage, counted), that
+    replay's loss equal to a fresh eager run's from the version, the
+    committed trajectory and final state equal to the uninterrupted
+    ones; each save's snapshot, write and sha256 seconds and bytes, the
+    restore's seconds; then a child process SIGTERM'd after step 6
+    (drains: saves, marker, exit 0) and a second restoring with
+    ``restore_on_restart``, its steps 7-12 and final state equal to the
+    uninterrupted run's. Versions live in a temporary directory the
+    phase removes."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import faults
+    from paddle_tpu_torch.fluid.io import CheckpointManager
+    from paddle_tpu_torch.models import bert
+
+    t_phase = time.perf_counter()
+    cfg, main, startup, loss = reader_program(fluid, bert)
+    reader = main.py_reader
+    names = persistable_names(main)
+    init = fluid.Scope()
+    fluid.Executor(dev, cuda_graphs=False).run(startup, scope=init)
+
+    # 1. prefetched windows against inline ones
+    runs = prefetch_windows(fluid, monitor, dev, main, loss, init)
+    step_ms = {("prefetch" if k else "inline"): statistics.median(
+        v["window_s"]) * 1e3 / CKPT_WINDOW for k, v in runs.items()}
+    rec = dict(phase="checkpoint", check="prefetch_vs_inline",
+               config="BertConfig.base, packed", amp="bf16",
+               batch=PACKED_BATCH, seq_len=PACKED_SEQ, iters=CKPT_WINDOW,
+               windows=CKPT_WINDOWS, rounds=[int(p) for p in CKPT_ROUNDS],
+               equal=runs[True]["losses"] == runs[False]["losses"],
+               losses=runs[False]["losses"], step_ms=step_ms,
+               tokens_per_s={k: PACKED_BATCH * PACKED_SEQ / v * 1e3
+                             for k, v in step_ms.items()},
+               window_s={("prefetch" if k else "inline"): v["window_s"]
+                         for k, v in runs.items()},
+               series={("prefetch" if k else "inline"): v["series"]
+                       for k, v in runs.items()})
+    emit(**rec)
+    if not (rec["equal"] and all(math.isfinite(x) for x in rec["losses"])
+            and all(s["overlap_hit"] == CKPT_WINDOWS - 1 and
+                    s["overlap_miss"] == 1 and s["inflight"] == 0
+                    for s in runs[True]["series"])):
+        raise AssertionError("checkpoint: prefetched windows against "
+                             "inline: %s" % rec)
+    del runs
+
+    # 2. the uninterrupted run, and a replay's kernels by name
+    sc, exe = clone_scope(fluid, init), fluid.Executor(dev)
+    reader.start()
+    plain = reader_steps(exe, main, loss, sc, CKPT_STEPS)
+    digest = state_digest(sc, names)
+    _, kern, totals, diffs = complete_trace(
+        lambda: reader_steps(exe, main, loss, sc, 1))
+    replayed = traced_launches(kern)
+    exe.close()
+    reader.reset()
+    del sc, exe
+    emit(phase="checkpoint", check="uninterrupted", losses=plain,
+         replay_launches=replayed, kernels_per_trace=totals,
+         trace_diffs=diffs)
+    if any(replayed[n] != cfg.n_layers for n in FUSED_KERNELS + TENSOR_CORES):
+        raise AssertionError("checkpoint: a traced replay ran the attention "
+                             "kernels %s times (want %d each)"
+                             % (replayed, cfg.n_layers))
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        rec = checkpointed_run(fluid, faults, monitor, dev, main, loss, init,
+                               names, CheckpointManager,
+                               os.path.join(tmp, "run"))
+        rec.update(uninterrupted_equal=rec.pop("losses") == plain,
+                   digest_equal=rec.pop("digest") == digest)
+        emit(**rec)
+        torch.cuda.empty_cache()
+        if not (rec["rollback_exact"] and rec["uninterrupted_equal"] and
+                rec["digest_equal"] and rec["eager_equal"] and
+                rec["rebound"] == 0 and rec["new_captures"] == 0 and
+                rec["state_copies"] == len(names) and
+                rec["versions"] == [8, 12]):
+            raise AssertionError("checkpoint: the checkpointed run with a "
+                                 "rollback: %s" % rec)
+        rec = drain_and_resume(CheckpointManager, tmp, plain, digest)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(**rec)
+    if not (rec["drain_rc"] == 0 and rec["marker"] and
+            rec["drained_at"] == CKPT_DRAIN_AT and rec["restored"] ==
+            CKPT_DRAIN_AT and rec["resumed_equal"] and rec["digest_equal"]):
+        raise AssertionError("checkpoint: drain and resume: %s" % rec)
+    torch.cuda.empty_cache()
+
+
+def checkpointed_run(fluid, faults, monitor, dev, main, loss, init, names,
+                     manager_cls, dirname):
+    """``checkpoint_path``'s run with versions every CKPT_EVERY steps and
+    a rollback at step CKPT_FAULT_AT: the record of its checks, with the
+    committed losses and the final digest under ``losses`` and
+    ``digest``."""
+    reader = main.py_reader
+    mgr = manager_cls(dirname, max_to_keep=CKPT_KEEP, background=True)
+    sc, exe = clone_scope(fluid, init), fluid.Executor(dev)
+    ckpt = (mgr, CKPT_EVERY)
+    reader.start()
+    losses = reader_steps(exe, main, loss, sc, CKPT_EVERY, checkpoint=ckpt)
+    version = {n: sc.find_var(n).clone() for n in names}
+    rng = sc.generator.get_state()
+    losses += reader_steps(exe, main, loss, sc,
+                           CKPT_FAULT_AT - 1 - CKPT_EVERY, checkpoint=ckpt)
+    storage = {n: sc.find_var(n).data_ptr() for n in names}
+    counters = {n: monitor.counter(n).value for n in (
+        "executor_graph_capture_total", "executor_graph_state_copy_total",
+        "executor_anomaly_rollbacks_total")}
+    fluid.set_flags({"FLAGS_anomaly_policy": "rollback"})
+    faults.arm("step.nonfinite")
+    try:
+        reader_steps(exe, main, loss, sc, 1, checkpoint=ckpt)
+    finally:
+        faults.reset()
+        fluid.set_flags({"FLAGS_anomaly_policy": "raise"})
+    rolled = dict(
+        state=all(torch.equal(sc.find_var(n), version[n]) for n in names),
+        generator=torch.equal(sc.generator.get_state(), rng),
+        position=reader.position, counter=mgr._step)
+    # a fresh eager run from the version, on the batch after it
+    fresh = fluid.Scope()
+    eager = fluid.Executor(dev, cuda_graphs=False)
+    manager_cls(dirname).restore(eager, main, scope=fresh)
+    (eager_loss,) = reader_steps(eager, main, loss, fresh, 1)
+    del fresh, eager
+    reader.resume_at(CKPT_EVERY)
+    (next_loss,) = reader_steps(exe, main, loss, sc, 1, checkpoint=ckpt)
+    moved = {n: monitor.counter(n).value - v for n, v in counters.items()}
+    rebound = sum(sc.find_var(n).data_ptr() != storage[n] for n in names)
+    losses = losses[:CKPT_EVERY] + [next_loss] + reader_steps(
+        exe, main, loss, sc, CKPT_STEPS - CKPT_EVERY - 1, checkpoint=ckpt)
+    mgr.wait()
+    digest = state_digest(sc, names)
+    exe.close()
+    reader.reset()
+    del sc, exe, version
+    return dict(
+        phase="checkpoint", check="checkpoint_rollback", every=CKPT_EVERY,
+        max_to_keep=CKPT_KEEP, fault_at=CKPT_FAULT_AT, rolled_back=rolled,
+        rollback_exact=(rolled["state"] and rolled["generator"] and
+                        rolled["position"] == CKPT_EVERY and
+                        rolled["counter"] == CKPT_EVERY),
+        eager_loss=eager_loss, next_replay_loss=next_loss,
+        eager_equal=eager_loss == next_loss, rebound=rebound,
+        new_captures=moved["executor_graph_capture_total"],
+        state_copies=moved["executor_graph_state_copy_total"],
+        rollbacks=moved["executor_anomaly_rollbacks_total"],
+        saves=[dict(r) for r in mgr.history],
+        restore_s=mgr.last_restore_s, versions=mgr.steps(),
+        latest=mgr.latest(), losses=losses, digest=digest)
+
+
+def drain_and_resume(manager_cls, tmp, plain, digest, cmd=None):
+    """The two child processes of ``checkpoint_path``: one SIGTERM'd
+    after step CKPT_DRAIN_AT, one resuming from its version. ``cmd``:
+    the child's command line before its mode and directory (by default
+    this script's ``--checkpoint-child``)."""
+    dirname, hb = os.path.join(tmp, "child"), os.path.join(tmp, "hb")
+    os.makedirs(hb)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here, PADDLE_PREEMPT_DRAIN="1",
+               PADDLE_HEARTBEAT_DIR=hb)
+    cmd = cmd or [sys.executable, os.path.abspath(__file__),
+                  "--checkpoint-child"]
+    t0 = time.perf_counter()
+    drain = subprocess.run(cmd + ["drain", dirname], env=env, cwd=here,
+                           capture_output=True, text=True,
+                           timeout=CKPT_CHILD_TIMEOUT_S)
+    drain_s = time.perf_counter() - t0
+    steps = [json.loads(line) for line in drain.stdout.splitlines()
+             if line.startswith("{")]
+    mgr = manager_cls(dirname)
+    marker = os.path.join(hb, "hb.0.preempted")
+    rec = dict(phase="checkpoint", check="drain_and_resume",
+               drain_rc=drain.returncode, drain_s=drain_s,
+               drain_steps=[s["step"] for s in steps],
+               drain_losses_equal=[s["loss"] for s in steps] ==
+               plain[:len(steps)], marker=os.path.exists(marker),
+               drained_at=mgr.latest(), versions=mgr.steps(),
+               drain_stderr=drain.stderr[-600:])
+    if drain.returncode != 0:
+        return rec
+    t0 = time.perf_counter()
+    resume = subprocess.run(cmd + ["resume", dirname],
+                            env=dict(env, PADDLE_RESTART_ATTEMPT="1"),
+                            cwd=here, capture_output=True, text=True,
+                            timeout=CKPT_CHILD_TIMEOUT_S)
+    got = [json.loads(line) for line in resume.stdout.splitlines()
+           if line.startswith("{")]
+    rec.update(resume_rc=resume.returncode,
+               resume_s=time.perf_counter() - t0,
+               resume_stderr=resume.stderr[-600:])
+    if resume.returncode == 0 and got:
+        got = got[-1]
+        rec.update(restored=got["restored"], position=got["position"],
+                   restore_s=got["restore_s"], losses=got["losses"],
+                   resumed_equal=got["losses"] == plain[CKPT_DRAIN_AT:],
+                   digest_equal=got["digest"] == digest)
+    return rec
+
+
+# The recompute phase: BERT-base with RecomputeOptimizer(Adam), each
+# encoder layer's output a checkpoint, so every layer is recomputed in
+# the backward (its attention forward launched again).
+RC_STEPS = 4
+RC_LONG_SEQ, RC_LONG_BATCH, RC_LONG_BIG = 8192, 2, 8
+RC_LONG_TIMED = 2
+# the share of the card a predicted peak may take
+RC_MEMORY_SHARE = 0.85
+
+
+def recompute_program(fluid, bert, seq, amp, recompute):
+    cfg = bert.BertConfig.base()
+    cfg.max_seq = max(cfg.max_seq, seq)
+    with fluid.unique_name.guard():
+        main, startup, loss = bert.build_pretrain_program(
+            cfg, seq_len=seq, use_amp=amp, recompute=recompute)
+    return cfg, main, startup, loss
+
+
+def recompute_steps(A, fluid, dev, prog, scope, feed, n, trace=False):
+    """``n`` graphed steps (an eager one, the capture, replays) of
+    ``prog`` in ``scope``: (losses, step seconds, peak GB, the wrappers'
+    launches (the eager step's), a traced replay's kernels or None)."""
+    cfg, main, startup, loss = prog
+    exe = fluid.Executor(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(A)
+    losses, step_s = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(np.asarray(out).reshape(-1)[0]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = launches(A, FUSED_KERNELS)
+    state = {n: scope.find_var(n).clone() for n in persistable_names(main)}
+    replayed = traced_launches(complete_trace(lambda: exe.run(
+        main, feed=feed, fetch_list=[loss], scope=scope))[1]) if trace \
+        else None
+    exe.close()
+    return losses, step_s, peak, got, replayed, state
+
+
+def recompute_path(A, dev):
+    """BERT-base with RecomputeOptimizer(Adam) against Adam alone. At
+    the bert shape (S 512, batch 32, fp32, dropout 0.1), from one state:
+    4 graphed steps each way, losses and every persistable equal to the
+    bit (the replayed draws); the attention forward launched 12 + 12 a
+    step with recompute (the eager step's wrappers and a traced replay),
+    dq and dk/dv 12; peak GB, step ms, tokens/s both ways. At S 8192 in
+    AMP: batch 2 both ways, and batch 8 with recompute only (or the
+    largest batch that fits by batch 2's peak): peak GB and step ms.
+    Peaks must be lower with recompute."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    t_phase = time.perf_counter()
+    init, runs = None, {}
+    for rc in (False, True):
+        prog = recompute_program(fluid, bert, BERT_SEQ, False, rc)
+        cfg, main, startup, _ = prog
+        if init is None:
+            init = fluid.Scope()
+            fluid.Executor(dev, cuda_graphs=False).run(startup, scope=init)
+        feed = bert.synthetic_batch(cfg, BERT_BATCH, BERT_SEQ, seed=0)
+        sc = clone_scope(fluid, init)
+        runs[rc] = recompute_steps(A, fluid, dev, prog, sc, feed, RC_STEPS,
+                                   trace=True)
+        del sc
+    del init
+    (p_loss, p_s, p_peak, p_got, p_rep, p_state), \
+        (r_loss, r_s, r_peak, r_got, r_rep, r_state) = runs[False], runs[True]
+    equal = p_loss == r_loss and all(torch.equal(p_state[n], r_state[n])
+                                     for n in p_state)
+    steady = {"plain": statistics.median(p_s[2:]),
+              "recompute": statistics.median(r_s[2:])}
+    L = cfg.n_layers
+    rec = dict(phase="recompute", config="BertConfig.base", batch=BERT_BATCH,
+               seq_len=BERT_SEQ, dropout=cfg.hidden_dropout, steps=RC_STEPS,
+               losses_plain=p_loss, losses_recompute=r_loss, equal=equal,
+               launches={"plain": p_got, "recompute": r_got},
+               replay_launches={"plain": p_rep, "recompute": r_rep},
+               peak_gb={"plain": p_peak, "recompute": r_peak},
+               step_ms={k: v * 1e3 for k, v in steady.items()},
+               tokens_per_s={k: BERT_BATCH * BERT_SEQ / v
+                             for k, v in steady.items()})
+    emit(**rec)
+    del runs, p_state, r_state
+    want = {False: (L, L, L), True: (2 * L, L, L)}
+    for rc, got, rep in ((False, p_got, p_rep), (True, r_got, r_rep)):
+        for counts in (got, rep):
+            if tuple(counts[n] for n in FUSED_KERNELS) != want[rc] or \
+                    tuple(counts[n] for n in TENSOR_CORES) != want[rc]:
+                raise AssertionError("recompute: attention launches %s "
+                                     "(recompute=%s; want %s)"
+                                     % (counts, rc, want[rc]))
+    if not (equal and r_peak < p_peak and
+            all(math.isfinite(x) for x in p_loss)):
+        raise AssertionError("recompute: the bert shape: %s" % rec)
+
+    # S 8192 in AMP
+    torch.cuda.empty_cache()
+    longs = {}
+    for label, rc in (("plain", False), ("recompute", True)):
+        longs[label] = recompute_long(A, fluid, bert, dev, rc, RC_LONG_BATCH)
+    # the batch to run with recompute: RC_LONG_BIG if batch 2's peak says
+    # it fits, else the largest that does (the state's bytes fixed, the
+    # rest in proportion to the batch)
+    card = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+    fixed = longs["recompute"]["state_gb"]
+    per_row = (longs["recompute"]["peak_gb"] - fixed) / RC_LONG_BATCH
+    big = max(b for b in range(RC_LONG_BATCH, RC_LONG_BIG + 1)
+              if fixed + per_row * b <= RC_MEMORY_SHARE * card)
+    longs["recompute_big"] = recompute_long(A, fluid, bert, dev, True, big)
+    rec = dict(phase="recompute", config="BertConfig.base, max_seq %d"
+               % RC_LONG_SEQ, amp="bf16", seq_len=RC_LONG_SEQ, runs=longs,
+               big_batch=big, big_batch_wanted=RC_LONG_BIG,
+               big_batch_rule=dict(card_gb=card, state_gb=fixed,
+                                   per_row_gb=per_row,
+                                   share=RC_MEMORY_SHARE),
+               phase_s=time.perf_counter() - t_phase)
+    emit(**rec)
+    if not (longs["recompute"]["peak_gb"] < longs["plain"]["peak_gb"] and
+            all(math.isfinite(x) for r in longs.values()
+                for x in r["losses"])):
+        raise AssertionError("recompute: S %d: %s" % (RC_LONG_SEQ, rec))
+    torch.cuda.empty_cache()
+
+
+def recompute_long(A, fluid, bert, dev, rc, batch):
+    """A warm step, the capture and RC_LONG_TIMED timed replays of
+    BERT-base at RC_LONG_SEQ in AMP, with or without recompute, in a
+    fresh scope: the record."""
+    prog = recompute_program(fluid, bert, RC_LONG_SEQ, True, rc)
+    cfg, main, startup, _ = prog
+    scope = fluid.Scope()
+    fluid.Executor(dev, cuda_graphs=False).run(startup, scope=scope)
+    state_gb = sum(scope.find_var(n).numel() * scope.find_var(n)
+                   .element_size() for n in persistable_names(main)) / 2 ** 30
+    feed = bert.synthetic_batch(cfg, batch, RC_LONG_SEQ, seed=0)
+    losses, step_s, peak, got, _, state = recompute_steps(
+        A, fluid, dev, prog, scope, feed, 2 + RC_LONG_TIMED)
+    del scope, state
+    torch.cuda.empty_cache()
+    steady = statistics.median(step_s[2:])
+    return dict(batch=batch, recompute=rc, losses=losses, step_s=step_s,
+                step_ms=steady * 1e3,
+                tokens_per_s=batch * RC_LONG_SEQ / steady, peak_gb=peak,
+                state_gb=state_gb, launches=got)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--checkpoint-child"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return checkpoint_child(*sys.argv[2:4])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from paddle_tpu_torch import inference
     from paddle_tpu_torch.fluid import monitor
@@ -4917,6 +5462,8 @@ def main():
     torch.cuda.empty_cache()
     transformer_train_path(A, dev)
     torch.cuda.empty_cache()
+    checkpoint_path(A, monitor, dev)
+    recompute_path(A, dev)
     # the dense phase's model again (the same seed)
     model = T.Transformer.big(device=dev, seed=0)
     stream_launches = stream_path(T, A, inference, monitor, dev, model)

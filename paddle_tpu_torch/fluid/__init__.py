@@ -10,12 +10,16 @@ policy, ``profiler`` times runs, run hooks observe them; the serving
 slices also use ``monitor`` and ``resilience``. ``dygraph`` is eager
 mode: ``dygraph.guard()``, layers, the eager optimizers, and
 ``dygraph.jit.trace`` to a Program. Input: ``DatasetFactory`` datasets
-over MultiSlot files (``Executor.train_from_dataset``), ``DataLoader``
-and ``DataFeeder``.
+over MultiSlot files (``Executor.train_from_dataset``), ``DataLoader``,
+``PyReader``, ``layers.py_reader`` (``core.EOFException`` ends a pass)
+and ``DataFeeder``. Fault tolerance: ``io.CheckpointManager`` with
+``Executor.run(checkpoint=...)``, the ``rollback`` anomaly policy and
+the preemption drain (``paddle_tpu_torch.distributed.preemption``).
 """
 
-from . import (contrib, dygraph, framework, initializer, io,  # noqa: F401
-               layers, ops, optimizer, profiler, regularizer, unique_name)
+from . import (contrib, core, dygraph, framework, initializer,  # noqa: F401
+               io, layers, ops, optimizer, profiler, regularizer,
+               unique_name)
 from .backward import append_backward  # noqa: F401
 from .data_feeder import DataFeeder  # noqa: F401
 from .dataset import (DatasetFactory, FileInstantDataset,  # noqa: F401
@@ -31,4 +35,4 @@ from .framework import (CPUPlace, CUDAPlace, Parameter,  # noqa: F401
                         default_startup_program, in_dygraph_mode,
                         program_guard)
 from .param_attr import ParamAttr  # noqa: F401
-from .reader import DataLoader  # noqa: F401
+from .reader import DataLoader, PyReader  # noqa: F401

@@ -9,8 +9,9 @@ A parameter that only one sparse lookup reads (``embedding_lookup``, or
 int32 ``<grad>@ROWS`` var for the rows, listed in the ``autodiff`` op's
 ``sparse_wrt`` attr as [param, ids, lookup output].
 
-Not ported yet: the parameter-server push (``distributed_lookup_table``)
-and recompute ``checkpoints``, which the ``autodiff`` op refuses.
+``checkpoints`` (``RecomputeOptimizer``) are recorded on the
+``autodiff`` op for recompute. Not ported yet: the parameter-server push
+(``distributed_lookup_table``), which the ``autodiff`` op refuses.
 """
 
 from ..embedding.lookup import is_sparse_lookup

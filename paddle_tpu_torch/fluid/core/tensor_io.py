@@ -39,11 +39,14 @@ def _raw(value):
     return _CODE_OF[a.dtype.name], a.shape, a.tobytes()
 
 
-def save_combine(path, arrays):
+def save_combine(path, arrays, atomic=True):
     """Write named arrays or tensors (a dict or (name, value) pairs) to
-    one file, atomically: the bytes go to ``<path>.tmp-<pid>``, are
-    fsync'd and renamed over ``path``. At most 16 dims, as the format
-    allows."""
+    one file. ``atomic=True``: the bytes go to ``<path>.tmp-<pid>``, are
+    fsync'd and renamed over ``path`` (the ``io.write`` fault point sits
+    between the two), so ``path`` holds the old bytes or the new, never
+    a prefix. ``atomic=False`` writes ``path`` in place, for a caller
+    whose own staging commits it (the checkpoint writer's temporary
+    directory). At most 16 dims, as the format allows."""
     items = list(arrays.items()) if isinstance(arrays, dict) else list(arrays)
     entries = []
     for name, value in items:
@@ -52,22 +55,16 @@ def save_combine(path, arrays):
             raise ValueError("PTC1 stores at most 16 dims; %r has %d"
                              % (name, len(shape)))
         entries.append((name, code, shape, data))
+    if not atomic:
+        _write(path, entries)
+        return
     tmp = "%s.tmp-%d" % (path, os.getpid())
     try:
-        with open(tmp, "wb") as f:
-            f.write(b"PTC1")
-            f.write(struct.pack("<I", len(entries)))
-            for name, code, shape, data in entries:
-                nb = name.encode()
-                f.write(struct.pack("<I", len(nb)))
-                f.write(nb)
-                f.write(struct.pack("<II", code, len(shape)))
-                for d in shape:
-                    f.write(struct.pack("<Q", d))
-                f.write(struct.pack("<Q", len(data)))
-                f.write(data)
-            f.flush()
-            os.fsync(f.fileno())
+        _write(tmp, entries)
+        _fsync_path(tmp)
+        from .. import faults as _faults
+
+        _faults.check("io.write")  # a crash here leaves path untouched
         os.replace(tmp, path)
     except BaseException:  # leave no temporary file behind, then re-raise
         try:
@@ -75,6 +72,29 @@ def save_combine(path, arrays):
         except OSError:
             pass
         raise
+
+
+def _write(path, entries):
+    with open(path, "wb") as f:
+        f.write(b"PTC1")
+        f.write(struct.pack("<I", len(entries)))
+        for name, code, shape, data in entries:
+            nb = name.encode()
+            f.write(struct.pack("<I", len(nb)))
+            f.write(nb)
+            f.write(struct.pack("<II", code, len(shape)))
+            for d in shape:
+                f.write(struct.pack("<Q", d))
+            f.write(struct.pack("<Q", len(data)))
+            f.write(data)
+
+
+def _fsync_path(path):
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
 
 
 def load_combine(path):

@@ -80,12 +80,32 @@ window as one transaction over its k batches). The slots are a feed
 like any other, so ids, residency and ``grow()`` never change a step's
 key: no new capture, no new cache miss.
 
+py_reader feeding (``layers/py_reader.py``): a run of a py_reader-fed
+program pulls each reader's next batch (``iters=k``: the next k,
+stacked) on the host before the step and passes it as an ordinary feed,
+so the program keeps its key and its graph; at the end of a pass it runs
+no step, resets the readers and raises ``core.EOFException``.
+``prefetch=True`` (``iters=k``) then drains, stacks and stages window
+i+1 on a thread (``_WindowPrefetch``: the copies on a side stream behind
+an event) while window i's replays run.
+
+Fault tolerance, as the reference: ``checkpoint=(manager, n)`` saves a
+``fluid.io.CheckpointManager`` version every n committed steps; the
+``rollback`` anomaly policy restores its newest intact version (the
+scope, the generator, the readers' positions); a preemption signal
+(``distributed.preemption``) drains between steps and between windows:
+the step commits, the manager force-saves, the process exits 0.
+
+Recompute: an ``autodiff`` op with ``checkpoints`` splits the ops before
+it into segments, each but the last run under ``torch.utils.checkpoint``
+(``ops/autodiff.py``, ``run_checkpointed``), its draws replayed in the
+backward's recomputation.
+
+``as_function`` exposes a block as a pure ``fn(state, feed, rng_state)
+-> (fetches, new_state, rng_state)``.
+
 Every run turns TF32 off for its fp32 products while it runs
 (``fp32_products``), and leaves the process's flags as they were.
-
-Not ported yet (ROADMAP queue 1 item 5, the rest): the ``rollback``
-policy and ``checkpoint=`` (no ``CheckpointManager``), ``prefetch=True``
-(no py_reader) and ``as_function``.
 """
 
 import contextlib
@@ -99,12 +119,14 @@ import numpy as np
 import torch
 
 from .. import fp32_products, resolve_device
+from . import faults as _faults
 from . import flags as _flags
 from . import framework
 from . import monitor as _monitor
 from . import profiler as _prof
 from .framework import Variable
-from .registry import LowerCtx, lower_op, to_torch_dtype
+from .ops import autodiff
+from .registry import LowerCtx, lower_op, to_numpy_dtype, to_torch_dtype
 
 __all__ = ["Scope", "global_scope", "scope_guard", "Executor", "copy_scope",
            "FetchHandle", "GraphCaptureError", "register_run_hook",
@@ -142,17 +164,35 @@ _M_FETCH_SYNC = _monitor.histogram(
          "return_numpy=True observes once per fetch at run time, "
          "fetch_mode='async' only when FetchHandle.numpy()/indexing "
          "forces the value")
+_M_WINDOW_STALL = _monitor.histogram(
+    "executor_window_stall_seconds",
+    help="host wait for a prefetched iters=k window to finish its "
+         "drain+stack+stage (0 when the window was already staged — "
+         "the prefetch fully hid the host-side feed work)")
+_M_OVERLAP_HIT = _monitor.counter(
+    "executor_window_overlap_hit_total",
+    help="batched runs served by an already-prefetched window "
+         "(drain/stack/stage overlapped the previous window's compute)")
+_M_OVERLAP_MISS = _monitor.counter(
+    "executor_window_overlap_miss_total",
+    help="prefetch-requested batched runs that drained inline "
+         "(first window of a pass, or the pass just restarted after EOF)")
+_M_PREFETCH_INFLIGHT = _monitor.gauge(
+    "executor_window_prefetch_inflight",
+    help="window prefetches currently draining/staging in the "
+         "background (0 or 1 per Executor)")
 _M_ANOMALY = _monitor.counter(
     "executor_anomaly_nonfinite_total",
-    help="steps whose fetches/updated state contained non-finite values")
+    help="steps whose fetches/updated state contained non-finite values "
+         "(or an injected step.nonfinite fault)")
 _M_ANOMALY_SKIPPED = _monitor.counter(
     "executor_anomaly_skipped_steps_total",
     help="training steps discarded (state restored) by the skip_step "
          "anomaly policy")
 _M_ANOMALY_ROLLBACKS = _monitor.counter(
     "executor_anomaly_rollbacks_total",
-    help="rollback-policy restores (the port refuses the policy: "
-         "no CheckpointManager yet)")
+    help="rollback-policy restores to the last intact checkpoint after "
+         "a non-finite step")
 # the port's own: how steps ran on the card
 _M_REPLAYS = _monitor.counter(
     "executor_graph_replay_total",
@@ -180,9 +220,8 @@ _CAPTURE_LOCK = threading.Lock()
 
 # op types that act on the host during a run: the reference runs them
 # outside its compiled step, and a graph cannot replay them
-_HOST_OPS = frozenset(("save", "load", "print", "py_reader_dequeue",
-                       "listen_and_serv", "fl_listen_and_serv",
-                       "host_embedding_init"))
+_HOST_OPS = frozenset(("save", "load", "print", "listen_and_serv",
+                       "fl_listen_and_serv", "host_embedding_init"))
 
 # -- run hooks -----------------------------------------------------------------
 _RUN_HOOKS = []
@@ -284,8 +323,15 @@ def copy_scope(src, dst, names, device="cuda"):
         dst.set_var(n, torch.from_numpy(np.array(val)).to(device))
 
 
+def _dtype_name(v):
+    """A feed value's dtype by the IR's name, the same for a numpy array
+    and a tensor of that dtype."""
+    return str(to_numpy_dtype(v.dtype) if isinstance(v, torch.Tensor)
+               else v.dtype)
+
+
 def _feed_signature(feed):
-    return tuple((n, tuple(np.shape(v)), str(v.dtype))
+    return tuple((n, tuple(np.shape(v)), _dtype_name(v))
                  for n, v in sorted(feed.items()))
 
 
@@ -328,8 +374,13 @@ def _split_batched_feed(feed, block, iters):
 def _fetch_numpy(t):
     """One fetch on the host (the blocking sync, observed by
     ``executor_fetch_sync_seconds``); numpy has no bfloat16, so a bf16
-    fetch comes back as float32."""
+    fetch comes back as float32. On the card the wait is a sync of the
+    current stream, which releases the interpreter lock, so the host's
+    threads (a window prefetch, a stager) run while the step finishes;
+    ``Tensor.cpu()`` alone kept them waiting (PERF.md, PR 17)."""
     t0 = time.perf_counter()
+    if t.is_cuda:
+        torch.cuda.current_stream(t.device).synchronize()
     out = (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
     _M_FETCH_SYNC.observe(time.perf_counter() - t0)
     return out
@@ -399,8 +450,10 @@ class _Plan:
     """What a run of one block needs besides the tensors, fixed by the
     program and the fetch list: the ops, the index of the ``autodiff``
     op, its dense ``wrt`` leaves and the sparse lookups' outputs it
-    reads SelectedRows gradients at, the environment entries to drop
-    after each op, and the persistables the ops write."""
+    reads SelectedRows gradients at, the segments recompute runs under
+    ``torch.utils.checkpoint`` ({first op: end}), the environment
+    entries to drop after each op, and the persistables the ops
+    write."""
 
     def __init__(self, program, fetch_names):
         block = program.global_block()
@@ -419,6 +472,11 @@ class _Plan:
         self.sparse_outs = frozenset(s[2] for s in sparse_wrt)
         self.wrt = set(grad_op.attr("wrt")) - {s[0] for s in sparse_wrt} \
             if grad_op else set()
+        checkpoints = grad_op.attr("checkpoints") if grad_op else None
+        if checkpoints and sparse_wrt:
+            raise NotImplementedError(autodiff.RECOMPUTE_SPARSE)
+        self.recompute = dict(autodiff.checkpoint_segments(
+            self.ops, self.grad_at, checkpoints)) if checkpoints else {}
         self.drop_after = _last_readers(
             self.ops, set(fetch_names) | self.persistable)
         self.written = sorted({n for op in self.ops
@@ -473,8 +531,15 @@ class Executor:
         self._cache = {}
         self._steps = {}
         self._pool = None
-        # consecutive steps discarded by skip_step; a clean step resets it
+        # consecutive steps discarded by skip_step or rollback; a clean
+        # step resets it
         self._anomaly_skips = 0
+        # after a rollback, the manager's step count the run must commit
+        # again before a clean step resets _anomaly_skips
+        self._replay_until = 0
+        # (reader ids, iters) -> the pending _WindowPrefetch of a
+        # prefetching py_reader loop
+        self._window_prefetch = {}
 
     # -- feeds -----------------------------------------------------------------
     def _host_feed(self, block, name, value):
@@ -516,50 +581,65 @@ class Executor:
         device once, and each fetch returns the ``[k, ...]`` trajectory,
         read with one host sync at the end. On the card the steps replay
         the key's graph (the first call's first step runs eagerly, its
-        second captures).
+        second captures). A py_reader-fed program takes no feed: the run
+        pulls one batch (``iters=k``: k) from each reader first.
 
         ``fetch_mode="async"``: return ``FetchHandle``s; the run does not
         wait for the card. ``"sync"`` or None: ``return_numpy`` decides
         between numpy and device tensors (copies, never the graph's
         static outputs).
 
+        ``prefetch=True`` (``iters=k``, a py_reader-fed program): once
+        window i is queued, a thread drains, stacks and stages window
+        i+1 (module docstring); the next run finds it staged
+        (``executor_window_overlap_hit_total``).
+
+        ``checkpoint=(manager, every_n_steps)``: after each committed
+        step (a window counts k) the ``fluid.io.CheckpointManager``
+        advances its counter and saves a version each time it crosses a
+        multiple of ``every_n_steps``; also the ``rollback`` policy's
+        target.
+
         A program with host-tier embedding lookups takes the raw ids as
         its feed; the run maps them to cache slots first (module
-        docstring).
-
-        Not ported (ROADMAP queue 5): ``prefetch=True`` and
-        ``checkpoint=`` raise ``NotImplementedError``."""
+        docstring)."""
         with fp32_products():
             return self._run(program, feed, fetch_list, scope, return_numpy,
                              iters, fetch_mode, prefetch, checkpoint)
 
+    @staticmethod
+    def _check_checkpoint_arg(checkpoint):
+        if checkpoint is None:
+            return None
+        try:
+            mgr, every = checkpoint
+        except (TypeError, ValueError):
+            raise ValueError(
+                "checkpoint must be a (CheckpointManager, every_n_steps) "
+                "pair, got %r" % (checkpoint,))
+        if not hasattr(mgr, "step_completed") or int(every) < 1:
+            raise ValueError(
+                "checkpoint must be a (CheckpointManager, every_n_steps "
+                ">= 1) pair, got %r" % (checkpoint,))
+        return mgr, int(every)
+
     def _run(self, program, feed, fetch_list, scope, return_numpy, iters,
              fetch_mode, prefetch, checkpoint):
         t_run0 = time.perf_counter()
+        checkpoint = self._check_checkpoint_arg(checkpoint)
         if fetch_mode not in (None, "sync", "async"):
             raise ValueError("fetch_mode must be None, 'sync' or 'async', "
                              "got %r" % (fetch_mode,))
         iters = int(iters)
         if iters < 1:
             raise ValueError("iters must be >= 1, got %d" % iters)
-        if prefetch:
-            if iters == 1:
-                raise ValueError(
-                    "prefetch=True needs iters>=2: window prefetch overlaps "
-                    "the NEXT step-batched window with this one's compute")
-            raise NotImplementedError(
-                "prefetch=True needs py_reader and DataLoader staging, "
-                "which the port has not ported yet (ROADMAP queue 5)")
-        if checkpoint is not None:
-            raise NotImplementedError(
-                "checkpoint= needs fluid.io.CheckpointManager, which the "
-                "port has not ported yet (ROADMAP queue 5)")
+        if prefetch and iters == 1:
+            raise ValueError(
+                "prefetch=True needs iters>=2: window prefetch overlaps "
+                "the NEXT step-batched window with this one's compute — "
+                "single steps already overlap via async dispatch "
+                "(fetch_mode='async')")
         policy = _flags.anomaly_policy()
-        if policy == "rollback":
-            raise NotImplementedError(
-                "FLAGS_anomaly_policy 'rollback' restores the last "
-                "checkpoint: CheckpointManager is not ported yet (ROADMAP "
-                "queue 5); use 'raise' or 'skip_step'")
 
         from . import compiler
         strategy = None
@@ -571,7 +651,15 @@ class Executor:
         block = program.global_block()
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
+        manager = checkpoint[0] if checkpoint else None
+        # a preemption signal that already arrived drains here, before
+        # the step (drain_exit does not return)
+        from ..distributed import preemption
+        preemption.maybe_install_from_env()
+        preemption.check_drain(manager, program, scope)
+
         feed = dict(feed or {})
+        readers = self._py_reader_feed(program, feed, iters, prefetch)
         _host_tier(program, block, feed, scope, iters)
         feed = {n: self._host_feed(block, n, v) for n, v in feed.items()}
         if iters > 1:
@@ -608,7 +696,8 @@ class Executor:
                     *((scope, gen) if self.cuda_graphs else (None, None)))
             self._cache[run_key] = step
 
-        scan = _flags.check_nan_inf_enabled() or policy != "raise"
+        scan = (_flags.check_nan_inf_enabled() or policy != "raise"
+                or _faults.is_armed("step.nonfinite"))
         snapshot = None
         if policy == "skip_step":
             # device copies of what the step may write: memory the size
@@ -623,6 +712,11 @@ class Executor:
         else:
             fetches, static, commit = self._window(step, scope, gen,
                                                    stacked, invariant, iters)
+        if prefetch:
+            # window i is queued on the card: drain, stack and stage
+            # window i+1 meanwhile
+            self._window_prefetch[(tuple(id(r) for r in readers), iters)] = \
+                _WindowPrefetch(readers, iters, self.place)
         if profiling:
             if self.place.type == "cuda":
                 torch.cuda.synchronize(self.place)
@@ -649,9 +743,20 @@ class Executor:
             for n, t in commit.items():
                 scope.set_var(n, t)
         if anomaly is not None:
-            self._handle_anomaly(anomaly, policy, iters)
-        elif scan:
-            self._anomaly_skips = 0
+            self._handle_anomaly(anomaly, policy, iters, program, scope,
+                                 checkpoint, readers)
+        else:
+            if checkpoint is not None:
+                manager.step_completed(program, scope, iters, checkpoint[1])
+            # a clean step ends a run of discards; after a rollback, only
+            # once the run has committed the step that failed (the
+            # rewound readers feed the same batches again)
+            if scan and (manager is None or
+                         manager._step >= self._replay_until):
+                self._anomaly_skips = 0
+        # a signal that landed during the step drains now, after the
+        # state committed: a step is never torn in half
+        preemption.check_drain(manager, program, scope)
 
         wall = time.perf_counter() - t_run0
         _M_RUN_SECONDS.observe(wall)
@@ -678,6 +783,68 @@ class Executor:
         if return_numpy:
             return [_fetch_numpy(t) for t in fetches]
         return fetches
+
+    # -- py_reader feeding ---------------------------------------------------------
+    def _py_reader_feed(self, program, feed, iters, prefetch):
+        """Pull this run's batches from the program's py_readers into
+        ``feed`` (``iters=k``: k each, stacked ``[k, ...]``), from a
+        prefetched window when one is pending; returns the readers. At
+        the end of a pass no step runs: the readers are reset and
+        ``core.EOFException`` raised (a ragged last window is logged and
+        dropped)."""
+        from .layers.py_reader import program_py_readers
+
+        readers = program_py_readers(program)
+        if not readers:
+            if prefetch:
+                raise ValueError(
+                    "prefetch=True needs a py_reader-fed program — "
+                    "explicit feeds are the caller's to stage ahead of "
+                    "time (DataLoader use_double_buffer / "
+                    "fluid.reader.stage_feed)")
+            return readers
+        rkey = (tuple(id(r) for r in readers), iters)
+        for k, pf in self._window_prefetch.items():
+            if k != rkey and set(k[0]) & set(rkey[0]):
+                if iters == 1:
+                    raise RuntimeError(
+                        "a prefetched iters=%d window is pending on this "
+                        "program's py_reader(s) — a single-step run "
+                        "would race it for batches. Finish the batched "
+                        "loop (run with iters=%d until EOF) or "
+                        "exe.close() first." % (pf.iters, pf.iters))
+                raise RuntimeError(
+                    "a prefetched window (iters=%d) is pending on "
+                    "py_reader(s) this run (iters=%d) also reads — the "
+                    "prefetched batches would be mis-windowed. Keep a "
+                    "prefetching batched loop's iters uniform, or "
+                    "exe.close() between loops." % (pf.iters, iters))
+        pending = self._window_prefetch.pop(rkey, None)
+        if pending is not None:
+            status = pending.consume()
+            if status[0] == "error":
+                raise status[1]
+            if status[0] == "eof":
+                _eof(readers, iters, status[1], status[2], prefetched=True)
+            _M_OVERLAP_HIT.inc()
+            feed.update(status[1])
+            return readers
+        if prefetch:
+            # the first window of a pass: nothing staged yet
+            _M_OVERLAP_MISS.inc()
+        steps, eof = _pull_window(readers, iters)
+        if eof is not None:
+            _eof(readers, iters, *eof)
+        feed.update(_stack_window(readers, steps, iters))
+        return readers
+
+    def _discard_prefetch(self, readers=None):
+        """Join and drop the pending window prefetches (of ``readers``,
+        or all): their batches are lost, as any abandoned pass's."""
+        ids = None if readers is None else {id(r) for r in readers}
+        for k in list(self._window_prefetch):
+            if ids is None or set(k[0]) & ids:
+                self._window_prefetch.pop(k).discard()
 
     # -- one step ----------------------------------------------------------------
     def _step(self, step, scope, gen, feed):
@@ -727,17 +894,31 @@ class Executor:
         ctx.promote_products = self.promote_products
         ctx.sparse_outs = plan.sparse_outs
         ops, grad_at = plan.ops, plan.grad_at
-        for i, op in enumerate(ops):
-            with torch.set_grad_enabled(i <= grad_at < len(ops)):
-                lower_op(ctx, op)
+
+        def after_op(i, env):
             if i < grad_at:
-                for n in op.output_arg_names():
+                for n in ops[i].output_arg_names():
                     v = plan.block._find_var_recursive(n)
                     if n in env and v is not None and v.stop_gradient \
                             and n not in plan.wrt:
                         env[n] = env[n].detach()
             for n in plan.drop_after[i]:
                 env.pop(n, None)
+
+        i = 0
+        while i < len(ops):
+            end = plan.recompute.get(i)
+            if end is not None:
+                autodiff.run_checkpointed(ctx, ops, i, end, after_op)
+                for j in range(i, end):
+                    for n in plan.drop_after[j]:
+                        env.pop(n, None)
+                i = end
+                continue
+            with torch.set_grad_enabled(i <= grad_at < len(ops)):
+                lower_op(ctx, ops[i])
+            after_op(i, env)
+            i += 1
         return ctx
 
     def _capture(self, step, scope, gen, feed):
@@ -898,7 +1079,10 @@ class Executor:
     @staticmethod
     def _scan_anomaly(fetch_names, fetches, new_state):
         """The first non-finite (kind, var name) among the fetches and
-        the state after the step, or None; one host sync by design."""
+        the state after the step, or None; one host sync by design. An
+        armed ``step.nonfinite`` fault makes the step non-finite."""
+        if _faults.take("step.nonfinite"):
+            return ("injected", "step.nonfinite")
         named = [("fetch", n, t) for n, t in zip(fetch_names, fetches)]
         named += [("state", n, t) for n, t in new_state.items()]
         named = [(k, n, t) for k, n, t in named
@@ -912,13 +1096,20 @@ class Executor:
                 return kind, n
         return None
 
-    def _handle_anomaly(self, where, policy, iters):
+    def _handle_anomaly(self, where, policy, iters, program, scope,
+                        checkpoint, readers):
         """Apply the policy to a non-finite step (or ``iters=k`` window):
         ``raise`` raises FloatingPointError naming the var (the step's
         in-place updates, ``adam``'s, have landed by then);
         ``skip_step`` (the caller has restored the state from before the
-        step) logs, or raises once more than
-        ``FLAGS_anomaly_skip_budget`` consecutive steps were skipped."""
+        step) logs; ``rollback`` restores the newest intact version of
+        the run's ``checkpoint=`` manager into the scope, its generator
+        and its readers (a pending window prefetch of the readers is
+        dropped first), and raises the reference's error without one.
+        Both raise once more than ``FLAGS_anomaly_skip_budget``
+        consecutive steps were discarded; after a rollback, the steps
+        the rewound run commits again do not break the run of discards
+        (a batch that makes every pass non-finite ends the run)."""
         _M_ANOMALY.inc()
         msg = ("non-finite values in %s var %r after running program"
                % where)
@@ -931,10 +1122,66 @@ class Executor:
                 "anomaly policy %r: %s — %d consecutive anomalous steps "
                 "exceeded FLAGS_anomaly_skip_budget=%d"
                 % (policy, msg, self._anomaly_skips, budget))
-        _M_ANOMALY_SKIPPED.inc(iters)
-        logging.getLogger(__name__).warning(
-            "anomaly policy skip_step: %s; discarding the step's updates "
-            "(%d/%d consecutive)", msg, self._anomaly_skips, budget)
+        log = logging.getLogger(__name__)
+        if policy == "rollback":
+            if checkpoint is None:
+                raise RuntimeError(
+                    "anomaly policy 'rollback' needs a checkpoint to "
+                    "roll back to — call Executor.run(..., "
+                    "checkpoint=(CheckpointManager, every_n_steps))")
+            self._discard_prefetch(readers)
+            self._replay_until = checkpoint[0]._step + iters
+            step = checkpoint[0].restore(self, program, scope=scope)
+            _M_ANOMALY_ROLLBACKS.inc()
+            log.warning("anomaly policy rollback: %s; restored "
+                        "checkpoint step %d (%d/%d consecutive)",
+                        msg, step, self._anomaly_skips, budget)
+        else:
+            _M_ANOMALY_SKIPPED.inc(iters)
+            log.warning("anomaly policy skip_step: %s; discarding the "
+                        "step's updates (%d/%d consecutive)", msg,
+                        self._anomaly_skips, budget)
+
+    # -- as a function -----------------------------------------------------------
+    def as_function(self, program, feed_specs, fetch_list, scope=None):
+        """``program``'s global block as a pure function ``fn(state, feed,
+        rng_state) -> (fetches, new_state, rng_state)``, and example
+        arguments ``(state, feed, rng_state)``: the scope's persistables,
+        ``feed_specs`` ({name: example array}) and the state of the
+        scope's generator (a ``ByteTensor``, in the reference's place
+        for a jax key; a fresh generator's, seeded from
+        ``program.random_seed``, when the scope has none). ``fn`` runs
+        the block eagerly on this executor's place on copies of
+        ``state``, with a generator of its own set to ``rng_state``: the
+        scope and its generator are left untouched."""
+        scope = scope or global_scope()
+        block = program.global_block()
+        fetch_names = [v.name if isinstance(v, Variable) else str(v)
+                       for v in fetch_list]
+        state_names = sorted(v.name for v in program.list_vars()
+                             if v.persistable and scope.has_var(v.name))
+        plan = _Plan(program, fetch_names)
+
+        def fn(state, feed, rng_state):
+            gen = torch.Generator(device=self.place)
+            gen.set_state(rng_state)
+            env = {n: self._device(self._host_feed(block, n, v))
+                   for n, v in feed.items()}
+            env.update((n, t.clone()) for n, t in state.items())
+            with fp32_products():
+                ctx = self._lower(plan, env, gen)
+            fetches = [env[n].detach() for n in plan.fetch_names]
+            new_state = {n: env[n].detach() for n in state if n in env}
+            new_state.update((n, env[n].detach()) for n in ctx.written
+                             if n in env)
+            return fetches, new_state, gen.get_state()
+
+        state = {n: scope.find_var(n) for n in state_names}
+        gen = scope.generator
+        if gen is None:
+            gen = torch.Generator(device=self.place)
+            gen.manual_seed(int(program.random_seed or 0))
+        return fn, (state, dict(feed_specs), gen.get_state())
 
     # -- lifetime --------------------------------------------------------------------
     def _drop_dead_scopes(self):
@@ -946,14 +1193,131 @@ class Executor:
                 del table[key]
 
     def close(self):
-        """Drop every cached step, its graph and the graphs' memory
-        pool."""
+        """Reap any pending window prefetch (joining its thread; the
+        batches it pulled are dropped), then drop every cached step, its
+        graph and the graphs' memory pool."""
+        self._discard_prefetch()
         had_graphs = any(s.graph is not None for s in self._steps.values())
         self._cache.clear()
         self._steps.clear()
         self._pool = None
         if had_graphs:
             torch.cuda.empty_cache()
+
+
+class _WindowPrefetch:
+    """The drain, stack and stage of the next ``iters=k`` py_reader
+    window on a thread (``Executor.run(..., iters=k, prefetch=True)``),
+    while the card runs the window before it: the k batches of each
+    reader are pulled, stacked ``[k, ...]`` and copied to the place
+    (``reader.copy_feed``: on the card from pinned memory on the stager
+    stream, behind an event). ``consume`` joins the thread (the wait is
+    ``executor_window_stall_seconds``) and makes the calling thread's
+    stream wait on the copies. The end of the pass is found here and
+    acted on by the consuming run: EOF before any step, as inline.
+
+    The readers' ``_committed`` positions hold where the committed steps
+    left them while the thread pulls ahead, so a checkpoint saves no
+    batch that no step trained on. The thread is non-daemon;
+    ``consume`` and ``discard`` join it."""
+
+    def __init__(self, readers, iters, place):
+        self.readers = list(readers)
+        self.iters = iters
+        self.place = place
+        self._result = ("error", RuntimeError("prefetch never ran"))
+        for r in self.readers:
+            r._committed = r.position
+        self._thread = threading.Thread(
+            target=self._drain, name="paddle-window-prefetch", daemon=False)
+        self._thread.start()
+
+    def _drain(self):
+        from .reader import copy_feed
+
+        try:
+            with _M_PREFETCH_INFLIGHT.track():
+                steps, eof = _pull_window(self.readers, self.iters)
+                if eof is not None:
+                    self._result = ("eof",) + eof
+                    return
+                self._result = ("ok", copy_feed(
+                    _stack_window(self.readers, steps, self.iters),
+                    self.place))
+        except BaseException as e:  # re-raised by the consuming run
+            self._result = ("error", e)
+
+    def _join(self):
+        self._thread.join()
+        for r in self.readers:
+            r._committed = None
+
+    def consume(self):
+        """``("ok", feed)``, ``("eof", steps pulled whole, the last
+        pull)`` or ``("error", exc)``, after joining the thread."""
+        t0 = time.perf_counter()
+        self._join()
+        _M_WINDOW_STALL.observe(time.perf_counter() - t0)
+        if self._result[0] == "ok":
+            return ("ok", self._result[1].wait())
+        return self._result
+
+    def discard(self):
+        """Join and drop the result."""
+        self._join()
+        self._result = ("error", RuntimeError("prefetch discarded"))
+
+
+def _pull_window(readers, iters):
+    """``iters`` batches from each reader: ([a step's [each reader's
+    batch]], None), or at the end of the pass (the steps pulled whole,
+    (their count, the last pull: a batch or None per reader))."""
+    steps = []
+    for _ in range(iters):
+        pulled = [r._next() for r in readers]
+        if any(v is None for v in pulled):
+            return steps, (len(steps), pulled)
+        steps.append(pulled)
+    return steps, None
+
+
+def _stack_window(readers, steps, iters):
+    """The feed of the pulled ``steps``: each slot's batch, or for
+    ``iters=k`` its k batches stacked ``[k, ...]``."""
+    feed = {}
+    for j, r in enumerate(readers):
+        for s, name in enumerate(r.names):
+            vals = [step[j][s] for step in steps]
+            feed[name] = vals[0] if iters == 1 else np.stack(vals)
+    return feed
+
+
+def _eof(readers, iters, pulled, last, prefetched=False):
+    """End of a pass before a step: log what was pulled in vain, reset
+    the readers and raise ``core.EOFException``."""
+    from . import core
+
+    log = logging.getLogger(__name__)
+    if iters == 1:
+        dropped = [r.names[0] for r, v in zip(readers, last)
+                   if v is not None]
+        if dropped:
+            log.warning("py_reader EOF: discarding the already-pulled "
+                        "batch of %s (readers have unequal lengths)",
+                        dropped)
+        msg = ("py_reader queue exhausted — reader.reset() and re-start() "
+               "for the next pass")
+    else:
+        if pulled or any(v is not None for v in last):
+            log.warning("py_reader EOF during a %sbatched run: discarding "
+                        "%d already-pulled batch(es) of a requested "
+                        "window of %d", "prefetched " if prefetched else "",
+                        pulled, iters)
+        msg = ("py_reader queue exhausted before %d batches — "
+               "reader.reset() and re-start() for the next pass" % iters)
+    for r in readers:
+        r.reset()
+    raise core.EOFException(msg)
 
 
 def _host_tier(program, block, feed, scope, iters):

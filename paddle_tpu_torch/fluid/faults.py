@@ -1,28 +1,40 @@
 """Deterministic fault injection at named points (the port's copy of
 ``paddle_tpu/fluid/faults.py``, with the points the port has so far).
 
-Code is instrumented with a one-line ``faults.check("reader.stage")``
-where a real failure would bite. An unarmed point costs a dict lookup;
-an armed one counts its hits and raises on the Nth
-(``arm(point, after_n=, times=)``), by default ``FaultInjected``, a
-``resilience.TransientError``, so a point wrapped in a ``Retry`` shows
-it absorbs the failure. Every fire is counted as
-``faults_injected_total`` by point. The reference's other points
-(checkpoint writes, RPCs, worker crashes) come with the modules that
-hold them.
+Code is instrumented with a one-line ``faults.check("io.write")`` where
+a real failure would bite. An unarmed point costs a dict lookup; an
+armed one counts its hits and fires on the Nth
+(``arm(point, after_n=, times=)``): it raises, by default
+``FaultInjected``, a ``resilience.TransientError``, so a point wrapped
+in a ``Retry`` shows it absorbs the failure. ``worker.preempt`` sends
+this process a real SIGTERM instead (the eviction notice
+``distributed.preemption`` drains on), and ``take`` reports a fire
+without raising (the executor's ``step.nonfinite``). Every fire is
+counted as ``faults_injected_total`` by point. The reference's other
+points (``ps.rpc``, ``coord.*``, ``worker.exit``, ``worker.hang``) come
+with the distributed runtime (ROADMAP queue 1 item 8).
 """
 
+import os
 import threading
 
 from . import monitor as _monitor
 from .resilience import TransientError
 
 __all__ = ["FaultInjected", "POINTS", "arm", "disarm", "reset",
-           "is_armed", "hits", "check"]
+           "is_armed", "hits", "check", "take"]
 
 POINTS = (
+    "io.write",        # fluid/core/tensor_io.save_combine and the
+                       #   checkpoint writer: after the temporary write,
+                       #   before the rename that commits it
     "reader.stage",    # fluid/reader.stage_feed: inside the DeviceStager
                        #   producer thread, before the device copy
+    "step.nonfinite",  # the executor's anomaly scan: the step's results
+                       #   are taken as non-finite (the policy path
+                       #   without a diverging model)
+    "worker.preempt",  # training scripts call check() once a step; sends
+                       #   SIGTERM to this process
 )
 
 
@@ -77,19 +89,41 @@ def hits(point):
         return f.hits if f is not None else 0
 
 
-def check(point):
-    """The injection point: a no-op unless armed and due, then raises
-    the armed exception class."""
+def _fire(point):
+    """Count a hit; the armed exception class if this hit fires, else
+    None."""
     with _LOCK:
         f = _ARMED.get(point)
         if f is None:
-            return
+            return None
         f.hits += 1
         if not (f.hits > f.after_n and f.fired < f.times):
-            return
+            return None
         f.fired += 1
         exc = f.exc
     _monitor.counter("faults_injected_total",
                      help="injected faults fired, by injection point",
                      labels={"point": point}).inc()
+    return exc
+
+
+def check(point):
+    """The injection point: a no-op unless armed and due. Then
+    ``worker.preempt`` sends this process SIGTERM (the drain handler
+    decides what follows) and every other point raises the armed
+    exception class."""
+    exc = _fire(point)
+    if exc is None:
+        return
+    if point == "worker.preempt":
+        import signal
+
+        os.kill(os.getpid(), signal.SIGTERM)
+        return
     raise exc("injected fault at %r" % point)
+
+
+def take(point):
+    """Like ``check``, but returns whether the point fired instead of
+    raising: for sites that inject a condition (``step.nonfinite``)."""
+    return _fire(point) is not None

@@ -4,7 +4,9 @@ with the same metric names and semantics. Lock-protected and
 label-aware; tests assert deltas of a metric's value."""
 
 import bisect
+import contextlib
 import threading
+import time
 from collections import OrderedDict
 
 __all__ = ["Counter", "Gauge", "Histogram", "counter", "gauge",
@@ -70,6 +72,24 @@ class Gauge(_Metric):
         with self._lock:
             self._value = v
 
+    def inc(self, n=1):
+        with self._lock:
+            self._value += n
+
+    def dec(self, n=1):
+        with self._lock:
+            self._value -= n
+
+    @contextlib.contextmanager
+    def track(self, n=1):
+        """``inc(n)`` for the body's duration, ``dec(n)`` after, also
+        when it raises (an in-flight count)."""
+        self.inc(n)
+        try:
+            yield self
+        finally:
+            self.dec(n)
+
     @property
     def value(self):
         return self._value
@@ -103,6 +123,15 @@ class Histogram(_Metric):
                 self._min = v
             if self._max is None or v > self._max:
                 self._max = v
+
+    @contextlib.contextmanager
+    def time(self):
+        """Observe the seconds the body takes."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.observe(time.perf_counter() - t0)
 
     @property
     def count(self):

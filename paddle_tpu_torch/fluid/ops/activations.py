@@ -1,6 +1,6 @@
 """Activations (counterpart in ``paddle_tpu/fluid/ops/activations.py``):
-gelu, the exact erf form unless ``approximate``; relu; sigmoid; sign
-(for ``L1Decay``)."""
+gelu, the exact erf form unless ``approximate``; relu; sigmoid; tanh;
+sign (for ``L1Decay``)."""
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +24,11 @@ def _relu(ctx, op):
 @register("sigmoid")
 def _sigmoid(ctx, op):
     ctx.set_output(op, "Out", torch.sigmoid(ctx.get_input(op, "X")))
+
+
+@register("tanh")
+def _tanh(ctx, op):
+    ctx.set_output(op, "Out", torch.tanh(ctx.get_input(op, "X")))
 
 
 @register("sign")

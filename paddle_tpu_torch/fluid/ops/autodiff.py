@@ -21,16 +21,80 @@ Loss scaling (AMP): the objective is the summed loss times the static
 ``loss_scale`` attr and, under dynamic scaling, times the value of the
 ``loss_scale_var`` variable, read on the device (no host sync).
 
-Not ported yet: ``checkpoints`` (recompute) and ``dist_push`` (the
-parameter-server tier's gradients).
+Recompute (the ``checkpoints`` attr, ``RecomputeOptimizer``): the
+executor splits the ops before this op into segments after the op that
+last produces each checkpoint (``checkpoint_segments``) and runs every
+segment but the last under ``torch.utils.checkpoint``
+(``run_checkpointed``), as the reference runs them under
+``jax.checkpoint``: autograd keeps a segment's inputs instead of its
+activations, and this op's ``torch.autograd.grad`` runs the segment
+again to rebuild them. The second run hands each random op the draws of
+the first (``registry.DrawRecord``): the same dropout masks and
+attention seeds, and no move of the generator. Recompute with
+SelectedRows gradients is refused, in the reference's words.
+
+Not ported yet: ``dist_push`` (the parameter-server tier's gradients).
 """
 
 import torch
 
-from ..registry import register
+from ..registry import DrawRecord, lower_op, register
 
-_DEFERRED = (("checkpoints", "recompute, ROADMAP queue 1 item 3"),
-             ("dist_push", "the parameter-server tier, ROADMAP queue 8"))
+_DEFERRED = (("dist_push", "the parameter-server tier, ROADMAP queue 8"),)
+
+RECOMPUTE_SPARSE = "recompute + sparse embedding grads not supported yet"
+
+
+def checkpoint_segments(ops, grad_at, checkpoints):
+    """[(lo, hi)] of the segments of ``ops[:grad_at]`` to run under
+    recompute: the ops are cut after the op that last produces each
+    checkpoint, and every segment but the last is recomputed (none when
+    the cuts leave one segment)."""
+    producer = {}
+    for i, op in enumerate(ops[:grad_at]):
+        for n in op.output_arg_names():
+            producer[n] = i
+    segments, lo = [], 0
+    for cut in sorted({producer[c] for c in checkpoints if c in producer}):
+        segments.append((lo, cut + 1))
+        lo = cut + 1
+    if lo < grad_at:
+        segments.append((lo, grad_at))
+    return segments[:-1]
+
+
+def run_checkpointed(ctx, ops, lo, hi, after_op):
+    """Lower ``ops[lo:hi]`` in ``ctx`` under ``torch.utils.checkpoint``
+    (non-reentrant, the generator untouched: ``preserve_rng_state``
+    saves only torch's default generators, and the ops draw from the
+    scope's; no early stop, whose signal would reach ``lower_op`` as an
+    op's error). The segment runs on a copy of the environment;
+    ``after_op(j, env)`` runs after op j in it (detaching
+    ``stop_gradient`` outputs, dropping dead entries). What the segment
+    bound or rebound is merged back into ``ctx.env``."""
+    from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+
+    record = DrawRecord()
+
+    def segment(env_in):
+        outer, ctx.env = ctx.env, dict(env_in)
+        ctx.draw_record = record
+        try:
+            for j in range(lo, hi):
+                record.at_op(j)
+                lower_op(ctx, ops[j])
+                after_op(j, ctx.env)
+            return {n: t for n, t in ctx.env.items()
+                    if env_in.get(n) is not t}
+        finally:
+            ctx.env, ctx.draw_record = outer, None
+            # every later run of the segment is the backward's recompute
+            record.replaying = True
+
+    with torch.enable_grad(), set_checkpoint_early_stop(False):
+        ctx.env.update(checkpoint(segment, dict(ctx.env),
+                                  use_reentrant=False,
+                                  preserve_rng_state=False))
 
 
 @register("autodiff")

@@ -9,6 +9,9 @@ norms' scales and biases included; skipped, with a warning, for a
 SelectedRows gradient), ``SGD``, ``Momentum``, ``Adagrad`` and
 ``Adam``. A SelectedRows gradient passes through ``apply_gradients`` to
 its update op, which applies it row-sparse (``ops/optimizer_ops.py``).
+``RecomputeOptimizer`` wraps one of them and carries the checkpoint
+vars to the ``autodiff`` op (activation recomputation,
+``ops/autodiff.py``).
 
 In dygraph mode (``dygraph.guard()``) ``minimize`` takes the eager
 branch (``_dygraph_minimize``): the raw gradients (``loss.backward()``
@@ -36,7 +39,8 @@ from .layer_helper import LayerHelper
 from .regularizer import L1DecayRegularizer, append_regularization_ops
 
 __all__ = ["SGD", "SGDOptimizer", "Momentum", "MomentumOptimizer",
-           "Adagrad", "AdagradOptimizer", "Adam", "AdamOptimizer"]
+           "Adagrad", "AdagradOptimizer", "Adam", "AdamOptimizer",
+           "RecomputeOptimizer"]
 
 
 def _refuse_clip(grad_clip):
@@ -385,6 +389,38 @@ class MomentumOptimizer(Optimizer):
             outputs={"ParamOut": [param], "VelocityOut": [velocity]},
             attrs={"mu": self._momentum,
                    "use_nesterov": self._use_nesterov})
+
+
+class RecomputeOptimizer:
+    """Activation recomputation (the reference's ``RecomputeOptimizer``):
+    ``_set_checkpoints(vars)`` names the vars to keep; ``backward`` puts
+    them on the ``autodiff`` op (``checkpoints``), whose segments between
+    them are run again in the backward instead of keeping their
+    activations. Updates are the wrapped optimizer's."""
+
+    def __init__(self, optimizer):
+        self._optimizer = optimizer
+        self._checkpoints = None
+
+    def _set_checkpoints(self, checkpoints):
+        self._checkpoints = checkpoints
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, callbacks=None, checkpoints=None):
+        return append_backward(loss, parameter_list, no_grad_set,
+                               checkpoints=self._checkpoints or checkpoints)
+
+    def apply_gradients(self, params_grads):
+        return self._optimizer.apply_gradients(params_grads)
+
+    def apply_optimize(self, loss, startup_program, params_grads):
+        return self._optimizer.apply_gradients(params_grads)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        params_grads = self.backward(loss, startup_program, parameter_list,
+                                     no_grad_set)
+        return self.apply_gradients(params_grads), params_grads
 
 
 SGD = SGDOptimizer

@@ -11,9 +11,9 @@ consumer sees it, so a step, eager or a graph replay, never reads a
 half-written batch. The executor takes the staged tensors as feeds
 unchanged.
 
-Not ported yet: sharding-aware staging onto a mesh (a ``sharding=``
-other than None; ROADMAP queue 1 item 7), ``PyReader`` and
-``py_reader`` (queue 1 item 5, the rest).
+``PyReader`` is the reference's older decorate-style API over
+``GeneratorLoader``. Not ported yet: sharding-aware staging onto a mesh
+(a ``sharding=`` other than None; ROADMAP queue 1 item 7).
 """
 
 import os as _os
@@ -31,7 +31,8 @@ from . import resilience as _resilience
 from .framework import Variable
 
 __all__ = ["DataLoader", "GeneratorLoader", "DeviceStager", "StagedFeed",
-           "stage_feed", "WorkerInfo", "get_worker_info"]
+           "stage_feed", "copy_feed", "WorkerInfo", "get_worker_info",
+           "PyReader"]
 
 MESH_ITEM = "ROADMAP queue 1 item 7"
 
@@ -108,7 +109,13 @@ def stage_feed(feed, place="cuda", sharding=None, keep_on_host=()):
             "stage_feed(sharding=...): staging feeds pre-sharded onto a "
             "mesh is not ported yet (%s)" % MESH_ITEM)
     _faults.check("reader.stage")
-    device = resolve_device(place)
+    return copy_feed(feed, resolve_device(place), keep_on_host)
+
+
+def copy_feed(feed, device, keep_on_host=()):
+    """``stage_feed``'s copies, with no fault point: the numpy arrays of
+    ``feed`` as tensors on ``device`` (a ``torch.device``), on a card on
+    the stager stream behind an event."""
     out = StagedFeed()
 
     def put(name, value):
@@ -430,3 +437,37 @@ class DataLoader:
         loader = GeneratorLoader(dataset._use_vars, place=places)
         loader.set_batch_generator(dataset.batch_reader(drop_last))
         return loader
+
+
+class PyReader:
+    """The reference's ``PyReader`` (``paddle_tpu/fluid/reader.py:442``):
+    the older decorate_* API over ``GeneratorLoader``; ``start()`` and
+    ``reset()`` do nothing in iterable mode. ``place`` is the staging
+    device, the card unless the caller passes the CPU."""
+
+    def __init__(self, feed_list=None, capacity=4, use_double_buffer=True,
+                 iterable=True, return_list=False, sharding=None,
+                 place=None):
+        self._loader = GeneratorLoader(feed_list, capacity,
+                                       use_double_buffer=use_double_buffer,
+                                       sharding=sharding, place=place)
+
+    def decorate_sample_generator(self, sample_generator, batch_size,
+                                  drop_last=True, places=None):
+        self._loader.set_sample_generator(sample_generator, batch_size,
+                                          drop_last)
+
+    def decorate_sample_list_generator(self, reader, places=None):
+        self._loader.set_sample_list_generator(reader)
+
+    def decorate_batch_generator(self, reader, places=None):
+        self._loader.set_batch_generator(reader)
+
+    def start(self):
+        pass
+
+    def reset(self):
+        pass
+
+    def __iter__(self):
+        return iter(self._loader)

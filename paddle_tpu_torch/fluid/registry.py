@@ -9,8 +9,12 @@ inference runs the same rules on ``meta`` tensors.
 
 Randomness comes from one explicit ``torch.Generator`` (the scope's, see
 ``executor.py``): random ops draw from it in op order through
-``LowerCtx.next_seed``, ``random_bytes`` and ``uniform``, where the JAX
-registry splits a threaded PRNG key.
+``LowerCtx.next_seed``, ``random_bytes``, ``uniform`` and ``normal``,
+where the JAX registry splits a threaded PRNG key. A ``DrawRecord`` set
+on the context (``draw_record``) keeps what each op drew, and replays
+it: recompute runs a segment of ops a second time in the backward, and
+its ops must see the primal run's draws (the reference's
+``replay_keys``) without moving the generator.
 """
 
 import torch
@@ -45,6 +49,40 @@ registry = OpRegistry()
 register = registry.register
 
 
+class DrawRecord:
+    """The draws of a stretch of ops, per op index, in op order: while
+    recording each draw is made and kept; once ``replaying``, each op is
+    handed back the tensors it drew (the seeds ``[1]`` int64, the masks'
+    uint8 words), with no generator draw and no host sync, so a replay
+    is safe inside a CUDA graph capture. The kept tensors live as long
+    as the record."""
+
+    def __init__(self):
+        self.draws = {}
+        self.replaying = False
+        self._op = None
+        self._next = 0
+
+    def at_op(self, index):
+        """The draws that follow are op ``index``'s."""
+        self._op, self._next = index, 0
+
+    def take(self, draw):
+        """``draw()``'s tensor, recorded; or, replaying, the one the op
+        drew at this place."""
+        i, self._next = self._next, self._next + 1
+        if not self.replaying:
+            t = draw()
+            self.draws.setdefault(self._op, []).append(t)
+            return t
+        got = self.draws.get(self._op, ())
+        if i >= len(got):
+            raise RuntimeError(
+                "a replayed op (index %s) asked for draw %d, which its "
+                "recorded run did not make" % (self._op, i))
+        return got[i]
+
+
 class LowerCtx:
     """The environment a block is lowered in.
 
@@ -59,8 +97,11 @@ class LowerCtx:
     - ``sparse_outs``: the outputs of the sparse lookups whose cotangent
       the block's ``autodiff`` op reads as a SelectedRows gradient; each
       such lookup binds its output as an autograd leaf in
-      ``sparse_leaves`` (``ops/tensor_ops.py``, ``sparse_leaf``).
+      ``sparse_leaves`` (``ops/tensor_ops.py``, ``sparse_leaf``);
+    - ``draw_record``: None, or the ``DrawRecord`` the draws go through.
     """
+
+    draw_record = None
 
     def __init__(self, block, env, generator, device):
         self.block = block
@@ -112,35 +153,44 @@ class LowerCtx:
     def abstract(self):
         return self.generator is None
 
+    def _draw(self, draw):
+        if self.draw_record is None:
+            return draw()
+        return self.draw_record.take(draw)
+
     def next_seed(self):
         """An int64 tensor [1] on the device: a kernel's 64-bit seed, drawn
         without a host sync."""
         if self.abstract:
             return torch.empty(1, dtype=torch.int64, device=self.device)
-        return torch.randint(0, 2 ** 62, (1,), dtype=torch.int64,
-                             device=self.device, generator=self.generator)
+        return self._draw(lambda: torch.randint(
+            0, 2 ** 62, (1,), dtype=torch.int64, device=self.device,
+            generator=self.generator))
 
     def random_bytes(self, shape):
         """uint8 tensor of uniform random words."""
         if self.abstract:
             return torch.empty(shape, dtype=torch.uint8, device=self.device)
-        return torch.randint(0, 256, tuple(shape), dtype=torch.uint8,
-                             device=self.device, generator=self.generator)
+        return self._draw(lambda: torch.randint(
+            0, 256, tuple(shape), dtype=torch.uint8, device=self.device,
+            generator=self.generator))
 
     def uniform(self, shape, low, high):
         """fp32 tensor uniform in [low, high)."""
         if self.abstract:
             return torch.empty(shape, dtype=torch.float32, device=self.device)
-        u = torch.rand(tuple(shape), dtype=torch.float32, device=self.device,
-                       generator=self.generator)
+        u = self._draw(lambda: torch.rand(
+            tuple(shape), dtype=torch.float32, device=self.device,
+            generator=self.generator))
         return u * (high - low) + low
 
     def normal(self, shape, mean, std):
         """fp32 tensor normal with ``mean`` and ``std``."""
         if self.abstract:
             return torch.empty(shape, dtype=torch.float32, device=self.device)
-        n = torch.randn(tuple(shape), dtype=torch.float32, device=self.device,
-                        generator=self.generator)
+        n = self._draw(lambda: torch.randn(
+            tuple(shape), dtype=torch.float32, device=self.device,
+            generator=self.generator))
         return n * std + mean
 
 

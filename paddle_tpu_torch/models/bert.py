@@ -17,6 +17,14 @@ the einsum chain. The 256 threshold was measured on a TPU (v5e).
 ``use_amp=True`` wraps Adam in ``mixed_precision.decorate`` (bf16,
 static loss scale 1.0), as the reference does. Not ported yet:
 tensor-parallel layouts (the reference's ``tp_axis``).
+
+The port's own additions: ``build_pretrain_program(py_reader_batch=B)``
+takes its batches from a ``layers.py_reader`` of static batch B
+(``main.py_reader``; one tuple a batch in ``PRETRAIN_FEEDS`` order,
+``reader_batch``) instead of ``layers.data`` feeds, the layer calls
+otherwise the same; ``recompute=True`` trains through
+``RecomputeOptimizer`` with each encoder layer's output as a checkpoint
+(``bert_encoder(layer_outputs=)``).
 """
 
 import copy
@@ -114,8 +122,11 @@ def _encoder_layer(x, attn_bias, cfg, prefix):
                              begin_norm_axis=2)
 
 
-def bert_encoder(src_ids, pos_ids, sent_ids, input_mask, cfg):
-    """input_mask: [B, S, 1] float (1 = token, 0 = pad). Returns [B, S, H]."""
+def bert_encoder(src_ids, pos_ids, sent_ids, input_mask, cfg,
+                 layer_outputs=None):
+    """input_mask: [B, S, 1] float (1 = token, 0 = pad). Returns [B, S, H].
+    ``layer_outputs``, a list, gets each encoder layer's output var (its
+    second ``layer_norm``'s: recompute's checkpoints)."""
     if src_ids.shape[-1] > cfg.max_seq:
         raise ValueError("seq_len %d exceeds cfg.max_seq %d: positions past "
                          "it have no position embedding"
@@ -140,6 +151,8 @@ def bert_encoder(src_ids, pos_ids, sent_ids, input_mask, cfg):
 
     for i in range(cfg.n_layers):
         x = _encoder_layer(x, attn_bias, cfg, "layer_%d" % i)
+        if layer_outputs is not None:
+            layer_outputs.append(x)
     return x
 
 
@@ -213,30 +226,75 @@ def _feeds(seq_len):
             layers.data("input_mask", shape=[seq_len, 1], dtype="float32"))
 
 
+PRETRAIN_FEEDS = ("src_ids", "pos_ids", "sent_ids", "input_mask",
+                  "mask_pos", "mask_label", "mask_weight")
+
+
+def _reader_feeds(seq_len, batch, masked_gather):
+    """A py_reader of static batch ``batch`` whose slots stand for the
+    data feeds, in ``PRETRAIN_FEEDS`` order: (reader, slot vars)."""
+    n = max_predictions(seq_len)
+    tail = ([batch, n], [batch, n], [batch, n]) if masked_gather else \
+        ([batch, seq_len, 1], [batch, seq_len, 1])
+    shapes = [[batch, seq_len]] * 3 + [[batch, seq_len, 1]] + list(tail)
+    dtypes = ["int64"] * 3 + ["float32"] + (
+        ["int64", "int64", "float32"] if masked_gather
+        else ["int64", "float32"])
+    reader = layers.py_reader(capacity=2, shapes=shapes, dtypes=dtypes,
+                              name="bert_reader")
+    return reader, layers.read_file(reader)
+
+
+def reader_batch(feed, masked_gather=True):
+    """A ``synthetic_batch`` feed as one py_reader batch (a tuple in
+    ``PRETRAIN_FEEDS`` order)."""
+    names = PRETRAIN_FEEDS if masked_gather else PRETRAIN_FEEDS[:4] + (
+        "mask_label", "mask_weight")
+    return tuple(feed[n] for n in names)
+
+
 def build_pretrain_program(cfg=None, seq_len=128, lr=1e-4, seed=7,
-                           use_amp=False, masked_gather=True):
+                           use_amp=False, masked_gather=True,
+                           py_reader_batch=None, recompute=False):
     """(main, startup, loss) of MLM pretraining with Adam; ``use_amp``
-    trains in bf16 mixed precision."""
+    trains in bf16 mixed precision. ``py_reader_batch``: feed from a
+    py_reader (``main.py_reader``) of that static batch;
+    ``recompute``: recompute each encoder layer in the backward (module
+    docstring)."""
     cfg = cfg or BertConfig.base()
     n_pred = max_predictions(seq_len)
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = seed
     with fluid.program_guard(main, startup):
-        enc = bert_encoder(*_feeds(seq_len), cfg)
-        if masked_gather:
-            mpos = layers.data("mask_pos", shape=[n_pred], dtype="int64")
-            mlabel = layers.data("mask_label", shape=[n_pred],
-                                 dtype="int64")
-            mweight = layers.data("mask_weight", shape=[n_pred],
-                                  dtype="float32")
-            loss = mlm_loss_masked(enc, mpos, mlabel, mweight, cfg)
+        if py_reader_batch:
+            main.py_reader, slots = _reader_feeds(
+                seq_len, int(py_reader_batch), masked_gather)
+            feeds, heads = slots[:4], slots[4:]
         else:
-            mlabel = layers.data("mask_label", shape=[seq_len, 1],
-                                 dtype="int64")
-            mweight = layers.data("mask_weight", shape=[seq_len, 1],
-                                  dtype="float32")
-            loss = mlm_loss(enc, mlabel, mweight, cfg)
+            feeds = _feeds(seq_len)
+        layer_outputs = []
+        enc = bert_encoder(*feeds, cfg, layer_outputs=layer_outputs)
+        if masked_gather:
+            if not py_reader_batch:
+                heads = (
+                    layers.data("mask_pos", shape=[n_pred], dtype="int64"),
+                    layers.data("mask_label", shape=[n_pred],
+                                dtype="int64"),
+                    layers.data("mask_weight", shape=[n_pred],
+                                dtype="float32"))
+            loss = mlm_loss_masked(enc, *heads, cfg)
+        else:
+            if not py_reader_batch:
+                heads = (
+                    layers.data("mask_label", shape=[seq_len, 1],
+                                dtype="int64"),
+                    layers.data("mask_weight", shape=[seq_len, 1],
+                                dtype="float32"))
+            loss = mlm_loss(enc, *heads, cfg)
         opt = optimizer.Adam(learning_rate=lr)
+        if recompute:
+            opt = optimizer.RecomputeOptimizer(opt)
+            opt._set_checkpoints(layer_outputs)
         if use_amp:
             opt = mixed_precision.decorate(opt)
         opt.minimize(loss)

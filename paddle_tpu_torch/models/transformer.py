@@ -316,6 +316,20 @@ class Transformer(Layer):
             self.add_sublayer("dec_%d" % i, l)
         self.proj = Linear(d_model, tgt_vocab, **kw)
         self.dropout_rate = dropout_rate
+        self.last_checkpoints = []
+
+    def checkpoint_vars(self, program):
+        """The layer-output Variables of the last traced forward (each
+        encoder and decoder layer's), found in ``program`` (the
+        ``jit.trace`` output): give them to
+        ``RecomputeOptimizer._set_checkpoints`` to recompute each layer
+        in the backward instead of keeping its activations."""
+        blk = program.global_block()
+        return [blk.var(n) for n in self.last_checkpoints]
+
+    def _checkpoint(self, x):
+        if isinstance(x, VarBase):
+            self.last_checkpoints.append(x.name)
 
     @staticmethod
     def big(src_vocab=32000, tgt_vocab=32000, **kw):
@@ -342,6 +356,7 @@ class Transformer(Layer):
         enc = self._embed(src_ids, self.src_emb, pos_src)
         for l in self.enc_layers:
             enc = l(enc, src_bias)
+            self._checkpoint(enc)
         return enc
 
     @fp32_products()
@@ -350,11 +365,14 @@ class Transformer(Layer):
         """Teacher-forced logits [B, S_tgt, V]. src_bias: optional
         [B, 1, 1, S_src] additive padding mask. On VarBases under
         ``dygraph.guard()`` every op is traced (``jit.trace`` records
-        it); on torch tensors it runs in torch."""
+        it), and ``last_checkpoints`` names each layer's output; on torch
+        tensors it runs in torch."""
+        self.last_checkpoints = []
         enc = self._encode(src_ids, pos_src, src_bias)
         dec = self._embed(tgt_ids, self.tgt_emb, pos_tgt)
         for l in self.dec_layers:
             dec = l(dec, enc, causal_bias, src_bias)
+            self._checkpoint(dec)
         return self.proj(dec)
 
     # -- incremental decode (prefill + per-token step) -----------------------
@@ -502,6 +520,53 @@ class Transformer(Layer):
             new_v.append(v_new)
         greedy = torch.argmax(self.proj(x), dim=-1).to(torch.int32)
         return tuple([greedy, new_len] + new_k + new_v)
+
+
+class EncoderTower(Layer):
+    """Encoder-only LM tower (embed -> N encoder layers -> vocab
+    projection), the reference's: every layer boundary carries the same
+    [B, S, D] activation. ``last_checkpoints`` names each layer's output
+    var of the last traced forward (recompute's checkpoints, and the
+    reference's pipeline cut candidates)."""
+
+    def __init__(self, vocab, d_model=64, n_heads=4, d_inner=128,
+                 n_layers=4, max_len=64, dropout_rate=0.0, model_axis=None,
+                 *, device=None, seed=0):
+        if model_axis is not None:
+            raise NotImplementedError(
+                "model_axis (Megatron tensor parallelism) needs a device "
+                "mesh, which the port has not ported yet (ROADMAP queue 7)")
+        super().__init__()
+        device = device_of(device)
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+        kw = dict(device=device, generator=gen)
+        self.d_model = d_model
+        self.emb = Embedding([vocab, d_model], **kw)
+        self.pos_emb = Embedding([max_len, d_model], **kw)
+        self.layers_ = [EncoderLayer(d_model, n_heads, d_inner,
+                                     dropout_rate, **kw)
+                        for _ in range(n_layers)]
+        for i, l in enumerate(self.layers_):
+            self.add_sublayer("tower_%d" % i, l)
+        self.proj = Linear(d_model, vocab, **kw)
+        self.dropout_rate = dropout_rate
+        self.last_checkpoints = []
+
+    checkpoint_vars = Transformer.checkpoint_vars
+
+    @fp32_products()
+    def forward(self, ids, pos):
+        self.last_checkpoints = []
+        x = self.emb(ids)
+        (x,) = _op("scale", {"X": [x]}, ["Out"],
+                   {"scale": math.sqrt(self.d_model), "bias": 0.0,
+                    "bias_after_scale": True})
+        x = _dropout(x + self.pos_emb(pos), self.dropout_rate,
+                     self.training)
+        for l in self.layers_:
+            x = l(x, None)
+            self.last_checkpoints.append(x.name)
+        return self.proj(x)
 
 
 def make_causal_bias(seq_len):

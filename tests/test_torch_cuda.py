@@ -5,7 +5,9 @@ against eager, its untouched rows and an out-of-range id; dygraph on the
 card by default, and a traced Transformer-tiny's AMP step graphed against
 eager and its first loss against the eager dygraph loss; the host
 embedding tier's in-place admission, its prefetched rows waited on, and a
-stager-fed loop against an unstaged one. Every test needs a CUDA device
+stager-fed loop against an unstaged one; a py_reader's prefetched
+windows waited on behind a slow copy, a rollback into a graphed step,
+and recompute graphed against eager and against no recompute. Every test needs a CUDA device
 and skips without one. This file imports neither jax nor paddle_tpu, so it also runs on a
 machine without them, skipping the suite's conftest (which imports jax):
 
@@ -1928,3 +1930,127 @@ def test_host_stager_fed_loop_equals_unstaged(cuda_device, monkeypatch):
                              fluid.monitor, cuda_device)
     assert not rec["unequal"] and rec["states"] > 20
     assert rec["train_from_dataset"]["batches"] == d["batches"]
+
+
+# -- py_reader windows, checkpoints and recompute on the card -----------------
+
+def _reader_tiny(fluid, device, n_batches=16, recompute=False):
+    """BERT-tiny packed AMP (dropout 0.1, S 64, batch 4) fed by its
+    py_reader over ``n_batches`` seeded batches, the startup run in a
+    scope: (main, loss, scope, persistable names)."""
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.tiny()
+    cfg.use_fused_attention = "packed"
+    with fluid.unique_name.guard():
+        main, startup, loss = bert.build_pretrain_program(
+            cfg, seq_len=64, use_amp=True, py_reader_batch=4,
+            recompute=recompute)
+    batches = [bert.reader_batch(bert.synthetic_batch(cfg, 4, 64, seed=i))
+               for i in range(n_batches)]
+    main.py_reader.decorate_tensor_provider(lambda: iter(batches))
+    scope = fluid.Scope()
+    fluid.Executor(device, cuda_graphs=False).run(startup, scope=scope)
+    return main, loss, scope, smoke.persistable_names(main)
+
+
+def _windows(fluid, device, main, loss, scope, prefetch):
+    exe = fluid.Executor(device)
+    main.py_reader.start()
+    out = [exe.run(main, fetch_list=[loss], scope=scope, iters=4,
+                   prefetch=prefetch)[0] for _ in range(4)]
+    exe.close()
+    main.py_reader.reset()
+    return np.concatenate([o.reshape(-1) for o in out])
+
+
+def test_window_prefetch_waits_for_a_slow_copy(cuda_device, monkeypatch):
+    """A slow copy planted on the stager stream before each prefetched
+    window's copies: the replays wait on the window's event, so the
+    prefetched trajectory equals the inline one to the bit."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import reader
+
+    main, loss, scope, _ = _reader_tiny(fluid, cuda_device)
+    want = _windows(fluid, cuda_device, main, loss, smoke.clone_scope(
+        fluid, scope), prefetch=False)
+    copy = reader.copy_feed
+
+    def slow(feed, device, keep_on_host=()):
+        with torch.cuda.stream(reader._stage_stream(device)):
+            torch.cuda._sleep(50 * smoke.HOLD_CYCLES)
+        return copy(feed, device, keep_on_host)
+
+    monkeypatch.setattr(reader, "copy_feed", slow)
+    got = _windows(fluid, cuda_device, main, loss, smoke.clone_scope(
+        fluid, scope), prefetch=True)
+    np.testing.assert_array_equal(got, want)
+    assert np.isfinite(got).all()
+
+
+def test_graph_rollback_restores_the_version(cuda_device, tmp_path):
+    """The smoke's checkpointed run at BERT-tiny, graphed: a planted
+    non-finite step 6 rolls back to the step-4 version (scope, generator,
+    reader) to the bit, the next replay copies the restored values into
+    the captured storage (no state tensor rebound, no new capture) and
+    equals a fresh eager step from the version; the committed trajectory
+    and final state equal an uninterrupted run's."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import faults, monitor
+    from paddle_tpu_torch.fluid.io import CheckpointManager
+
+    main, loss, init, names = _reader_tiny(fluid, cuda_device)
+    sc, exe = smoke.clone_scope(fluid, init), fluid.Executor(cuda_device)
+    main.py_reader.start()
+    plain = smoke.reader_steps(exe, main, loss, sc, smoke.CKPT_STEPS)
+    digest = smoke.state_digest(sc, names)
+    exe.close()
+    main.py_reader.reset()
+    rec = smoke.checkpointed_run(fluid, faults, monitor, cuda_device, main,
+                                 loss, init, names, CheckpointManager,
+                                 str(tmp_path / "v"))
+    assert rec["rollback_exact"] and rec["eager_equal"], rec
+    assert rec["rebound"] == 0 and rec["new_captures"] == 0, rec
+    assert rec["state_copies"] == len(names) and rec["rollbacks"] == 1
+    assert rec.pop("losses") == plain and rec.pop("digest") == digest
+    assert rec["versions"] == [8, 12]
+
+
+def _recompute_tiny(fluid, device, recompute, graphs, steps=4):
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.tiny()
+    cfg.use_fused_attention = True
+    with fluid.unique_name.guard():
+        main, startup, loss = bert.build_pretrain_program(
+            cfg, seq_len=64, recompute=recompute)
+    scope = fluid.Scope()
+    fluid.Executor(device, cuda_graphs=False).run(startup, scope=scope)
+    feed = bert.synthetic_batch(cfg, 4, 64, seed=0)
+    exe = fluid.Executor(device, cuda_graphs=graphs)
+    smoke.reset_launches(A)
+    losses = _losses(exe, main, loss, feed, scope, 1)
+    launched = smoke.launches(A, smoke.FUSED_KERNELS)
+    losses += _losses(exe, main, loss, feed, scope, steps - 1)
+    state = {n: scope.find_var(n).clone()
+             for n in smoke.persistable_names(main)}
+    exe.close()
+    return losses, state, launched, cfg.n_layers
+
+
+def test_recompute_graphed_equals_eager_and_plain(cuda_device):
+    """BERT-tiny fp32 with dropout 0.1 under recompute: graphed equals
+    eager, and equals the graphed run without recompute, to the bit; the
+    eager step launches the attention forward once more per layer."""
+    from paddle_tpu_torch import fluid
+
+    g_loss, g_state, g_launch, L = _recompute_tiny(fluid, cuda_device,
+                                                   True, True)
+    e_loss, e_state, _, _ = _recompute_tiny(fluid, cuda_device, True, False)
+    p_loss, p_state, p_launch, _ = _recompute_tiny(fluid, cuda_device,
+                                                   False, True)
+    assert g_loss == e_loss == p_loss and np.isfinite(g_loss).all()
+    for n, t in p_state.items():
+        assert torch.equal(g_state[n], t) and torch.equal(e_state[n], t), n
+    assert [g_launch[k] for k in smoke.FUSED_KERNELS] == [2 * L, L, L]
+    assert [p_launch[k] for k in smoke.FUSED_KERNELS] == [L, L, L]

@@ -457,12 +457,30 @@ def test_stager_errors_retries_and_close():
     ("boxps", "ROADMAP queue 1 item 8"),
     ("stage_sharding", "ROADMAP queue 1 item 7"),
     ("loader_sharding", "ROADMAP queue 1 item 7"),
-    ("prefetch_run", "ROADMAP queue 5"),
+    # the window prefetch is ported: on explicit feeds (no py_reader)
+    # prefetch=True raises the reference's ValueError
+    pytest.param("prefetch_run", "prefetch=True needs a py_reader-fed",
+                 id="prefetch_run-ROADMAP queue 5"),
 ])
 def test_refusals_name_their_roadmap_items(tmp_path, monkeypatch, case,
                                            match):
     f = str(tmp_path / "r.txt")
     _write_multislot(f, 4, seed=1)
+    if case == "prefetch_run":
+        msgs = []
+        for fluid, exe in ((jfluid, jfluid.Executor()),
+                           (pfluid, pfluid.Executor("cpu"))):
+            main, startup, _, loss = _linear(fluid)
+            scope = fluid.Scope()
+            exe.run(startup, scope=scope)
+            with pytest.raises(ValueError, match=match) as e:
+                exe.run(main, feed={"dense": np.ones((2, 2, 3), np.float32),
+                                    "label": np.ones((2, 2, 1), np.float32)},
+                        fetch_list=[loss], scope=scope, iters=2,
+                        prefetch=True)
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1]
+        return
     with pytest.raises(NotImplementedError, match=match):
         if case == "native_parser":
             PDS._native_parse(None, b"", ["f"])
@@ -488,15 +506,9 @@ def test_refusals_name_their_roadmap_items(tmp_path, monkeypatch, case,
             pfluid.DatasetFactory().create_dataset("BoxPSDataset")
         elif case == "stage_sharding":
             PR.stage_feed({"x": np.ones(1)}, "cpu", sharding={"x": None})
-        elif case == "loader_sharding":
+        else:
             pfluid.DataLoader.from_generator(
                 feed_list=[_use_vars(pfluid)[0]], sharding=object())
-        else:
-            main, startup, _, loss = _linear(pfluid)
-            pfluid.Executor("cpu").run(
-                main, feed={"dense": np.ones((2, 2, 3), np.float32)},
-                fetch_list=[loss], scope=pfluid.Scope(), iters=2,
-                prefetch=True)
 
 
 def test_factory_and_setters_match_reference():

@@ -509,21 +509,66 @@ def test_skip_step_keeps_every_persistable_and_budget_raises(iters):
     _close(_state(pm, pscope), _state(jm, jscope))
 
 
+def _reader_mlp(fluid):
+    """(main, startup, loss, reader) of the MLP fed by a py_reader over
+    four batches of ``_feeds``."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        reader = fluid.layers.py_reader(capacity=2, shapes=[[B, 4], [B, 1]],
+                                        dtypes=["float32", "float32"])
+        x, y = fluid.layers.read_file(reader)
+        h = fluid.layers.fc(x, 8, act="gelu")
+        d = fluid.layers.elementwise_add(fluid.layers.fc(h, 1),
+                                         fluid.layers.scale(y, -1.0))
+        loss = fluid.layers.reduce_sum(fluid.layers.elementwise_mul(d, d))
+        fluid.optimizer.AdamOptimizer(learning_rate=1e-2).minimize(loss)
+    batches = [(f["x"], f["y"]) for f in _feeds(4)]
+    reader.decorate_tensor_provider(lambda: iter(batches))
+    return main, startup, loss, reader
+
+
+# The options earlier slices refused, each now held to the reference:
+# ``rollback`` without ``checkpoint=`` raises the reference's error on a
+# non-finite step; a malformed ``checkpoint=`` raises as the reference's
+# does; ``prefetch=True`` on a py_reader program runs, its windows equal
+# to the reference's inline ones.
 @pytest.mark.parametrize("kwargs,flag", [
     ({}, "rollback"),
     ({"checkpoint": (object(), 1)}, None),
     ({"iters": 2, "prefetch": True}, None),
 ])
 def test_unported_options_raise_naming_their_queue(kwargs, flag):
-    pm, ps, pl, _ = _mlp(pfluid)
-    if flag:
-        pfluid.set_flags({"FLAGS_anomaly_policy": flag})
-    feed = _feeds(1)[0]
-    if kwargs.get("iters"):
-        feed = _stack(_feeds(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 5"):
-        pfluid.Executor("cpu").run(pm, feed=feed, fetch_list=[pl],
-                                   scope=pfluid.Scope(), **kwargs)
+    if kwargs.get("prefetch"):
+        (jm, js, jl, jr), (pm, ps, pl, pr) = _reader_mlp(jfluid), \
+            _reader_mlp(pfluid)
+        jexe, jscope, pscope = jfluid.Executor(), jfluid.Scope(), \
+            pfluid.Scope()
+        jexe.run(js, scope=jscope)
+        pfluid.copy_scope(jscope, pscope, _persistables(jm), device="cpu")
+        pexe = pfluid.Executor("cpu")
+        jr.start()
+        pr.start()
+        for _ in range(2):
+            (want,) = jexe.run(jm, fetch_list=[jl], scope=jscope, iters=2)
+            (got,) = pexe.run(pm, fetch_list=[pl], scope=pscope, **kwargs)
+            np.testing.assert_allclose(got, np.asarray(want), rtol=TRAJ_RTOL)
+        pexe.close()
+        _close(_state(pm, pscope), _state(jm, jscope))
+        return
+    msgs = []
+    for fluid, exe, feed in ((jfluid, jfluid.Executor(), _nan_feed()),
+                             (pfluid, pfluid.Executor("cpu"), _nan_feed())):
+        main, startup, loss, _ = _mlp(fluid)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        if flag:
+            fluid.set_flags({"FLAGS_anomaly_policy": flag})
+        with pytest.raises((RuntimeError, ValueError)) as e:
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                    **kwargs)
+        msgs.append((type(e.value), str(e.value)))
+    assert msgs[0] == msgs[1]
+    assert ("rollback" if flag else "checkpoint") in msgs[1][1]
 
 
 def test_fetch_mode_and_prefetch_validation_match_reference():

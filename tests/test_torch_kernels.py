@@ -194,6 +194,10 @@ def test_port_imports_without_jax_triton_or_nvcc():
         "import paddle_tpu_torch.models.deepfm, paddle_tpu_torch.embedding\n"
         "import paddle_tpu_torch.embedding.host, paddle_tpu_torch.fluid.reader\n"
         "import paddle_tpu_torch.fluid.dataset, paddle_tpu_torch.fluid.faults\n"
+        "import paddle_tpu_torch.fluid.layers.py_reader\n"
+        "import paddle_tpu_torch.fluid.core, paddle_tpu_torch.fluid.ops.autodiff\n"
+        "import paddle_tpu_torch.distributed\n"
+        "import paddle_tpu_torch.distributed.preemption\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m in ('jax', 'triton') or\n"
         "       m == 'paddle_tpu' or m.startswith(('paddle_tpu.', 'jax.'))]\n"
