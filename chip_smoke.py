@@ -273,7 +273,37 @@ wrappers') and ``replay_launches`` (the traced replay's).
              both ways and batch 8 with recompute (or the largest batch
              batch 2's peak says fits): peak GB and step ms, the peaks
              lower with recompute.
-17. stream   the dense continuous stream, GenerativePredictor(...,
+17. cold_start  the encoder_serving phase's BERT-base encoder exported
+             with save_inference_model(prelower=True) at its ladder's
+             batch sizes (1-32): export s, the bytes of __prelowered__/,
+             its entries and kernel libraries. Then three fresh child
+             processes (subprocess, ``--cold-start-child``), each with
+             an empty PADDLE_COMPILE_CACHE_DIR, build a Predictor and a
+             Server with the ladder's warm-up and answer one request,
+             timed from spawn in parts (import, load, warm-up, answer):
+             (1) from __prelowered__/ with no _build/ in reach: 0 nvcc
+             runs, one disk hit per ladder size, 0 live compiles; (2)
+             __prelowered__/ moved aside, the cache dir that (1) filled:
+             the same; (3) __prelowered__/kernels/'s library truncated,
+             a fresh cache dir, the checkout's _build/ in reach: the
+             library quarantined, the answer right (nvcc runs and their
+             seconds printed). Each answer within SERVE_ATOL of the
+             parent's Predictor.run of the same rows.
+18. fleet    a CoordServer, a Router and a FleetSupervisor of two
+             replica processes over that export (a shared compile cache,
+             no _build/ in reach), 8 FleetClient threads sending the
+             encoder_serving phase's 64 requests; each replica
+             registers with 0 live compiles and 0 nvcc runs; every
+             answer within SERVE_ATOL of a direct Predictor.run of its
+             rows; one replica SIGTERM'd mid-traffic drains (exit 0, its
+             marker), nothing lost, respawned with 0 live compiles (s
+             from SIGTERM to its registration); request p50/p99 through
+             the fleet beside an in-process Server's (a Replica in this
+             process), fleet_requeued_total; one traced request is one
+             trace from the client through the router and a replica to
+             executor.run; a traced replay of the in-process replica's
+             graph runs the attention forward 12 times (once a layer).
+19. stream   the dense continuous stream, GenerativePredictor(...,
              slot_prefill=True).open_stream() at width 8 (bench.py's
              decode-engine legs): 16 requests of ragged prompt lengths
              and budgets joined and stepped, each equal to its solo run
@@ -286,7 +316,7 @@ wrappers') and ``replay_launches`` (the traced replay's).
              the idle share of a traced window of steps; then the same
              requests through GenerativeServer from 4 threads (p50, p99,
              each equal to its solo run).
-18. speculative  build_speculative_session over a dense session at batch
+20. speculative  build_speculative_session over a dense session at batch
              8, k 4, full prompts, 12 and 32 new tokens, draft depth 3
              (the default, L // 2) and 6: tokens equal to the dense
              session's row by row (a row may differ only where the dense
@@ -298,7 +328,7 @@ wrappers') and ``replay_launches`` (the traced replay's).
              state; rounds, accepted mean, target and draft launches,
              tokens/s beside the dense session's, the idle share of a
              traced generate.
-19. summary  the kernels line, the card line, then the result line.
+21. summary  the kernels line, the card line, then the result line.
 """
 
 import collections
@@ -308,6 +338,8 @@ import math
 import os
 import re
 import resource
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -3314,6 +3346,469 @@ def encoder_serving_path(A, inference, monitor, dev):
     return served_launches
 
 
+# -- the cold start and the serving fleet ------------------------------------------
+# the encoder_serving phase's ladder and requests, served by processes that
+# start from save_inference_model(prelower=True)'s __prelowered__/
+COLD_CHILD_TIMEOUT_S = 300
+FLEET_REPLICAS, FLEET_TERM_AFTER = 2, 16
+FLEET_REGISTER_TIMEOUT_S = 240
+
+
+def encoder_requests(bert, cfg):
+    """The encoder_serving phase's SERVE_REQUESTS requests (1-4 rows of
+    S SERVE_SEQ with ragged masks), from its seeds."""
+    feeds = ["src_ids", "pos_ids", "sent_ids", "input_mask"]
+    rng = np.random.RandomState(5)
+    rows = bert.synthetic_batch(cfg, 4 * SERVE_REQUESTS, SERVE_SEQ, seed=5)
+    lens = rng.randint(SERVE_SEQ // 2, SERVE_SEQ + 1, 4 * SERVE_REQUESTS)
+    rows["input_mask"][np.arange(SERVE_SEQ)[None, :] >= lens[:, None]] = 0.0
+    sizes = rng.randint(1, 5, SERVE_REQUESTS)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    return feeds, [{n: rows[n][s:s + k] for n in feeds}
+                   for s, k in zip(starts, sizes)]
+
+
+def cold_start_child(model_dir, req_path, out_path, spawned, place="cuda"):
+    """One cold process of the cold_start phase (``python3 chip_smoke.py
+    --cold-start-child MODEL_DIR REQ OUT SPAWNED [PLACE]``): a Predictor
+    over MODEL_DIR and a Server with the ladder's warm-up, one request
+    (REQ, an .npz of feeds) answered into OUT; prints one JSON line with
+    the seconds from SPAWNED (the parent's clock at spawn) by part, the
+    nvcc runs, the warm-up's disk hits, the live compiles, the
+    quarantines and where the attention library came from. PLACE "cpu"
+    rehearses it on the CPU."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.fluid import monitor
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.serving import replica
+
+    import_s = time.time() - float(spawned)
+    req = dict(np.load(req_path))
+    exemplar = {n: v[:1] for n, v in req.items()}
+    dev = torch.device(place)
+    compiles0 = replica._live_compile_count()
+    t0 = time.perf_counter()
+    pred = inference.create_predictor(inference.Config(model_dir,
+                                                       place=place))
+    sync(dev)
+    load_s = time.perf_counter() - t0
+    srv = inference.Server()
+    t0 = time.perf_counter()
+    ladder = srv.register("bert_encoder", pred, config=inference.ServeConfig(
+        max_batch_size=32, max_queue_delay_ms=2.0), warmup_feed=exemplar)
+    sync(dev)
+    warmup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = srv.submit("bert_encoder", req).result(timeout=600)[0]
+    answer_s = time.perf_counter() - t0
+    srv.close()
+    np.save(out_path, out)
+    print(json.dumps(dict(
+        import_s=import_s, load_s=load_s, warmup_s=warmup_s,
+        answer_s=answer_s, first_answer_s=time.time() - float(spawned),
+        ladder=ladder, nvcc_runs=_build.nvcc_runs,
+        nvcc_s=_build.nvcc_seconds,
+        live_compiles=replica._live_compile_count() - compiles0,
+        warmup_disk_hits=monitor.counter(
+            "serving_warmup_disk_hits_total",
+            labels={"model": "bert_encoder"}).value,
+        disk_misses=monitor.counter(
+            "executor_compile_cache_disk_miss_total").value,
+        quarantined=monitor.counter(
+            "compile_cache_quarantined_total").value,
+        library=_build.loaded_from("fused_attention"))), flush=True)
+    return 0
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def cold_start_path(inference, dev, tmp, model_dir, reqs, direct, ladder):
+    """The cold_start phase's three children (module docstring); returns
+    their records."""
+    from paddle_tpu_torch.fluid import compile_cache
+    from paddle_tpu_torch.kernels import _build
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    np.savez(os.path.join(tmp, "req.npz"), **reqs[0])
+    pre = os.path.join(model_dir, compile_cache.PRELOWERED_DIRNAME)
+    lib = os.path.join(pre, compile_cache.KERNELS_DIRNAME,
+                       _build.lib_name("fused_attention"))
+    cache1 = os.path.join(tmp, "cache1")
+    records = {}
+    # the CPU (a rehearsal) launches no library to truncate
+    cases = ("prelowered", "cache_dir") + (
+        ("truncated_library",) if dev.type == "cuda" else ())
+    for case in cases:
+        cache = cache1 if case != "truncated_library" else \
+            os.path.join(tmp, "cache3")
+        os.makedirs(cache, exist_ok=True)
+        env = dict(os.environ, PYTHONPATH=here,
+                   **{compile_cache.ENV_DIR: cache})
+        if case != "truncated_library":
+            # no _build/ in reach: a library comes from a tier or nvcc
+            empty = os.path.join(tmp, "no_build_" + case)
+            os.makedirs(empty)
+            env[_build.ENV_BUILD_DIR] = empty
+        if case == "cache_dir":
+            os.rename(pre, pre + ".aside")
+        if case == "truncated_library":
+            shutil.copyfile(lib, lib + ".intact")
+            with open(lib, "r+b") as f:
+                f.truncate(os.path.getsize(lib) // 3)
+        out = os.path.join(tmp, "out_%s.npy" % case)
+        try:
+            r = subprocess.run(
+                [sys.executable, os.path.abspath(__file__),
+                 "--cold-start-child", model_dir,
+                 os.path.join(tmp, "req.npz"), out, repr(time.time()),
+                 dev.type],
+                env=env, cwd=here, capture_output=True, text=True,
+                timeout=COLD_CHILD_TIMEOUT_S)
+        finally:
+            if case == "cache_dir":
+                os.rename(pre + ".aside", pre)
+        quarantined = os.path.exists(lib + compile_cache.QUARANTINE_SUFFIX)
+        if case == "truncated_library":
+            # the fleet phase serves this export next: its library whole
+            os.replace(lib + ".intact", lib)
+            if quarantined:
+                os.remove(lib + compile_cache.QUARANTINE_SUFFIX)
+        got = [json.loads(line) for line in r.stdout.splitlines()
+               if line.startswith("{")]
+        if r.returncode != 0 or not got:
+            raise AssertionError("cold_start (%s): child exit %d\n%s"
+                                 % (case, r.returncode, r.stderr[-3000:]))
+        rec = got[-1]
+        err = float(np.abs(np.load(out) - direct[0]).max())
+        loaded = rec["library"] or ""
+        rec.update(case=case, vs_direct_max_abs_err=err, library=(
+            "__prelowered__/kernels/" if loaded.startswith(pre) else
+            "$PADDLE_COMPILE_CACHE_DIR/kernels/" if loaded.startswith(cache)
+            else "_build/") + os.path.basename(loaded))
+        emit(phase="cold_start", **rec)
+        if not err <= SERVE_ATOL:
+            raise AssertionError("cold_start (%s): answer vs the parent's "
+                                 "Predictor max |err| %g > %g"
+                                 % (case, err, SERVE_ATOL))
+        if case == "truncated_library":
+            if not (rec["quarantined"] >= 1 and quarantined):
+                raise AssertionError("cold_start: the truncated library "
+                                     "was not quarantined: %s" % rec)
+        elif (rec["nvcc_runs"], rec["live_compiles"],
+              rec["warmup_disk_hits"]) != (0, 0, len(ladder)) or (
+                dev.type == "cuda" and not rec["library"].startswith(
+                    "__prelowered__" if case == "prelowered" else "$")):
+            raise AssertionError("cold_start (%s): want 0 nvcc runs, 0 "
+                                 "live compiles, %d disk hits and the "
+                                 "library from the tier, got %s"
+                                 % (case, len(ladder), rec))
+        records[case] = rec
+    return records
+
+
+def wait_for(cond, timeout, what):
+    deadline = time.time() + timeout
+    while True:
+        got = cond()
+        if got:
+            return got
+        if time.time() > deadline:
+            raise AssertionError("fleet: timed out waiting for " + what)
+        time.sleep(0.1)
+
+
+def fleet_traffic(submit, reqs, on_done=None):
+    """``reqs`` from SERVE_CLIENTS threads, each with its own
+    ``submit = make()``: (results, latencies); ``on_done(n)`` after the
+    n-th answer."""
+    results, latency = [None] * len(reqs), [None] * len(reqs)
+    done, mu, errs = [0], threading.Lock(), []
+
+    def client(c):
+        call = submit()
+        try:
+            for i in range(c, len(reqs), SERVE_CLIENTS):
+                ts = time.perf_counter()
+                results[i] = call(reqs[i])
+                latency[i] = time.perf_counter() - ts
+                with mu:
+                    done[0] += 1
+                    n = done[0]
+                if on_done is not None:
+                    on_done(n)
+        except Exception as e:  # noqa: BLE001 — raised below
+            errs.append(e)
+        finally:
+            closer = getattr(call, "close", None)
+            if closer is not None:
+                closer()
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            raise AssertionError("fleet: a client thread hung")
+    if errs:
+        raise AssertionError("fleet: a client failed: %r" % errs[0])
+    if any(r is None for r in results):
+        raise AssertionError("fleet: unanswered requests")
+    return results, latency
+
+
+def fleet_path(A, inference, monitor, dev, tmp, model_dir, feeds, reqs,
+               direct, ladder, n_layers):
+    """The fleet phase (module docstring)."""
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.distributed.coordination import (CoordClient,
+                                                           CoordServer)
+    from paddle_tpu_torch.fluid import compile_cache
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.serving import (FleetClient, FleetSupervisor,
+                                          Replica, Router)
+    from paddle_tpu_torch.telemetry import pusher
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    warm = {n: {"shape": [1] + list(reqs[0][n].shape[1:]),
+                "dtype": str(reqs[0][n].dtype)} for n in feeds}
+    spec = {"prefix": "fleet/", "models": [{
+        "name": "bert_encoder", "model_dir": model_dir, "warmup": warm,
+        "place": dev.type,
+        "config": {"max_batch_size": 32, "max_queue_delay_ms": 2.0}}]}
+    hb = os.path.join(tmp, "hb")
+    for d in (hb, os.path.join(tmp, "fleet_cache"),
+              os.path.join(tmp, "fleet_no_build")):
+        os.makedirs(d)
+    env = {"PYTHONPATH": here, "PADDLE_HEARTBEAT_DIR": hb,
+           compile_cache.ENV_DIR: os.path.join(tmp, "fleet_cache"),
+           _build.ENV_BUILD_DIR: os.path.join(tmp, "fleet_no_build"),
+           "PADDLE_FLEET_LEASE_TTL": "3.0", "PADDLE_TELEMETRY": "1",
+           "PADDLE_TELEMETRY_PUSH_MS": "200"}
+    coord = CoordServer().start()
+    addr = coord.endpoint
+    dbg = CoordClient(addr)
+    sup = FleetSupervisor(spec, FLEET_REPLICAS, addr, env=env,
+                          log_dir=os.path.join(tmp, "fleet_logs"))
+    router = rep = None
+    requeued = monitor.counter("fleet_requeued_total")
+
+    def blobs():
+        out = {}
+        for key in dbg.live_members("fleet/replicas/"):
+            raw = dbg.get(key)
+            if raw is not None:
+                info = json.loads(raw.decode())
+                out[info["replica"]] = info
+        return out
+
+    def check_blob(info, what):
+        if (info["live_compiles"], info["nvcc_runs"],
+                info["warmup_disk_hits"]) != (0, 0, len(ladder)):
+            raise AssertionError("fleet: %s registered with %s (want 0 "
+                                 "live compiles, 0 nvcc runs, %d disk "
+                                 "hits)" % (what, info, len(ladder)))
+
+    try:
+        t0 = time.perf_counter()
+        sup.start()
+        try:
+            first = wait_for(lambda: (lambda b: b if len(b) == FLEET_REPLICAS
+                                      else None)(blobs()),
+                             FLEET_REGISTER_TIMEOUT_S, "the replicas")
+        except AssertionError:
+            raise AssertionError("fleet: replicas never registered:\n" +
+                                 "\n".join(open(sup.log_path(r)).read()[-2000:]
+                                           for r in sup.replica_ids()))
+        start_s = time.perf_counter() - t0
+        for rid, info in first.items():
+            check_blob(info, rid)
+        router = Router(coord_addr=addr, refresh_interval=0.05).start()
+        endpoint = "%s:%d" % (router.host, router.port)
+        wait_for(lambda: len(router.members()) == FLEET_REPLICAS, 30,
+                 "the router's table")
+        victim = sorted(first)[0]
+        term = {}
+
+        def sigterm(n):
+            if n == FLEET_TERM_AFTER and not term:
+                term["t"] = time.time()
+                term["thread"] = threading.Thread(
+                    target=lambda: term.__setitem__(
+                        "rc", sup.drain(victim, respawn=True, timeout=120)))
+                term["thread"].start()
+
+        def fleet_client():
+            cli = FleetClient(endpoint)
+            call = lambda feed: cli.submit("bert_encoder", feed,
+                                           deadline_ms=600000)[0]
+            call.close = cli.close
+            return call
+
+        rq0 = requeued.value
+        results, lat = fleet_traffic(fleet_client, reqs, on_done=sigterm)
+        term["thread"].join(timeout=150)
+        marker = os.path.join(hb, "hb.0.preempted")
+        if term.get("rc") != 0 or not os.path.exists(marker):
+            raise AssertionError("fleet: the SIGTERM'd replica exited %s, "
+                                 "marker %s" % (term.get("rc"),
+                                                os.path.exists(marker)))
+        old_pid = first[victim]["pid"]
+        reborn = wait_for(lambda: (lambda b: b.get(victim) if b.get(
+            victim, {}).get("pid", old_pid) != old_pid else None)(blobs()),
+            FLEET_REGISTER_TIMEOUT_S, "the respawned replica")
+        respawn_s = time.time() - term["t"]
+        check_blob(reborn, "the respawned " + victim)
+        err = max(float(np.abs(got - want).max())
+                  for got, want in zip(results, direct))
+        if not err <= SERVE_ATOL:
+            raise AssertionError("fleet: answers vs direct max |err| %g > "
+                                 "%g" % (err, SERVE_ATOL))
+        # one traced request: client -> router -> replica -> executor.run
+        telemetry.enable()
+        try:
+            with FleetClient(endpoint) as cli:
+                cli.submit("bert_encoder", reqs[0], deadline_ms=600000)
+            mine = [r for r in telemetry.snapshot()
+                    if r["name"] == "client.submit"]
+            tid = mine[-1]["trace_id"]
+
+            def remote():
+                got = [r for spans in pusher.collect_spans(addr)
+                       for r in spans if r.get("trace_id") == tid]
+                return got if "executor.run" in {r["name"] for r in got} \
+                    else None
+            trace = telemetry.trace_spans(tid) + wait_for(
+                remote, 30, "the replica's spans of the traced request")
+        finally:
+            telemetry.disable()
+        names = sorted({r["name"] for r in trace})
+        want_names = {"client.submit", "router.route", "router.dispatch",
+                      "replica.infer", "serving.batch", "executor.run"}
+        if not want_names <= set(names) or \
+                len({r["trace_id"] for r in trace}) != 1:
+            raise AssertionError("fleet: the traced request's spans %s "
+                                 "(want %s in one trace)"
+                                 % (names, sorted(want_names)))
+        # the in-process Server beside it, in a Replica of this process
+        rep = Replica(spec, replica_id="inproc").start()
+        if (rep.live_compiles, rep.nvcc_runs) != (0, 0):
+            raise AssertionError("fleet: the in-process replica built %d "
+                                 "steps and ran nvcc %d times"
+                                 % (rep.live_compiles, rep.nvcc_runs))
+
+        def local():
+            return lambda feed: rep._server.submit(
+                "bert_encoder", feed).result(timeout=600)[0]
+        local_results, local_lat = fleet_traffic(local, reqs)
+        local_err = max(float(np.abs(got - want).max())
+                        for got, want in zip(local_results, direct))
+        pred = rep._server._models["bert_encoder"].predictor
+        exemplar = {n: reqs[0][n][:1] for n in feeds}
+        replayed = traced_replay(pred._exe, lambda: pred.run(exemplar),
+                                 "fleet")
+        if not (local_err <= SERVE_ATOL and (dev.type != "cuda" or (
+                replayed is not None and
+                replayed["fused_attention_fwd_kernel"] == replayed[FWD_TC]
+                == n_layers and sum(replayed[n] for n in FUSED_KERNELS) ==
+                n_layers))):
+            raise AssertionError("fleet: in-process replica err %g, traced "
+                                 "replay %s (want the forward %d times)"
+                                 % (local_err, replayed, n_layers))
+        lat, local_lat = np.array(lat), np.array(local_lat)
+        rec = dict(
+            phase="fleet", replicas=FLEET_REPLICAS, requests=len(reqs),
+            clients=SERVE_CLIENTS, start_s=start_s,
+            registered={rid: {k: info[k] for k in (
+                "live_compiles", "nvcc_runs", "warmup_disk_hits")}
+                for rid, info in first.items()},
+            sigterm_after=FLEET_TERM_AFTER, drained=victim,
+            drain_rc=term["rc"], marker=True, respawn_s=respawn_s,
+            respawned={k: reborn[k] for k in (
+                "pid", "live_compiles", "nvcc_runs", "warmup_disk_hits")},
+            respawns=sup.respawns, requeued=requeued.value - rq0,
+            vs_direct_max_abs_err=err, vs_direct_atol=SERVE_ATOL,
+            fleet_p50_s=float(np.percentile(lat, 50)),
+            fleet_p99_s=float(np.percentile(lat, 99)),
+            in_process_p50_s=float(np.percentile(local_lat, 50)),
+            in_process_p99_s=float(np.percentile(local_lat, 99)),
+            in_process_max_abs_err=local_err, trace_spans=names,
+            replay_launches=replayed)
+        emit(**rec)
+        return rec
+    finally:
+        if rep is not None:
+            rep.drain(timeout=30)
+        if router is not None:
+            router.close()
+        dbg.close()
+        sup.stop(timeout=60)
+        coord.stop()
+
+
+def served_fleet(A, inference, monitor, dev, cfg=None):
+    """Phases cold_start and fleet over one export of the encoder_serving
+    phase's model (module docstring; ``cfg`` another BertConfig, such as
+    a CPU rehearsal's tiny one). Returns where the served replicas'
+    attention library came from, for the kernels line."""
+    import tempfile
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import compile_cache
+    from paddle_tpu_torch.models import bert
+
+    cfg = cfg or bert.BertConfig.base()
+    cfg.use_fused_attention = "packed"
+    feeds, reqs = encoder_requests(bert, cfg)
+    ladder = inference.ServeConfig(max_batch_size=32).ladder()
+    with fluid.unique_name.guard():
+        main, startup, enc = bert.build_encoder_program(cfg,
+                                                        seq_len=SERVE_SEQ)
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = os.path.join(tmp, "model")
+        exe, scope = fluid.Executor(dev), fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe.run(startup, scope=scope)
+            t0 = time.perf_counter()
+            fluid.io.save_inference_model(
+                model_dir, feeds, [enc], exe, main_program=main,
+                prelower=True, prelower_batch_sizes=ladder)
+            export_s = time.perf_counter() - t0
+        del exe, scope
+        pre = os.path.join(model_dir, compile_cache.PRELOWERED_DIRNAME)
+        kdir = os.path.join(pre, compile_cache.KERNELS_DIRNAME)
+        emit(phase="cold_start", check="export", ladder=ladder,
+             export_s=export_s, prelowered_bytes=dir_bytes(pre),
+             entries=len([f for f in os.listdir(pre)
+                          if f.endswith(compile_cache.ENTRY_SUFFIX)]),
+             libraries=sorted(f for f in (os.listdir(kdir) if
+                                          os.path.isdir(kdir) else ())
+                              if f.endswith(".so")),
+             model_bytes=dir_bytes(model_dir) - dir_bytes(pre))
+        direct = inference.create_predictor(inference.Config(
+            model_dir, place=dev.type))
+        direct._exe.cuda_graphs = False
+        want = [direct.run(r)[0] for r in reqs]
+        del direct
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cold = cold_start_path(inference, dev, tmp, model_dir, reqs, want,
+                               ladder)
+        fleet = fleet_path(A, inference, monitor, dev, tmp, model_dir,
+                           feeds, reqs, want, ladder, cfg.n_layers)
+        emit(phase="fleet", check="phase_seconds",
+             cold_start_and_fleet_s=time.perf_counter() - t0 + export_s)
+    return {case: {"library": rec["library"], "nvcc_runs": rec["nvcc_runs"]}
+            for case, rec in cold.items()} | {
+        "fleet_replicas_nvcc_runs": [
+            v["nvcc_runs"] for v in fleet["registered"].values()] +
+        [fleet["respawned"]["nvcc_runs"]]}
+
+
 # -- BASELINE configs 1 and 2: LeNet and ResNet-50 through the IR ----------------
 LENET_BATCH, LENET_WARM, LENET_ITERS, LENET_WINDOWS = 1024, 10, 100, 3
 RESNET_BATCH, RESNET_SIZE, RESNET_CLASSES = 256, 224, 1000
@@ -5400,6 +5895,11 @@ def recompute_long(A, fluid, bert, dev, rc, batch):
 
 
 def main():
+    if sys.argv[1:2] == ["--cold-start-child"]:
+        # a helper process of phase cold_start (its PLACE may be the CPU,
+        # a rehearsal's)
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return cold_start_child(*sys.argv[2:7])
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -5464,6 +5964,9 @@ def main():
     torch.cuda.empty_cache()
     checkpoint_path(A, monitor, dev)
     recompute_path(A, dev)
+    torch.cuda.empty_cache()
+    cold = served_fleet(A, inference, monitor, dev)
+    torch.cuda.empty_cache()
     # the dense phase's model again (the same seed)
     model = T.Transformer.big(device=dev, seed=0)
     stream_launches = stream_path(T, A, inference, monitor, dev, model)
@@ -5551,6 +6054,10 @@ def main():
         for key in ("library_of", "ms_p0"):
             if key in rec:
                 row[key] = rec[key]
+        if replaces.endswith(":1170"):
+            # the served encoder's attention forward: where the cold
+            # replicas' library came from, and with how many nvcc runs
+            row["served_from"] = cold
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

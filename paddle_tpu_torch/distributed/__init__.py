@@ -1,6 +1,9 @@
-"""The distributed runtime's worker side that one process needs:
-graceful preemption (``preemption``). The rest of the reference's
-``paddle_tpu/distributed/`` (launch, the coordination service, the
-parameter-server tier) waits for ROADMAP queue 1 item 8."""
+"""The distributed runtime a serving fleet on one host needs: graceful
+preemption (``preemption``), the framed-TCP transport (``wire``) and the
+coordination service (``coordination``: leases, the KV, the WAL). The
+rest of the reference's ``paddle_tpu/distributed/`` (launch, the
+parameter-server tier, cross-host rendezvous) waits for ROADMAP queue 1
+item 8."""
 
-from . import preemption  # noqa: F401
+from . import coordination, preemption, wire  # noqa: F401
+from .coordination import CoordClient, CoordServer  # noqa: F401

@@ -287,7 +287,11 @@ def drain_exit(manager=None, program=None, scope=None):
 
 def check_drain(manager=None, program=None, scope=None):
     """The between-steps hook ``Executor.run`` calls: no-op until the
-    drain flag is set, then ``drain_exit`` (which does not return)."""
-    if not _DRAIN.is_set():
+    drain flag is set, then ``drain_exit`` (which does not return). Only
+    on the main thread, where a training loop runs: a run on another
+    thread (a serving worker's batch) finishes, and its process drains
+    through its main thread's ``on_drain`` path (a fleet replica lets
+    its in-flight batches finish their replays, then closes)."""
+    if not _DRAIN.is_set() or not _is_main_thread():
         return
     drain_exit(manager, program, scope)

@@ -106,6 +106,19 @@ backward's recomputation.
 
 Every run turns TF32 off for its fp32 products while it runs
 (``fp32_products``), and leaves the process's flags as they were.
+
+The persistent compile cache (``fluid/compile_cache.py``): with
+``PADDLE_COMPILE_CACHE_DIR`` set, or read directories in
+``_cache_read_dirs`` (a ``Predictor``'s ``__prelowered__/``), a new step
+key looks its plan up on disk by a content key (the program's digest in
+place of ``_uid``), with the kernel libraries the plan's warm run
+launched; a disk miss builds the step live and writes its entry after
+that warm run, once those libraries are known. Counted as
+``executor_compile_cache_{hit,miss}_total{tier="disk"}``. The graph
+keys (scope, generator, state storage) stay in the memory tier.
+
+Telemetry: a run inside a traced request (``telemetry.enabled()`` with a
+current trace, as a serving batch's) records an ``executor.run`` span.
 """
 
 import contextlib
@@ -119,6 +132,7 @@ import numpy as np
 import torch
 
 from .. import fp32_products, resolve_device
+from . import compile_cache as _compile_cache
 from . import faults as _faults
 from . import flags as _flags
 from . import framework
@@ -127,6 +141,7 @@ from . import profiler as _prof
 from .framework import Variable
 from .ops import autodiff
 from .registry import LowerCtx, lower_op, to_numpy_dtype, to_torch_dtype
+from ..kernels import _build
 
 __all__ = ["Scope", "global_scope", "scope_guard", "Executor", "copy_scope",
            "FetchHandle", "GraphCaptureError", "register_run_hook",
@@ -259,21 +274,29 @@ def _fire_run_hooks(record):
 class Scope:
     """name -> tensor store, plus the generator random ops draw from.
     ``_uid`` identifies the scope in the executor's cache (an ``id`` can
-    be reused once a scope is collected). (Nested scopes wait for the
-    control-flow ops that need them.)"""
+    be reused once a scope is collected). A child scope (``new_scope``)
+    reads through to its parent and keeps what it sets to itself."""
 
     _uid_counter = itertools.count()
 
-    def __init__(self):
+    def __init__(self, parent=None):
         self.vars = {}
+        self.parent = parent
         self.generator = None
         self._uid = next(Scope._uid_counter)
 
+    def new_scope(self):
+        return Scope(parent=self)
+
     def find_var(self, name):
-        return self.vars.get(name)
+        v = self.vars.get(name)
+        if v is None and self.parent is not None:
+            return self.parent.find_var(name)
+        return v
 
     def has_var(self, name):
-        return name in self.vars
+        return name in self.vars or (self.parent is not None
+                                     and self.parent.has_var(name))
 
     def set_var(self, name, value):
         self.vars[name] = value
@@ -485,6 +508,48 @@ class _Plan:
         self.host_ops = sorted({op.type for op in self.ops
                                 if op.type in _HOST_OPS})
 
+    def to_entry(self):
+        """The plan as plain data for a compile-cache entry: the ops by
+        index (their types), names, and the schedules."""
+        return {
+            "op_types": tuple(op.type for op in self.ops),
+            "fetch_names": tuple(self.fetch_names),
+            "persistable": tuple(sorted(self.persistable)),
+            "grad_at": int(self.grad_at),
+            "sparse_outs": tuple(sorted(self.sparse_outs)),
+            "wrt": tuple(sorted(self.wrt)),
+            "recompute": tuple(sorted(self.recompute.items())),
+            "drop_after": tuple(tuple(names) for names in self.drop_after),
+            "written": tuple(self.written),
+            "host_ops": tuple(self.host_ops),
+        }
+
+    @classmethod
+    def from_entry(cls, program, fetch_names, data):
+        """The plan ``to_entry`` wrote, over ``program``'s ops; raises
+        ValueError when the entry does not describe this program and
+        fetch list."""
+        block = program.global_block()
+        ops = list(block.ops)
+        if tuple(data["op_types"]) != tuple(op.type for op in ops) or \
+                tuple(data["fetch_names"]) != tuple(fetch_names) or \
+                len(data["drop_after"]) != len(ops):
+            raise ValueError("the cache entry's plan is not this "
+                             "program's")
+        plan = cls.__new__(cls)
+        plan.block = block
+        plan.ops = ops
+        plan.fetch_names = list(fetch_names)
+        plan.persistable = set(data["persistable"])
+        plan.grad_at = int(data["grad_at"])
+        plan.sparse_outs = frozenset(data["sparse_outs"])
+        plan.wrt = set(data["wrt"])
+        plan.recompute = {int(i): int(e) for i, e in data["recompute"]}
+        plan.drop_after = [list(names) for names in data["drop_after"]]
+        plan.written = list(data["written"])
+        plan.host_ops = list(data["host_ops"])
+        return plan
+
 
 class _CompiledStep:
     """One compiled step: the plan and, once captured, the step's CUDA
@@ -495,10 +560,13 @@ class _CompiledStep:
     held (its id is in the key); an eager executor's steps hold
     neither."""
 
-    def __init__(self, plan, scope=None, generator=None):
+    def __init__(self, plan, scope=None, generator=None, cache_key=None):
         self.plan = plan
         self.scope = None if scope is None else weakref.ref(scope)
         self.generator = generator
+        # the disk key to write this step's entry under after its warm
+        # run (a disk miss with a write dir), else None
+        self.cache_key = cache_key
         self.runs = 0
         self.graph = None
         self.feeds = {}
@@ -540,6 +608,9 @@ class Executor:
         # (reader ids, iters) -> the pending _WindowPrefetch of a
         # prefetching py_reader loop
         self._window_prefetch = {}
+        # read-only compile-cache tiers searched before the write dir (a
+        # Predictor's model-adjacent __prelowered__/)
+        self._cache_read_dirs = []
 
     # -- feeds -----------------------------------------------------------------
     def _host_feed(self, block, name, value):
@@ -691,9 +762,11 @@ class Executor:
             self._drop_dead_scopes()
             step = self._steps.get(key)
             if step is None:
+                plan, cache_key = self._new_plan(
+                    program, fetch_names, step_feed, state_names)
                 step = self._steps[key] = _CompiledStep(
-                    _Plan(program, fetch_names),
-                    *((scope, gen) if self.cuda_graphs else (None, None)))
+                    plan, *((scope, gen) if self.cuda_graphs
+                            else (None, None)), cache_key=cache_key)
             self._cache[run_key] = step
 
         scan = (_flags.check_nan_inf_enabled() or policy != "raise"
@@ -707,11 +780,28 @@ class Executor:
                         gen.get_state())
         profiling = _prof.is_profiler_enabled()
         t0 = _prof.now() if profiling else None
-        if iters == 1:
-            fetches, static, commit = self._step(step, scope, gen, feed)
-        else:
-            fetches, static, commit = self._window(step, scope, gen,
-                                                   stacked, invariant, iters)
+        from .. import telemetry as _telemetry
+
+        try:
+            with (_telemetry.span("executor.run",
+                                  attrs={"program": program._uid,
+                                         "cache_hit": cache_hit})
+                  if _telemetry.enabled()
+                  and _telemetry.current() is not None
+                  else contextlib.nullcontext()):
+                # a traced request (a serving batch's context is
+                # ambient): the step joins the request's trace
+                if iters == 1:
+                    fetches, static, commit = self._step(step, scope, gen,
+                                                         feed)
+                else:
+                    fetches, static, commit = self._window(
+                        step, scope, gen, stacked, invariant, iters)
+        except Exception:
+            # flight-recorder trigger: capture the ring (open spans show
+            # the in-flight request) before the failure unwinds
+            _telemetry.flight.dump(reason="executor_exception")
+            raise
         if prefetch:
             # window i is queued on the card: drain, stack and stage
             # window i+1 meanwhile
@@ -846,6 +936,38 @@ class Executor:
             if ids is None or set(k[0]) & ids:
                 self._window_prefetch.pop(k).discard()
 
+    # -- the disk tier -------------------------------------------------------------
+    def _new_plan(self, program, fetch_names, step_feed, state_names):
+        """A new step's plan: from the compile cache's disk tier when an
+        entry serves its content key (its libraries loaded, no build),
+        else built live. Returns (plan, the key to save the entry under
+        after the warm run, or None)."""
+        if not _compile_cache.active(self._cache_read_dirs):
+            return _Plan(program, fetch_names), None
+        # the port donates nothing: the bit is the reference's inference
+        # value, False
+        key = _compile_cache.step_key(
+            program, _feed_signature(step_feed), fetch_names, state_names,
+            1, False, self.place)
+        plan = _compile_cache.lookup(
+            key, self._cache_read_dirs,
+            validate=lambda data: _Plan.from_entry(program, fetch_names,
+                                                   data))
+        if plan is not None:
+            return plan, None
+        return (_Plan(program, fetch_names),
+                key if _compile_cache.enabled() else None)
+
+    def _save_entry(self, step, stems):
+        """After a disk miss's warm run: write its entry (the plan and
+        the libraries ``stems`` the run asked for) to the write dir."""
+        key, step.cache_key = step.cache_key, None
+        write_dir = _compile_cache.cache_dir()
+        if write_dir:
+            _compile_cache.save_entry(
+                write_dir, key, step.plan.to_entry(), stems,
+                label="step#%s" % ",".join(step.plan.fetch_names[:3]))
+
     # -- one step ----------------------------------------------------------------
     def _step(self, step, scope, gen, feed):
         """Run ``step`` once on ``feed`` (numpy arrays or device
@@ -857,7 +979,12 @@ class Executor:
             for n in plan.persistable:
                 if n not in env and scope.has_var(n):
                     env[n] = scope.find_var(n)
-            ctx = self._lower(plan, env, gen)
+            if step.cache_key is None:
+                ctx = self._lower(plan, env, gen)
+            else:
+                with _build.record_uses() as stems:
+                    ctx = self._lower(plan, env, gen)
+                self._save_entry(step, stems)
             step.runs += 1
             commit = {n: env[n].detach() for n in plan.persistable
                       if n in env and (n in ctx.written

@@ -10,9 +10,10 @@ in a ``Retry`` shows it absorbs the failure. ``worker.preempt`` sends
 this process a real SIGTERM instead (the eviction notice
 ``distributed.preemption`` drains on), and ``take`` reports a fire
 without raising (the executor's ``step.nonfinite``). Every fire is
-counted as ``faults_injected_total`` by point. The reference's other
-points (``ps.rpc``, ``coord.*``, ``worker.exit``, ``worker.hang``) come
-with the distributed runtime (ROADMAP queue 1 item 8).
+counted as ``faults_injected_total`` by point. The ``coord.*`` points
+are the coordination service's; the reference's other points
+(``ps.rpc``, ``worker.exit``, ``worker.hang``) come with the rest of the
+distributed runtime (ROADMAP queue 1 item 8).
 """
 
 import os
@@ -30,6 +31,14 @@ POINTS = (
                        #   before the rename that commits it
     "reader.stage",    # fluid/reader.stage_feed: inside the DeviceStager
                        #   producer thread, before the device copy
+    "coord.rpc",       # distributed/coordination.CoordClient: before
+                       #   each coordination-service round-trip
+    "coord.crash",     # distributed/coordination.CoordServer: taken in
+                       #   the serve loop — the server dies mid-request
+                       #   (crash(): no final snapshot, WAL-only state)
+    "coord.partition", # distributed/coordination._CoordConn: each armed
+                       #   hit fails one client attempt transiently — a
+                       #   network partition of exactly N attempts
     "step.nonfinite",  # the executor's anomaly scan: the step's results
                        #   are taken as non-finite (the policy path
                        #   without a diverging model)

@@ -31,9 +31,11 @@ generator state) seeds the generator with the entry's first 8 bytes
 read as a little-endian integer, its top bit cleared, and logs that it
 did: Philox cannot continue a threefry stream.
 
-Not ported: restore with reshard (``strategy=``, ROADMAP queue 1 item 7)
-and ``save_inference_model(prelower=True)``, whose executables need the
-compile cache (queue 1 item 3).
+``save_inference_model(prelower=True)`` adds ``__prelowered__/``: the
+compile cache's step plans and kernel libraries for the saved program
+(``fluid/compile_cache.py``), which a ``Predictor`` cold-starts from.
+
+Not ported: restore with reshard (``strategy=``, ROADMAP queue 1 item 7).
 """
 
 import hashlib
@@ -211,14 +213,16 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
     and save it with the parameters it reads, in the reference's layout.
     ``export_for_deployment=False`` keeps the whole program as built;
     ``program_only=True`` writes ``__model__`` alone. Returns the fetch
-    names. ``prelower=True`` (executables serialized beside the model)
-    needs the compile cache, which the port does not have yet, and
-    raises ``NotImplementedError``."""
-    if prelower:
-        raise NotImplementedError(
-            "save_inference_model(prelower=True) serializes compiled "
-            "executables; the port has no compile cache yet (ROADMAP "
-            "queue 1 item 3)")
+    names.
+
+    ``prelower=True`` also runs the saved program once per batch size in
+    ``prelower_batch_sizes`` (dynamic non-batch dims take 1) and writes
+    what the compile cache keeps into ``<dirname>/__prelowered__``: one
+    step plan per batch size and the kernel libraries those runs
+    launched (``kernels/``). A ``Predictor`` opening this model then
+    cold-starts from them, with no ``nvcc`` build and no
+    ``PADDLE_COMPILE_CACHE_DIR`` needed; other batch sizes build live
+    as usual."""
     main_program = main_program or framework.default_main_program()
     if export_for_deployment:
         pruned = main_program._prune(target_vars)
@@ -232,8 +236,9 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
     desc["fetch_names"] = fetch_names
     from .core import proto_io
 
+    model_bytes = proto_io.program_to_bytes(desc)
     _atomic_write_bytes(os.path.join(dirname, model_filename or "__model__"),
-                        proto_io.program_to_bytes(desc))
+                        model_bytes)
     if not program_only:
         # only the persistables the pruned program still reads
         needed = {n for blk in pruned.blocks for op in blk.ops
@@ -242,7 +247,59 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
                 if v.persistable and v.name in needed]
         save_vars(executor, dirname, main_program, vars=vars,
                   filename=params_filename)
+    if prelower:
+        _prelower(dirname, model_bytes, prelower_batch_sizes, executor)
     return fetch_names
+
+
+def _prelower(dirname, model_bytes, batch_sizes, executor):
+    """Run the saved inference program once per batch size with the
+    compile cache routed at ``<dirname>/__prelowered__``: each run's
+    step misses, is built live, and its entry (the plan and the kernel
+    libraries it launched, copied into ``__prelowered__/kernels/``) is
+    written there.
+
+    The program is re-parsed from the exact ``__model__`` bytes just
+    written (not the in-memory pruned object), so the content digest in
+    the key is the one ``load_inference_model`` computes at cold start;
+    the parameters come from the calling scope (they were just saved
+    from it), seen through a child scope that keeps the runs' commits and
+    generator out of the caller's. Exemplar feeds are zeros in the
+    declared shapes: the first dynamic (-1) dim takes the batch size, any
+    other dynamic dim takes 1."""
+    from . import compile_cache as _compile_cache
+    from .core import proto_io
+    from .executor import Executor
+
+    desc = proto_io.program_from_bytes(model_bytes)
+    program = Program.from_desc(desc)
+    block = program.global_block()
+    feed_names = list(desc.get("feed_names", []))
+    fetch_names = list(desc.get("fetch_names", []))
+    out_dir = os.path.join(dirname, _compile_cache.PRELOWERED_DIRNAME)
+    exe = Executor(executor.place if executor is not None else None)
+    scope = global_scope().new_scope()
+    with _compile_cache.override_dir(out_dir):
+        for b in batch_sizes:
+            feed = {}
+            for name in feed_names:
+                var = block._find_var_recursive(name)
+                if var is None or var.shape is None:
+                    raise ValueError(
+                        "prelower: feed var %r has no declared shape — "
+                        "pass explicit exemplar batches through the "
+                        "serving warm-up instead" % name)
+                shape, batch_dim_used = [], False
+                for d in var.shape:
+                    if int(d) < 0:
+                        shape.append(1 if batch_dim_used else int(b))
+                        batch_dim_used = True
+                    else:
+                        shape.append(int(d))
+                feed[name] = np.zeros(shape, dtype=np.dtype(var.dtype))
+            exe.run(program, feed=feed, fetch_list=fetch_names,
+                    scope=scope)
+    exe.close()
 
 
 def _place(executor, scope):
@@ -736,7 +793,16 @@ class CheckpointManager:
         an intact version exists, restore it and return its step; else
         None (a first start, or no version yet)."""
         attempt = int(os.environ.get(ENV_RESTART_ATTEMPT, "0") or 0)
-        if attempt <= 0 or self.latest() is None:
+        if attempt <= 0:
+            return None
+        # restarted worker: page in + validate the persistent compile
+        # cache now, so the first step loads its plan and libraries
+        # instead of rebuilding them (a no-op when
+        # PADDLE_COMPILE_CACHE_DIR is unset)
+        from . import compile_cache as _compile_cache
+
+        _compile_cache.prewarm()
+        if self.latest() is None:
             return None
         return self.restore(executor, program, scope, strategy=strategy)
 

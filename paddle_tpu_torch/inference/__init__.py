@@ -14,15 +14,26 @@ op by op) and replays it after, and each new signature is counted
 is sized by. A predictor's graphs rewrite their static buffers at every
 replay, so one predictor serves one thread at a time; ``clone()`` gives
 another thread its own executor and graphs over the same weights.
+
+A model exported with ``save_inference_model(prelower=True)`` carries
+step plans and kernel libraries in ``<model_dir>/__prelowered__``; the
+predictor registers it as a read-only compile-cache tier (its executor's
+``_cache_read_dirs``, and ``kernels/`` as a library tier), so its cold
+start loads them instead of building (``fluid/compile_cache.py``).
 """
 
+import contextlib as _contextlib
+import os as _os
 import time as _time
 
 import numpy as np
 import torch
 
 from .. import fluid, resolve_device
+from .. import telemetry as _telemetry
+from ..fluid import compile_cache as _compile_cache
 from ..fluid import monitor as _monitor
+from ..kernels import _build
 from ..fluid.resilience import Closed, Overloaded
 from .serving import Future, GenerativeServer, ServeConfig, Server
 
@@ -95,6 +106,7 @@ class Predictor:
                 _clone_of._exe.place,
                 promote_products=_clone_of._exe.promote_products,
                 cuda_graphs=_clone_of._exe.cuda_graphs)
+            self._exe._cache_read_dirs = list(_clone_of._exe._cache_read_dirs)
             self._program = _clone_of._program
             self._scope = _clone_of._scope
             self._feed_names = list(_clone_of._feed_names)
@@ -102,6 +114,12 @@ class Predictor:
         else:
             self._exe = fluid.Executor(config.place,
                                        promote_products=config._use_bf16)
+            prelowered = _os.path.join(
+                config.model_dir or "", _compile_cache.PRELOWERED_DIRNAME)
+            if config.model_dir and _os.path.isdir(prelowered):
+                self._exe._cache_read_dirs.append(prelowered)
+                _build.add_read_dir(_os.path.join(
+                    prelowered, _compile_cache.KERNELS_DIRNAME))
             scope = fluid.Scope()
             with fluid.scope_guard(scope):
                 program, feeds, fetches = fluid.io.load_inference_model(
@@ -159,8 +177,15 @@ class Predictor:
                 _M_RECOMPILES.inc()
             self._seen_sigs.add(sig)
         t0 = _time.perf_counter()
-        outs = self._exe.run(self._program, feed=feed,
-                             fetch_list=self._fetch_vars, scope=self._scope)
+        # a traced request (a serving batch's context is ambient) records
+        # the run as a span of its trace
+        with (_telemetry.span("predictor.run", attrs={"rows": int(np.shape(
+                next(iter(feed.values())))[0]) if feed else 0})
+              if _telemetry.enabled() and _telemetry.current() is not None
+              else _contextlib.nullcontext()):
+            outs = self._exe.run(self._program, feed=feed,
+                                 fetch_list=self._fetch_vars,
+                                 scope=self._scope)
         _M_LATENCY.observe(_time.perf_counter() - t0)
         _M_RUNS.inc()
         self._outputs = outs

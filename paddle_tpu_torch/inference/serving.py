@@ -29,10 +29,16 @@ queues through the workers, rejects what they could not dispatch with
 ``Closed``, and is idempotent; ``submit`` after it raises ``Closed``.
 One module-level ``_DISPATCH_LOCK`` serialises every dispatch onto the
 one card; each worker launches on its own thread's current stream.
-The series ``serving_*`` are labelled by model.
+The series ``serving_*`` are labelled by model; the warm-up counts the
+compile-cache disk hits its ladder made (``serving_warmup_disk_hits_total``:
+steps loaded from ``__prelowered__/`` or the persistent cache instead of
+built).
 
-Not ported: the telemetry spans (ROADMAP queue 1 item 8) and the
-compile-cache warm-up counters (queue 1 item 3).
+Telemetry (``telemetry.enabled()``): ``submit`` captures the caller's
+trace; the worker records each traced rider's ``serving.queue_wait`` and
+runs the batch inside ONE ``serving.batch`` span, parented into the
+first traced rider's trace and linked to every rider's, so the
+executor's ``executor.run`` span nests under it.
 """
 
 import threading
@@ -40,6 +46,8 @@ import time
 
 import numpy as np
 
+from .. import telemetry as _telemetry
+from ..fluid import compile_cache as _compile_cache
 from ..fluid import monitor as _monitor
 from ..fluid.resilience import CircuitBreaker, Closed, Overloaded
 
@@ -85,6 +93,11 @@ def _metrics(model):
             "serving_warmup_seconds",
             help="register() warm-up ladder wall time (one sample per "
                  "register call)", labels=lbl),
+        "warmup_disk_hits": _monitor.counter(
+            "serving_warmup_disk_hits_total",
+            help="warm-up ladder steps served by the persistent compile "
+                 "cache (plan and kernel libraries loaded from disk "
+                 "instead of built)", labels=lbl),
     }
 
 
@@ -122,10 +135,10 @@ class Future:
 
 class _Request:
     __slots__ = ("feed", "rows", "sig", "future", "t_submit", "extra",
-                 "deadline", "priority")
+                 "deadline", "priority", "trace")
 
     def __init__(self, feed=None, rows=1, sig=None, extra=None,
-                 deadline_ms=None, priority=0):
+                 deadline_ms=None, priority=0, trace=None):
         self.feed = feed
         self.rows = rows
         self.sig = sig
@@ -135,6 +148,7 @@ class _Request:
         self.deadline = None if deadline_ms is None \
             else self.t_submit + float(deadline_ms) / 1000.0
         self.priority = int(priority)
+        self.trace = trace
 
 
 class ServeConfig:
@@ -260,10 +274,13 @@ class Server:
     (its feeds' common leading dim) up to ``max_batch_size``.
     """
 
-    def __init__(self):
+    def __init__(self, service=None):
         self._models = {}
         self._closed = False
         self._lock = threading.Lock()
+        # telemetry lane name for batcher-side spans (a Replica passes
+        # "replica:<id>"; in-process embedders default to the ambient)
+        self.service = service
 
     # -- registration ------------------------------------------------------
     def register(self, name, predictor, config=None, warmup_feed=None):
@@ -296,6 +313,7 @@ class Server:
                     "warmup_feed[%r] must be one exemplar row "
                     "[1, ...], got shape %r" % (n, v.shape))
         t0 = time.perf_counter()
+        disk_hits0 = _compile_cache.disk_hit_count()
         with _DISPATCH_LOCK:
             for b in entry.config.ladder():
                 batch = {n: np.repeat(_bucket_pad(
@@ -305,6 +323,9 @@ class Server:
                 for _ in range(2):
                     entry.predictor.run(batch)
         entry.metrics["warmup_seconds"].observe(time.perf_counter() - t0)
+        skipped = _compile_cache.disk_hit_count() - disk_hits0
+        if skipped:
+            entry.metrics["warmup_disk_hits"].inc(skipped)
 
     # -- client side -------------------------------------------------------
     def submit(self, model, feed, deadline_ms=None, priority=None):
@@ -346,7 +367,9 @@ class Server:
         sig = tuple(sorted((n, str(v.dtype), v.shape[1:])
                            for n, v in feed.items()))
         req = _Request(feed, rows, sig, deadline_ms=deadline_ms,
-                       priority=priority)
+                       priority=priority,
+                       trace=_telemetry.current()
+                       if _telemetry.enabled() else None)
         with entry.cv:
             if self._closed:
                 raise Closed("server is closed")
@@ -421,14 +444,41 @@ class Server:
                     "queue; shed without dispatch"
                     % (entry.name, (now - r.t_submit) * 1000.0)))
             if batch:
-                self._run_batch(entry, batch, total)
+                self._dispatch(entry, batch, total)
 
-    def _run_batch(self, entry, batch, total):
+    def _dispatch(self, entry, batch, total):
         m = entry.metrics
         t0 = time.perf_counter()
+        traced = [r for r in batch if r.trace is not None] \
+            if _telemetry.enabled() else []
         for r in batch:
             m["wait"].observe(t0 - r.t_submit)
+        for r in traced:
+            # the queue-wait interval the batcher just measured, as a
+            # fresh CHILD span in the request's own trace (the request
+            # span keeps its identity for the batch span's links)
+            _telemetry.record_span(
+                "serving.queue_wait", r.t_submit, t0 - r.t_submit,
+                _telemetry.child_of(r.trace), service=self.service,
+                attrs={"model": entry.name})
         padded = min(_pow2ceil(total), entry.config.max_batch_size)
+        if traced:
+            # ONE batch span for the fan-in: parented into the first
+            # rider's trace, LINKED to every request span that rode in
+            # it, ambient so the executor span nests under it
+            with _telemetry.span(
+                    "serving.batch", parent=traced[0].trace,
+                    service=self.service,
+                    links=[r.trace for r in traced],
+                    attrs={"model": entry.name,
+                           "requests": len(batch), "rows": total,
+                           "padded": padded}):
+                self._run_batch(entry, batch, total, padded, t0)
+        else:
+            self._run_batch(entry, batch, total, padded, t0)
+
+    def _run_batch(self, entry, batch, total, padded, t0):
+        m = entry.metrics
         try:
             feed = {}
             for n in batch[0].feed:

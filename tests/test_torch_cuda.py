@@ -20,6 +20,8 @@ chip_smoke.py's LONG_RTOL relative to it); the paged kernel
 equals the dense kernel on the gathered cache to 1e-6; greedy tokens of
 the fp32 sessions (TF32 off) are identical on both devices."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -2054,3 +2056,133 @@ def test_recompute_graphed_equals_eager_and_plain(cuda_device):
         assert torch.equal(g_state[n], t) and torch.equal(e_state[n], t), n
     assert [g_launch[k] for k in smoke.FUSED_KERNELS] == [2 * L, L, L]
     assert [p_launch[k] for k in smoke.FUSED_KERNELS] == [L, L, L]
+
+
+# -- the persistent compile cache on the card -----------------------------------
+def _prelowered_encoder(fluid, bert, device, dirname, sizes=(2, 4)):
+    cfg = bert.BertConfig.tiny()
+    cfg.use_fused_attention = "packed"
+    feeds = ["src_ids", "pos_ids", "sent_ids", "input_mask"]
+    with fluid.unique_name.guard():
+        main, startup, enc = bert.build_encoder_program(cfg, seq_len=64)
+    exe, scope = fluid.Executor(device), fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup, scope=scope)
+        fluid.io.save_inference_model(dirname, feeds, [enc], exe,
+                                      main_program=main, prelower=True,
+                                      prelower_batch_sizes=sizes)
+    return cfg, feeds
+
+
+def test_step_from_disk_entry_replays_equal_to_live(cuda_device, tmp_path,
+                                                    monkeypatch):
+    """A packed BERT-tiny encoder exported with prelower=True: a
+    Predictor whose steps come from the disk entries (their plan, the
+    attention library they name) answers to the bit as one building its
+    steps live, from its graph's replays too."""
+    import shutil
+
+    from paddle_tpu_torch import fluid, inference
+    from paddle_tpu_torch.fluid import compile_cache, monitor
+    from paddle_tpu_torch.models import bert
+
+    monkeypatch.delenv(compile_cache.ENV_DIR, raising=False)
+    d = str(tmp_path / "enc")
+    cfg, feeds = _prelowered_encoder(fluid, bert, cuda_device, d)
+    pl = os.path.join(d, compile_cache.PRELOWERED_DIRNAME)
+    assert os.listdir(os.path.join(pl, compile_cache.KERNELS_DIRNAME))
+    live_dir = str(tmp_path / "live")
+    shutil.copytree(d, live_dir, ignore=shutil.ignore_patterns(
+        compile_cache.PRELOWERED_DIRNAME))
+    hits = monitor.counter("executor_compile_cache_disk_hit_total")
+    h0 = hits.value
+    cached = inference.create_predictor(inference.Config(d))
+    live = inference.create_predictor(inference.Config(live_dir))
+    batch = bert.synthetic_batch(cfg, 4, 64, seed=3)
+    r0 = _replays()
+    for rows in (2, 4, 2, 4, 2, 4):
+        feed = {n: batch[n][:rows] for n in feeds}
+        np.testing.assert_array_equal(cached.run(feed)[0],
+                                      live.run(feed)[0])
+    assert hits.value - h0 == 2 and _replays() - r0 == 8
+
+
+def _fresh_tiers(monkeypatch, tmp_path):
+    """The library tiers of kernels/_build.py with no library loaded and
+    an empty _build/ (the process's loaded libraries stay loaded)."""
+    from paddle_tpu_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "_PATHS", {})
+    monkeypatch.setattr(_build, "_READ_DIRS", [])
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "no_build"))
+    return _build
+
+
+def test_library_from_read_tier_starts_no_nvcc(cuda_device, tmp_path,
+                                               monkeypatch):
+    """A library found in a read tier (a model's __prelowered__/kernels/,
+    its sha256 checked) is loaded with no nvcc run, and its kernels
+    launch and agree with the plain version."""
+    from paddle_tpu_torch.fluid import compile_cache
+
+    built = A._build.library("fused_attention") and \
+        A._build.loaded_from("fused_attention")
+    _build = _fresh_tiers(monkeypatch, tmp_path)
+    monkeypatch.setenv(compile_cache.ENV_DIR, str(tmp_path / "cache"))
+    tier = str(tmp_path / "model" / "__prelowered__" / "kernels")
+    os.makedirs(tier)
+    dst = os.path.join(tier, os.path.basename(built))
+    shutil_copy(built, dst)
+    _build._write_sidecar(dst, _build.sha256_file(built))
+    _build.add_read_dir(tier)
+    n0_nvcc = _build.nvcc_runs
+    lib = _build.library("fused_attention")
+    assert _build.loaded_from("fused_attention") == dst
+    assert _build.nvcc_runs == n0_nvcc
+    # and it launches: one attention forward on its kernels, against
+    # the plain version
+    assert lib is _build.library("fused_attention")
+    q, k, v = (torch.randn(1, 2, 64, 32, device=cuda_device)
+               for _ in range(3))
+    n0 = A.fused_attention_fwd_kernel.launches
+    out = A.flash_attention(q, k, v)[0]
+    want = torch.softmax(q @ k.transpose(-1, -2) * 32 ** -0.5, -1) @ v
+    torch.cuda.synchronize()
+    assert A.fused_attention_fwd_kernel.launches == n0 + 1
+    assert (out - want).abs().max().item() <= 2e-5
+    assert _build.nvcc_runs == n0_nvcc
+
+
+def shutil_copy(src, dst):
+    import shutil
+    shutil.copyfile(src, dst)
+
+
+def test_truncated_library_is_quarantined_and_rebuilt(cuda_device,
+                                                      tmp_path,
+                                                      monkeypatch):
+    """A truncated library in the compile cache's kernels/ (its sidecar
+    intact) is quarantined, never loaded, and rebuilt by one nvcc into
+    the cache dir."""
+    from paddle_tpu_torch.fluid import compile_cache, monitor
+
+    built = A._build.library("decode_attention") and \
+        A._build.loaded_from("decode_attention")
+    _build = _fresh_tiers(monkeypatch, tmp_path)
+    cache = str(tmp_path / "cache")
+    monkeypatch.setenv(compile_cache.ENV_DIR, cache)
+    tier = os.path.join(cache, compile_cache.KERNELS_DIRNAME)
+    os.makedirs(tier)
+    dst = os.path.join(tier, os.path.basename(built))
+    with open(built, "rb") as f, open(dst, "wb") as g:
+        g.write(f.read()[:4096])
+    _build._write_sidecar(dst, _build.sha256_file(built))
+    q0 = monitor.counter("compile_cache_quarantined_total").value
+    n0 = _build.nvcc_runs
+    _build.library("decode_attention")
+    assert monitor.counter("compile_cache_quarantined_total").value == q0 + 1
+    assert os.path.exists(dst + compile_cache.QUARANTINE_SUFFIX)
+    assert _build.nvcc_runs == n0 + 1
+    assert _build.loaded_from("decode_attention") == dst
+    assert _build._expected_sha(dst) == _build.sha256_file(dst)

@@ -231,10 +231,23 @@ def test_predictor_api(tmp_path):
 
 
 def test_prelower_and_default_device(tmp_path):
-    with pytest.raises(NotImplementedError, match="compile cache"):
-        pfluid.io.save_inference_model(str(tmp_path), ["x"], [], None,
+    with pytest.raises(ValueError, match="no declared shape"):
+        pfluid.io.save_inference_model(str(tmp_path / "none"), ["x"], [],
+                                       pfluid.Executor("cpu"),
                                        main_program=PF.Program(),
                                        prelower=True)
+    exe = pfluid.Executor("cpu")
+    with pfluid.unique_name.guard():
+        main, startup, enc = PB.build_encoder_program(_packed_cfg(PB),
+                                                      seq_len=SEQ)
+    scope = pfluid.Scope()
+    with pfluid.scope_guard(scope):
+        exe.run(startup, scope=scope)
+        pfluid.io.save_inference_model(
+            str(tmp_path / "pre"), ENC_FEEDS, [enc], exe, main_program=main,
+            prelower=True, prelower_batch_sizes=(1, 2))
+    assert sorted(f.suffix for f in (tmp_path / "pre" / "__prelowered__")
+                  .iterdir()) == [".tplan", ".tplan"]
     if not torch.cuda.is_available():
         _save_encoder(pfluid, PB, tmp_path, pfluid.Executor("cpu"))
         with pytest.raises(RuntimeError, match="CUDA"):

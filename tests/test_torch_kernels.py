@@ -169,10 +169,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_port_imports_without_jax_triton_or_nvcc():
-    """The port's package and chip_smoke.py import in a fresh interpreter
-    without pulling in jax, any paddle_tpu module or triton, and without
-    a CUDA compiler on PATH: the kernels build only at their first CUDA
-    launch."""
+    """The port's package (its compile cache, telemetry, coordination
+    service and serving fleet too) and chip_smoke.py import in a fresh
+    interpreter without pulling in jax, any paddle_tpu module or triton,
+    and without a CUDA compiler on PATH: the kernels build only at their
+    first CUDA launch."""
     code = (
         "import sys\n"
         "import paddle_tpu_torch, paddle_tpu_torch.models.transformer\n"
@@ -198,6 +199,17 @@ def test_port_imports_without_jax_triton_or_nvcc():
         "import paddle_tpu_torch.fluid.core, paddle_tpu_torch.fluid.ops.autodiff\n"
         "import paddle_tpu_torch.distributed\n"
         "import paddle_tpu_torch.distributed.preemption\n"
+        "import paddle_tpu_torch.distributed.wire\n"
+        "import paddle_tpu_torch.distributed.coordination\n"
+        "import paddle_tpu_torch.fluid.compile_cache\n"
+        "import paddle_tpu_torch.telemetry, paddle_tpu_torch.telemetry.flight\n"
+        "import paddle_tpu_torch.telemetry.pusher\n"
+        "import paddle_tpu_torch.telemetry.aggregate\n"
+        "import paddle_tpu_torch.serving, paddle_tpu_torch.serving.replica\n"
+        "import paddle_tpu_torch.serving.router\n"
+        "import paddle_tpu_torch.serving.supervisor\n"
+        "import paddle_tpu_torch.serving.client\n"
+        "import paddle_tpu_torch.serving.protocol\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m in ('jax', 'triton') or\n"
         "       m == 'paddle_tpu' or m.startswith(('paddle_tpu.', 'jax.'))]\n"

@@ -1,12 +1,15 @@
 """Run chosen phases of chip_smoke.py alone on the card, after building
 the kernels:
 
-    python3 tools/smoke_phases.py checkpoint recompute
+    python3 tools/smoke_phases.py checkpoint recompute fleet
 
 Phases: ``checkpoint`` (py_reader windows, checkpoints, rollback, drain
-and resume at config 3) and ``recompute`` (BERT-base with and without
-recompute at S 512 and S 8192). Each prints the smoke's JSON lines and
-its wall seconds; a failed check raises, as in the smoke.
+and resume at config 3), ``recompute`` (BERT-base with and without
+recompute at S 512 and S 8192) and ``fleet`` (the smoke's cold_start
+and fleet phases: the BERT-base encoder exported with prelower=True,
+three cold child processes, a fleet of two replica processes). Each
+prints the smoke's JSON lines and its wall seconds; a failed check
+raises, as in the smoke.
 """
 
 import os
@@ -18,11 +21,13 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 import chip_smoke as S  # noqa: E402
+from paddle_tpu_torch import inference  # noqa: E402
 from paddle_tpu_torch.fluid import monitor  # noqa: E402
 from paddle_tpu_torch.kernels import _build, attention as A  # noqa: E402
 
 PHASES = {"checkpoint": lambda dev: S.checkpoint_path(A, monitor, dev),
-          "recompute": lambda dev: S.recompute_path(A, dev)}
+          "recompute": lambda dev: S.recompute_path(A, dev),
+          "fleet": lambda dev: S.served_fleet(A, inference, monitor, dev)}
 
 
 def main(names):
