@@ -303,7 +303,43 @@ wrappers') and ``replay_launches`` (the traced replay's).
              trace from the client through the router and a replica to
              executor.run; a traced replay of the in-process replica's
              graph runs the attention forward 12 times (once a layer).
-19. stream   the dense continuous stream, GenerativePredictor(...,
+19. seq2seq  the Fluid book's GRU seq2seq (models/seq2seq.py) at its
+             machine-translation widths: dictionaries of 30000 on both
+             sides, embedding and hidden 512, padded length 50, batch
+             64, Adam, fp32 with TF32 off. Training: 3 graphed steps
+             against 3 eager from one state (losses and every
+             persistable equal to the bit), 30 timed replays on one
+             memorised batch (step ms, target tokens/s, peak GB, the
+             program build and capture s, kernels a replay and the idle
+             share of a traced one; the loss falls), and one step at
+             batch 8 graphed on the card against the port's CPU run and
+             its float64 run from the CPU's startup state (the loss
+             within S2S_CPU_RTOL, every persistable by the L2 of its
+             update within S2S_CPU_UPDATE_RTOL). Beam decode (beam 4,
+             50 steps) from the trained scope at batch 64: the
+             monolithic program eager, captured and replayed, the split
+             pair (encoder once, its state fed on the device), and the
+             decode program saved by save_inference_model and served by
+             a Predictor, all the same sequences; ms per decoded batch
+             both routes; the products and the beam search's top-k
+             kernels of a traced replay by name; at batch 8 the card's
+             per-step selections against the CPU's, equal or parting
+             only at a near-tie (S2S_NEAR_TIE). No attention kernel runs
+             (counted: 0).
+20. book     word2vec at the book's widths (dictionary 2073, embedding
+             32, hidden 256, batch 100) on Adam with
+             exponential_decay(1e-3, 100, 0.9, staircase=True) and
+             GradientClipByGlobalNorm(5.0): 5 graphed steps against 5
+             eager to the bit; @LR_STEP@ set to 96, then 7 runs whose
+             learning rate each equals the closed form at the counter
+             the run left (it crosses the staircase at 100 inside the
+             replays); steps/s and the idle share. VGG16-BN
+             (models/vgg.py, width 1.0, CIFAR-10 3x32x32, batch 128,
+             dropout at its built rates): 3 graphed steps against 3
+             eager to the bit, the convolution kernels of an eager step
+             and of a traced replay equal by name, images/s, step ms,
+             peak GB, idle share. No attention kernel runs.
+21. stream   the dense continuous stream, GenerativePredictor(...,
              slot_prefill=True).open_stream() at width 8 (bench.py's
              decode-engine legs): 16 requests of ragged prompt lengths
              and budgets joined and stepped, each equal to its solo run
@@ -316,7 +352,7 @@ wrappers') and ``replay_launches`` (the traced replay's).
              the idle share of a traced window of steps; then the same
              requests through GenerativeServer from 4 threads (p50, p99,
              each equal to its solo run).
-20. speculative  build_speculative_session over a dense session at batch
+22. speculative  build_speculative_session over a dense session at batch
              8, k 4, full prompts, 12 and 32 new tokens, draft depth 3
              (the default, L // 2) and 6: tokens equal to the dense
              session's row by row (a row may differ only where the dense
@@ -328,7 +364,7 @@ wrappers') and ``replay_launches`` (the traced replay's).
              state; rounds, accepted mean, target and draft launches,
              tokens/s beside the dense session's, the idle share of a
              traced generate.
-21. summary  the kernels line, the card line, then the result line.
+23. summary  the kernels line, the card line, then the result line.
 """
 
 import collections
@@ -380,6 +416,32 @@ STEP_LOGITS_ATOL = 1e-5
 
 def emit(**rec):
     print(json.dumps(rec), flush=True)
+
+
+def card_memory(after):
+    """The card's memory after phase ``after``: this process's allocated
+    and reserved GiB (a live CUDA graph keeps its pool reserved), the
+    same after a garbage collection and ``empty_cache`` (the reference
+    cycles that outlive a phase), the card's free GiB, and every process
+    that holds memory on it (nvidia-smi). A capture whose cuDNN
+    workspace cannot be allocated falls back to another algorithm than
+    the eager step ran (tools/conv_capture_check.py), so what holds the
+    card between phases is read here."""
+    import gc
+
+    def now():
+        return dict(allocated_gib=torch.cuda.memory_allocated() / 2 ** 30,
+                    reserved_gib=torch.cuda.memory_reserved() / 2 ** 30,
+                    free_gib=torch.cuda.mem_get_info()[0] / 2 ** 30)
+    before = now()
+    gc.collect()
+    torch.cuda.empty_cache()
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    emit(phase="card", check="memory", after=after, **before,
+         after_collect=now(), processes=apps, own_pid=os.getpid())
 
 
 def card_line():
@@ -2954,24 +3016,48 @@ EXEC_KERNELS = ("attn_fwd_mma", "attn_bwd_dq_mma", "attn_bwd_dkdv_mma")
 # enough to lose the first kernels of a replay launched right after the
 # window opens.
 TRACE_PAD_S = 0.1
+# Even so a trace can lose the first device events of its window: the
+# whole smoke's VGG16-BN replays were traced with 1413 and 1417 of the
+# 1452 kernels a complete trace holds, the first convolutions' missing,
+# in every one of TRACE_TRIES traces (PERF.md §6). So each trace first runs sentinel
+# kernels of its own (``torch.cuda._sleep``: one of about 20 ms, then
+# TRACE_SENTINELS short ones), waits for them, and only then calls
+# ``fn``; a loss falls on the sentinels, which are taken out of the
+# result. How many of them each trace lost is kept in TRACE_LOSSES.
+TRACE_SENTINELS = 256
+SENTINEL_CYCLES = (40_000_000, 4000)        # ~20 ms, ~2 us at 1.98 GHz
+SENTINEL_KERNEL = "spin_kernel"
+TRACE_LOSSES = []
 
 
 def host_launches(fn):
     """The host's launch calls (``LAUNCH_APIS``, by name) and the
     device's kernels ({name: (us, calls)}) of one call of ``fn``, from a
-    torch.profiler trace with TRACE_PAD_S of idle time on each side."""
+    torch.profiler trace with TRACE_PAD_S of idle time on each side and
+    the sentinel kernels ahead of ``fn`` (taken out of both)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(TRACE_PAD_S)
+        torch.cuda._sleep(SENTINEL_CYCLES[0])
+        for _ in range(TRACE_SENTINELS):
+            torch.cuda._sleep(SENTINEL_CYCLES[1])
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
         time.sleep(TRACE_PAD_S)
     api = {e.key: e.count for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CPU
            and e.key in LAUNCH_APIS}
-    return api, kernel_times(prof)
+    kern = kernel_times(prof)
+    sentinels = 1 + TRACE_SENTINELS
+    seen = sum(kern.pop(k)[1] for k in list(kern) if SENTINEL_KERNEL in k)
+    TRACE_LOSSES.append(sentinels - seen)
+    launched = api.pop("cudaLaunchKernel", 0) - sentinels
+    if launched > 0:
+        api["cudaLaunchKernel"] = launched
+    return api, kern
 
 
 # A torch.profiler trace can miss the first events of what it traces:
@@ -3865,8 +3951,9 @@ def unequal(a, b):
                   if not torch.equal(a.find_var(n), b.find_var(n)))
 
 
-def graphed_vs_eager(fluid, dev, main, feed, loss, scope, phase, **where):
-    """CHECK_STEPS steps from clones of ``scope``: eager, eager again
+def graphed_vs_eager(fluid, dev, main, feed, loss, scope, phase,
+                     steps=CHECK_STEPS, **where):
+    """``steps`` steps from clones of ``scope``: eager, eager again
     (whether the step is reproducible at all), graphed (run 1 eager, run
     2 captured, then replays). The losses and every persistable must
     equal eager's to the bit."""
@@ -3875,12 +3962,12 @@ def graphed_vs_eager(fluid, dev, main, feed, loss, scope, phase, **where):
                           ("graphed", True)):
         sc = clone_scope(fluid, scope)
         exe = fluid.Executor(dev, cuda_graphs=graphs)
-        runs[label] = (fetch_losses(exe, main, feed, [loss], sc,
-                                    CHECK_STEPS), sc)
+        runs[label] = (fetch_losses(exe, main, feed, [loss], sc, steps),
+                       sc)
         exe.close()
     eager_diff = unequal(runs["eager_again"][1], runs["eager"][1])
     graph_diff = unequal(runs["graphed"][1], runs["eager"][1])
-    rec = dict(phase=phase, check="graphed_vs_eager", steps=CHECK_STEPS,
+    rec = dict(phase=phase, check="graphed_vs_eager", steps=steps,
                losses_graphed=runs["graphed"][0],
                losses_eager=runs["eager"][0],
                losses_eager_again=runs["eager_again"][0],
@@ -5894,6 +5981,483 @@ def recompute_long(A, fluid, bert, dev, rc, batch):
                 state_gb=state_gb, launches=got)
 
 
+
+# -- seq2seq (book chapter 8) and the book's word2vec and VGG16-BN -------------
+# The PaddlePaddle book's machine-translation widths (dictionaries of 30000
+# on both sides, embedding and hidden 512, beam 4, batch 64), at a padded
+# length of 50 on both sides: the reference model needs static lengths.
+S2S = dict(src_vocab=30000, tgt_vocab=30000, emb_dim=512, hidden=512)
+S2S_LEN, S2S_BATCH, S2S_BEAM = 50, 64, 4
+S2S_WARM, S2S_TIMED, S2S_DECODE_TIMED = 2, 30, 5
+S2S_CPU_BATCH = 8
+# card vs CPU, one step: the loss (relative), and each persistable by the
+# L2 of its difference over the L2 of what the float64 run moved it
+S2S_CPU_RTOL, S2S_CPU_UPDATE_RTOL = 1e-4, 1e-2
+# where the card's beams part from the CPU's, the two runs' selected
+# scores at that step must agree within this (relative to a score, at
+# least 1): a near-tie that fp32 rounding may order either way
+S2S_NEAR_TIE = 1e-4
+# kernels by name in a traced replay: the products, and the beam search's
+# selection (torch.topk of the int64 keys) and backtracking (gathers)
+PRODUCT_KERNEL = re.compile(r"gemm|xmma|cutlass|sgemm|gemv", re.I)
+SELECT_KERNEL = re.compile(r"topk|sort|radix|bitonic|gatherTopK", re.I)
+# word2vec (book chapter 4): the PTB dictionary at min_word_freq 50
+W2V = dict(vocab=2073, embed=32, hidden=256, batch=100, steps=5)
+W2V_TIMED = 50
+# VGG16-BN on CIFAR-10 (book chapter 3)
+VGG_BATCH, VGG_WARM, VGG_TIMED = 128, 2, 20
+
+
+def card_scope_to_cpu(fluid, scope):
+    cpu = fluid.Scope()
+    for n in scope.local_var_names():
+        cpu.set_var(n, scope.find_var(n).detach().cpu().clone())
+    return cpu
+
+
+def timed_replays(exe, main, feed, fetches, scope, warm, timed):
+    """``warm`` runs (a key's eager run, then its capture), then ``timed``
+    runs each to a synchronised fetch. Returns (the warm runs' seconds,
+    the timed runs' seconds, every run's first fetch)."""
+    warm_s, step_s, firsts = [], [], []
+    for i in range(warm + timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=fetches, scope=scope)
+        torch.cuda.synchronize()
+        (warm_s if i < warm else step_s).append(time.perf_counter() - t0)
+        firsts.append(np.asarray(out[0]))
+    return warm_s, step_s, firsts
+
+
+# A replay of a graph that draws random numbers launches two fills from
+# the host besides the graph: the registered generator's seed and offset
+REPLAY_HOST_KERNELS = 2
+
+
+def replay_record(exe, run, step_ms):
+    """Busy ms, idle share, kernels and launch calls of one traced run,
+    which must be a replay (one graph launch, at most
+    REPLAY_HOST_KERNELS kernels launched from the host), and its kernels
+    grouped by name."""
+    api, kern, _, _ = complete_trace(run)
+    if api and (api.get("cudaGraphLaunch") != 1 or
+                api.get("cudaLaunchKernel", 0) > REPLAY_HOST_KERNELS):
+        raise AssertionError("the traced run was not a graph replay: %s"
+                             % api)
+    busy = sum(us for us, _ in kern.values()) / 1e3
+    return dict(device_busy_ms=busy if kern else "not measured",
+                idle_share=1.0 - busy / step_ms if kern else "not measured",
+                device_kernels_per_step=sum(n for _, n in kern.values()),
+                host_launch_calls_per_step=api,
+                top_kernels=[dict(name=k[:160], ms=us / 1e3, calls=n)
+                             for k, (us, n) in sorted(
+                                 kern.items(), key=lambda kv: -kv[1][0])
+                             [:TOP_KERNELS]]), kern
+
+
+def kernels_matching(kern, pattern):
+    return {k[:160]: n for k, (_, n) in kern.items() if pattern.search(k)}
+
+
+def kernels_ms(kern, pattern):
+    return sum(us for k, (us, _) in kern.items() if pattern.search(k)) / 1e3
+
+
+def s2s_feed(seq2seq, batch, seed, dev=None):
+    """``synthetic_pairs`` at the phase's vocabulary and length."""
+    feed = seq2seq.synthetic_pairs(np.random.RandomState(seed), batch,
+                                   vocab=S2S["tgt_vocab"], src_len=S2S_LEN)
+    if dev is None:
+        return feed
+    return {n: torch.from_numpy(a).to(dev) for n, a in feed.items()}
+
+
+def beam_step_vars(main):
+    """Each beam_search op's (selected_ids, parent_idx, selected_scores)
+    vars, in step order."""
+    return [(op.output("selected_ids")[0], op.output("parent_idx")[0],
+             op.output("selected_scores")[0])
+            for op in main.global_block().ops if op.type == "beam_search"]
+
+
+def beam_parting(card, cpu, batch, beam):
+    """Where the card's per-step selections part from the CPU's: for
+    each batch row whose (ids, parents) differ at some step, the first
+    such step and the largest difference of the two runs' sorted
+    selected scores there (over a score's magnitude, at least 1)."""
+    parts = []
+    steps = len(card) // 3
+    for b in range(batch):
+        rows = slice(b * beam, (b + 1) * beam)
+        for t in range(steps):
+            ids_c, par_c, sc_c = (np.asarray(x).reshape(-1)[rows]
+                                  for x in card[3 * t:3 * t + 3])
+            ids_p, par_p, sc_p = (np.asarray(x).reshape(-1)[rows]
+                                  for x in cpu[3 * t:3 * t + 3])
+            if (ids_c != ids_p).any() or (par_c != par_p).any():
+                a, c = np.sort(sc_c), np.sort(sc_p)
+                gap = float(np.max(np.abs(a - c) /
+                                   np.maximum(1.0, np.abs(c))))
+                parts.append(dict(batch_row=b, step=t, score_gap=gap))
+                break
+    return parts
+
+
+def seq2seq_path(A, inference, dev):
+    """The book's GRU seq2seq at its widths (S2S, length S2S_LEN, batch
+    S2S_BATCH): training graphed against eager, timed, and one step on the
+    card against the CPU; then beam decode (beam S2S_BEAM, S2S_LEN steps)
+    through the monolithic program, the split pair, a graphed replay and
+    a served decode program, and at batch S2S_CPU_BATCH against the
+    CPU."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import seq2seq
+
+    reset_launches(A)
+    widths = dict(S2S, src_len=S2S_LEN)
+    t0 = time.perf_counter()
+    with fluid.unique_name.guard():
+        main, startup, loss = seq2seq.build_train_program(
+            tgt_len=S2S_LEN, **widths)
+    build_s = time.perf_counter() - t0
+    feed = s2s_feed(seq2seq, S2S_BATCH, 0, dev)
+    scope = fluid.Scope()
+    fluid.Executor(dev, cuda_graphs=False).run(startup, scope=scope)
+    graphed_vs_eager(fluid, dev, main, feed, loss, scope, "seq2seq",
+                     build_s=build_s, ops=len(main.global_block().ops))
+    exe = fluid.Executor(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warm_s, step_s, losses = timed_replays(exe, main, feed, [loss], scope,
+                                           S2S_WARM, S2S_TIMED)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = statistics.median(step_s)
+    losses = [float(x.reshape(-1)[0]) for x in losses]
+    rec, kern = replay_record(
+        exe, lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                             scope=scope), steady * 1e3)
+    exe.close()
+    tokens = S2S_BATCH * S2S_LEN
+    rec = dict(phase="seq2seq", check="train_steps", mode="graphed",
+               batch=S2S_BATCH, length=S2S_LEN, dtype="float32",
+               optimizer="Adam", widths=S2S, build_s=build_s,
+               program_ops=len(main.global_block().ops),
+               first_run_s=warm_s[0], capture_run_s=warm_s[1],
+               step_s=step_s, step_ms=steady * 1e3,
+               target_tokens_per_s=tokens / steady,
+               max_memory_allocated_gb=peak,
+               attention_kernels_traced=traced_launches(kern),
+               first_loss=losses[0], last_loss=losses[-1], **rec)
+    emit(**rec)
+    if not (all(math.isfinite(x) for x in losses) and
+            losses[-1] < losses[0]):
+        raise AssertionError("seq2seq: losses not finite and falling: %s"
+                             % losses)
+    seq2seq_card_vs_cpu(fluid, seq2seq, dev, main, startup, loss)
+    seq2seq_decode(A, fluid, inference, seq2seq, dev, scope)
+    del scope
+    torch.cuda.empty_cache()
+    attention = launches(A, ["decode_attention_kernel",
+                             "paged_attention_kernel", *FUSED_KERNELS])
+    emit(phase="seq2seq", check="attention_launches", launches=attention,
+         traced=rec["attention_kernels_traced"])
+    if any(attention.values()) or any(
+            rec["attention_kernels_traced"].values()):
+        raise AssertionError("seq2seq: an attention kernel ran: %s"
+                             % attention)
+
+
+def seq2seq_card_vs_cpu(fluid, seq2seq, dev, main, startup, loss):
+    """One step at batch S2S_CPU_BATCH, graphed on the card, from the
+    CPU's startup state, against the port's CPU run of the same program
+    and scope and its float64 run (``card_vs_cpu``): the loss within
+    S2S_CPU_RTOL, every persistable by the L2 of its update within
+    S2S_CPU_UPDATE_RTOL, each or 3x the CPU's own against float64."""
+    cpu = fluid.Scope()
+    fluid.Executor("cpu").run(startup, scope=cpu)
+    losses, rows = card_vs_cpu(fluid, dev, main, loss, cpu,
+                               [s2s_feed(seq2seq, S2S_CPU_BATCH, 3)],
+                               lambda f: f)
+    rec = card_vs_cpu_record(losses, rows, S2S_CPU_RTOL, state_steps=0,
+                             update_rtol=S2S_CPU_UPDATE_RTOL,
+                             phase="seq2seq", batch=S2S_CPU_BATCH,
+                             dtype="float32")
+    emit(**rec)
+    if rec["over"]:
+        raise AssertionError("seq2seq: card vs CPU: %s" % rec)
+
+
+def seq2seq_decode(A, fluid, inference, seq2seq, dev, scope):
+    """Beam decode of batch S2S_BATCH from the trained ``scope``:
+    monolithic (eager, captured, replayed: equal), the split pair (equal
+    to it), the decode program served by a Predictor (equal); ms per
+    decoded batch; a traced replay's products and beam-search kernels
+    by name; at batch S2S_CPU_BATCH the card against the CPU."""
+    import tempfile
+
+    dec_kw = dict(tgt_vocab=S2S["tgt_vocab"], emb_dim=S2S["emb_dim"],
+                  hidden=S2S["hidden"], max_tgt_len=S2S_LEN,
+                  beam_size=S2S_BEAM)
+    t0 = time.perf_counter()
+    with fluid.unique_name.guard():
+        mono, _, seq = seq2seq.build_infer_program(
+            src_vocab=S2S["src_vocab"], src_len=S2S_LEN, **dec_kw)
+    with fluid.unique_name.guard():
+        enc, _, enc_state = seq2seq.build_encoder_program(
+            src_vocab=S2S["src_vocab"], emb_dim=S2S["emb_dim"],
+            hidden=S2S["hidden"], src_len=S2S_LEN)
+    with fluid.unique_name.guard():
+        dec, _, dec_seq = seq2seq.build_decode_program(**dec_kw)
+    build_s = time.perf_counter() - t0
+    src = s2s_feed(seq2seq, S2S_BATCH, 11, dev)["s2s_src"]
+    exe = fluid.Executor(dev)
+    warm_s, mono_s, mono_out = timed_replays(
+        exe, mono, {"s2s_src": src}, [seq], scope, S2S_WARM,
+        S2S_DECODE_TIMED)
+    replays_equal = all(np.array_equal(o, mono_out[0]) for o in mono_out)
+    rec, kern = replay_record(
+        exe, lambda: exe.run(mono, feed={"s2s_src": src}, fetch_list=[seq],
+                             scope=scope), statistics.median(mono_s) * 1e3)
+    split_s, split_out = [], []
+    for _ in range(S2S_WARM + S2S_DECODE_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        split_out.append(seq2seq.run_split_infer(exe, scope, enc, enc_state,
+                                                 dec, dec_seq, src))
+        torch.cuda.synchronize()
+        split_s.append(time.perf_counter() - t0)
+    split_s = split_s[S2S_WARM:]
+    split_equal = all(np.array_equal(o, mono_out[0]) for o in split_out)
+    state = exe.run(enc, feed={"s2s_src": src}, fetch_list=[enc_state],
+                    scope=scope)[0]
+    exe.close()
+    with tempfile.TemporaryDirectory() as model_dir:
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(
+                model_dir, ["s2s_enc_state"], [dec_seq],
+                fluid.Executor(dev, cuda_graphs=False), main_program=dec)
+        pred = inference.create_predictor(inference.Config(model_dir,
+                                                           place=dev))
+        served = [pred.run({"s2s_enc_state": state})[0] for _ in range(3)]
+    served_equal = all(np.array_equal(o, mono_out[0]) for o in served)
+    products = kernels_matching(kern, PRODUCT_KERNEL)
+    select = kernels_matching(kern, SELECT_KERNEL)
+    mono_ms = statistics.median(mono_s) * 1e3
+    split_ms = statistics.median(split_s) * 1e3
+    rec = dict(phase="seq2seq", check="beam_decode", batch=S2S_BATCH,
+               beam=S2S_BEAM, max_tgt_len=S2S_LEN, build_s=build_s,
+               decode_program_ops=len(mono.global_block().ops),
+               first_run_s=warm_s[0], capture_run_s=warm_s[1],
+               monolithic_ms=mono_ms, split_ms=split_ms,
+               split_saving_ms=mono_ms - split_ms,
+               sequences_shape=list(mono_out[0].shape),
+               distinct_tokens=int(len(np.unique(mono_out[0]))),
+               eager_equals_replays=replays_equal,
+               split_equals_monolithic=split_equal,
+               predictor_equals_monolithic=served_equal,
+               product_kernels=products,
+               product_kernels_per_replay=sum(products.values()),
+               product_ms=kernels_ms(kern, PRODUCT_KERNEL),
+               beam_select_kernels=select,
+               beam_select_kernels_per_replay=sum(select.values()),
+               beam_select_ms=kernels_ms(kern, SELECT_KERNEL), **rec)
+    emit(**rec)
+    if not (replays_equal and split_equal and served_equal and products
+            and select and mono_out[0].shape == (S2S_LEN,
+                                                 S2S_BATCH * S2S_BEAM)):
+        raise AssertionError("seq2seq decode: %s" % rec)
+    seq2seq_decode_vs_cpu(fluid, dev, mono, seq, scope, src)
+
+
+def seq2seq_decode_vs_cpu(fluid, dev, mono, seq, scope, src):
+    """The decode of the first S2S_CPU_BATCH sources on the card (eager)
+    and on the CPU from one scope: the sequences equal, or a batch row
+    parts only at a step where the two runs' selected scores agree
+    within S2S_NEAR_TIE (a near-tie)."""
+    fetches = [seq] + [n for v in beam_step_vars(mono) for n in v]
+    feed = {"s2s_src": src[:S2S_CPU_BATCH].cpu().numpy()}
+    card = fluid.Executor(dev, cuda_graphs=False).run(
+        mono, feed=feed, fetch_list=fetches, scope=scope)
+    cpu = fluid.Executor("cpu").run(mono, feed=feed, fetch_list=fetches,
+                                    scope=card_scope_to_cpu(fluid, scope))
+    parts = beam_parting(card[1:], cpu[1:], S2S_CPU_BATCH, S2S_BEAM)
+    beams_equal = (card[0] == cpu[0]).all(axis=0)
+    rec = dict(phase="seq2seq", check="decode_card_vs_cpu",
+               batch=S2S_CPU_BATCH, beam=S2S_BEAM,
+               equal_beam_share=float(beams_equal.mean()),
+               equal_batch_row_share=1.0 - len(parts) / S2S_CPU_BATCH,
+               parted=parts, near_tie=S2S_NEAR_TIE)
+    emit(**rec)
+    if any(p["score_gap"] > S2S_NEAR_TIE for p in parts) or (
+            not parts and not beams_equal.all()):
+        raise AssertionError("seq2seq: the card's beams part from the "
+                             "CPU's away from a near-tie: %s" % rec)
+
+
+def word2vec_program(fluid, word2vec, clip):
+    """The book's word2vec at W2V's widths, Adam on an
+    ``exponential_decay(1e-3, 100, 0.9, staircase=True)`` learning rate
+    with ``GradientClipByGlobalNorm(5.0)``. Returns (main, startup, loss,
+    the learning-rate var)."""
+    from paddle_tpu_torch.fluid import layers, optimizer
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = 11
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        words = [layers.data("w2v_ctx%d" % i, [1], dtype="int64")
+                 for i in range(word2vec.N_CONTEXT)]
+        nxt = layers.data("w2v_next", [1], dtype="int64")
+        loss, _ = word2vec.word2vec_forward(words, nxt, W2V["vocab"],
+                                            W2V["embed"], W2V["hidden"])
+        lr = layers.exponential_decay(1e-3, 100, 0.9, staircase=True)
+        optimizer.Adam(learning_rate=lr,
+                       grad_clip=clip.GradientClipByGlobalNorm(5.0)
+                       ).minimize(loss)
+    return main, startup, loss, lr
+
+
+def w2v_closed_form(step):
+    return float(np.float32(0.9) ** np.float32(step // 100)
+                 * np.float32(1e-3))
+
+
+def word2vec_path(fluid, monitor, dev):
+    """word2vec: graphed against eager over W2V["steps"] steps; the
+    counter set to 96, then 7 runs (an eager one, the capture, 5
+    replays), the learning rate read back after each equal to the closed
+    form at the counter the run left (it crosses the staircase at 100);
+    steps/s and the idle share of a replay."""
+    from paddle_tpu_torch.fluid import clip
+    from paddle_tpu_torch.models import word2vec
+
+    main, startup, loss, lr = word2vec_program(fluid, word2vec, clip)
+    feed = {n: torch.from_numpy(a).to(dev) for n, a in
+            word2vec.synthetic_ngrams(np.random.RandomState(0), W2V["batch"],
+                                      W2V["vocab"]).items()}
+    scope = fluid.Scope()
+    fluid.Executor(dev, cuda_graphs=False).run(startup, scope=scope)
+    graphed_vs_eager(fluid, dev, main, feed, loss, scope, "book",
+                     steps=W2V["steps"], model="word2vec")
+    sc, exe = clone_scope(fluid, scope), fluid.Executor(dev)
+    sc.set_var("@LR_STEP@", torch.full((1,), 96, dtype=torch.int64,
+                                       device=dev))
+    replays = monitor.counter("executor_graph_replay_total")
+    r0 = replays.value
+    read = []
+    for _ in range(7):
+        got = exe.run(main, feed=feed, fetch_list=[loss, lr], scope=sc)
+        step = int(sc.find_var("@LR_STEP@").item())
+        read.append((step, float(np.asarray(got[1]).reshape(-1)[0]),
+                     w2v_closed_form(step)))
+    n_replays = replays.value - r0
+    lr_ok = all(math.isclose(got, want, rel_tol=1e-6)
+                for _, got, want in read)
+    _, step_s, losses = timed_replays(exe, main, feed, [loss, lr], sc, 0,
+                                      W2V_TIMED)
+    steady = statistics.median(step_s)
+    rec, _ = replay_record(
+        exe, lambda: exe.run(main, feed=feed, fetch_list=[loss, lr],
+                             scope=sc), steady * 1e3)
+    exe.close()
+    rec = dict(phase="book", check="word2vec", batch=W2V["batch"],
+               widths=W2V, lr_schedule="exponential_decay(1e-3, 100, 0.9, "
+               "staircase=True)", grad_clip="GradientClipByGlobalNorm(5.0)",
+               lr_read_back=[list(r) for r in read], replays=n_replays,
+               step_ms=steady * 1e3, steps_per_s=1.0 / steady,
+               examples_per_s=W2V["batch"] / steady,
+               losses=[float(x.reshape(-1)[0]) for x in losses[::10]], **rec)
+    emit(**rec)
+    steps = [r[0] for r in read]
+    if not (lr_ok and steps == list(range(97, 104)) and n_replays >= 5 and
+            read[-1][1] < read[0][1]):
+        raise AssertionError("book: word2vec's learning rate did not "
+                             "follow @LR_STEP@ across replays: %s" % rec)
+
+
+def vgg_path(fluid, dev):
+    """VGG16-BN at width 1.0, batch VGG_BATCH, its dropout at the built
+    rates: graphed against eager over 3 steps; the convolution kernels
+    of an eager step and of a replay (each the most complete of
+    TRACE_TRIES traces) equal by name; timed replays: images/s, step ms,
+    peak GB, idle share."""
+    from paddle_tpu_torch.models import vgg
+
+    with fluid.unique_name.guard():
+        main, startup, loss, acc = vgg.build_train_program()
+    g = torch.Generator(device=dev).manual_seed(0)
+    feed = {"vgg_img": torch.rand(VGG_BATCH, 3, 32, 32, generator=g,
+                                  device=dev),
+            "vgg_label": torch.randint(0, 10, (VGG_BATCH, 1), generator=g,
+                                       device=dev)}
+    scope = fluid.Scope()
+    fluid.Executor(dev, cuda_graphs=False).run(startup, scope=scope)
+    graphed_vs_eager(fluid, dev, main, feed, loss, scope, "book",
+                     model="vgg16_bn",
+                     dropout=[op.attr("dropout_prob")
+                              for op in main.global_block().ops
+                              if op.type == "dropout"])
+    # the eager step's kernels from the most complete of TRACE_TRIES
+    # traces (a trace can lose a step's first kernels), on a clone
+    eager, sc = fluid.Executor(dev, cuda_graphs=False), clone_scope(fluid,
+                                                                   scope)
+    _, eager_kern, _, _ = complete_trace(
+        lambda: eager.run(main, feed=feed, fetch_list=[loss, acc],
+                          scope=sc))
+    del sc
+    exe = fluid.Executor(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # a workspace the capture cannot allocate (an OOM the allocator
+    # counts) makes cuDNN fall back to another algorithm
+    free_gib = torch.cuda.mem_get_info()[0] / 2 ** 30
+    ooms = torch.cuda.memory_stats().get("num_ooms", 0)
+    _, step_s, losses = timed_replays(exe, main, feed, [loss, acc], scope,
+                                      VGG_WARM, VGG_TIMED)
+    ooms = torch.cuda.memory_stats().get("num_ooms", 0) - ooms
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = statistics.median(step_s)
+    rec, kern = replay_record(
+        exe, lambda: exe.run(main, feed=feed, fetch_list=[loss, acc],
+                             scope=scope), steady * 1e3)
+    exe.close()
+    eager_conv, replay_conv = conv_kernels(eager_kern), conv_kernels(kern)
+    losses = [float(x.reshape(-1)[0]) for x in losses]
+    flops = 3 * program_flops(main, VGG_BATCH)
+    rec = dict(phase="book", check="vgg16_bn", batch=VGG_BATCH,
+               width_mult=1.0, dtype="float32", optimizer="Adam",
+               step_ms=steady * 1e3, images_per_s=VGG_BATCH / steady,
+               max_memory_allocated_gb=peak, train_flops_per_step=flops,
+               achieved_tflops=flops / steady / 1e12,
+               conv_kernels={k: n for k, n in kernels_matching(
+                   kern, CONV_KERNEL).items()},
+               conv_replay_equals_eager=replay_conv == eager_conv,
+               conv_replay_only=sorted(set(replay_conv) - set(eager_conv)),
+               conv_eager_only=sorted(set(eager_conv) - set(replay_conv)),
+               free_gib_before_capture=free_gib, capture_ooms=ooms,
+               first_loss=losses[0], last_loss=losses[-1], **rec)
+    emit(**rec)
+    if not (eager_conv and replay_conv == eager_conv and
+            all(math.isfinite(x) for x in losses)):
+        raise AssertionError("book: vgg16_bn: %s" % rec)
+
+
+def book_path(A, monitor, dev):
+    """The book's word2vec and VGG16-BN (``word2vec_path``,
+    ``vgg_path``); no attention kernel runs."""
+    from paddle_tpu_torch import fluid
+
+    reset_launches(A)
+    word2vec_path(fluid, monitor, dev)
+    torch.cuda.empty_cache()
+    vgg_path(fluid, dev)
+    attention = launches(A, ["decode_attention_kernel",
+                             "paged_attention_kernel", *FUSED_KERNELS])
+    emit(phase="book", check="attention_launches", launches=attention)
+    if any(attention.values()):
+        raise AssertionError("book: an attention kernel ran: %s" % attention)
+
+
 def main():
     if sys.argv[1:2] == ["--cold-start-child"]:
         # a helper process of phase cold_start (its PLACE may be the CPU,
@@ -5941,32 +6505,39 @@ def main():
     paged_launches = serving_path(T, A, inference, monitor, dev, dense_pred,
                                   feed)
     del dense_pred
-    torch.cuda.empty_cache()
+    card_memory("serving_path")
     bert_launches = bert_path(A, dev)
-    torch.cuda.empty_cache()
+    card_memory("bert_path")
     long_launches = bert_long_path(A, dev)
-    torch.cuda.empty_cache()
+    card_memory("bert_long_path")
     packed_launches = bert_packed_path(A, dev)
-    torch.cuda.empty_cache()
+    card_memory("bert_packed_path")
     executor_path(A, monitor, dev)
-    torch.cuda.empty_cache()
+    card_memory("executor_path")
     encoder_serving_path(A, inference, monitor, dev)
-    torch.cuda.empty_cache()
+    card_memory("encoder_serving_path")
     lenet_path(dev)
-    torch.cuda.empty_cache()
+    card_memory("lenet_path")
     resnet_path(inference, dev)
-    torch.cuda.empty_cache()
+    card_memory("resnet_path")
     deepfm_path(A, inference, dev)
-    torch.cuda.empty_cache()
+    card_memory("deepfm_path")
     host_embedding_path(A, dev)
-    torch.cuda.empty_cache()
+    card_memory("host_embedding_path")
     transformer_train_path(A, dev)
-    torch.cuda.empty_cache()
+    card_memory("transformer_train_path")
     checkpoint_path(A, monitor, dev)
     recompute_path(A, dev)
-    torch.cuda.empty_cache()
+    card_memory("recompute_path")
     cold = served_fleet(A, inference, monitor, dev)
-    torch.cuda.empty_cache()
+    card_memory("served_fleet")
+    t0 = time.perf_counter()
+    seq2seq_path(A, inference, dev)
+    card_memory("seq2seq_path")
+    book_path(A, monitor, dev)
+    card_memory("book_path")
+    emit(phase="book", check="phases_s",
+         seq2seq_and_book_s=time.perf_counter() - t0)
     # the dense phase's model again (the same seed)
     model = T.Transformer.big(device=dev, seed=0)
     stream_launches = stream_path(T, A, inference, monitor, dev, model)
@@ -6059,6 +6630,14 @@ def main():
             # replicas' library came from, and with how many nvcc runs
             row["served_from"] = cold
         kernels.append(row)
+    # the sentinels each trace lost (host_launches): a trace that lost
+    # all of them may have lost the first kernels of what it traced
+    emit(phase="card", check="trace_sentinels", traces=len(TRACE_LOSSES),
+         sentinels_a_trace=1 + TRACE_SENTINELS,
+         traces_with_a_loss=sum(1 for n in TRACE_LOSSES if n),
+         most_lost=max(TRACE_LOSSES, default=0),
+         traces_lost_all=sum(1 for n in TRACE_LOSSES
+                             if n == 1 + TRACE_SENTINELS))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,14 +12,16 @@ mode: ``dygraph.guard()``, layers, the eager optimizers, and
 ``dygraph.jit.trace`` to a Program. Input: ``DatasetFactory`` datasets
 over MultiSlot files (``Executor.train_from_dataset``), ``DataLoader``,
 ``PyReader``, ``layers.py_reader`` (``core.EOFException`` ends a pass)
-and ``DataFeeder``. Fault tolerance: ``io.CheckpointManager`` with
+and ``DataFeeder``. ``clip`` clips gradients, ``nets`` composes
+layers into blocks, ``layers.rnn`` and ``layers.BeamSearchDecoder`` run
+recurrent cells and beam search. Fault tolerance: ``io.CheckpointManager`` with
 ``Executor.run(checkpoint=...)``, the ``rollback`` anomaly policy and
 the preemption drain (``paddle_tpu_torch.distributed.preemption``).
 """
 
-from . import (contrib, core, dygraph, framework, initializer,  # noqa: F401
-               io, layers, ops, optimizer, profiler, regularizer,
-               unique_name)
+from . import (clip, contrib, core, dygraph, framework,  # noqa: F401
+               initializer, io, layers, nets, ops, optimizer, profiler,
+               regularizer, unique_name)
 from .backward import append_backward  # noqa: F401
 from .data_feeder import DataFeeder  # noqa: F401
 from .dataset import (DatasetFactory, FileInstantDataset,  # noqa: F401

@@ -15,7 +15,10 @@ targets need (``io.save_inference_model``).
 
 The dygraph switch (``_dygraph_tracer``, ``in_dygraph_mode``,
 ``_dygraph_guard``) is the one ``dygraph.guard()`` sets. Not carried
-over yet: name scopes and sub-blocks' control flow.
+over yet: name scopes and sub-blocks' control flow (ROADMAP queue 1
+item 4). ``Variable`` carries the reference's operator sugar (``+ - *
+/ **``, unary minus, ``< <= > >=``), which appends ops through
+``layers/math_op_patch.py`` as the reference does.
 """
 
 import contextlib
@@ -98,6 +101,66 @@ class Variable:
         self.is_data = is_data
         self.type = type
         self.op = None  # producing op, set by append_op
+
+    # -- operator sugar: each appends the op that the reference appends
+    # (``layers/math_op_patch.py``); ``==`` stays identity --
+    def _binary(self, other, op_type, reverse=False):
+        from .layers import math_op_patch
+
+        return math_op_patch.binary_op(self, other, op_type, reverse)
+
+    def __add__(self, other):
+        return self._binary(other, "elementwise_add")
+
+    def __radd__(self, other):
+        return self._binary(other, "elementwise_add", True)
+
+    def __sub__(self, other):
+        return self._binary(other, "elementwise_sub")
+
+    def __rsub__(self, other):
+        return self._binary(other, "elementwise_sub", True)
+
+    def __mul__(self, other):
+        return self._binary(other, "elementwise_mul")
+
+    def __rmul__(self, other):
+        return self._binary(other, "elementwise_mul", True)
+
+    def __truediv__(self, other):
+        return self._binary(other, "elementwise_div")
+
+    def __rtruediv__(self, other):
+        return self._binary(other, "elementwise_div", True)
+
+    def __pow__(self, other):
+        return self._binary(other, "elementwise_pow")
+
+    def __neg__(self):
+        from .layers.nn import scale
+
+        return scale(self, scale=-1.0)
+
+    def __lt__(self, other):
+        return self._binary(other, "less_than")
+
+    def __le__(self, other):
+        return self._binary(other, "less_equal")
+
+    def __gt__(self, other):
+        return self._binary(other, "greater_than")
+
+    def __ge__(self, other):
+        return self._binary(other, "greater_equal")
+
+    @property
+    def grad_name(self):
+        return grad_var_name(self.name)
+
+    def astype(self, dtype):
+        from .layers.tensor import cast
+
+        return cast(self, dtype)
 
     def __repr__(self):
         return "Variable(name=%s, shape=%s, dtype=%s%s)" % (

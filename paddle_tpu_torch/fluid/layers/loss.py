@@ -2,7 +2,21 @@
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["softmax_with_cross_entropy", "sigmoid_cross_entropy_with_logits"]
+__all__ = ["cross_entropy", "softmax_with_cross_entropy",
+           "sigmoid_cross_entropy_with_logits"]
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    """-log of ``input``'s probability at the label (or against a soft
+    label), over probabilities such as a softmax's output."""
+    helper = LayerHelper("cross_entropy", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="cross_entropy",
+                     inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,

@@ -1,5 +1,6 @@
 """NN layers (counterparts in ``paddle_tpu/fluid/layers/nn.py``): the
-subset the BERT, LeNet, ResNet and DeepFM programs emit. Each validates its arguments,
+subset the BERT, LeNet, ResNet, DeepFM, seq2seq, word2vec and VGG
+programs, the learning-rate schedules and the gradient clips emit. Each validates its arguments,
 creates parameters through LayerHelper and appends its ops; the math is
 in the op lowerings (``fluid/ops``)."""
 
@@ -11,11 +12,14 @@ from ..layer_helper import LayerHelper
 
 __all__ = [
     "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
-    "dropout", "fused_attention", "reshape", "transpose", "unsqueeze",
+    "dropout", "fused_attention", "fused_attention_packed", "reshape",
+    "transpose", "unsqueeze",
     "scale", "gather", "matmul", "topk", "mean", "relu", "sign",
     "reduce_sum", "elementwise_add", "elementwise_sub", "elementwise_mul",
-    "elementwise_div",
-    "softmax", "einsum",
+    "elementwise_div", "elementwise_min", "elementwise_max",
+    "elementwise_pow", "softmax", "einsum", "slice", "squeeze", "stack",
+    "expand", "split", "sum", "logical_or", "clip",
+    "clip_by_norm", "autoincreased_step_counter",
 ]
 
 
@@ -401,6 +405,126 @@ def elementwise_mul(x, y, axis=-1, act=None, name=None):
 
 def elementwise_div(x, y, axis=-1, act=None, name=None):
     return _elementwise_layer("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _elementwise_layer("elementwise_min", x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise_layer("elementwise_max", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _elementwise_layer("elementwise_pow", x, y, axis, act, name)
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="slice", inputs={"Input": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"axes": list(axes), "starts": list(starts),
+                            "ends": list(ends)})
+    return out
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="squeeze", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axes": list(axes)})
+    return out
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack", **locals())
+    x = x if isinstance(x, (list, tuple)) else [x]
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op(type="stack", inputs={"X": x}, outputs={"Y": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="expand", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"expand_times": list(expand_times)})
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    """``num_or_sections`` equal parts (an int) or parts of the listed
+    sizes along ``dim``: a list of outputs."""
+    helper = LayerHelper("split", **locals())
+    dim = dim if dim >= 0 else dim + len(input.shape)
+    if isinstance(num_or_sections, int):
+        n = num_or_sections
+        attrs = {"num": n, "sections": [], "axis": dim}
+    else:
+        n = len(num_or_sections)
+        attrs = {"num": 0, "sections": list(num_or_sections), "axis": dim}
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(n)]
+    helper.append_op(type="split", inputs={"X": [input]},
+                     outputs={"Out": outs}, attrs=attrs)
+    return outs
+
+
+def sum(x):
+    helper = LayerHelper("sum", **locals())
+    x = x if isinstance(x, (list, tuple)) else [x]
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op(type="sum", inputs={"X": x}, outputs={"Out": [out]})
+    return out
+
+
+def logical_or(x, y, out=None, name=None):
+    helper = LayerHelper("logical_or", name=name)
+    if out is None:
+        out = helper.create_variable_for_type_inference("bool")
+    helper.append_op(type="logical_or", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="clip", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"min": float(min), "max": float(max)})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="clip_by_norm", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"max_norm": float(max_norm)})
+    return out
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """A persistable int64 [1] counter (``@STEP_COUNTER@`` unless named)
+    that the startup program sets to ``begin - step`` and one
+    ``increment`` op a run advances by ``step`` in place, so the first
+    run reads ``begin``."""
+    helper = LayerHelper("global_step_counter")
+    name = counter_name or "@STEP_COUNTER@"
+    counter = helper.main_program.global_block().create_var(
+        name=name, shape=(1,), dtype="int64", persistable=True,
+        stop_gradient=True)
+    sb = helper.startup_program.global_block()
+    sv = sb.create_var(name=name, shape=(1,), dtype="int64",
+                       persistable=True)
+    Constant(begin - step)(sv, sb)
+    helper.append_op(type="increment", inputs={"X": [counter]},
+                     outputs={"Out": [counter]}, attrs={"step": float(step)})
+    counter.stop_gradient = True
+    return counter
 
 
 def fused_attention(q, k, v, attn_bias=None, scale=None, dropout_prob=0.0,

@@ -1,15 +1,27 @@
 """Unary activation layers (counterparts in
 ``paddle_tpu/fluid/layers/ops.py``, which generates them from the op
-registry's unary list): the subset the port's models use."""
+registry's unary list): the subset the port's models, learning-rate
+schedules and gradient clips use."""
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["sigmoid"]
+_UNARY_LAYERS = ["sigmoid", "exp", "sqrt", "ceil", "floor", "cos", "square"]
+
+__all__ = list(_UNARY_LAYERS)
 
 
-def sigmoid(x, name=None):
-    helper = LayerHelper("sigmoid", name=name)
-    out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op(type="sigmoid", inputs={"X": [x]},
-                     outputs={"Out": [out]}, attrs={})
-    return out
+def _make_layer(op_type):
+    def layer(x, name=None, **attrs):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op(type=op_type, inputs={"X": [x]},
+                         outputs={"Out": [out]}, attrs=attrs)
+        return out
+
+    layer.__name__ = op_type
+    layer.__doc__ = "Elementwise %s." % op_type
+    return layer
+
+
+for _name in _UNARY_LAYERS:
+    globals()[_name] = _make_layer(_name)

@@ -4,7 +4,8 @@ from .. import framework
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
-__all__ = ["create_parameter", "fill_constant", "cast", "concat"]
+__all__ = ["create_parameter", "fill_constant",
+           "fill_constant_batch_size_like", "cast", "concat"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -26,6 +27,22 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
         attrs={"shape": list(shape),
                "dtype": framework.dtype_str(framework.convert_dtype(dtype)),
                "value": float(value)})
+    return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    """A ``shape`` tensor of ``value`` whose dim ``output_dim_idx`` is
+    ``input``'s dim ``input_dim_idx`` (the batch)."""
+    helper = LayerHelper("fill_constant_batch_size_like", **locals())
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="fill_constant_batch_size_like", inputs={"Input": [input]},
+        outputs={"Out": [out]},
+        attrs={"shape": list(shape),
+               "dtype": framework.dtype_str(framework.convert_dtype(dtype)),
+               "value": float(value), "input_dim_idx": input_dim_idx,
+               "output_dim_idx": output_dim_idx})
     return out
 
 

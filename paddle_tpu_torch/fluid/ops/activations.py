@@ -1,6 +1,7 @@
 """Activations (counterpart in ``paddle_tpu/fluid/ops/activations.py``):
 gelu, the exact erf form unless ``approximate``; relu; sigmoid; tanh;
-sign (for ``L1Decay``)."""
+sign (for ``L1Decay``); and exp, floor, ceil, cos, sqrt and square (the
+learning-rate schedules and the gradient clips)."""
 
 import torch
 import torch.nn.functional as F
@@ -34,3 +35,17 @@ def _tanh(ctx, op):
 @register("sign")
 def _sign(ctx, op):
     ctx.set_output(op, "Out", torch.sign(ctx.get_input(op, "X")))
+
+
+_UNARY = {"exp": torch.exp, "floor": torch.floor, "ceil": torch.ceil,
+          "cos": torch.cos, "sqrt": torch.sqrt, "square": torch.square}
+
+
+def _make_unary(name):
+    @register(name)
+    def _lower(ctx, op):
+        ctx.set_output(op, "Out", _UNARY[name](ctx.get_input(op, "X")))
+
+
+for _name in _UNARY:
+    _make_unary(_name)

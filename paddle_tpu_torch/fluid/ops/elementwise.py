@@ -1,5 +1,6 @@
-"""Elementwise binary ops with fluid's axis broadcast, the comparisons
-(bool outputs, numpy broadcast) and logical_and (counterparts in
+"""Elementwise binary ops with fluid's axis broadcast (add, sub, mul,
+div, min, max, pow), the comparisons (bool outputs, numpy broadcast),
+logical_and and logical_or (counterparts in
 ``paddle_tpu/fluid/ops/elementwise.py``)."""
 
 import torch
@@ -23,7 +24,9 @@ def broadcast_y(x, y, axis):
 
 
 _FNS = {"elementwise_add": torch.add, "elementwise_sub": torch.sub,
-        "elementwise_mul": torch.mul, "elementwise_div": torch.div}
+        "elementwise_mul": torch.mul, "elementwise_div": torch.div,
+        "elementwise_min": torch.minimum, "elementwise_max": torch.maximum,
+        "elementwise_pow": torch.pow}
 
 
 def _make(name):
@@ -41,7 +44,7 @@ for _name in _FNS:
 _COMPARE = {"less_than": torch.lt, "less_equal": torch.le,
             "greater_than": torch.gt, "greater_equal": torch.ge,
             "equal": torch.eq, "not_equal": torch.ne,
-            "logical_and": torch.logical_and}
+            "logical_and": torch.logical_and, "logical_or": torch.logical_or}
 
 
 def _make_compare(name):

@@ -1,4 +1,6 @@
 """Losses (counterparts in ``paddle_tpu/fluid/ops/loss.py``):
+cross_entropy over probabilities (hard labels with ``ignore_index``, or
+soft labels; probabilities clipped at 1e-20 before the log),
 softmax_with_cross_entropy (Loss [..., 1] and Softmax, hard labels with
 ``ignore_index`` or soft labels) and sigmoid_cross_entropy_with_logits
 (elementwise, in the reference's stable form)."""
@@ -7,6 +9,24 @@ import torch
 import torch.nn.functional as F
 
 from ..registry import register
+
+
+@register("cross_entropy")
+def _cross_entropy(ctx, op):
+    x = ctx.get_input(op, "X")
+    label = ctx.get_input(op, "Label")
+    if op.attr("soft_label", False):
+        out = -(label * torch.log(x.clamp_min(1e-20))).sum(-1, keepdim=True)
+    else:
+        lab = label[..., 0] if label.dim() == x.dim() and \
+            label.shape[-1] == 1 else label
+        lab = lab.long()
+        ignored = (lab == op.attr("ignore_index", -100)).unsqueeze(-1)
+        # an ignored label picks column 0, whose loss is then zeroed
+        p = torch.gather(x, -1, torch.where(ignored[..., 0], 0, lab)
+                         .unsqueeze(-1))
+        out = (-torch.log(p.clamp_min(1e-20))).masked_fill(ignored, 0.0)
+    ctx.set_output(op, "Y", out)
 
 
 @register("softmax_with_cross_entropy")

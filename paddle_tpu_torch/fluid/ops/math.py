@@ -113,3 +113,20 @@ def _einsum(ctx, op):
 def _isfinite(ctx, op):
     """One bool: every element of X is finite."""
     ctx.set_output(op, "Out", torch.isfinite(ctx.get_input(op, "X")).all())
+
+
+@register("clip")
+def _clip(ctx, op):
+    ctx.set_output(op, "Out", torch.clamp(ctx.get_input(op, "X"),
+                                          op.attr("min"), op.attr("max")))
+
+
+@register("clip_by_norm")
+def _clip_by_norm(ctx, op):
+    """X scaled to L2 norm ``max_norm`` where its norm is larger; a
+    select on the device, no host sync."""
+    x = ctx.get_input(op, "X")
+    max_norm = op.attr("max_norm")
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    ctx.set_output(op, "Out", torch.where(norm > max_norm,
+                                          x * (max_norm / norm), x))

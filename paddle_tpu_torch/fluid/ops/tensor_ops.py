@@ -1,5 +1,6 @@
-"""Shape/layout ops: reshape, transpose, unsqueeze, gather, concat and
-lookup_table (dense, and sparse with a SelectedRows gradient), the
+"""Shape/layout ops: reshape, transpose, unsqueeze, squeeze, slice, split,
+stack, expand, gather, concat and lookup_table (dense, and sparse with a
+SelectedRows gradient), the step counter's increment, the
 SelectedRows ops merge_selected_rows and get_tensor_from_selected_rows;
 cast (AMP) and the select ops of dynamic loss scaling: assign, where,
 zeros_like (counterparts in ``paddle_tpu/fluid/ops/tensor_ops.py``).
@@ -262,3 +263,76 @@ def _where(ctx, op):
 @register("zeros_like")
 def _zeros_like(ctx, op):
     ctx.set_output(op, "Out", torch.zeros_like(ctx.get_input(op, "X")))
+
+
+@register("squeeze")
+def _squeeze(ctx, op):
+    """Drop the size-1 dims of ``axes`` (a listed dim of another size
+    stays); no axes drops every size-1 dim."""
+    x = ctx.get_input(op, "X")
+    axes = op.attr("axes") or None
+    if axes is None:
+        out = x.squeeze()
+    else:
+        dims = sorted({a % x.dim() for a in axes if x.shape[a] == 1},
+                      reverse=True)
+        out = x
+        for d in dims:
+            out = out.squeeze(d)
+    ctx.set_output(op, "Out", out)
+
+
+@register("slice")
+def _slice(ctx, op):
+    """``Input[starts:ends]`` on each of ``axes``, numpy's rules for
+    negative and out-of-range bounds."""
+    x = ctx.get_input(op, "Input")
+    idx = [slice(None)] * x.dim()
+    for ax, st, en in zip(op.attr("axes"), op.attr("starts"),
+                          op.attr("ends")):
+        idx[ax] = slice(st, en)
+    ctx.set_output(op, "Out", x[tuple(idx)])
+
+
+@register("split")
+def _split(ctx, op):
+    """``num`` equal parts, or parts of the sizes in ``sections``, along
+    ``axis``; one output each."""
+    x = ctx.get_input(op, "X")
+    axis = op.attr("axis", 0)
+    sections = op.attr("sections")
+    if sections:
+        outs = torch.split(x, list(sections), dim=axis)
+    else:
+        outs = torch.chunk(x, op.attr("num", 0), dim=axis)
+    for name, o in zip(op.output("Out"), outs):
+        ctx.set(name, o)
+
+
+@register("stack")
+def _stack(ctx, op):
+    ctx.set_output(op, "Y", torch.stack(ctx.get_inputs(op, "X"),
+                                        dim=op.attr("axis", 0)))
+
+
+@register("expand")
+def _expand(ctx, op):
+    """Tile X ``expand_times`` along each dim (``jnp.tile``)."""
+    ctx.set_output(op, "Out", ctx.get_input(op, "X").repeat(
+        *[int(t) for t in op.attr("expand_times")]))
+
+
+@register("increment")
+def _increment(ctx, op):
+    """X + step in X's type. Where Out is X (the step counter of the
+    learning-rate schedules, ``@LR_STEP@``) the scope's tensor is added
+    to in place, so a captured step's replays advance the counter that
+    the next replay reads."""
+    x = ctx.get_input(op, "X")
+    step = op.attr("step", 1.0)
+    if not x.is_floating_point():
+        step = int(step)
+    if op.output("Out") == op.input("X"):
+        ctx.set_output(op, "Out", x.add_(step))
+    else:
+        ctx.set_output(op, "Out", x + step)

@@ -21,9 +21,18 @@ by the same ``sgd`` / ``momentum`` / ``adam`` lowering the static
 program runs. Eager updates exist for SGD, Momentum and Adam, as in the
 reference; the others raise. ``state_dict`` / ``set_dict`` checkpoint
 the eager accumulators as ``"<param>@<slot>"`` and a learning-rate decay
-object's step. Gradient clipping (``clip.py``, ROADMAP queue 1 item 4;
-``dygraph_grad_clip.py``, item 6) and the other optimizers wait for
-later slices.
+object's step. The other optimizers wait for later slices.
+
+Gradient clipping (``clip.py``): ``apply_gradients`` clips the raw
+gradients before weight decay, as the reference does: each parameter's
+own clip, else the optimizer's ``grad_clip`` (a ``GradientClipBy*``),
+else the process-wide one of ``clip.set_gradient_clip``. (The
+reference's static ``Adam`` and the others take no ``grad_clip``; its
+``set_gradient_clip`` gives the same ops.) The learning rate may be a
+Variable, such as a schedule of ``layers.learning_rate_scheduler``.
+Clipping in dygraph mode, where ``minimize(grad_clip=)`` passes the
+reference's callable strategies (``dygraph_grad_clip.py``), is ROADMAP
+queue 1 item 6 and raises.
 """
 
 import logging
@@ -33,6 +42,7 @@ import torch
 
 from . import framework, unique_name
 from .backward import append_backward
+from .clip import BaseGradientClipAttr, append_gradient_clip_ops
 from .framework import Variable, default_main_program
 from .initializer import Constant
 from .layer_helper import LayerHelper
@@ -44,20 +54,26 @@ __all__ = ["SGD", "SGDOptimizer", "Momentum", "MomentumOptimizer",
 
 
 def _refuse_clip(grad_clip):
+    """Clipping in dygraph mode, and a clip strategy given to
+    ``minimize``, are the reference's ``dygraph_grad_clip.py``."""
     if grad_clip is not None:
         raise NotImplementedError(
-            "grad_clip is not ported yet: the static clip ops (clip.py) "
-            "are ROADMAP queue 1 item 4, the dygraph strategies "
-            "(dygraph_grad_clip.py) item 6")
+            "gradient clipping in dygraph mode (dygraph_grad_clip.py, the "
+            "callable strategies minimize(grad_clip=) takes) is not ported "
+            "yet (ROADMAP queue 1 item 6); static programs take a "
+            "clip.GradientClipBy* as the optimizer's grad_clip")
 
 
 class Optimizer:
     def __init__(self, learning_rate, regularization=None, name=None,
                  grad_clip=None):
-        _refuse_clip(grad_clip)
+        if grad_clip is not None and not isinstance(
+                grad_clip, BaseGradientClipAttr):
+            _refuse_clip(grad_clip)
         self._learning_rate = learning_rate
         self.regularization = regularization
         self._name = name
+        self._grad_clip = grad_clip
         self._accumulators = {}  # acc_name -> {param_name: var}
         self._lr_var = None
         # eager state: id(param) -> (param, {slot: tensor}); state that
@@ -124,6 +140,8 @@ class Optimizer:
     def apply_gradients(self, params_grads):
         block = default_main_program().global_block()
         self._create_global_learning_rate()
+        params_grads = append_gradient_clip_ops(params_grads,
+                                                self._grad_clip)
         params_grads = append_regularization_ops(params_grads,
                                                  self.regularization)
         self._create_accumulators(block, [p for p, _ in params_grads])
@@ -135,6 +153,7 @@ class Optimizer:
                  no_grad_set=None, grad_clip=None):
         _refuse_clip(grad_clip)
         if framework.in_dygraph_mode():
+            _refuse_clip(self._grad_clip)
             return self._dygraph_minimize(loss, parameter_list)
         params_grads = self.backward(loss, startup_program, parameter_list,
                                      no_grad_set)
@@ -267,8 +286,9 @@ class Optimizer:
 class SGDOptimizer(Optimizer):
     """p -= lr g, one ``sgd`` op a parameter."""
 
-    def __init__(self, learning_rate, regularization=None, name=None):
-        super().__init__(learning_rate, regularization, name)
+    def __init__(self, learning_rate, regularization=None, name=None,
+                 grad_clip=None):
+        super().__init__(learning_rate, regularization, name, grad_clip)
 
     def _eager_update(self, p, g, lr):
         self._eager_op(p, "sgd", {"Param": p._ivar, "Grad": g,
@@ -289,8 +309,8 @@ class AdagradOptimizer(Optimizer):
     ``initial_accumulator_value``."""
 
     def __init__(self, learning_rate, epsilon=1e-6, regularization=None,
-                 name=None, initial_accumulator_value=0.0):
-        super().__init__(learning_rate, regularization, name)
+                 name=None, initial_accumulator_value=0.0, grad_clip=None):
+        super().__init__(learning_rate, regularization, name, grad_clip)
         self._epsilon = epsilon
         self._initial = initial_accumulator_value
 
@@ -316,8 +336,8 @@ class AdamOptimizer(Optimizer):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, regularization=None, name=None,
-                 lazy_mode=False):
-        super().__init__(learning_rate, regularization, name)
+                 lazy_mode=False, grad_clip=None):
+        super().__init__(learning_rate, regularization, name, grad_clip)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 
     def _eager_update(self, p, g, lr):
@@ -363,8 +383,8 @@ class MomentumOptimizer(Optimizer):
     ``momentum`` op a parameter with a ``velocity`` accumulator."""
 
     def __init__(self, learning_rate, momentum, use_nesterov=False,
-                 regularization=None, name=None):
-        super().__init__(learning_rate, regularization, name)
+                 regularization=None, name=None, grad_clip=None):
+        super().__init__(learning_rate, regularization, name, grad_clip)
         self._momentum = momentum
         self._use_nesterov = use_nesterov
 

@@ -5,7 +5,9 @@ Counterpart of ``paddle_tpu/models/transformer.py``: the encoder-decoder
 ``Transformer`` (``big`` is BASELINE config 5), ``loss_fn`` and
 ``synthetic_batch`` for teacher-forced training, its prefill /
 decode-step methods, the dense ring-cache ``DecodeSession`` and the
-paged ``PagedDecodeSession`` with its page pool and prefix cache.
+paged ``PagedDecodeSession`` with its page pool and prefix cache, and
+``run_cached_phases``, which runs one program once and feeds its fetches
+to a second on the device.
 
 The modules are dygraph ``Layer``s. Called on ``VarBase``s under
 ``dygraph.guard()``, the training ``forward`` traces the reference's
@@ -567,6 +569,22 @@ class EncoderTower(Layer):
             x = l(x, None)
             self.last_checkpoints.append(x.name)
         return self.proj(x)
+
+
+def run_cached_phases(exe, scope, phase1, feed1, fetch1, phase2, feed2,
+                      fetch2, bridge, return_numpy=True):
+    """Run ``phase1`` once, then ``phase2`` fed some of phase 1's fetches
+    as they are, on the device (``bridge``: phase-2 feed name -> phase-1
+    fetch index), so the work of phase 1 stays out of whatever loop
+    drives phase 2. The seq2seq encoder -> beam decode split uses it
+    (``models/seq2seq.py``, ``run_split_infer``)."""
+    outs = exe.run(phase1, feed=feed1, fetch_list=fetch1, scope=scope,
+                   return_numpy=False)
+    feed = dict(feed2 or {})
+    for name, idx in bridge.items():
+        feed[name] = outs[idx]
+    return exe.run(phase2, feed=feed, fetch_list=fetch2, scope=scope,
+                   return_numpy=return_numpy)
 
 
 def make_causal_bias(seq_len):

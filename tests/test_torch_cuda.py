@@ -7,7 +7,10 @@ eager and its first loss against the eager dygraph loss; the host
 embedding tier's in-place admission, its prefetched rows waited on, and a
 stager-fed loop against an unstaged one; a py_reader's prefetched
 windows waited on behind a slow copy, a rollback into a graphed step,
-and recompute graphed against eager and against no recompute. Every test needs a CUDA device
+and recompute graphed against eager and against no recompute; beam
+search with planted ties against the CPU, the learning-rate step counter
+across graph replays, and a gru_unit step graphed against eager. Every
+test needs a CUDA device
 and skips without one. This file imports neither jax nor paddle_tpu, so it also runs on a
 machine without them, skipping the suite's conftest (which imports jax):
 
@@ -2186,3 +2189,106 @@ def test_truncated_library_is_quarantined_and_rebuilt(cuda_device,
     assert _build.nvcc_runs == n0 + 1
     assert _build.loaded_from("decode_attention") == dst
     assert _build._expected_sha(dst) == _build.sha256_file(dst)
+
+
+# -- the padded recurrent slice: beam search, the step counter, gru_unit -------
+
+
+def _beam_search_program(B, beam, V, end_id):
+    from paddle_tpu_torch import fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        L = fluid.layers
+        pre_ids = L.data("pre_ids", [B * beam, 1], dtype="int64",
+                         append_batch_size=False)
+        pre_scores = L.data("pre_scores", [B * beam, 1],
+                            append_batch_size=False)
+        scores = L.data("scores", [B * beam, V], append_batch_size=False)
+        outs = L.beam_search(pre_ids, pre_scores, None, scores, beam, end_id,
+                             is_accumulated=False)
+    return main, list(outs)
+
+
+def test_beam_search_ties_on_card_match_cpu(cuda_device):
+    """Planted ties (each row's best probability twice, equal previous
+    scores, step 0's -1e9 beams, finished beams): the card selects the
+    CPU's ids and parents exactly, in the order score descending, then
+    candidate index ascending."""
+    from paddle_tpu_torch import fluid
+
+    B, beam, V, end_id = 16, 4, 3000, 1
+    rng = np.random.RandomState(0)
+    p = rng.rand(B * beam, V).astype(np.float32)
+    p = np.round(p / p.sum(-1, keepdims=True) * 2e3) / 2e3 + 1e-4
+    p[:, -1] = p.max(-1)
+    p[:, 7] = p.max(-1)
+    pre_scores = np.zeros((B * beam, 1), np.float32)
+    pre_scores[np.arange(B * beam) % beam != 0] = -1e9
+    pre_scores[beam * (B // 2):] = -0.5
+    pre_ids = rng.randint(2, V, (B * beam, 1)).astype(np.int64)
+    pre_ids[[5, 6, 40, 41, 42]] = end_id
+    feed = {"pre_ids": pre_ids, "pre_scores": pre_scores,
+            "scores": p.astype(np.float32)}
+    main, outs = _beam_search_program(B, beam, V, end_id)
+    card = fluid.Executor(cuda_device, cuda_graphs=False).run(
+        main, feed=feed, fetch_list=outs, scope=fluid.Scope())
+    cpu = fluid.Executor("cpu").run(main, feed=feed, fetch_list=outs,
+                                    scope=fluid.Scope())
+    np.testing.assert_array_equal(card[0], cpu[0])
+    np.testing.assert_array_equal(card[2], cpu[2])
+    np.testing.assert_allclose(card[1], cpu[1], rtol=1e-6)
+    sel = cpu[1].reshape(B, beam)
+    assert any(len(set(r)) < beam for r in sel.tolist())   # ties selected
+
+
+def test_lr_step_counter_advances_across_replays(cuda_device):
+    """``@LR_STEP@`` is incremented in place inside the captured step:
+    six graphed runs read the counter 0..5 and the staircase learning
+    rate at each, and the replays ran."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import monitor
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        L = fluid.layers
+        loss = L.mean(L.fc(L.data("x", [4]), size=2))
+        lr = L.exponential_decay(0.5, 2, 0.7, staircase=True)
+        fluid.optimizer.SGD(lr).minimize(loss)
+    scope, exe = fluid.Scope(), fluid.Executor(cuda_device)
+    exe.run(startup, scope=scope)
+    replays = monitor.counter("executor_graph_replay_total")
+    r0 = replays.value
+    feed = {"x": np.ones((3, 4), np.float32)}
+    for step in range(6):
+        got = exe.run(main, feed=feed, fetch_list=[lr], scope=scope)[0]
+        assert int(scope.find_var("@LR_STEP@").item()) == step
+        assert float(got.reshape(-1)[0]) == pytest.approx(
+            0.5 * 0.7 ** (step // 2), rel=1e-6)
+    assert replays.value - r0 >= 4
+    exe.close()
+
+
+def test_gru_unit_graphed_equals_eager(cuda_device):
+    """A gru_unit layer trained by SGD: 3 graphed steps equal 3 eager
+    ones to the bit (losses and every persistable)."""
+    from paddle_tpu_torch import fluid
+
+    H = 64
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        L = fluid.layers
+        g = L.fc(L.data("x", [32]), size=3 * H)
+        h = L.fc(L.data("h", [16]), size=H)
+        hid, _, _ = L.gru_unit(g, h, 3 * H, origin_mode=True)
+        loss = L.mean(L.elementwise_mul(hid, hid))
+        fluid.optimizer.SGD(0.1).minimize(loss)
+    scope = fluid.Scope()
+    fluid.Executor(cuda_device, cuda_graphs=False).run(startup, scope=scope)
+    rng = np.random.RandomState(2)
+    feed = {"x": torch.from_numpy(rng.randn(8, 32).astype(np.float32))
+            .to(cuda_device),
+            "h": torch.from_numpy(rng.randn(8, 16).astype(np.float32))
+            .to(cuda_device)}
+    smoke.graphed_vs_eager(fluid, cuda_device, main, feed, loss, scope,
+                           "test_gru_unit")

@@ -170,7 +170,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 def test_port_imports_without_jax_triton_or_nvcc():
     """The port's package (its compile cache, telemetry, coordination
-    service and serving fleet too) and chip_smoke.py import in a fresh
+    service and serving fleet, the recurrent layers, schedules, clips,
+    nets and the book models too) and chip_smoke.py import in a fresh
     interpreter without pulling in jax, any paddle_tpu module or triton,
     and without a CUDA compiler on PATH: the kernels build only at their
     first CUDA launch."""
@@ -210,6 +211,17 @@ def test_port_imports_without_jax_triton_or_nvcc():
         "import paddle_tpu_torch.serving.supervisor\n"
         "import paddle_tpu_torch.serving.client\n"
         "import paddle_tpu_torch.serving.protocol\n"
+        "import paddle_tpu_torch.fluid.clip, paddle_tpu_torch.fluid.nets\n"
+        "import paddle_tpu_torch.fluid.layers.rnn\n"
+        "import paddle_tpu_torch.fluid.layers.control_flow\n"
+        "import paddle_tpu_torch.fluid.layers.sequence_lod\n"
+        "import paddle_tpu_torch.fluid.layers.learning_rate_scheduler\n"
+        "import paddle_tpu_torch.fluid.layers.math_op_patch\n"
+        "import paddle_tpu_torch.fluid.ops.rnn_ops\n"
+        "import paddle_tpu_torch.fluid.ops.sequence_ops\n"
+        "import paddle_tpu_torch.models.seq2seq\n"
+        "import paddle_tpu_torch.models.word2vec\n"
+        "import paddle_tpu_torch.models.vgg\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m in ('jax', 'triton') or\n"
         "       m == 'paddle_tpu' or m.startswith(('paddle_tpu.', 'jax.'))]\n"

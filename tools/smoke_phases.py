@@ -5,9 +5,13 @@ the kernels:
 
 Phases: ``checkpoint`` (py_reader windows, checkpoints, rollback, drain
 and resume at config 3), ``recompute`` (BERT-base with and without
-recompute at S 512 and S 8192) and ``fleet`` (the smoke's cold_start
+recompute at S 512 and S 8192), ``fleet`` (the smoke's cold_start
 and fleet phases: the BERT-base encoder exported with prelower=True,
-three cold child processes, a fleet of two replica processes). Each
+three cold child processes, a fleet of two replica processes),
+``seq2seq`` (the GRU seq2seq trained and beam-decoded at the book's
+widths) and ``book`` (word2vec with a schedule and a clip, VGG16-BN).
+``--no-build`` skips the kernel build: the seq2seq and book phases
+launch none of the port's kernels. Each
 prints the smoke's JSON lines and its wall seconds; a failed check
 raises, as in the smoke.
 """
@@ -27,10 +31,14 @@ from paddle_tpu_torch.kernels import _build, attention as A  # noqa: E402
 
 PHASES = {"checkpoint": lambda dev: S.checkpoint_path(A, monitor, dev),
           "recompute": lambda dev: S.recompute_path(A, dev),
-          "fleet": lambda dev: S.served_fleet(A, inference, monitor, dev)}
+          "fleet": lambda dev: S.served_fleet(A, inference, monitor, dev),
+          "seq2seq": lambda dev: S.seq2seq_path(A, inference, dev),
+          "book": lambda dev: S.book_path(A, monitor, dev)}
 
 
 def main(names):
+    build = "--no-build" not in names
+    names = [n for n in names if n != "--no-build"]
     if not torch.cuda.is_available():
         print("smoke_phases: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -39,9 +47,10 @@ def main(names):
         print("usage: smoke_phases.py %s ..." % "|".join(PHASES),
               file=sys.stderr)
         return 2
-    t0 = time.perf_counter()
-    _build.build_all()
-    print("build_s", time.perf_counter() - t0, flush=True)
+    if build:
+        t0 = time.perf_counter()
+        _build.build_all()
+        print("build_s", time.perf_counter() - t0, flush=True)
     print(S.card_line(), flush=True)
     dev = torch.device("cuda")
     for name in names:
