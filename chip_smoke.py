@@ -339,7 +339,23 @@ wrappers') and ``replay_launches`` (the traced replay's).
              eager to the bit, the convolution kernels of an eager step
              and of a traced replay equal by name, images/s, step ms,
              peak GB, idle share. No attention kernel runs.
-21. stream   the dense continuous stream, GenerativePredictor(...,
+21. sentiment  the book's chapter 6 nets (models/sentiment.py) at its
+             widths: dictionary 5147, embedding 128, hidden 512, 3
+             stacked LSTMs, batch 128, Adam, fp32 with TF32 off, on
+             reviews drawn from a seed (lengths 24-400, 32768 rows, the
+             time bound 448: SNT_BOUND_RULE). Each net: graphed against
+             eager to the bit (the LSTM net 2 steps), 10 timed replays
+             (step ms, real tokens/s, peak GB, capture s, kernels a
+             replay and the idle share of a traced one; the loss falls),
+             a batch of other lengths in the same buckets replayed with
+             no new capture (the conv net: one with a 500-word review,
+             time bound 512, captured anew), one step at batch 8 on the
+             card against the CPU and float64 (the loss within
+             SNT_CPU_RTOL, each persistable by the L2 of its update
+             within SNT_CPU_UPDATE_RTOL); then one train_from_dataset
+             pass of the conv net over a MultiSlot file with a ragged
+             word slot. The phase's seconds. No attention kernel runs.
+22. stream   the dense continuous stream, GenerativePredictor(...,
              slot_prefill=True).open_stream() at width 8 (bench.py's
              decode-engine legs): 16 requests of ragged prompt lengths
              and budgets joined and stepped, each equal to its solo run
@@ -352,7 +368,7 @@ wrappers') and ``replay_launches`` (the traced replay's).
              the idle share of a traced window of steps; then the same
              requests through GenerativeServer from 4 threads (p50, p99,
              each equal to its solo run).
-22. speculative  build_speculative_session over a dense session at batch
+23. speculative  build_speculative_session over a dense session at batch
              8, k 4, full prompts, 12 and 32 new tokens, draft depth 3
              (the default, L // 2) and 6: tokens equal to the dense
              session's row by row (a row may differ only where the dense
@@ -364,7 +380,9 @@ wrappers') and ``replay_launches`` (the traced replay's).
              state; rounds, accepted mean, target and draft launches,
              tokens/s beside the dense session's, the idle share of a
              traced generate.
-23. summary  the kernels line, the card line, then the result line.
+24. summary  the kernels line, the card line, then the result line.
+Every card memory line (after each phase) gives the seconds since the
+one before and the smoke's seconds so far.
 """
 
 import collections
@@ -418,8 +436,14 @@ def emit(**rec):
     print(json.dumps(rec), flush=True)
 
 
+# the perf_counter of the smoke's start, then of the last card_memory line
+PHASE_CLOCK = []
+
+
 def card_memory(after):
-    """The card's memory after phase ``after``: this process's allocated
+    """The seconds since the previous card_memory line (the first: since
+    the smoke started) and the card's memory after phase ``after``:
+    this process's allocated
     and reserved GiB (a live CUDA graph keeps its pool reserved), the
     same after a garbage collection and ``empty_cache`` (the reference
     cycles that outlive a phase), the card's free GiB, and every process
@@ -440,7 +464,12 @@ def card_memory(after):
         ["nvidia-smi", "--query-compute-apps=pid,used_memory",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
-    emit(phase="card", check="memory", after=after, **before,
+    t = time.perf_counter()
+    since = t - PHASE_CLOCK[-1] if PHASE_CLOCK else None
+    smoke_s = t - PHASE_CLOCK[0] if PHASE_CLOCK else None
+    PHASE_CLOCK.append(t)
+    emit(phase="card", check="memory", after=after,
+         seconds_since_previous=since, smoke_s=smoke_s, **before,
          after_collect=now(), processes=apps, own_pid=os.getpid())
 
 
@@ -6035,12 +6064,12 @@ def timed_replays(exe, main, feed, fetches, scope, warm, timed):
 REPLAY_HOST_KERNELS = 2
 
 
-def replay_record(exe, run, step_ms):
-    """Busy ms, idle share, kernels and launch calls of one traced run,
-    which must be a replay (one graph launch, at most
-    REPLAY_HOST_KERNELS kernels launched from the host), and its kernels
-    grouped by name."""
-    api, kern, _, _ = complete_trace(run)
+def replay_record(exe, run, step_ms, tries=TRACE_TRIES):
+    """Busy ms, idle share, kernels and launch calls of the most complete
+    of ``tries`` traced runs, which must be a replay (one graph launch,
+    at most REPLAY_HOST_KERNELS kernels launched from the host), and its
+    kernels grouped by name."""
+    api, kern, _, _ = complete_trace(run, tries)
     if api and (api.get("cudaGraphLaunch") != 1 or
                 api.get("cudaLaunchKernel", 0) > REPLAY_HOST_KERNELS):
         raise AssertionError("the traced run was not a graph replay: %s"
@@ -6458,6 +6487,248 @@ def book_path(A, monitor, dev):
         raise AssertionError("book: an attention kernel ran: %s" % attention)
 
 
+# -- sentiment (book chapter 6): LoD reviews through conv and LSTM nets --------
+# The book's understand_sentiment widths (EMB_DIM 128, HID_DIM 512,
+# STACKED_NUM 3, BATCH_SIZE 128, CLASS_DIM 2) over its IMDB word_dict()
+# of 5147 words, on the reference model's Adam. Reviews are drawn from a
+# seed: lengths uniform in SNT_LEN (about IMDB's mean of 230 words; longer
+# reviews cut at 400), words from the half of the dictionary their label
+# picks (models/sentiment.py's synthetic_reviews at these widths).
+SNT = dict(vocab=5147, emb_dim=128, hid_dim=512, stacked_num=3,
+           class_dim=2)
+SNT_BATCH, SNT_LEN, SNT_LR = 128, (24, 400), 1e-3
+SNT_WARM, SNT_TIMED = 2, 10
+# the LSTM net's step unrolls 3 x 448 time steps (81k kernels a replay):
+# its graphed-vs-eager check runs 2 steps (the second captured and
+# replayed) and one trace of a replay, to keep the phase short
+SNT_LSTM_CHECK_STEPS, SNT_LSTM_TRACES = 2, 1
+SNT_CPU_BATCH = 8
+SNT_CPU_RTOL, SNT_CPU_UPDATE_RTOL = 1e-4, 1e-2
+# one review past the cut: its batch's longest length falls in a larger
+# time bound than the timed batches' (lod.length_bound)
+SNT_LONG = 500
+SNT_DATASET_LINES, SNT_DATASET_BATCH = 64, 32
+# printed beside each net's time bound (fluid/lod.py, length_bound)
+SNT_BOUND_RULE = ("the smallest of 16, 20, 24, 28, 32, 40, 48, 56, 64, "
+                  "80, ... (four steps a doubling from 16) that holds the "
+                  "longest review, at most the rows; the step is keyed by it")
+
+
+def snt_reviews(seed, batch, long=None):
+    """(lengths, flat word ids, labels) of ``batch`` reviews drawn from
+    ``seed``; ``long`` sets the first review's length."""
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, SNT["class_dim"], batch).astype(np.int64)
+    lens = rng.randint(SNT_LEN[0], SNT_LEN[1] + 1, batch)
+    if long is not None:
+        lens[0] = long
+    half = SNT["vocab"] // 2
+    words = [rng.randint(half if y else 0, SNT["vocab"] if y else half, n)
+             for y, n in zip(labels, lens)]
+    return lens.tolist(), np.concatenate(words).astype(np.int64), labels
+
+
+def snt_feed(fluid, seed, batch, long=None):
+    """A feed of ``snt_reviews``: the words as a LoDTensor padded to the
+    dataset's row bound (a power of two: 32768 rows at batch 128),
+    the labels [batch, 1]. Returns (feed, real tokens, time bound)."""
+    from paddle_tpu_torch.fluid import lod
+
+    lens, words, labels = snt_reviews(seed, batch, long)
+    rows = fluid.dataset.DatasetBase._lod_bound(words.shape[0])
+    data = np.zeros((rows, 1), np.int64)
+    data[:words.shape[0], 0] = words
+    return ({"snt_words": fluid.create_lod_tensor(data, [lens]),
+             "snt_label": labels[:, None]}, int(words.shape[0]),
+            lod.length_bound(max(lens), rows))
+
+
+def sentiment_program(fluid, sentiment, net):
+    """The book's ``net`` ("conv" or "lstm") at SNT's widths, as
+    models/sentiment.py builds it, on Adam(SNT_LR)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = 3
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        data = fluid.layers.data("snt_words", [1], dtype="int64",
+                                 lod_level=1)
+        label = fluid.layers.data("snt_label", [1], dtype="int64")
+        widths = dict(class_dim=SNT["class_dim"], emb_dim=SNT["emb_dim"],
+                      hid_dim=SNT["hid_dim"])
+        if net == "conv":
+            loss, acc, _ = sentiment.conv_net(data, label, SNT["vocab"],
+                                              **widths)
+        else:
+            loss, acc, _ = sentiment.stacked_lstm_net(
+                data, label, SNT["vocab"], stacked_num=SNT["stacked_num"],
+                **widths)
+        fluid.optimizer.Adam(learning_rate=SNT_LR).minimize(loss)
+    return main, startup, loss, acc, data, label
+
+
+def sentiment_net(fluid, monitor, sentiment, dev, net):
+    """One net (``sentiment_path``); returns its program and scope."""
+    marks = [("start", time.perf_counter())]
+    lstm = net == "lstm"
+    main, startup, loss, _, data, label = sentiment_program(
+        fluid, sentiment, net)
+    build_s = time.perf_counter() - marks[0][1]
+    feed, tokens, bound = snt_feed(fluid, 0, SNT_BATCH)
+    scope = fluid.Scope()
+    fluid.Executor(dev, cuda_graphs=False).run(startup, scope=scope)
+    graphed_vs_eager(fluid, dev, main, feed, loss, scope, "sentiment",
+                     steps=SNT_LSTM_CHECK_STEPS if lstm else CHECK_STEPS,
+                     net=net, time_bound=bound)
+    marks.append(("graphed_vs_eager", time.perf_counter()))
+    exe = fluid.Executor(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warm_s, step_s, losses = timed_replays(exe, main, feed, [loss], scope,
+                                           SNT_WARM, SNT_TIMED)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = statistics.median(step_s)
+    losses = [float(x.reshape(-1)[0]) for x in losses]
+    marks.append(("timed", time.perf_counter()))
+    rec, _ = replay_record(
+        exe, lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                             scope=scope), steady * 1e3,
+        tries=SNT_LSTM_TRACES if lstm else TRACE_TRIES)
+    marks.append(("trace", time.perf_counter()))
+
+    def counts():
+        return {n: monitor.counter(n).value for n in (
+            "executor_graph_capture_total", "executor_graph_replay_total")}
+
+    # another batch in the same buckets (rows and time bound) replays the
+    # graph; the conv net: one whose longest review is in a larger time
+    # bound captures anew (its first run eager, its second captured)
+    before = counts()
+    feed2, _, bound2 = snt_feed(fluid, 1, SNT_BATCH)
+    exe.run(main, feed=feed2, fetch_list=[loss], scope=scope)
+    same = counts()
+    buckets = dict(
+        rows=[f["snt_words"].shape[0] for f in (feed, feed2)],
+        time_bounds=[bound, bound2],
+        same_bucket_new_captures=same["executor_graph_capture_total"] -
+        before["executor_graph_capture_total"],
+        same_bucket_replays=same["executor_graph_replay_total"] -
+        before["executor_graph_replay_total"])
+    ok = (bound2 == bound and buckets["rows"][1] == buckets["rows"][0]
+          and buckets["same_bucket_new_captures"] == 0
+          and buckets["same_bucket_replays"] == 1)
+    if not lstm:
+        feed3, _, bound3 = snt_feed(fluid, 2, SNT_BATCH, long=SNT_LONG)
+        for _ in range(2):
+            exe.run(main, feed=feed3, fetch_list=[loss], scope=scope)
+        larger = counts()
+        buckets["rows"].append(feed3["snt_words"].shape[0])
+        buckets["time_bounds"].append(bound3)
+        buckets["larger_bucket_new_captures"] = \
+            larger["executor_graph_capture_total"] - \
+            same["executor_graph_capture_total"]
+        ok = ok and bound3 > bound and \
+            buckets["larger_bucket_new_captures"] == 1
+    exe.close()
+    marks.append(("buckets", time.perf_counter()))
+    rec = dict(phase="sentiment", check="train_steps", net=net,
+               mode="graphed", batch=SNT_BATCH, lengths=list(SNT_LEN),
+               dtype="float32", optimizer="Adam", widths=SNT,
+               real_tokens=tokens, time_bound=bound,
+               time_bound_rule=SNT_BOUND_RULE, build_s=build_s,
+               program_ops=len(main.global_block().ops),
+               first_run_s=warm_s[0], capture_run_s=warm_s[1],
+               step_s=step_s, step_ms=steady * 1e3,
+               real_tokens_per_s=tokens / steady,
+               max_memory_allocated_gb=peak, buckets=buckets,
+               first_loss=losses[0], last_loss=losses[-1], **rec)
+    emit(**rec)
+    if not (all(math.isfinite(x) for x in losses) and
+            losses[-1] < losses[0]):
+        raise AssertionError("sentiment %s: losses not finite and falling: "
+                             "%s" % (net, losses))
+    if not ok:
+        raise AssertionError("sentiment %s: buckets: %s" % (net, buckets))
+    cpu = fluid.Scope()
+    fluid.Executor("cpu").run(startup, scope=cpu)
+    losses, rows = card_vs_cpu(fluid, dev, main, loss, cpu,
+                               [snt_feed(fluid, 5, SNT_CPU_BATCH)[0]],
+                               lambda f: f)
+    marks.append(("card_vs_cpu", time.perf_counter()))
+    rec = card_vs_cpu_record(losses, rows, SNT_CPU_RTOL, state_steps=0,
+                             update_rtol=SNT_CPU_UPDATE_RTOL,
+                             phase="sentiment", net=net,
+                             batch=SNT_CPU_BATCH, dtype="float32",
+                             seconds={k: t - t0 for (k, t), (_, t0) in
+                                      zip(marks[1:], marks)})
+    emit(**rec)
+    if rec["over"]:
+        raise AssertionError("sentiment %s: card vs CPU: %s" % (net, rec))
+    return main, loss, data, label, scope
+
+
+def sentiment_dataset(fluid, dev, main, loss, data, label, scope):
+    """One ``train_from_dataset`` pass over a MultiSlot file of
+    SNT_DATASET_LINES reviews: a ragged word slot and a label slot."""
+    import tempfile
+
+    lens, words, labels = snt_reviews(7, SNT_DATASET_LINES)
+    lines, at = [], 0
+    for n, y in zip(lens, labels):
+        lines.append(" ".join([str(n)] + [str(w) for w in words[at:at + n]]
+                              + ["1", str(int(y))]))
+        at += n
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "reviews.txt")
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        ds = fluid.DatasetFactory().create_dataset("InMemoryDataset")
+        ds.set_batch_size(SNT_DATASET_BATCH)
+        ds.set_use_var([data, label])
+        ds.set_filelist([path])
+        ds.load_into_memory()
+        exe = fluid.Executor(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batches = exe.train_from_dataset(main, ds, scope=scope,
+                                         fetch_list=[loss])
+        torch.cuda.synchronize()
+        pass_s = time.perf_counter() - t0
+        exe.close()
+    finite = all(bool(torch.isfinite(scope.find_var(n)).all())
+                 for n in scope.local_var_names()
+                 if scope.find_var(n).is_floating_point())
+    rec = dict(phase="sentiment", check="train_from_dataset", net="conv",
+               lines=SNT_DATASET_LINES, batch=SNT_DATASET_BATCH,
+               batches=batches, pass_s=pass_s, state_finite=finite)
+    emit(**rec)
+    if batches != SNT_DATASET_LINES // SNT_DATASET_BATCH or not finite:
+        raise AssertionError("sentiment: train_from_dataset: %s" % rec)
+
+
+def sentiment_path(A, monitor, dev):
+    """The book's sentiment nets on LoD reviews (module docstring): the
+    convolution net, then the stacked-LSTM net, then one dataset pass;
+    no attention kernel runs."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import sentiment
+
+    t0 = time.perf_counter()
+    reset_launches(A)
+    main, loss, data, label, scope = sentiment_net(
+        fluid, monitor, sentiment, dev, "conv")
+    sentiment_dataset(fluid, dev, main, loss, data, label, scope)
+    del scope
+    torch.cuda.empty_cache()
+    sentiment_net(fluid, monitor, sentiment, dev, "lstm")
+    torch.cuda.empty_cache()
+    attention = launches(A, ["decode_attention_kernel",
+                             "paged_attention_kernel", *FUSED_KERNELS])
+    emit(phase="sentiment", check="attention_launches", launches=attention,
+         phase_s=time.perf_counter() - t0)
+    if any(attention.values()):
+        raise AssertionError("sentiment: an attention kernel ran: %s"
+                             % attention)
+
+
 def main():
     if sys.argv[1:2] == ["--cold-start-child"]:
         # a helper process of phase cold_start (its PLACE may be the CPU,
@@ -6480,6 +6751,7 @@ def main():
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
+    PHASE_CLOCK[:] = [t0]
     libs = _build.build_all()
     emit(phase="card", nvidia_smi=card, kind=kind,
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -6527,6 +6799,7 @@ def main():
     transformer_train_path(A, dev)
     card_memory("transformer_train_path")
     checkpoint_path(A, monitor, dev)
+    card_memory("checkpoint_path")
     recompute_path(A, dev)
     card_memory("recompute_path")
     cold = served_fleet(A, inference, monitor, dev)
@@ -6538,11 +6811,15 @@ def main():
     card_memory("book_path")
     emit(phase="book", check="phases_s",
          seq2seq_and_book_s=time.perf_counter() - t0)
+    sentiment_path(A, monitor, dev)
+    card_memory("sentiment_path")
     # the dense phase's model again (the same seed)
     model = T.Transformer.big(device=dev, seed=0)
     stream_launches = stream_path(T, A, inference, monitor, dev, model)
+    card_memory("stream_path")
     spec_launches = speculative_path(T, A, inference, monitor, dev, model)
     del model
+    card_memory("speculative_path")
 
     src = "paddle_tpu_torch/kernels/csrc/decode_attention.cu"
     kernels = []

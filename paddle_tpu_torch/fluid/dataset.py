@@ -1,7 +1,8 @@
 """Datasets over MultiSlot text files (the port's counterpart of
 ``paddle_tpu/fluid/dataset.py``): files parse on the host, samples
 shuffle in host memory, and batches assemble into the executor's feed
-dicts, each slot stacked to its var's declared shape.
+dicts: a dense slot stacked to its var's declared shape, a ragged slot
+(a var with ``lod_level`` > 0) as a ``LoDTensor`` of flat rows.
 ``Executor.train_from_dataset`` drives one pass.
 
 Line format (the reference's MultiSlotDataFeed): per slot
@@ -12,7 +13,6 @@ Not ported yet, each refused naming its ROADMAP item:
 - the native C++ line parser and channel (queue 1 item 9): the numpy
   parser gives the same samples (the reference's own
   ``test_native_and_numpy_parsers_agree``);
-- ragged slots, which need a LoD feed (queue 1 item 4, sequence/LoD);
 - ``set_exchange`` and ``global_shuffle`` across trainers, and
   ``BoxPSDataset`` (queue 1 item 8);
 - ``set_hdfs_config`` (queue 1 item 9).
@@ -25,11 +25,11 @@ import threading
 import numpy as np
 
 from .framework import Variable, convert_dtype
+from .lod import LoDTensor
 
 __all__ = ["DatasetFactory", "DatasetBase", "InMemoryDataset",
            "QueueDataset", "FileInstantDataset"]
 
-LOD_ITEM = "ROADMAP queue 1 item 4, sequence/LoD"
 DISTRIBUTED_ITEM = "ROADMAP queue 1 item 8"
 NATIVE_ITEM = "ROADMAP queue 1 item 9"
 
@@ -160,18 +160,35 @@ class DatasetBase:
                 for i in range(n_lines)]
 
     # -- batching ------------------------------------------------------------
+    @staticmethod
+    def _lod_bound(n):
+        """The physical row bound of a ragged batch's flat rows: the
+        next power of two, at least 16, so the feed signatures of a pass
+        number O(log longest batch) and their steps are shared."""
+        b = 16
+        while b < n:
+            b *= 2
+        return b
+
     def _batch_to_feed(self, batch):
-        """Samples -> a feed dict: each slot stacked and shaped as its
-        var declares. A slot whose samples differ in length is ragged,
-        which needs a LoD feed (not ported)."""
+        """Samples -> a feed dict: a ragged slot (``lod_level`` > 0) as a
+        ``LoDTensor`` of its rows zero-padded to ``_lod_bound``, a dense
+        slot stacked and shaped as its var declares."""
         feed = {}
         for si, var in enumerate(self._use_vars):
-            arrs = [np.asarray(s[si]) for s in batch]
-            if len({a.shape for a in arrs}) > 1:
-                raise NotImplementedError(
-                    "dataset slot %r is ragged (lengths %s): a LoD feed is "
-                    "not ported yet (%s)"
-                    % (var.name, sorted({a.size for a in arrs}), LOD_ITEM))
+            cols = [s[si] for s in batch]
+            if getattr(var, "lod_level", 0) and var.lod_level > 0:
+                flat = np.concatenate(cols)
+                if flat.ndim == 1:
+                    flat = flat[:, None]
+                bound = self._lod_bound(flat.shape[0])
+                if bound > flat.shape[0]:
+                    pad = np.zeros((bound - flat.shape[0],) + flat.shape[1:],
+                                   flat.dtype)
+                    flat = np.concatenate([flat, pad])
+                feed[var.name] = LoDTensor(flat, [[len(c) for c in cols]])
+                continue
+            arrs = [np.asarray(c) for c in cols]
             shape = [d for d in (var.shape or []) if d not in (-1, None)]
             if shape:
                 arrs = [a.reshape(shape) for a in arrs]

@@ -80,6 +80,14 @@ window as one transaction over its k batches). The slots are a feed
 like any other, so ids, residency and ``grow()`` never change a step's
 key: no new capture, no new cache miss.
 
+LoD feeds (``fluid/lod.py``): a ``LoDTensor`` feed is decomposed into
+its rows, under its name, and its int32 innermost lengths, under
+``name@LOD``, both fed like any array. The step's key also holds each
+such feed's time bound, ``lod.length_bound`` of its longest length, read
+here on the host: the sequence ops and ``dynamic_lstm`` read it from the
+environment as a static int, so batches whose longest lengths fall in
+one bucket replay one graph, and no op reads a length on the host.
+
 py_reader feeding (``layers/py_reader.py``): a run of a py_reader-fed
 program pulls each reader's next batch (``iters=k``: the next k,
 stacked) on the host before the step and passes it as an ordinary feed,
@@ -358,6 +366,33 @@ def _feed_signature(feed):
                  for n, v in sorted(feed.items()))
 
 
+def _lod_feeds(feed, iters):
+    """Decompose each ``LoDTensor`` feed in place, as the reference
+    does: its data under its name, its int32 innermost lengths under
+    ``name@LOD``, both fed like any array. Returns the feeds' time
+    bounds ``{name@LOD_BOUND: int}`` (``lod.length_bound`` of the
+    longest length, read here on the host), which key the step. An
+    ``iters=k`` run refuses a LoDTensor, in the reference's words."""
+    from .lod import LoDTensor, bound_name, length_bound, lod_name
+
+    bounds = {}
+    for name in list(feed):
+        value = feed[name]
+        if not isinstance(value, LoDTensor):
+            continue
+        if iters > 1:
+            raise ValueError(
+                "iters>1 does not take LoDTensor feeds — feed dense "
+                "arrays (plus explicit length arrays) stacked "
+                "[k, ...], or loop exe.run from the host")
+        lengths = value.lengths()
+        feed[lod_name(name)] = lengths
+        feed[name] = value.data()
+        bounds[bound_name(name)] = length_bound(
+            int(lengths.max()) if lengths.size else 0, value.shape[0])
+    return bounds
+
+
 def _split_batched_feed(feed, block, iters):
     """Classify each ``iters=k`` feed as per-iteration STACKED
     (``[k, ...]``, one slice per step) or loop-INVARIANT (the per-step
@@ -560,8 +595,11 @@ class _CompiledStep:
     held (its id is in the key); an eager executor's steps hold
     neither."""
 
-    def __init__(self, plan, scope=None, generator=None, cache_key=None):
+    def __init__(self, plan, scope=None, generator=None, cache_key=None,
+                 lod_bounds=None):
         self.plan = plan
+        # {name@LOD_BOUND: int}: the time bounds of the step's LoD feeds
+        self.lod_bounds = dict(lod_bounds or {})
         self.scope = None if scope is None else weakref.ref(scope)
         self.generator = generator
         # the disk key to write this step's entry under after its warm
@@ -732,19 +770,21 @@ class Executor:
         feed = dict(feed or {})
         readers = self._py_reader_feed(program, feed, iters, prefetch)
         _host_tier(program, block, feed, scope, iters)
+        lod_bounds = _lod_feeds(feed, iters)
         feed = {n: self._host_feed(block, n, v) for n, v in feed.items()}
         if iters > 1:
             stacked, invariant = _split_batched_feed(feed, block, iters)
         state_names = sorted(v.name for v in program.list_vars()
                              if v.persistable and scope.has_var(v.name))
         gen = scope.rng(self.place, program.random_seed)
-        # the step's key: the program, one step's feed signature, the
-        # fetches and the state; a graph also binds the scope, its
-        # generator and its tensors' storage
+        # the step's key: the program, one step's feed signature and its
+        # LoD feeds' time bounds, the fetches and the state; a graph also
+        # binds the scope, its generator and its tensors' storage
         step_feed = feed if iters == 1 else dict(
             invariant, **{n: v[0] for n, v in stacked.items()})
         key = (program._uid, program._mutation, _feed_signature(step_feed),
-               tuple(fetch_names), tuple(state_names))
+               tuple(sorted(lod_bounds.items())), tuple(fetch_names),
+               tuple(state_names))
         if self.cuda_graphs:
             key += (scope._uid, id(gen), tuple(
                 (tuple(t.shape), t.dtype)
@@ -766,7 +806,8 @@ class Executor:
                     program, fetch_names, step_feed, state_names)
                 step = self._steps[key] = _CompiledStep(
                     plan, *((scope, gen) if self.cuda_graphs
-                            else (None, None)), cache_key=cache_key)
+                            else (None, None)), cache_key=cache_key,
+                    lod_bounds=lod_bounds)
             self._cache[run_key] = step
 
         scan = (_flags.check_nan_inf_enabled() or policy != "raise"
@@ -979,6 +1020,7 @@ class Executor:
             for n in plan.persistable:
                 if n not in env and scope.has_var(n):
                     env[n] = scope.find_var(n)
+            env.update(step.lod_bounds)
             if step.cache_key is None:
                 ctx = self._lower(plan, env, gen)
             else:
@@ -1062,6 +1104,7 @@ class Executor:
                       if scope.has_var(n)}
         env = dict(step.feeds)
         env.update(step.state)
+        env.update(step.lod_bounds)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()

@@ -87,11 +87,16 @@ class Variable:
     gradient, whose NAME binds the [n, dim...] values and NAME + "@ROWS"
     the int32 row ids, one per lookup position (the reference's
     encoding). As in the reference, ``to_desc`` does not record it;
-    ``Program.from_desc`` reads it back from the "@ROWS" var beside."""
+    ``Program.from_desc`` reads it back from the "@ROWS" var beside.
+
+    ``lod_level`` > 0 marks a ragged (LoD) var: a flat ``[rows, ...]``
+    value with its lengths under NAME + "@LOD" (``fluid/lod.py``). The
+    layers set it, as the reference's do; ``to_desc`` does not record
+    it either."""
 
     def __init__(self, block, name=None, shape=None, dtype="float32",
                  persistable=False, stop_gradient=False, is_data=False,
-                 type="lod_tensor"):
+                 type="lod_tensor", lod_level=0):
         self.block = block
         self.name = name or unique_name.generate("_generated_var")
         self.shape = tuple(shape) if shape is not None else ()
@@ -100,6 +105,7 @@ class Variable:
         self.stop_gradient = stop_gradient
         self.is_data = is_data
         self.type = type
+        self.lod_level = lod_level
         self.op = None  # producing op, set by append_op
 
     # -- operator sugar: each appends the op that the reference appends

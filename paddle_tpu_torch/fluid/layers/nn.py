@@ -19,7 +19,8 @@ __all__ = [
     "elementwise_div", "elementwise_min", "elementwise_max",
     "elementwise_pow", "softmax", "einsum", "slice", "squeeze", "stack",
     "expand", "split", "sum", "logical_or", "clip",
-    "clip_by_norm", "autoincreased_step_counter",
+    "clip_by_norm", "autoincreased_step_counter", "im2sequence", "row_conv",
+    "one_hot",
 ]
 
 
@@ -29,22 +30,29 @@ def _data_type(x):
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, name=None):
-    """Fully connected: input flattened to 2-D at ``num_flatten_dims``,
-    times an [in, size] weight, plus bias, then the activation."""
+    """Fully connected: each input flattened to 2-D at
+    ``num_flatten_dims`` times its own [in, size] weight, the products
+    summed (a ``sum`` op), plus bias, then the activation."""
     helper = LayerHelper("fc", **locals())
     inputs = input if isinstance(input, (list, tuple)) else [input]
-    if len(inputs) != 1:
-        raise NotImplementedError("fc over several inputs (a sum op) is "
-                                  "not ported yet")
-    inp = inputs[0]
-    in_features = int(np.prod(inp.shape[num_flatten_dims:]))
-    w = helper.create_parameter(param_attr, [in_features, size],
-                                _data_type(inp))
-    pre_bias = helper.create_variable_for_type_inference(inp.dtype)
-    helper.append_op(type="mul", inputs={"X": [inp], "Y": [w]},
-                     outputs={"Out": [pre_bias]},
-                     attrs={"x_num_col_dims": num_flatten_dims,
-                            "y_num_col_dims": 1})
+    mul_results = []
+    for inp in inputs:
+        in_features = int(np.prod(inp.shape[num_flatten_dims:]))
+        w = helper.create_parameter(param_attr, [in_features, size],
+                                    _data_type(inp))
+        out = helper.create_variable_for_type_inference(inp.dtype)
+        helper.append_op(type="mul", inputs={"X": [inp], "Y": [w]},
+                         outputs={"Out": [out]},
+                         attrs={"x_num_col_dims": num_flatten_dims,
+                                "y_num_col_dims": 1})
+        mul_results.append(out)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(
+            inputs[0].dtype)
+        helper.append_op(type="sum", inputs={"X": mul_results},
+                         outputs={"Out": [pre_bias]})
     pre_act = _append_bias(helper, pre_bias, bias_attr,
                            dim_start=num_flatten_dims)
     return helper.append_activation(pre_act, act)
@@ -571,4 +579,42 @@ def einsum(equation, *operands, name=None):
     out = helper.create_variable_for_type_inference(operands[0].dtype)
     helper.append_op(type="einsum", inputs={"Operands": list(operands)},
                      outputs={"Out": [out]}, attrs={"equation": equation})
+    return out
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0,
+                input_image_size=None, out_stride=1, name=None):
+    """Image [N, C, H, W] -> a LoD value of kernel patches, one sequence
+    of output positions an image."""
+    helper = LayerHelper("im2sequence", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="im2sequence", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"kernels": _pair_list(filter_size),
+               "strides": _pair_list(stride),
+               "paddings": [padding] * 4 if isinstance(padding, int)
+               else list(padding)})
+    return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    """Lookahead convolution over each sequence's next
+    ``future_context_size`` rows."""
+    helper = LayerHelper("row_conv", **locals())
+    w = helper.create_parameter(
+        param_attr, [future_context_size + 1, input.shape[-1]],
+        _data_type(input))
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="row_conv", inputs={"X": [input], "Filter": [w]},
+                     outputs={"Out": [out]})
+    return helper.append_activation(out, act)
+
+
+def one_hot(input, depth, allow_out_of_range=False):
+    """float32 one-hot rows of ``depth`` (a trailing ids dim of 1 is
+    dropped)."""
+    helper = LayerHelper("one_hot", **locals())
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op(type="one_hot", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"depth": depth})
     return out

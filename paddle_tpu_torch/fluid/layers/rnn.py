@@ -16,9 +16,10 @@ layers ``gru_unit`` and ``lstm_unit``, and beam search
   whole loop is static-shaped device work, so it is captured into one
   CUDA graph on the card.
 
-``dynamic_lstm``, ``dynamic_lstmp``, ``dynamic_gru`` and ``lstm`` (the
-cudnn LSTM) run over LoD or fused recurrences that are not ported yet:
-they raise, naming ROADMAP queue 1 item 4 (sequence/LoD).
+``dynamic_lstm`` and ``dynamic_lstmp`` run an LSTM over LoD sequences
+(``ops/rnn_ops.py``: time-major over the input's time bound).
+``dynamic_gru`` and ``lstm`` (the cudnn LSTM) are not ported yet: they
+raise, naming ROADMAP queue 1 item 4 (sequence/LoD).
 """
 
 import copy
@@ -36,13 +37,83 @@ __all__ = [
 ]
 
 
-_WHY = ("is a recurrence over LoD sequences or a fused cudnn LSTM, which are "
-        "not ported yet (ROADMAP queue 1 item 4, sequence/LoD); layers.rnn "
-        "over GRUCell or LSTMCell runs a padded batch")
-dynamic_lstm = unported("dynamic_lstm", _WHY)
-dynamic_lstmp = unported("dynamic_lstmp", _WHY)
+_WHY = ("is a GRU over LoD sequences or a fused cudnn LSTM, which are not "
+        "ported yet (ROADMAP queue 1 item 4, sequence/LoD); "
+        "layers.dynamic_lstm runs LoD sequences, layers.rnn over GRUCell "
+        "or LSTMCell a padded batch")
 dynamic_gru = unported("dynamic_gru", _WHY)
 lstm = unported("lstm", _WHY)
+
+
+def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
+                 bias_attr=None, use_peepholes=True, is_reverse=False,
+                 gate_activation="sigmoid", cell_activation="tanh",
+                 candidate_activation="tanh", dtype="float32", name=None):
+    """An LSTM over LoD sequences (the reference's ``dynamic_lstm``):
+    ``input`` is the projected [rows, 4H] gates (an fc before it),
+    ``size`` 4H. Returns (hidden, cell), each [rows, H] with the
+    input's lengths."""
+    helper = LayerHelper("dynamic_lstm", **locals())
+    H = size // 4
+    w = helper.create_parameter(param_attr, [H, 4 * H], dtype)
+    bias_size = 7 * H if use_peepholes else 4 * H
+    b = helper.create_parameter(bias_attr, [1, bias_size], dtype,
+                                is_bias=True)
+    hidden = helper.create_variable_for_type_inference(dtype)
+    cell = helper.create_variable_for_type_inference(dtype)
+    hidden.shape = cell.shape = (-1, H)
+    hidden.lod_level = cell.lod_level = 1
+    inputs = {"Input": [input], "Weight": [w], "Bias": [b]}
+    if h_0 is not None:
+        inputs["H0"] = [h_0]
+    if c_0 is not None:
+        inputs["C0"] = [c_0]
+    helper.append_op(
+        type="dynamic_lstm", inputs=inputs,
+        outputs={"Hidden": [hidden], "Cell": [cell]},
+        attrs={"use_peepholes": use_peepholes, "is_reverse": is_reverse,
+               "gate_activation": gate_activation,
+               "cell_activation": cell_activation,
+               "candidate_activation": candidate_activation})
+    return hidden, cell
+
+
+def dynamic_lstmp(input, size, proj_size, h_0=None, c_0=None,
+                  param_attr=None, bias_attr=None, use_peepholes=True,
+                  is_reverse=False, gate_activation="sigmoid",
+                  cell_activation="tanh", candidate_activation="tanh",
+                  proj_activation="tanh", dtype="float32",
+                  cell_clip=None, proj_clip=None, name=None):
+    """``dynamic_lstm`` with a recurrent projection [H, proj_size]
+    (``proj_activation``) and ``cell_clip``. Returns (projection,
+    cell)."""
+    helper = LayerHelper("dynamic_lstmp", **locals())
+    H = size // 4
+    w = helper.create_parameter(param_attr, [proj_size, 4 * H], dtype)
+    wp = helper.create_parameter(None, [H, proj_size], dtype)
+    bias_size = 7 * H if use_peepholes else 4 * H
+    b = helper.create_parameter(bias_attr, [1, bias_size], dtype,
+                                is_bias=True)
+    proj = helper.create_variable_for_type_inference(dtype)
+    cell = helper.create_variable_for_type_inference(dtype)
+    proj.shape, cell.shape = (-1, proj_size), (-1, H)
+    proj.lod_level = cell.lod_level = 1
+    inputs = {"Input": [input], "Weight": [w], "ProjWeight": [wp],
+              "Bias": [b]}
+    if h_0 is not None:
+        inputs["H0"] = [h_0]
+    if c_0 is not None:
+        inputs["C0"] = [c_0]
+    helper.append_op(
+        type="dynamic_lstmp", inputs=inputs,
+        outputs={"Projection": [proj], "Cell": [cell]},
+        attrs={"use_peepholes": use_peepholes, "is_reverse": is_reverse,
+               "gate_activation": gate_activation,
+               "cell_activation": cell_activation,
+               "candidate_activation": candidate_activation,
+               "proj_activation": proj_activation,
+               "cell_clip": float(cell_clip or 0.0)})
+    return proj, cell
 
 
 def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,

@@ -1,9 +1,8 @@
 """Composite network blocks (counterpart of ``paddle_tpu/fluid/nets.py``):
 ``simple_img_conv_pool``, ``img_conv_group`` (the VGG block),
-``glu`` and ``scaled_dot_product_attention`` (matmuls and a softmax;
-no fused attention kernel, as in the reference). ``sequence_conv_pool``
-runs on LoD sequences and raises, naming ROADMAP queue 1 item 4
-(sequence/LoD)."""
+``sequence_conv_pool`` (over LoD sequences), ``glu`` and
+``scaled_dot_product_attention`` (matmuls and a softmax; no fused
+attention kernel, as in the reference)."""
 
 from . import layers
 
@@ -62,9 +61,12 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
 
 def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
                        act="sigmoid", pool_type="max", bias_attr=None):
-    raise NotImplementedError(
-        "nets.sequence_conv_pool runs on LoD sequences, which are not "
-        "ported yet (ROADMAP queue 1 item 4, sequence/LoD)")
+    """A ``sequence_conv`` over LoD sequences, then a ``sequence_pool``:
+    one [n, num_filters] row a sequence."""
+    conv_out = layers.sequence_conv(
+        input=input, num_filters=num_filters, filter_size=filter_size,
+        param_attr=param_attr, bias_attr=bias_attr, act=act)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)
 
 
 def glu(input, dim=-1):

@@ -25,15 +25,27 @@ order in the high 32 bits and the inverted index in the low 32: no two
 keys are equal. Nothing here reads a value on the host, so a decode
 loop of these ops can be captured into a CUDA graph.
 
-The padded-LoD recurrences (``dynamic_lstm``, ``dynamic_lstmp``,
-``dynamic_gru``, ``cudnn_lstm``, ``lstm``) wait for the LoD half of
-ROADMAP queue 1 item 4 (sequence/LoD).
+``dynamic_lstm`` / ``dynamic_lstmp`` run over bounded-LoD rows
+(``fluid/lod.py``), gate layout [c~, i, f, o] with peepholes
+checkI/F/O from the 7H bias: c = c~ i + c_prev f, h = o act(c) (the
+reference's ``lstm_kernel.h``). The gates are packed time-major to
+``[bound, n, 4H]``, a reversed LSTM packing each sequence back to front,
+so every sequence starts at step 0 and no step needs a mask: a step
+past a sequence's end computes values that are never read, and
+``_unpack`` front-packs the valid ones back to token rows. ``bound`` is
+the input's time bound (``@LOD_BOUND``, from the host's lengths), where
+the reference scans the flat row count; the values below each length
+are the same. The time loop is a Python loop of torch ops, so a step
+captures into one CUDA graph. ``dynamic_gru``, ``cudnn_lstm`` and
+``lstm`` wait for the next part of ROADMAP queue 1 item 4.
 """
 
 import torch
 import torch.nn.functional as F
 
+from ..lod import bound_name, lod_name
 from ..registry import register
+from .sequence_ops import _bound, _lod, _pack, _seg_info, _unpack
 
 _ACTS = {"sigmoid": torch.sigmoid, "tanh": torch.tanh, "relu": F.relu,
          "identity": (lambda x: x)}
@@ -166,3 +178,86 @@ def _beam_search_decode(ctx, op):
         ids = _backtrack(ids, parents)
     ctx.set_output(op, "SentenceIds", ids)
     ctx.set_output(op, "SentenceScores", ctx.get_input(op, "Scores"))
+
+
+def _lstm_steps(gp, w, h, c, checks, cell_clip, act_gate, act_cell,
+                act_cand, proj=None, act_proj=None):
+    """The LSTM over time-major gates ``gp`` [bound, n, 4H] (x W + bias)
+    from (h, c): [bound, n, P] outputs (h, or act_proj(h @ proj)) and
+    [bound, n, H] cells. ``unbind`` and ``stack`` keep the backward
+    linear in the bound (one node each, not one full-size gradient a
+    step)."""
+    H = c.shape[1]
+    if checks is not None:
+        # [n, H] views: a step's peephole gradient is added, not reduced
+        # over the batch; the one reduction runs after the loop
+        checks = [k.expand_as(c) for k in checks]
+    hs, cs = [], []
+    for g_t in gp.unbind(0):
+        g = torch.addmm(g_t, h, w)
+        gi, gf, go = g[:, H:2 * H], g[:, 2 * H:3 * H], g[:, 3 * H:]
+        if checks is not None:
+            gi = torch.addcmul(gi, c, checks[0])
+            gf = torch.addcmul(gf, c, checks[1])
+        c = torch.addcmul(act_cand(g[:, :H]) * act_gate(gi), c,
+                          act_gate(gf))
+        if cell_clip > 0:
+            c = c.clamp(-cell_clip, cell_clip)
+        if checks is not None:
+            go = torch.addcmul(go, c, checks[2])
+        h = act_gate(go) * act_cell(c)
+        if proj is not None:
+            h = act_proj(h @ proj)
+        hs.append(h)
+        cs.append(c)
+    return torch.stack(hs), torch.stack(cs)
+
+
+@register("dynamic_lstm")
+@register("dynamic_lstmp")
+def _dynamic_lstm(ctx, op):
+    """Input [T, 4H] (the projected gates), Weight [H or P, 4H], Bias [1,
+    4H] or [1, 7H] with peepholes, ProjWeight [H, P] (lstmp), H0/C0 [n,
+    P]/[n, H]; Hidden (Projection) and Cell [T, H or P] with the input's
+    @LOD."""
+    x = ctx.get_input(op, "Input")
+    w = ctx.get_input(op, "Weight")
+    b = ctx.get_input(op, "Bias")
+    proj = ctx.get_input(op, "ProjWeight")
+    name = op.input("Input")[0]
+    lengths = _lod(ctx, name)
+    n, total = lengths.shape[0], x.shape[0]
+    H = w.shape[1] // 4
+    P = proj.shape[1] if proj is not None else H
+    reverse = bool(op.attr("is_reverse", False))
+    cell_clip = float(op.attr("cell_clip", 0.0) or 0.0)
+    gates, checks = x, None
+    if b is not None:
+        flat = b.reshape(-1)
+        gates = gates + flat[:4 * H][None, :]
+        if op.attr("use_peepholes", True) and flat.shape[0] >= 7 * H:
+            checks = (flat[4 * H:5 * H], flat[5 * H:6 * H],
+                      flat[6 * H:7 * H])
+    bound = _bound(ctx, name, total)
+    _, starts, _, _ = _seg_info(lengths, total)
+    gp, _ = _pack(gates, lengths, starts, bound, reverse=reverse,
+                  time_major=True)
+    h0 = ctx.get_input(op, "H0")
+    c0 = ctx.get_input(op, "C0")
+    if h0 is None:
+        h0 = torch.zeros((n, P), dtype=x.dtype, device=x.device)
+    if c0 is None:
+        c0 = torch.zeros((n, H), dtype=x.dtype, device=x.device)
+    hs, cs = _lstm_steps(
+        gp, w, h0, c0, checks, cell_clip,
+        _act(op, "gate_activation", 1), _act(op, "cell_activation", 2),
+        _act(op, "candidate_activation", 2), proj,
+        _act(op, "proj_activation", 0) if proj is not None else None)
+    out_slot = "Projection" if proj is not None else "Hidden"
+    for slot, v in ((out_slot, hs), ("Cell", cs)):
+        ctx.set_output(op, slot, _unpack(v, lengths, total, reverse=reverse,
+                                         time_major=True))
+        names = op.output(slot)
+        if names:
+            ctx.env[lod_name(names[0])] = lengths
+            ctx.env[bound_name(names[0])] = bound

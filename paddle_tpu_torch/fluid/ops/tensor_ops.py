@@ -46,6 +46,19 @@ def _unsqueeze(ctx, op):
     ctx.set_output(op, "Out", out)
 
 
+@register("one_hot")
+def _one_hot(ctx, op):
+    """float32 rows of ``depth``: 1 at each id (a trailing Ids dim of 1
+    is dropped); an id outside [0, depth) reads a row of zeros, as
+    ``jax.nn.one_hot`` gives it."""
+    x = ctx.get_input(op, "X")
+    if x.dim() >= 2 and x.shape[-1] == 1:
+        x = x[..., 0]
+    depth = int(op.attr("depth"))
+    cols = torch.arange(depth, dtype=x.dtype, device=x.device)
+    ctx.set_output(op, "Out", (x[..., None] == cols).to(torch.float32))
+
+
 @register("gather")
 def _gather(ctx, op):
     """Rows of X at Index (any shape): out [*Index.shape, *X.shape[1:]]."""

@@ -29,6 +29,7 @@ from . import faults as _faults
 from . import monitor as _monitor
 from . import resilience as _resilience
 from .framework import Variable
+from .lod import LoDTensor
 
 __all__ = ["DataLoader", "GeneratorLoader", "DeviceStager", "StagedFeed",
            "stage_feed", "copy_feed", "WorkerInfo", "get_worker_info",
@@ -92,6 +93,8 @@ class StagedFeed(dict):
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(event)
             for v in self.values():
+                if isinstance(v, LoDTensor):
+                    v = v.data()
                 if isinstance(v, torch.Tensor) and v.is_cuda:
                     v.record_stream(stream)
         return self
@@ -103,7 +106,8 @@ def stage_feed(feed, place="cuda", sharding=None, keep_on_host=()):
     stager stream, with an event recorded after the copies (a
     ``StagedFeed``; the consumer calls ``wait()``). Names in
     ``keep_on_host`` (the raw ids a host-tier embedding table maps on the
-    host) and non-array values pass through as they are."""
+    host) and non-array values pass through as they are; a ``LoDTensor``
+    keeps its lengths on the host and its data is copied."""
     if sharding is not None:
         raise NotImplementedError(
             "stage_feed(sharding=...): staging feeds pre-sharded onto a "
@@ -118,11 +122,20 @@ def copy_feed(feed, device, keep_on_host=()):
     the stager stream behind an event."""
     out = StagedFeed()
 
+    def copy(value):
+        value = torch.from_numpy(np.ascontiguousarray(value))
+        if device.type == "cuda":
+            value = value.pin_memory().to(device, non_blocking=True)
+        return value
+
     def put(name, value):
-        if isinstance(value, np.ndarray) and name not in keep_on_host:
-            value = torch.from_numpy(np.ascontiguousarray(value))
-            if device.type == "cuda":
-                value = value.pin_memory().to(device, non_blocking=True)
+        if name not in keep_on_host:
+            if isinstance(value, np.ndarray):
+                value = copy(value)
+            elif isinstance(value, LoDTensor) and isinstance(
+                    value.data(), np.ndarray):
+                value = LoDTensor(copy(value.data()),
+                                  value.recursive_sequence_lengths())
         out[name] = value
 
     if device.type == "cuda":

@@ -237,11 +237,49 @@ def attribute_op_error(op, exc):
     raise cls("\n".join(lines)) from exc
 
 
+def propagate_lod(ctx, op):
+    """Dataflow LoD propagation (the reference's rule, its ShareLoD): if
+    the op's inputs that carry an @LOD binding agree on the sequence
+    count and the token dim, each output of that token dim without a
+    binding of its own inherits the first one's lengths, and its time
+    bound where one is known. Runs on the environment the op ran in (an
+    ``autodiff`` segment's copy included)."""
+    from .lod import bound_name, lod_name
+
+    env = ctx.env
+    in_lods = [n for n in op.input_arg_names()
+               if lod_name(n) in env and n in env]
+    if not in_lods:
+        return
+    leads = set()
+    first = env[lod_name(in_lods[0])]
+    for n in in_lods:
+        v = env[n]
+        if not isinstance(v, torch.Tensor) or v.dim() == 0 or \
+                env[lod_name(n)].shape != first.shape:
+            return
+        leads.add(v.shape[0])
+    if len(leads) != 1:
+        return
+    lead = leads.pop()
+    bound = env.get(bound_name(in_lods[0]))
+    for out in op.output_arg_names():
+        if lod_name(out) in env or out not in env:
+            continue
+        v = env[out]
+        if isinstance(v, torch.Tensor) and v.dim() and v.shape[0] == lead:
+            env[lod_name(out)] = first
+            if bound is not None:
+                env[bound_name(out)] = bound
+
+
 def lower_op(ctx, op):
-    """Lower ONE op, naming the op and its creation site on failure."""
+    """Lower ONE op, naming the op and its creation site on failure, then
+    propagate LoD bindings to its outputs (``propagate_lod``)."""
     try:
         registry.get(op.type)(ctx, op)
     except EnforceError:
         raise
     except Exception as e:  # noqa: BLE001 — attribute, then re-raise
         attribute_op_error(op, e)
+    propagate_lod(ctx, op)

@@ -9,7 +9,9 @@ stager-fed loop against an unstaged one; a py_reader's prefetched
 windows waited on behind a slow copy, a rollback into a graphed step,
 and recompute graphed against eager and against no recompute; beam
 search with planted ties against the CPU, the learning-rate step counter
-across graph replays, and a gru_unit step graphed against eager. Every
+across graph replays, a gru_unit step graphed against eager, and a LoD
+program (sequence_conv, dynamic_lstm, sequence_pool) replaying batches of
+other lengths equal to eager and near the CPU. Every
 test needs a CUDA device
 and skips without one. This file imports neither jax nor paddle_tpu, so it also runs on a
 machine without them, skipping the suite's conftest (which imports jax):
@@ -2292,3 +2294,67 @@ def test_gru_unit_graphed_equals_eager(cuda_device):
             .to(cuda_device)}
     smoke.graphed_vs_eager(fluid, cuda_device, main, feed, loss, scope,
                            "test_gru_unit")
+
+
+def _lod_program(fluid, H=32):
+    """Embedding, sequence_conv, a reversed dynamic_lstm with
+    peepholes, MAX and SQRT pooling and a softmax fc: the sentiment
+    nets' LoD ops in one program, trained by SGD."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = 4
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        L = fluid.layers
+        words = L.data("words", [1], dtype="int64", lod_level=1)
+        label = L.data("label", [1], dtype="int64")
+        emb = L.embedding(words, size=[50, 16])
+        conv = L.sequence_conv(emb, num_filters=4 * H, filter_size=3,
+                               act="tanh")
+        hid, _ = L.dynamic_lstm(conv, size=4 * H, is_reverse=True)
+        pooled = [L.sequence_pool(hid, "max"), L.sequence_pool(conv, "sqrt")]
+        pred = L.fc(pooled, size=2, act="softmax")
+        loss = L.mean(L.cross_entropy(pred, label))
+        fluid.optimizer.SGD(0.1).minimize(loss)
+    return main, startup, loss
+
+
+def _lod_feed(fluid, seed, lens, rows=256):
+    rng = np.random.RandomState(seed)
+    data = np.zeros((rows, 1), np.int64)
+    data[:sum(lens), 0] = rng.randint(0, 50, sum(lens))
+    return {"words": fluid.create_lod_tensor(data, [lens]),
+            "label": rng.randint(0, 2, (len(lens), 1)).astype(np.int64)}
+
+
+def test_lod_replays_new_lengths_equal_to_eager(cuda_device):
+    """Batches of other lengths in one bucket (the rows and the longest
+    length's time bound, 40) replay one captured graph, each step equal
+    to the eager executor's to the bit, a zero-length review included;
+    then the card's state against the CPU's after the same steps."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import monitor
+
+    main, startup, loss = _lod_program(fluid)
+    cpu = fluid.Scope()
+    fluid.Executor("cpu").run(startup, scope=cpu)
+    feeds = [_lod_feed(fluid, i, lens) for i, lens in enumerate((
+        [33, 5, 0, 20], [1, 38, 12, 7], [40, 40, 0, 1], [9, 9, 9, 35]))]
+    captures = monitor.counter("executor_graph_capture_total")
+    losses, scopes = {}, {}
+    for label, graphs in (("eager", False), ("graphed", True)):
+        card = fluid.Scope()
+        for n in cpu.local_var_names():
+            card.set_var(n, cpu.find_var(n).to(cuda_device, copy=True))
+        exe = fluid.Executor(cuda_device, cuda_graphs=graphs)
+        c0 = captures.value
+        losses[label] = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                       scope=card)[0]) for f in feeds]
+        if graphs:
+            assert captures.value - c0 == 1
+        exe.close()
+        scopes[label] = card
+    assert losses["graphed"] == losses["eager"]
+    assert smoke.unequal(scopes["graphed"], scopes["eager"]) == []
+    cexe = fluid.Executor("cpu")
+    want = [float(cexe.run(main, feed=f, fetch_list=[loss], scope=cpu)[0])
+            for f in feeds]
+    np.testing.assert_allclose(losses["eager"], want, rtol=1e-4)

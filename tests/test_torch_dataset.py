@@ -450,8 +450,6 @@ def test_stager_errors_retries_and_close():
     ("native_parser", "ROADMAP queue 1 item 9"),
     ("native_channel", "ROADMAP queue 1 item 9"),
     ("hdfs", "ROADMAP queue 1 item 9"),
-    ("lod_data", "ROADMAP queue 1 item 4"),
-    ("ragged_slot", "ROADMAP queue 1 item 4"),
     ("exchange", "ROADMAP queue 1 item 8"),
     ("global_shuffle_fleet", "ROADMAP queue 1 item 8"),
     ("boxps", "ROADMAP queue 1 item 8"),
@@ -490,12 +488,6 @@ def test_refusals_name_their_roadmap_items(tmp_path, monkeypatch, case,
         elif case == "hdfs":
             _dataset(pfluid, "InMemoryDataset", [f], 2).set_hdfs_config(
                 "hdfs://x:9000", "u,p")
-        elif case == "lod_data":
-            pfluid.layers.data("seq", [1], dtype="int64", lod_level=1)
-        elif case == "ragged_slot":
-            with open(f, "a") as fh:
-                fh.write("3 0.1 0.2 0.3 2 4 5 1 1.0\n")
-            _batches(_dataset(pfluid, "InMemoryDataset", [f], 8))
         elif case == "exchange":
             _dataset(pfluid, "InMemoryDataset", [f], 2).set_exchange(
                 None, ["127.0.0.1:1"])

@@ -410,14 +410,10 @@ def test_rnn_over_cells_matches_reference(cell_kind, time_major, is_reverse,
 
 
 def _refusals():
-    L, nets = pfluid.layers, pfluid.nets
+    L = pfluid.layers
     return {
-        "dynamic_lstm": lambda: L.dynamic_lstm(None, 16),
-        "dynamic_lstmp": lambda: L.dynamic_lstmp(None, 16, 4),
         "dynamic_gru": lambda: L.dynamic_gru(None, 4),
         "lstm": lambda: L.lstm(None, None, None, 4, 4, 1),
-        "sequence_pool": lambda: L.sequence_pool(None, "max"),
-        "sequence_conv_pool": lambda: nets.sequence_conv_pool(None, 4, 3),
         "While": lambda: L.While(None),
         "cond": lambda: L.cond(None),
         "StaticRNN": lambda: L.StaticRNN(),

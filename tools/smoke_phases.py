@@ -9,9 +9,10 @@ recompute at S 512 and S 8192), ``fleet`` (the smoke's cold_start
 and fleet phases: the BERT-base encoder exported with prelower=True,
 three cold child processes, a fleet of two replica processes),
 ``seq2seq`` (the GRU seq2seq trained and beam-decoded at the book's
-widths) and ``book`` (word2vec with a schedule and a clip, VGG16-BN).
-``--no-build`` skips the kernel build: the seq2seq and book phases
-launch none of the port's kernels. Each
+widths), ``book`` (word2vec with a schedule and a clip, VGG16-BN) and
+``sentiment`` (the book's convolution and stacked-LSTM sentiment nets on
+LoD reviews). ``--no-build`` skips the kernel build: the seq2seq, book
+and sentiment phases launch none of the port's kernels. Each
 prints the smoke's JSON lines and its wall seconds; a failed check
 raises, as in the smoke.
 """
@@ -33,7 +34,8 @@ PHASES = {"checkpoint": lambda dev: S.checkpoint_path(A, monitor, dev),
           "recompute": lambda dev: S.recompute_path(A, dev),
           "fleet": lambda dev: S.served_fleet(A, inference, monitor, dev),
           "seq2seq": lambda dev: S.seq2seq_path(A, inference, dev),
-          "book": lambda dev: S.book_path(A, monitor, dev)}
+          "book": lambda dev: S.book_path(A, monitor, dev),
+          "sentiment": lambda dev: S.sentiment_path(A, monitor, dev)}
 
 
 def main(names):
