@@ -355,7 +355,30 @@ wrappers') and ``replay_launches`` (the traced replay's).
              within SNT_CPU_UPDATE_RTOL); then one train_from_dataset
              pass of the conv net over a MultiSlot file with a ragged
              word slot. The phase's seconds. No attention kernel runs.
-22. stream   the dense continuous stream, GenerativePredictor(...,
+22. tagger   the book's semantic-role tagger (models/tagger.py:
+             embedding, fc, dynamic_gru, emission fc, linear_chain_crf;
+             crf_decoding) at the book's widths: dictionary 44068,
+             embedding 32, hidden 512, 59 tags, batch 10, Adam 5e-3,
+             fp32 with TF32 off, on sentences drawn from a seed
+             (lengths 5-60, the time bound from SNT_BOUND_RULE):
+             graphed against eager to the bit, 10 timed replays (step
+             ms, real tokens/s, peak GB, capture s, kernels a replay and
+             the idle share of a traced one; the loss falls), the decode
+             program on the trained scope (eager, captured, replayed, and
+             on the CPU: the same Viterbi paths), one step at batch 4 on
+             the card against the CPU and float64 (TAG_CPU_RTOL, each
+             persistable by the L2 of its update within
+             TAG_CPU_UPDATE_RTOL). The phase's seconds. No attention
+             kernel runs.
+23. recommender  the book's MovieLens recommender
+             (models/recommender.py: user and movie towers, cos_sim,
+             square_error_cost, reduce_mean) at its vocabularies and
+             widths, batch 256, SGD 0.2, 1-6 categories and 1-15 title
+             words a film: graphed against eager to the bit, 20 timed
+             replays (step ms, examples/s, peak GB, kernels a replay and
+             the idle share), one step at batch 32 against the CPU and
+             float64. The phase's seconds. No attention kernel runs.
+24. stream   the dense continuous stream, GenerativePredictor(...,
              slot_prefill=True).open_stream() at width 8 (bench.py's
              decode-engine legs): 16 requests of ragged prompt lengths
              and budgets joined and stepped, each equal to its solo run
@@ -368,7 +391,7 @@ wrappers') and ``replay_launches`` (the traced replay's).
              the idle share of a traced window of steps; then the same
              requests through GenerativeServer from 4 threads (p50, p99,
              each equal to its solo run).
-23. speculative  build_speculative_session over a dense session at batch
+25. speculative  build_speculative_session over a dense session at batch
              8, k 4, full prompts, 12 and 32 new tokens, draft depth 3
              (the default, L // 2) and 6: tokens equal to the dense
              session's row by row (a row may differ only where the dense
@@ -380,7 +403,7 @@ wrappers') and ``replay_launches`` (the traced replay's).
              state; rounds, accepted mean, target and draft launches,
              tokens/s beside the dense session's, the idle share of a
              traced generate.
-24. summary  the kernels line, the card line, then the result line.
+26. summary  the kernels line, the card line, then the result line.
 Every card memory line (after each phase) gives the seconds since the
 one before and the smoke's seconds so far.
 """
@@ -6511,7 +6534,8 @@ SNT_DATASET_LINES, SNT_DATASET_BATCH = 64, 32
 # printed beside each net's time bound (fluid/lod.py, length_bound)
 SNT_BOUND_RULE = ("the smallest of 16, 20, 24, 28, 32, 40, 48, 56, 64, "
                   "80, ... (four steps a doubling from 16) that holds the "
-                  "longest review, at most the rows; the step is keyed by it")
+                  "longest sequence, at most the rows; the step is keyed "
+                  "by it")
 
 
 def snt_reviews(seed, batch, long=None):
@@ -6729,6 +6753,222 @@ def sentiment_path(A, monitor, dev):
                              % attention)
 
 
+# -- tagger (book chapter 7): a GRU over LoD sentences and a CRF -------------
+# The book's test_label_semantic_roles widths: the CoNLL-2005 word
+# dictionary of 44068 words, embedding 32, hidden 512, BATCH_SIZE 10,
+# Adam at 5e-3, and 59 tags (conll05.get_dict()'s label dictionary: B-
+# and I- of each argument type, and O), through models/tagger.py's net
+# (embedding, fc, dynamic_gru, emission fc, linear_chain_crf). Sentences
+# drawn from a seed, lengths uniform in TAG_LEN (longer sentences cut at
+# 60), tagged by the rule tag = word % num_tags (synthetic_tagging's).
+TAG = dict(vocab=44068, num_tags=59, emb_dim=32, hidden=512)
+TAG_BATCH, TAG_LEN, TAG_LR = 10, (5, 60), 5e-3
+TAG_WARM, TAG_TIMED = 2, 10
+TAG_CPU_BATCH = 4
+TAG_CPU_RTOL, TAG_CPU_UPDATE_RTOL = 1e-4, 1e-2
+
+
+def tagger_feed(fluid, seed, batch):
+    """``batch`` sentences from ``seed`` as LoDTensors padded to the
+    dataset's power-of-two row bound: (feed, real tokens, time bound)."""
+    from paddle_tpu_torch.fluid import lod
+
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(TAG_LEN[0], TAG_LEN[1] + 1, batch).tolist()
+    tokens = sum(lens)
+    rows = fluid.dataset.DatasetBase._lod_bound(tokens)
+    words = np.zeros((rows, 1), np.int64)
+    words[:tokens, 0] = rng.randint(0, TAG["vocab"], tokens)
+    tags = words % TAG["num_tags"]
+    tags[tokens:] = 0
+    return ({"tg_words": fluid.create_lod_tensor(words, [lens]),
+             "tg_tags": fluid.create_lod_tensor(tags, [lens])}, tokens,
+            lod.length_bound(max(lens), rows))
+
+
+def tagger_programs(fluid, tagger):
+    """The training and decode programs at TAG's widths (one parameter
+    set by name)."""
+    widths = dict(vocab=TAG["vocab"], num_tags=TAG["num_tags"],
+                  emb_dim=TAG["emb_dim"], hidden=TAG["hidden"])
+    with fluid.unique_name.guard():
+        main, startup, loss = tagger.build_train_program(lr=TAG_LR,
+                                                         **widths)
+    with fluid.unique_name.guard():
+        decode, _, path = tagger.build_decode_program(**widths)
+    return main, startup, loss, decode, path
+
+
+def tagger_decode(fluid, dev, decode, path, scope, feed):
+    """The Viterbi paths of ``feed``'s sentences from the trained
+    ``scope``: eagerly, captured and replayed on the card, and on the
+    CPU from the card's state. Every route must give the same tags."""
+    words = {"tg_words": feed["tg_words"]}
+    exe = fluid.Executor(dev)
+    card = [np.asarray(exe.run(decode, feed=words, fetch_list=[path],
+                               scope=scope)[0]) for _ in range(3)]
+    exe.close()
+    cpu = np.asarray(fluid.Executor("cpu").run(
+        decode, feed=words, fetch_list=[path],
+        scope=card_scope_to_cpu(fluid, scope))[0])
+    lens = feed["tg_words"].recursive_sequence_lengths()[0]
+    tokens = sum(lens)
+    differ = np.flatnonzero(card[0][:tokens, 0] != cpu[:tokens, 0])
+    rec = dict(phase="tagger", check="viterbi_card_vs_cpu",
+               sentences=len(lens), tokens=tokens,
+               routes_equal=all(np.array_equal(c, card[0]) for c in card),
+               tokens_differing=int(differ.size),
+               first_differing=int(differ[0]) if differ.size else None,
+               tags_used=int(np.unique(cpu[:tokens]).size))
+    emit(**rec)
+    if not rec["routes_equal"] or differ.size:
+        raise AssertionError("tagger: Viterbi paths: %s" % rec)
+
+
+def trained_phase(fluid, dev, phase, main, startup, loss, feed,
+                  cpu_feed, warm, timed, rtol, update_rtol, rates,
+                  **where):
+    """A training phase's checks on ``main``: graphed against eager to the
+    bit, ``warm`` + ``timed`` replays (step ms, peak GB, capture s, a
+    traced replay's kernels and idle share; the loss must fall), one
+    step on ``cpu_feed`` on the card against the CPU and float64 from a
+    fresh startup (the loss within ``rtol``, each persistable by the L2
+    of its update within ``update_rtol``). ``rates`` maps a rate's name
+    to what a step processes (its value a second); ``where`` joins the
+    timed record. Returns the trained scope."""
+    marks = [("start", time.perf_counter())]
+    scope = fluid.Scope()
+    fluid.Executor(dev, cuda_graphs=False).run(startup, scope=scope)
+    graphed_vs_eager(fluid, dev, main, feed, loss, scope, phase)
+    marks.append(("graphed_vs_eager", time.perf_counter()))
+    exe = fluid.Executor(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warm_s, step_s, losses = timed_replays(exe, main, feed, [loss], scope,
+                                           warm, timed)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = statistics.median(step_s)
+    losses = [float(x.reshape(-1)[0]) for x in losses]
+    rec, _ = replay_record(
+        exe, lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                             scope=scope), steady * 1e3)
+    exe.close()
+    marks.append(("timed", time.perf_counter()))
+    rec = dict(phase=phase, check="train_steps", mode="graphed",
+               dtype="float32", program_ops=len(main.global_block().ops),
+               first_run_s=warm_s[0], capture_run_s=warm_s[1],
+               step_s=step_s, step_ms=steady * 1e3,
+               max_memory_allocated_gb=peak, first_loss=losses[0],
+               last_loss=losses[-1], **where, **rec,
+               **{k: n / steady for k, n in rates.items()})
+    emit(**rec)
+    if not (all(math.isfinite(x) for x in losses) and
+            losses[-1] < losses[0]):
+        raise AssertionError("%s: losses not finite and falling: %s"
+                             % (phase, losses))
+    cpu = fluid.Scope()
+    fluid.Executor("cpu").run(startup, scope=cpu)
+    got, rows = card_vs_cpu(fluid, dev, main, loss, cpu, [cpu_feed],
+                            lambda f: f)
+    marks.append(("card_vs_cpu", time.perf_counter()))
+    check = card_vs_cpu_record(got, rows, rtol, state_steps=0,
+                               update_rtol=update_rtol, phase=phase,
+                               dtype="float32",
+                               seconds={k: t - t1 for (k, t), (_, t1) in
+                                        zip(marks[1:], marks)})
+    emit(**check)
+    if check["over"]:
+        raise AssertionError("%s: card vs CPU: %s" % (phase, check))
+    return scope
+
+
+def no_attention(A, phase, t0):
+    """The phase launched no attention kernel; prints its seconds."""
+    attention = launches(A, ["decode_attention_kernel",
+                             "paged_attention_kernel", *FUSED_KERNELS])
+    emit(phase=phase, check="attention_launches", launches=attention,
+         phase_s=time.perf_counter() - t0)
+    if any(attention.values()):
+        raise AssertionError("%s: an attention kernel ran: %s"
+                             % (phase, attention))
+
+
+def tagger_path(A, dev):
+    """The book's CRF tagger on LoD sentences (module docstring)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import tagger
+
+    t0 = time.perf_counter()
+    reset_launches(A)
+    main, startup, loss, decode, path = tagger_programs(fluid, tagger)
+    build_s = time.perf_counter() - t0
+    feed, tokens, bound = tagger_feed(fluid, 0, TAG_BATCH)
+    scope = trained_phase(
+        fluid, dev, "tagger", main, startup, loss, feed,
+        tagger_feed(fluid, 5, TAG_CPU_BATCH)[0], TAG_WARM, TAG_TIMED,
+        TAG_CPU_RTOL, TAG_CPU_UPDATE_RTOL,
+        {"real_tokens_per_s": tokens}, batch=TAG_BATCH,
+        lengths=list(TAG_LEN), optimizer="Adam", widths=TAG,
+        real_tokens=tokens, rows=feed["tg_words"].shape[0],
+        time_bound=bound, time_bound_rule=SNT_BOUND_RULE, build_s=build_s,
+        cpu_batch=TAG_CPU_BATCH)
+    tagger_decode(fluid, dev, decode, path, scope, feed)
+    del scope
+    torch.cuda.empty_cache()
+    no_attention(A, "tagger", t0)
+
+
+# -- recommender (book chapter 5): MovieLens towers scored by cos_sim --------
+# models/recommender.py's MovieLens-1M vocabularies and widths (32-wide
+# embeddings, 200-wide towers), the book's batch of 256 on SGD at 0.2;
+# 1-6 categories and 1-15 title words a film (synthetic_batch's draws).
+REC_BATCH, REC_CATS, REC_TITLE, REC_LR = 256, (1, 6), (1, 15), 0.2
+REC_WARM, REC_TIMED = 2, 20
+REC_CPU_BATCH = 32
+REC_CPU_RTOL, REC_CPU_UPDATE_RTOL = 1e-4, 1e-2
+
+
+def rec_feed(fluid, recommender, seed, batch):
+    """``synthetic_batch`` at REC's lengths, its ragged fields padded to
+    the dataset's power-of-two row bound: (feed, {field: real ids})."""
+    feed = recommender.synthetic_batch(
+        batch, np.random.RandomState(seed), title_maxlen=REC_TITLE[1],
+        cat_maxlen=REC_CATS[1])
+    counts = {}
+    for name in ("category_id", "movie_title"):
+        t = feed[name]
+        n = t.data().shape[0]
+        data = np.zeros((fluid.dataset.DatasetBase._lod_bound(n), 1),
+                        np.int64)
+        data[:n] = t.data()
+        feed[name] = fluid.create_lod_tensor(
+            data, t.recursive_sequence_lengths())
+        counts[name] = n
+    return feed, counts
+
+
+def recommender_path(A, dev):
+    """The book's recommender (module docstring)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import recommender
+
+    t0 = time.perf_counter()
+    reset_launches(A)
+    with fluid.unique_name.guard():
+        main, startup, loss, _ = recommender.build_train_program(lr=REC_LR)
+    feed, counts = rec_feed(fluid, recommender, 0, REC_BATCH)
+    scope = trained_phase(
+        fluid, dev, "recommender", main, startup, loss, feed,
+        rec_feed(fluid, recommender, 5, REC_CPU_BATCH)[0], REC_WARM,
+        REC_TIMED, REC_CPU_RTOL, REC_CPU_UPDATE_RTOL,
+        {"examples_per_s": REC_BATCH}, batch=REC_BATCH,
+        categories=list(REC_CATS), title_words=list(REC_TITLE), ids=counts,
+        optimizer="SGD", cpu_batch=REC_CPU_BATCH)
+    del scope
+    torch.cuda.empty_cache()
+    no_attention(A, "recommender", t0)
+
+
 def main():
     if sys.argv[1:2] == ["--cold-start-child"]:
         # a helper process of phase cold_start (its PLACE may be the CPU,
@@ -6813,6 +7053,10 @@ def main():
          seq2seq_and_book_s=time.perf_counter() - t0)
     sentiment_path(A, monitor, dev)
     card_memory("sentiment_path")
+    tagger_path(A, dev)
+    card_memory("tagger_path")
+    recommender_path(A, dev)
+    card_memory("recommender_path")
     # the dense phase's model again (the same seed)
     model = T.Transformer.big(device=dev, seed=0)
     stream_launches = stream_path(T, A, inference, monitor, dev, model)

@@ -1,9 +1,40 @@
-"""SelectedRows layers (counterparts in
+"""SelectedRows and LoD-rebinding layers (counterparts in
 ``paddle_tpu/fluid/layers/extras.py``)."""
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["merge_selected_rows", "get_tensor_from_selected_rows"]
+__all__ = ["lod_reset", "lod_append", "merge_selected_rows",
+           "get_tensor_from_selected_rows"]
+
+
+def lod_reset(x, y=None, target_lod=None):
+    """``x`` with new lengths: ``y``'s LoD (or its int offsets), or the
+    ``target_lod`` offsets."""
+    helper = LayerHelper("lod_reset", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.lod_level = 1
+    inputs = {"X": [x]}
+    attrs = {}
+    if y is not None:
+        inputs["Y"] = [y]
+    elif target_lod is not None:
+        attrs["target_lod"] = [int(v) for v in target_lod]
+    else:
+        raise ValueError("lod_reset needs y or target_lod")
+    helper.append_op(type="lod_reset", inputs=inputs,
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def lod_append(x, level):
+    """``x`` with a deeper LoD level (``level``'s offsets)."""
+    helper = LayerHelper("lod_append", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.lod_level = getattr(x, "lod_level", 0) + 1
+    helper.append_op(type="lod_append", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"level": [int(v) for v in level]})
+    return out
 
 
 def merge_selected_rows(x, name=None):

@@ -20,7 +20,9 @@ __all__ = [
     "elementwise_pow", "softmax", "einsum", "slice", "squeeze", "stack",
     "expand", "split", "sum", "logical_or", "clip",
     "clip_by_norm", "autoincreased_step_counter", "im2sequence", "row_conv",
-    "one_hot",
+    "one_hot", "reduce_mean", "reduce_max", "reduce_min", "reduce_prod",
+    "reduce_all", "reduce_any", "linear_chain_crf", "crf_decoding",
+    "ctc_greedy_decoder",
 ]
 
 
@@ -278,6 +280,30 @@ def _reduce_layer(op_type, input, dim=None, keep_dim=False, name=None):
 
 def reduce_sum(input, dim=None, keep_dim=False, name=None):
     return _reduce_layer("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_mean", input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_min", input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_prod", input, dim, keep_dim, name)
+
+
+def reduce_all(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_all", input, dim, keep_dim, name)
+
+
+def reduce_any(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_any", input, dim, keep_dim, name)
 
 
 def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
@@ -617,4 +643,71 @@ def one_hot(input, depth, allow_out_of_range=False):
     out = helper.create_variable_for_type_inference("float32")
     helper.append_op(type="one_hot", inputs={"X": [input]},
                      outputs={"Out": [out]}, attrs={"depth": depth})
+    return out
+
+
+def linear_chain_crf(input, label, param_attr=None, length=None):
+    """The linear-chain CRF's log-likelihood [n, 1] of each LoD label
+    sequence under the emissions ``input`` [rows, K]; the transition
+    parameter [K + 2, K] holds the start and end weights in rows 0 and
+    1."""
+    helper = LayerHelper("linear_chain_crf", **locals())
+    num_tags = int(input.shape[-1])
+    trans = helper.create_parameter(param_attr, [num_tags + 2, num_tags],
+                                    "float32")
+    ll = helper.create_variable_for_type_inference("float32")
+    alpha = helper.create_variable_for_type_inference("float32")
+    eexp = helper.create_variable_for_type_inference("float32")
+    texp = helper.create_variable_for_type_inference("float32")
+    ll.shape = (-1, 1)
+    helper.append_op(
+        type="linear_chain_crf",
+        inputs={"Emission": [input], "Transition": [trans],
+                "Label": [label]},
+        outputs={"LogLikelihood": [ll], "Alpha": [alpha],
+                 "EmissionExps": [eexp], "TransitionExps": [texp]})
+    return ll
+
+
+def crf_decoding(input, param_attr, label=None, length=None):
+    """The Viterbi tag path [rows, 1] (int64, the input's lengths) under
+    the transition parameter ``param_attr`` names (one a
+    ``linear_chain_crf`` trained). A program without that parameter (a
+    standalone decode program) declares it, so it resolves from the
+    scope."""
+    helper = LayerHelper("crf_decoding", **locals())
+    name = param_attr.name if hasattr(param_attr, "name") else str(param_attr)
+    block = helper.main_program.global_block()
+    if block._find_var_recursive(name) is not None:
+        trans = block.var(name)
+    else:
+        num_tags = int(input.shape[-1])
+        trans = helper.create_parameter(param_attr,
+                                        [num_tags + 2, num_tags], "float32")
+    path = helper.create_variable_for_type_inference("int64")
+    path.shape = (-1, 1)
+    path.lod_level = 1
+    helper.append_op(
+        type="crf_decoding",
+        inputs={"Emission": [input], "Transition": [trans]},
+        outputs={"ViterbiPath": [path]})
+    return path
+
+
+def ctc_greedy_decoder(input, blank, name=None):
+    """Greedy CTC decode of LoD class scores: each step's argmax, repeats
+    collapsed, blanks dropped (``arg_max`` + ``ctc_align``)."""
+    helper = LayerHelper("ctc_greedy_decoder", **locals())
+    idx = helper.create_variable_for_type_inference("int64")
+    idx.shape = (-1, 1)
+    idx.lod_level = 1
+    helper.append_op(type="arg_max", inputs={"X": [input]},
+                     outputs={"Out": [idx]},
+                     attrs={"axis": -1, "keepdims": True})
+    out = helper.create_variable_for_type_inference("int64")
+    out.shape = (-1, 1)
+    out.lod_level = 1
+    helper.append_op(type="ctc_align", inputs={"Input": [idx]},
+                     outputs={"Output": [out]},
+                     attrs={"blank": int(blank)})
     return out

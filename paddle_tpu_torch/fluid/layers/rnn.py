@@ -16,10 +16,10 @@ layers ``gru_unit`` and ``lstm_unit``, and beam search
   whole loop is static-shaped device work, so it is captured into one
   CUDA graph on the card.
 
-``dynamic_lstm`` and ``dynamic_lstmp`` run an LSTM over LoD sequences
-(``ops/rnn_ops.py``: time-major over the input's time bound).
-``dynamic_gru`` and ``lstm`` (the cudnn LSTM) are not ported yet: they
-raise, naming ROADMAP queue 1 item 4 (sequence/LoD).
+``dynamic_lstm``, ``dynamic_lstmp`` and ``dynamic_gru`` run an LSTM
+or a GRU over LoD sequences (``ops/rnn_ops.py``: time-major over the
+input's time bound); ``lstm`` runs the cudnn LSTM's stacked layers over
+a padded ``[T, B, I]`` batch from one flat weight blob.
 """
 
 import copy
@@ -27,7 +27,6 @@ import copy
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 from . import control_flow, nn, sequence_lod, tensor
-from .unported import unported
 
 __all__ = [
     "RNNCell", "GRUCell", "LSTMCell", "Decoder", "BeamSearchDecoder", "rnn",
@@ -35,14 +34,6 @@ __all__ = [
     "gru_unit", "lstm_unit", "lstm", "beam_search", "beam_search_decode",
     "gather_tree",
 ]
-
-
-_WHY = ("is a GRU over LoD sequences or a fused cudnn LSTM, which are not "
-        "ported yet (ROADMAP queue 1 item 4, sequence/LoD); "
-        "layers.dynamic_lstm runs LoD sequences, layers.rnn over GRUCell "
-        "or LSTMCell a padded batch")
-dynamic_gru = unported("dynamic_gru", _WHY)
-lstm = unported("lstm", _WHY)
 
 
 def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
@@ -116,6 +107,33 @@ def dynamic_lstmp(input, size, proj_size, h_0=None, c_0=None,
     return proj, cell
 
 
+def dynamic_gru(input, size, param_attr=None, bias_attr=None,
+                is_reverse=False, gate_activation="sigmoid",
+                candidate_activation="tanh", h_0=None,
+                origin_mode=False, name=None):
+    """A GRU over LoD sequences (the reference's ``dynamic_gru``):
+    ``input`` is the projected [rows, 3H] gates (an fc before it),
+    ``size`` H. Returns the hidden [rows, H] with the input's
+    lengths."""
+    helper = LayerHelper("dynamic_gru", **locals())
+    dtype = "float32"
+    w = helper.create_parameter(param_attr, [size, 3 * size], dtype)
+    b = helper.create_parameter(bias_attr, [1, 3 * size], dtype,
+                                is_bias=True)
+    hidden = helper.create_variable_for_type_inference(dtype)
+    hidden.shape = (-1, size)
+    hidden.lod_level = 1
+    inputs = {"Input": [input], "Weight": [w], "Bias": [b]}
+    if h_0 is not None:
+        inputs["H0"] = [h_0]
+    helper.append_op(
+        type="dynamic_gru", inputs=inputs, outputs={"Hidden": [hidden]},
+        attrs={"is_reverse": is_reverse, "gate_activation": gate_activation,
+               "activation": candidate_activation,
+               "origin_mode": origin_mode})
+    return hidden
+
+
 def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
              activation="tanh", gate_activation="sigmoid",
              origin_mode=False):
@@ -159,6 +177,42 @@ def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
         outputs={"C": [c], "H": [h]},
         attrs={"forget_bias": float(forget_bias)})
     return h, c
+
+
+def lstm(input, init_h, init_c, max_len, hidden_size, num_layers,
+         dropout_prob=0.0, is_bidirec=False, is_test=False, name=None,
+         default_initializer=None, seed=-1):
+    """The cudnn LSTM (the reference's ``layers.lstm``): ``num_layers``
+    stacked LSTMs over a padded [T, B, I] ``input`` from ``init_h`` /
+    ``init_c`` [num_layers, B, H], all weights in one flat parameter;
+    ``dropout_prob`` between layers in training. Returns (out [T, B, H],
+    last_h, last_c [num_layers, B, H])."""
+    if is_bidirec:
+        raise NotImplementedError("bidirectional cudnn-style lstm: compose "
+                                  "two dynamic_lstm(is_reverse=) passes")
+    helper = LayerHelper("cudnn_lstm", **locals())
+    dtype = "float32"
+    I = input.shape[-1]
+    size = 0
+    for layer in range(num_layers):
+        in_dim = I if layer == 0 else hidden_size
+        size += (in_dim + hidden_size + 1) * 4 * hidden_size
+    w = helper.create_parameter(ParamAttr(initializer=default_initializer)
+                                if default_initializer else None,
+                                [size], dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    last_h = helper.create_variable_for_type_inference(dtype)
+    last_c = helper.create_variable_for_type_inference(dtype)
+    out.shape = (-1, -1, hidden_size)
+    helper.append_op(
+        type="cudnn_lstm",
+        inputs={"Input": [input], "InitH": [init_h], "InitC": [init_c],
+                "W": [w]},
+        outputs={"Out": [out], "LastH": [last_h], "LastC": [last_c]},
+        attrs={"hidden_size": int(hidden_size),
+               "num_layers": int(num_layers),
+               "dropout_prob": float(dropout_prob), "is_test": is_test})
+    return out, last_h, last_c
 
 
 # -- cells and rnn() ---------------------------------------------------------------

@@ -2,8 +2,9 @@
 cross_entropy over probabilities (hard labels with ``ignore_index``, or
 soft labels; probabilities clipped at 1e-20 before the log),
 softmax_with_cross_entropy (Loss [..., 1] and Softmax, hard labels with
-``ignore_index`` or soft labels) and sigmoid_cross_entropy_with_logits
-(elementwise, in the reference's stable form)."""
+``ignore_index`` or soft labels), sigmoid_cross_entropy_with_logits
+(elementwise, in the reference's stable form) and square_error_cost
+((x - y)^2 elementwise)."""
 
 import torch
 import torch.nn.functional as F
@@ -66,3 +67,9 @@ def _sigmoid_cross_entropy_with_logits(ctx, op):
     if op.attr("normalize", False):
         loss = loss / keep.to(x.dtype).sum().clamp_min(1.0)
     ctx.set_output(op, "Out", loss)
+
+
+@register("square_error_cost")
+def _square_error_cost(ctx, op):
+    ctx.set_output(op, "Out", torch.square(ctx.get_input(op, "X")
+                                           - ctx.get_input(op, "Y")))

@@ -1,7 +1,9 @@
 """Dense math ops: mul / matmul (plain ``torch.matmul``, as the JAX
 package left its products to XLA; bf16 operands under AMP), scale,
-sum, mean, reduce_sum, einsum, top_k, and isfinite of dynamic loss
-scaling (counterparts in ``paddle_tpu/fluid/ops/math.py``)."""
+sum, mean, the reduce family (sum, mean, max, min, prod, all, any),
+cos_sim, arg_max (``ctc_greedy_decoder``'s), einsum, top_k, and
+isfinite of dynamic loss scaling (counterparts in
+``paddle_tpu/fluid/ops/math.py``)."""
 
 import numpy as np
 import torch
@@ -89,18 +91,73 @@ def _top_k(ctx, op):
     ctx.set_output(op, "Indices", idx)
 
 
-@register("reduce_sum")
-def _reduce_sum(ctx, op):
+def _prod(x, dims, keepdim):
+    """The product over ``dims`` (torch.prod takes one dim): the reduced
+    dims moved last and flattened."""
+    rest = [d for d in range(x.dim()) if d not in dims]
+    out = x.permute(rest + list(dims)).reshape(
+        [x.shape[d] for d in rest] + [-1]).prod(-1)
+    if keepdim:
+        for d in sorted(dims):
+            out = out.unsqueeze(d)
+    return out
+
+
+# reduce_max / reduce_min take amax / amin, which share the gradient of
+# equal maxima evenly, as JAX's max does (torch.max(dim=) gives it all
+# to one index)
+_REDUCERS = {
+    "reduce_sum": lambda x, d, k: x.sum(dim=d, keepdim=k),
+    "reduce_mean": lambda x, d, k: x.mean(dim=d, keepdim=k),
+    "reduce_max": lambda x, d, k: x.amax(dim=d, keepdim=k),
+    "reduce_min": lambda x, d, k: x.amin(dim=d, keepdim=k),
+    "reduce_prod": _prod,
+    "reduce_all": lambda x, d, k: x.bool().all(dim=d, keepdim=k),
+    "reduce_any": lambda x, d, k: x.bool().any(dim=d, keepdim=k),
+}
+
+
+def _reduce(reducer):
+    def lower(ctx, op):
+        """Over ``dim`` (negative counts from the end), or every dim with
+        ``reduce_all``; ``keep_dim`` keeps them as 1. No dims: X as it
+        is."""
+        x = ctx.get_input(op, "X")
+        keep = op.attr("keep_dim", False)
+        if op.attr("reduce_all", False):
+            dims = tuple(range(x.dim()))
+        else:
+            dim = op.attr("dim", [0])
+            dims = tuple(d if d >= 0 else d + x.dim()
+                         for d in (dim if isinstance(dim, (list, tuple))
+                                   else [dim]))
+        ctx.set_output(op, "Out", reducer(x, dims, keep) if dims else x)
+    return lower
+
+
+for _name, _fn in _REDUCERS.items():
+    register(_name)(_reduce(_fn))
+
+
+@register("cos_sim")
+def _cos_sim(ctx, op):
+    """Row-wise cosine similarity [..., 1]: x . y / (|x| |y| + 1e-12), the
+    reference's formula (``F.cosine_similarity`` clamps each norm
+    instead)."""
     x = ctx.get_input(op, "X")
-    keep = op.attr("keep_dim", False)
-    if op.attr("reduce_all", False):
-        dims = tuple(range(x.dim()))
-    else:
-        dim = op.attr("dim", [0])
-        dims = tuple(d if d >= 0 else d + x.dim()
-                     for d in (dim if isinstance(dim, (list, tuple))
-                               else [dim]))
-    ctx.set_output(op, "Out", x.sum(dim=dims, keepdim=keep) if dims else x)
+    y = ctx.get_input(op, "Y")
+    xn = torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(torch.square(y), dim=-1, keepdim=True))
+    ctx.set_output(op, "Out", torch.sum(x * y, dim=-1, keepdim=True)
+                   / (xn * yn + 1e-12))
+
+
+@register("arg_max")
+def _arg_max(ctx, op):
+    """int64 index of the first maximum along ``axis`` (the reference
+    keeps no reduced dim)."""
+    ctx.set_output(op, "Out", torch.argmax(ctx.get_input(op, "X"),
+                                           dim=op.attr("axis", -1)))
 
 
 @register("einsum")

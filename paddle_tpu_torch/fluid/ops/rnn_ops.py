@@ -1,6 +1,8 @@
 """Recurrent and beam-search op lowerings (counterpart of
 ``paddle_tpu/fluid/ops/rnn_ops.py``): one LSTM step (``lstm_unit``), one
-GRU step (``gru_unit``), and the dense beam search over
+GRU step (``gru_unit``), the recurrences over LoD sequences
+(``dynamic_lstm``, ``dynamic_lstmp``, ``dynamic_gru``), the cudnn LSTM
+(``cudnn_lstm`` / ``lstm``), and the dense beam search over
 ``[batch * beam]`` rows (``beam_pos``, ``beam_search``, ``gather_tree``,
 ``beam_search_decode``).
 
@@ -36,8 +38,19 @@ past a sequence's end computes values that are never read, and
 the input's time bound (``@LOD_BOUND``, from the host's lengths), where
 the reference scans the flat row count; the values below each length
 are the same. The time loop is a Python loop of torch ops, so a step
-captures into one CUDA graph. ``dynamic_gru``, ``cudnn_lstm`` and
-``lstm`` wait for the next part of ROADMAP queue 1 item 4.
+captures into one CUDA graph. ``dynamic_gru`` runs the same scheme over
+[u, r, c~] gates (the reference's column split of one [H, 3H] weight:
+``w[:, :2H]`` for u and r, ``w[:, 2H:]`` for c~), from H0 where given.
+
+``cudnn_lstm`` / ``lstm`` run stacked LSTM layers over a padded
+``[T, B, I]`` input (the reference's capability of cuDNN's RNN, written
+as the same unrolled recurrence, not cuDNN's, so the flat weight blob's
+layout and the dropout draws stay the reference's): per layer ``wx [in,
+4H]``, ``wh [H, 4H]``, ``bias [4H]`` in turn, gates [i, f, c~, o]. In
+training, each layer's output but the last is dropped out: kept where
+a uniform draw from the op's generator is below 1 - p, scaled by 1 / (1
+- p); the draws go through ``LowerCtx`` and so are recorded for
+recompute.
 """
 
 import torch
@@ -45,7 +58,8 @@ import torch.nn.functional as F
 
 from ..lod import bound_name, lod_name
 from ..registry import register
-from .sequence_ops import _bound, _lod, _pack, _seg_info, _unpack
+from .sequence_ops import (_bound, _lod, _pack, _seg_info, _set_lod,
+                           _unpack)
 
 _ACTS = {"sigmoid": torch.sigmoid, "tanh": torch.tanh, "relu": F.relu,
          "identity": (lambda x: x)}
@@ -261,3 +275,90 @@ def _dynamic_lstm(ctx, op):
         if names:
             ctx.env[lod_name(names[0])] = lengths
             ctx.env[bound_name(names[0])] = bound
+
+
+@register("dynamic_gru")
+def _dynamic_gru(ctx, op):
+    """Input [T, 3H] (the projected gates), Weight [H, 3H], Bias [1, 3H],
+    H0 [n, H]; Hidden [T, H] with the input's @LOD. Time-major over the
+    input's time bound, a reversed GRU packed back to front."""
+    x = ctx.get_input(op, "Input")
+    w = ctx.get_input(op, "Weight")
+    b = ctx.get_input(op, "Bias")
+    name = op.input("Input")[0]
+    lengths = _lod(ctx, name)
+    n, total = lengths.shape[0], x.shape[0]
+    H = w.shape[0]
+    reverse = bool(op.attr("is_reverse", False))
+    act_gate = _act(op, "gate_activation", 1)
+    act_cand = _act(op, "activation", 2)
+    origin = bool(op.attr("origin_mode", False))
+    gates = x if b is None else x + b.reshape(1, -1)
+    bound = _bound(ctx, name, total)
+    _, starts, _, _ = _seg_info(lengths, total)
+    gp, _ = _pack(gates, lengths, starts, bound, reverse=reverse,
+                  time_major=True)
+    h = ctx.get_input(op, "H0")
+    if h is None:
+        h = torch.zeros((n, H), dtype=x.dtype, device=x.device)
+    w_ur, w_c = w[:, :2 * H], w[:, 2 * H:]
+    hs = []
+    for g in gp.unbind(0):
+        ur = act_gate(torch.addmm(g[:, :2 * H], h, w_ur))
+        u, r = ur[:, :H], ur[:, H:]
+        cand = act_cand(torch.addmm(g[:, 2 * H:], r * h, w_c))
+        if origin:
+            h = u * h + (1 - u) * cand
+        else:
+            h = (1 - u) * h + u * cand
+        hs.append(h)
+    ctx.set_output(op, "Hidden", _unpack(torch.stack(hs), lengths, total,
+                                         reverse=reverse, time_major=True))
+    _set_lod(ctx, op, "Hidden", lengths, bound)
+
+
+@register("cudnn_lstm")
+@register("lstm")
+def _cudnn_lstm(ctx, op):
+    """Input [T, B, I], InitH / InitC [L, B, H], W the flat blob; Out [T,
+    B, H], LastH / LastC [L, B, H] (module docstring)."""
+    x = ctx.get_input(op, "Input")
+    init_h = ctx.get_input(op, "InitH")
+    init_c = ctx.get_input(op, "InitC")
+    flat = ctx.get_input(op, "W").reshape(-1)
+    H = int(op.attr("hidden_size"))
+    layers = int(op.attr("num_layers", 1))
+    drop = float(op.attr("dropout_prob", 0.0) or 0.0)
+    training = drop > 0 and not op.attr("is_test", False)
+    T, B, I = x.shape
+    outs, off = x, 0
+    last_h, last_c = [], []
+    for layer in range(layers):
+        in_dim = I if layer == 0 else H
+        wx = flat[off:off + in_dim * 4 * H].reshape(in_dim, 4 * H)
+        off += in_dim * 4 * H
+        wh = flat[off:off + H * 4 * H].reshape(H, 4 * H)
+        off += H * 4 * H
+        bias = flat[off:off + 4 * H]
+        off += 4 * H
+        gates = torch.matmul(outs, wx) + bias
+        h, c = init_h[layer], init_c[layer]
+        hs = []
+        for g_t in gates.unbind(0):
+            g = torch.addmm(g_t, h, wh)
+            i = torch.sigmoid(g[:, :H])
+            f = torch.sigmoid(g[:, H:2 * H])
+            c = f * c + i * torch.tanh(g[:, 2 * H:3 * H])
+            h = torch.sigmoid(g[:, 3 * H:]) * torch.tanh(c)
+            hs.append(h)
+        outs = torch.stack(hs)
+        if training and layer < layers - 1:
+            keep = 1.0 - drop
+            kept = ctx.uniform(outs.shape, 0.0, 1.0) < keep
+            outs = torch.where(kept, outs / keep, torch.zeros(
+                (), dtype=outs.dtype, device=outs.device))
+        last_h.append(h)
+        last_c.append(c)
+    ctx.set_output(op, "Out", outs)
+    ctx.set_output(op, "LastH", torch.stack(last_h))
+    ctx.set_output(op, "LastC", torch.stack(last_c))

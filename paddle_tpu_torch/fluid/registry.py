@@ -9,8 +9,8 @@ inference runs the same rules on ``meta`` tensors.
 
 Randomness comes from one explicit ``torch.Generator`` (the scope's, see
 ``executor.py``): random ops draw from it in op order through
-``LowerCtx.next_seed``, ``random_bytes``, ``uniform`` and ``normal``,
-where the JAX registry splits a threaded PRNG key. A ``DrawRecord`` set
+``LowerCtx.next_seed``, ``random_bytes``, ``uniform``, ``randint`` and
+``normal``, where the JAX registry splits a threaded PRNG key. A ``DrawRecord`` set
 on the context (``draw_record``) keeps what each op drew, and replays
 it: recompute runs a segment of ops a second time in the backward, and
 its ops must see the primal run's draws (the reference's
@@ -183,6 +183,14 @@ class LowerCtx:
             tuple(shape), dtype=torch.float32, device=self.device,
             generator=self.generator))
         return u * (high - low) + low
+
+    def randint(self, shape, high):
+        """int64 tensor uniform in [0, high)."""
+        if self.abstract:
+            return torch.empty(shape, dtype=torch.int64, device=self.device)
+        return self._draw(lambda: torch.randint(
+            0, int(high), tuple(shape), dtype=torch.int64, device=self.device,
+            generator=self.generator))
 
     def normal(self, shape, mean, std):
         """fp32 tensor normal with ``mean`` and ``std``."""

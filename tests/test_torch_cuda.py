@@ -9,9 +9,12 @@ stager-fed loop against an unstaged one; a py_reader's prefetched
 windows waited on behind a slow copy, a rollback into a graphed step,
 and recompute graphed against eager and against no recompute; beam
 search with planted ties against the CPU, the learning-rate step counter
-across graph replays, a gru_unit step graphed against eager, and a LoD
+across graph replays, a gru_unit step graphed against eager, a LoD
 program (sequence_conv, dynamic_lstm, sequence_pool) replaying batches of
-other lengths equal to eager and near the CPU. Every
+other lengths equal to eager and near the CPU, and graphed against eager
+to the bit: the GRU + CRF tagger's step, a warpctc step, and the sampled
+losses (nce, sampled softmax, hsigmoid) with a cudnn LSTM's dropout,
+whose draws come from the generator in the graph. Every
 test needs a CUDA device
 and skips without one. This file imports neither jax nor paddle_tpu, so it also runs on a
 machine without them, skipping the suite's conftest (which imports jax):
@@ -2358,3 +2361,92 @@ def test_lod_replays_new_lengths_equal_to_eager(cuda_device):
     want = [float(cexe.run(main, feed=f, fetch_list=[loss], scope=cpu)[0])
             for f in feeds]
     np.testing.assert_allclose(losses["eager"], want, rtol=1e-4)
+
+
+def _padded_lod(fluid, rows, data, lens):
+    out = np.zeros((rows,) + data.shape[1:], data.dtype)
+    out[:data.shape[0]] = data
+    return fluid.create_lod_tensor(out, [lens])
+
+
+def test_tagger_step_graphed_equals_eager(cuda_device):
+    """models/tagger.py (embedding, fc, dynamic_gru, emission fc,
+    linear_chain_crf) on Adam: 3 graphed steps equal 3 eager ones to the
+    bit, losses and every persistable (the CRF's gold score from one-hot
+    products, no atomics)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import tagger
+
+    with fluid.unique_name.guard():
+        main, startup, loss = tagger.build_train_program(
+            vocab=300, num_tags=11, emb_dim=16, hidden=64)
+    scope = fluid.Scope()
+    fluid.Executor(cuda_device, cuda_graphs=False).run(startup, scope=scope)
+    feed, lens = tagger.synthetic_tagging(np.random.RandomState(4), 8,
+                                          vocab=300, num_tags=11,
+                                          max_len=40)
+    feed = {n: _padded_lod(fluid, 256, t.data(), lens)
+            for n, t in feed.items()}
+    smoke.graphed_vs_eager(fluid, cuda_device, main, feed, loss, scope,
+                           "test_tagger")
+
+
+def test_warpctc_step_graphed_equals_eager(cuda_device):
+    """An fc over LoD frames trained by warpctc (log-space alpha
+    recursion, autograd's backward) on SGD: graphed equals eager to the
+    bit."""
+    from paddle_tpu_torch import fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        L = fluid.layers
+        x = L.data("x", [16], lod_level=1)
+        y = L.data("y", [1], dtype="int64", lod_level=1)
+        loss = L.mean(L.warpctc(L.fc(x, size=12), y, blank=0,
+                                norm_by_times=True))
+        fluid.optimizer.SGD(0.1).minimize(loss)
+    scope = fluid.Scope()
+    fluid.Executor(cuda_device, cuda_graphs=False).run(startup, scope=scope)
+    rng = np.random.RandomState(5)
+    xl, yl = [30, 1, 17, 40, 9], [6, 1, 3, 12, 4]
+    feed = {"x": _padded_lod(fluid, 128, rng.randn(sum(xl), 16).astype(
+        np.float32), xl),
+        "y": _padded_lod(fluid, 32, rng.randint(1, 12, (sum(yl), 1)),
+                         yl)}
+    smoke.graphed_vs_eager(fluid, cuda_device, main, feed, loss, scope,
+                           "test_warpctc")
+
+
+def test_sampled_losses_graphed_equal_eager(cuda_device):
+    """nce and the sampled softmax (uniform negatives from the scope's
+    generator, drawn inside the graph), hsigmoid, and a 2-layer cudnn
+    LSTM with dropout 0.3 between its layers: graphed equals eager to the
+    bit, each replay drawing on from the generator as an eager step
+    would."""
+    from paddle_tpu_torch import fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = 7
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        L = fluid.layers
+        seq = L.data("seq", [12, 16, 8], append_batch_size=False)
+        ih = L.data("ih", [2, 16, 32], append_batch_size=False)
+        ic = L.data("ic", [2, 16, 32], append_batch_size=False)
+        out, _, _ = L.lstm(seq, ih, ic, 12, 32, 2, dropout_prob=0.3)
+        x = L.reshape(L.slice(out, [0], [11], [12]), [16, 32])
+        lab = L.data("lab", [1], dtype="int64")
+        loss = L.mean(L.nce(x, lab, num_total_classes=50,
+                            num_neg_samples=20))
+        loss = loss + L.mean(L.sampled_softmax_with_cross_entropy(
+            L.fc(x, size=50), lab, 10))
+        loss = loss + L.mean(L.hsigmoid(x, lab, num_classes=50))
+        fluid.optimizer.SGD(0.05).minimize(loss)
+    scope = fluid.Scope()
+    fluid.Executor(cuda_device, cuda_graphs=False).run(startup, scope=scope)
+    rng = np.random.RandomState(6)
+    feed = {"seq": rng.randn(12, 16, 8).astype(np.float32),
+            "ih": np.zeros((2, 16, 32), np.float32),
+            "ic": np.zeros((2, 16, 32), np.float32),
+            "lab": rng.randint(0, 50, (16, 1)).astype(np.int64)}
+    smoke.graphed_vs_eager(fluid, cuda_device, main, feed, loss, scope,
+                           "test_sampled_losses")

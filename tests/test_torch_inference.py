@@ -280,7 +280,8 @@ def test_mixed_products_promote_only_under_enable_bf16(tmp_path):
 def _save_fc(tmpdir, seed=21):
     main, startup = PF.Program(), PF.Program()
     main.random_seed = seed
-    with pfluid.program_guard(main, startup):
+    # names from a fresh counter (fc_0, fc_1), whatever ran before
+    with pfluid.unique_name.guard(), pfluid.program_guard(main, startup):
         x = PL.data("x", shape=[6], dtype="float32")
         h = PL.fc(x, size=16, act="gelu")
         prob = PL.softmax(PL.fc(h, size=3))

@@ -412,8 +412,6 @@ def test_rnn_over_cells_matches_reference(cell_kind, time_major, is_reverse,
 def _refusals():
     L = pfluid.layers
     return {
-        "dynamic_gru": lambda: L.dynamic_gru(None, 4),
-        "lstm": lambda: L.lstm(None, None, None, 4, 4, 1),
         "While": lambda: L.While(None),
         "cond": lambda: L.cond(None),
         "StaticRNN": lambda: L.StaticRNN(),

@@ -9,10 +9,12 @@ recompute at S 512 and S 8192), ``fleet`` (the smoke's cold_start
 and fleet phases: the BERT-base encoder exported with prelower=True,
 three cold child processes, a fleet of two replica processes),
 ``seq2seq`` (the GRU seq2seq trained and beam-decoded at the book's
-widths), ``book`` (word2vec with a schedule and a clip, VGG16-BN) and
+widths), ``book`` (word2vec with a schedule and a clip, VGG16-BN),
 ``sentiment`` (the book's convolution and stacked-LSTM sentiment nets on
-LoD reviews). ``--no-build`` skips the kernel build: the seq2seq, book
-and sentiment phases launch none of the port's kernels. Each
+LoD reviews), ``tagger`` (the GRU + CRF tagger on LoD sentences) and
+``recommender`` (the MovieLens towers scored by cos_sim).
+``--no-build`` skips the kernel build: the seq2seq, book, sentiment,
+tagger and recommender phases launch none of the port's kernels. Each
 prints the smoke's JSON lines and its wall seconds; a failed check
 raises, as in the smoke.
 """
@@ -35,7 +37,9 @@ PHASES = {"checkpoint": lambda dev: S.checkpoint_path(A, monitor, dev),
           "fleet": lambda dev: S.served_fleet(A, inference, monitor, dev),
           "seq2seq": lambda dev: S.seq2seq_path(A, inference, dev),
           "book": lambda dev: S.book_path(A, monitor, dev),
-          "sentiment": lambda dev: S.sentiment_path(A, monitor, dev)}
+          "sentiment": lambda dev: S.sentiment_path(A, monitor, dev),
+          "tagger": lambda dev: S.tagger_path(A, dev),
+          "recommender": lambda dev: S.recommender_path(A, dev)}
 
 
 def main(names):
