@@ -378,7 +378,25 @@ wrappers') and ``replay_launches`` (the traced replay's).
              replays (step ms, examples/s, peak GB, kernels a replay and
              the idle share), one step at batch 32 against the CPU and
              float64. The phase's seconds. No attention kernel runs.
-24. stream   the dense continuous stream, GenerativePredictor(...,
+24. control_flow  the PTB language model of PaddlePaddle/models'
+             lm_model.py, "large" (PTB: vocabulary 10000, 2 LSTM layers
+             of 1500 written as matmul / split / sigmoid / tanh in one
+             StaticRNN, 35 steps, batch 20, dropout 0.65, SGD 1.0 under
+             GradientClipByGlobalNorm(10)), on token ids from a seed:
+             graphed against eager to the bit, 10 timed replays (step
+             ms, tokens/s, peak GB, kernels a replay and the idle
+             share), one step at dropout 0 on the card against the CPU
+             and float64 (PTB_CPU_RTOL, each persistable by the L2 of
+             its update within PTB_CPU_UPDATE_RTOL); from the trained
+             state a greedy decode of 50 tokens at batch 20 through
+             layers.While with tensor arrays (eager by the executor's
+             control_flow rule, 3 runs) and as while_loop(
+             maximum_trip_count=50) (captured, replayed): equal tokens,
+             both decodes' ms, the While decode's first logits within
+             PTB_LOGITS_ATOL of the CPU's; cond, switch_case, IfElse and
+             DynamicRNN on the card against the CPU (CF_ATOL). The
+             phase's seconds. No attention kernel runs.
+25. stream   the dense continuous stream, GenerativePredictor(...,
              slot_prefill=True).open_stream() at width 8 (bench.py's
              decode-engine legs): 16 requests of ragged prompt lengths
              and budgets joined and stepped, each equal to its solo run
@@ -391,7 +409,7 @@ wrappers') and ``replay_launches`` (the traced replay's).
              the idle share of a traced window of steps; then the same
              requests through GenerativeServer from 4 threads (p50, p99,
              each equal to its solo run).
-25. speculative  build_speculative_session over a dense session at batch
+26. speculative  build_speculative_session over a dense session at batch
              8, k 4, full prompts, 12 and 32 new tokens, draft depth 3
              (the default, L // 2) and 6: tokens equal to the dense
              session's row by row (a row may differ only where the dense
@@ -403,7 +421,7 @@ wrappers') and ``replay_launches`` (the traced replay's).
              state; rounds, accepted mean, target and draft launches,
              tokens/s beside the dense session's, the idle share of a
              traced generate.
-26. summary  the kernels line, the card line, then the result line.
+27. summary  the kernels line, the card line, then the result line.
 Every card memory line (after each phase) gives the seconds since the
 one before and the smoke's seconds so far.
 """
@@ -4165,16 +4183,18 @@ def resnet_round(fluid, dev, prog, feed, fmt):
 
 
 def float64_program(main):
-    """``main`` with every float32 var and fill made float64."""
+    """``main`` with every float32 var and fill made float64, in every
+    block."""
     from paddle_tpu_torch.fluid import framework
 
     desc = main.to_desc()
-    for v in desc["blocks"][0]["vars"]:
-        if v["dtype"] == "float32":
-            v["dtype"] = "float64"
-    for op in desc["blocks"][0]["ops"]:
-        if op["attrs"].get("dtype") == "float32":
-            op["attrs"]["dtype"] = "float64"
+    for blk in desc["blocks"]:
+        for v in blk["vars"]:
+            if v["dtype"] == "float32":
+                v["dtype"] = "float64"
+        for op in blk["ops"]:
+            if op["attrs"].get("dtype") == "float32":
+                op["attrs"]["dtype"] = "float64"
     return framework.Program.from_desc(desc)
 
 
@@ -6827,15 +6847,17 @@ def tagger_decode(fluid, dev, decode, path, scope, feed):
 
 def trained_phase(fluid, dev, phase, main, startup, loss, feed,
                   cpu_feed, warm, timed, rtol, update_rtol, rates,
-                  **where):
+                  check_program=None, **where):
     """A training phase's checks on ``main``: graphed against eager to the
     bit, ``warm`` + ``timed`` replays (step ms, peak GB, capture s, a
     traced replay's kernels and idle share; the loss must fall), one
     step on ``cpu_feed`` on the card against the CPU and float64 from a
     fresh startup (the loss within ``rtol``, each persistable by the L2
-    of its update within ``update_rtol``). ``rates`` maps a rate's name
-    to what a step processes (its value a second); ``where`` joins the
-    timed record. Returns the trained scope."""
+    of its update within ``update_rtol``), of ``check_program`` (main,
+    startup, loss) where given (``main`` at dropout 0), else of
+    ``main``. ``rates`` maps a rate's name to what a step processes (its
+    value a second); ``where`` joins the timed record. Returns the
+    trained scope."""
     marks = [("start", time.perf_counter())]
     scope = fluid.Scope()
     fluid.Executor(dev, cuda_graphs=False).run(startup, scope=scope)
@@ -6866,9 +6888,10 @@ def trained_phase(fluid, dev, phase, main, startup, loss, feed,
             losses[-1] < losses[0]):
         raise AssertionError("%s: losses not finite and falling: %s"
                              % (phase, losses))
+    cmain, cstartup, closs = check_program or (main, startup, loss)
     cpu = fluid.Scope()
-    fluid.Executor("cpu").run(startup, scope=cpu)
-    got, rows = card_vs_cpu(fluid, dev, main, loss, cpu, [cpu_feed],
+    fluid.Executor("cpu").run(cstartup, scope=cpu)
+    got, rows = card_vs_cpu(fluid, dev, cmain, closs, cpu, [cpu_feed],
                             lambda f: f)
     marks.append(("card_vs_cpu", time.perf_counter()))
     check = card_vs_cpu_record(got, rows, rtol, state_steps=0,
@@ -6969,6 +6992,414 @@ def recommender_path(A, dev):
     no_attention(A, "recommender", t0)
 
 
+# -- control flow: the PTB language model ------------------------------------
+# PaddlePaddle/models PaddleNLP/language_model/lm_model.py, "large"
+# (Zaremba et al. 2014): 10000 words, 2 LSTM layers of 1500, 35 steps,
+# batch 20, init_scale 0.04, dropout 0.65 (upscale_in_train), SGD at 1.0
+# (the rate decays only from epoch 14) under GradientClipByGlobalNorm(10).
+# Its two layers are written as matmul / split / sigmoid / tanh inside one
+# StaticRNN, as lm_model.py's padding_rnn does. Token ids from a seed.
+PTB = dict(vocab=10000, layers=2, hidden=1500, steps=35, batch=20,
+           init_scale=0.04, dropout=0.65)
+PTB_LR, PTB_CLIP = 1.0, 10.0
+PTB_WARM, PTB_TIMED = 2, 10
+PTB_DECODE = 50                    # greedy tokens a decode, batch PTB's
+PTB_LOGITS_ATOL = 1e-4             # the decode's first logits, card vs CPU
+PTB_CPU_RTOL, PTB_CPU_UPDATE_RTOL = 1e-4, 1e-2
+CF_ATOL = 1e-6                     # the small control-flow programs
+
+
+def ptb_lm_program(fluid, vocab, layers, hidden, steps, batch, init_scale,
+                   dropout, lr=PTB_LR, clip=PTB_CLIP):
+    """lm_model.py's LM (``rnn_model="static"`` as a StaticRNN): the
+    embedding, ``layers`` LSTM layers over ``steps`` time steps, the
+    softmax projection, the loss summed over time and averaged over the
+    batch, SGD at ``lr`` under a global-norm clip. Build it inside
+    ``fluid.unique_name.guard()``. Returns (main, startup, loss,
+    last_hidden, last_cell): feed the last two back as the next batch's
+    ``init_hidden`` / ``init_cell``."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = L.data("x", shape=[batch, steps, 1], dtype="int64",
+                   append_batch_size=False)
+        y = L.data("y", shape=[batch * steps, 1], dtype="int64",
+                   append_batch_size=False)
+        init_hidden = L.data("init_hidden", shape=[layers, batch, hidden],
+                             dtype="float32", append_batch_size=False)
+        init_cell = L.data("init_cell", shape=[layers, batch, hidden],
+                           dtype="float32", append_batch_size=False)
+        init_h = L.reshape(init_hidden, shape=[layers, -1, hidden])
+        init_c = L.reshape(init_cell, shape=[layers, -1, hidden])
+        uniform = fluid.initializer.UniformInitializer(low=-init_scale,
+                                                       high=init_scale)
+        emb = L.embedding(input=x, size=[vocab, hidden], dtype="float32",
+                          is_sparse=False, param_attr=fluid.ParamAttr(
+                              name="embedding_para", initializer=uniform))
+        emb = L.reshape(emb, shape=[-1, steps, hidden])
+        if dropout:
+            emb = L.dropout(emb, dropout_prob=dropout,
+                            dropout_implementation="upscale_in_train")
+        weights, biases = ptb_cells(fluid, layers, hidden, init_scale)
+        hs = ptb_states(L, init_h, layers, hidden)
+        cs = ptb_states(L, init_c, layers, hidden)
+        seq = L.transpose(emb, perm=[1, 0, 2])
+        rnn = L.StaticRNN()
+        with rnn.step():
+            inp = rnn.step_input(seq)
+            for k in range(layers):
+                pre_h = rnn.memory(init=hs[k])
+                pre_c = rnn.memory(init=cs[k])
+                m, c = ptb_lstm(L, inp, pre_h, pre_c, weights[k], biases[k])
+                rnn.update_memory(pre_h, m)
+                rnn.update_memory(pre_c, c)
+                rnn.step_output(m)
+                rnn.step_output(c)
+                inp = m
+                if dropout:
+                    inp = L.dropout(
+                        inp, dropout_prob=dropout,
+                        dropout_implementation="upscale_in_train")
+            rnn.step_output(inp)
+        outs = rnn()
+        last_h, last_c = [], []
+        for k in range(layers):
+            m, c = outs[2 * k], outs[2 * k + 1]
+            m.stop_gradient = True
+            c.stop_gradient = True
+            last_h.append(L.slice(m, axes=[0], starts=[steps - 1],
+                                  ends=[steps]))
+            last_c.append(L.slice(c, axes=[0], starts=[steps - 1],
+                                  ends=[steps]))
+        last_hidden = L.concat(last_h, 0)
+        last_cell = L.concat(last_c, 0)
+        out = L.reshape(L.transpose(outs[-1], perm=[1, 0, 2]),
+                        shape=[-1, steps, hidden])
+        logits = L.reshape(ptb_projection(fluid, out, vocab, hidden,
+                                          init_scale), shape=[-1, vocab])
+        loss = L.softmax_with_cross_entropy(logits=logits, label=y,
+                                            soft_label=False)
+        loss = L.reduce_sum(L.reduce_mean(L.reshape(loss, shape=[-1, steps]),
+                                          dim=[0]))
+        fluid.clip.set_gradient_clip(
+            fluid.clip.GradientClipByGlobalNorm(clip_norm=clip))
+        try:
+            fluid.optimizer.SGD(learning_rate=lr).minimize(loss)
+        finally:
+            fluid.clip.set_gradient_clip(None)
+    return main, startup, loss, last_hidden, last_cell
+
+
+def ptb_cells(fluid, layers, hidden, init_scale):
+    """Each layer's [2H, 4H] gate weight and [4H] bias (lm_model.py's
+    names)."""
+    L = fluid.layers
+    uniform = fluid.initializer.UniformInitializer(low=-init_scale,
+                                                   high=init_scale)
+    weights = [L.create_parameter([hidden * 2, hidden * 4], "float32",
+                                  name="fc_weight1_%d" % k,
+                                  default_initializer=uniform)
+               for k in range(layers)]
+    biases = [L.create_parameter([hidden * 4], "float32",
+                                 name="fc_bias1_%d" % k,
+                                 default_initializer=fluid.initializer
+                                 .Constant(0.0))
+              for k in range(layers)]
+    return weights, biases
+
+
+def ptb_states(L, state, layers, hidden):
+    """Each layer's [batch, hidden] slice of a [layers, batch, hidden]
+    state."""
+    return [L.reshape(L.slice(state, axes=[0], starts=[k], ends=[k + 1]),
+                      shape=[-1, hidden]) for k in range(layers)]
+
+
+def ptb_lstm(L, inp, pre_h, pre_c, weight, bias):
+    """One LSTM step as lm_model.py writes it: (hidden, cell)."""
+    gates = L.elementwise_add(L.matmul(L.concat([inp, pre_h], 1), weight),
+                              bias)
+    i, j, f, o = L.split(gates, num_or_sections=4, dim=-1)
+    c = pre_c * L.sigmoid(f) + L.sigmoid(i) * L.tanh(j)
+    return L.tanh(c) * L.sigmoid(o), c
+
+
+def ptb_projection(fluid, out, vocab, hidden, init_scale):
+    """``out`` times the softmax weight plus its bias: the logits."""
+    L = fluid.layers
+    uniform = fluid.initializer.UniformInitializer(low=-init_scale,
+                                                   high=init_scale)
+    w = L.create_parameter([hidden, vocab], "float32", name="softmax_weight",
+                           default_initializer=uniform)
+    b = L.create_parameter([vocab], "float32", name="softmax_bias",
+                           default_initializer=uniform)
+    return L.elementwise_add(L.matmul(out, w), b)
+
+
+def ptb_feed(vocab, layers, hidden, steps, batch, seed, **_):
+    """A batch of token ids from ``seed`` (x and its next-token labels y)
+    and zero initial states."""
+    ids = np.random.RandomState(seed).randint(
+        0, vocab, (batch, steps + 1)).astype(np.int64)
+    zeros = np.zeros((layers, batch, hidden), np.float32)
+    return {"x": ids[:, :-1, None], "y": ids[:, 1:].reshape(-1, 1),
+            "init_hidden": zeros, "init_cell": zeros.copy()}
+
+
+def ptb_decode_program(fluid, vocab, layers, hidden, batch, n, bounded,
+                       init_scale=0.04, **_):
+    """Greedy decoding of ``n`` tokens from the LM's parameters (by
+    name): token slot i of a bounded tensor array is read, embedded, run
+    through the layers and projected; its top-1 is written to slot i +
+    1. ``bounded=False``: a ``layers.While`` whose condition is read on
+    the host each trip (the executor runs it eagerly); True: a
+    ``while_loop(maximum_trip_count=n)``, which a CUDA graph captures.
+    Feeds: ``first`` [batch, 1] int64 and the LM's ``init_hidden`` /
+    ``init_cell``. Returns (main, tokens [batch, n + 1], the first
+    step's logits or None)."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        first = L.data("first", shape=[batch, 1], dtype="int64",
+                       append_batch_size=False)
+        init_hidden = L.data("init_hidden", shape=[layers, batch, hidden],
+                             dtype="float32", append_batch_size=False)
+        init_cell = L.data("init_cell", shape=[layers, batch, hidden],
+                           dtype="float32", append_batch_size=False)
+        weights, biases = ptb_cells(fluid, layers, hidden, init_scale)
+        hs = ptb_states(L, init_hidden, layers, hidden)
+        cs = ptb_states(L, init_cell, layers, hidden)
+        tokens = L.create_array("int64", element_shape=[batch, 1],
+                                bound=n + 1)
+        L.array_write(first, 0, tokens)
+        i = L.fill_constant([1], "int64", 0)
+        limit = L.fill_constant([1], "int64", n)
+
+        def step(i, hs, cs):
+            inp = L.reshape(L.embedding(
+                input=L.array_read(tokens, i), size=[vocab, hidden],
+                dtype="float32", param_attr=fluid.ParamAttr(
+                    name="embedding_para")), shape=[-1, hidden])
+            new_h, new_c = [], []
+            for k in range(layers):
+                inp, c = ptb_lstm(L, inp, hs[k], cs[k], weights[k],
+                                  biases[k])
+                new_h.append(inp)
+                new_c.append(c)
+            logits = ptb_projection(fluid, inp, vocab, hidden, init_scale)
+            _, top = L.topk(logits, k=1)
+            return logits, top, new_h, new_c
+
+        if bounded:
+            def body(i, tokens, *state):
+                _, top, new_h, new_c = step(i, state[:layers],
+                                            state[layers:])
+                nxt = L.increment(i, value=1, in_place=False)
+                L.array_write(top, nxt, tokens)
+                return [nxt, tokens] + new_h + new_c
+
+            out = L.while_loop(lambda i, *rest: L.less_than(i, limit), body,
+                               [i, tokens] + hs + cs,
+                               maximum_trip_count=n)
+            first_logits = None
+            tokens = out[1]
+        else:
+            logits_arr = L.create_array("float32",
+                                        element_shape=[batch, vocab],
+                                        bound=n)
+            cond = L.less_than(i, limit)
+            loop = L.While(cond)
+            with loop.block():
+                logits, top, new_h, new_c = step(i, hs, cs)
+                L.array_write(logits, i, logits_arr)
+                L.increment(i, value=1)
+                L.array_write(top, i, tokens)
+                for k in range(layers):
+                    L.assign(new_h[k], hs[k])
+                    L.assign(new_c[k], cs[k])
+                L.less_than(i, limit, cond=cond)
+            first_logits = L.array_read(logits_arr, 0)
+        seqs, _ = L.tensor_array_to_tensor(tokens, axis=1)
+    return main, seqs, first_logits
+
+
+def ptb_train_programs(fluid, dropout):
+    with fluid.unique_name.guard():
+        return ptb_lm_program(fluid, **dict(PTB, dropout=dropout))
+
+
+def ptb_decodes(fluid, monitor, dev, scope):
+    """Greedy decoding of PTB_DECODE tokens at PTB's batch from the
+    trained ``scope``: through ``layers.While`` (eager by the executor's
+    control_flow rule, 3 runs) and through ``while_loop(
+    maximum_trip_count=)`` (run 1 eager, run 2 captured, then replays).
+    Every run gives the same tokens; the While decode's first logits
+    (a fourth run) agree with the CPU's on the card's state within
+    PTB_LOGITS_ATOL."""
+    progs = {}
+    for bounded in (False, True):
+        with fluid.unique_name.guard():
+            progs[bounded] = ptb_decode_program(
+                fluid, n=PTB_DECODE, bounded=bounded, **PTB)
+    with fluid.unique_name.guard():
+        one = ptb_decode_program(fluid, n=1, bounded=False, **PTB)
+    B, layers, H = PTB["batch"], PTB["layers"], PTB["hidden"]
+    zeros = np.zeros((layers, B, H), np.float32)
+    feed = {"first": np.random.RandomState(7).randint(
+        0, PTB["vocab"], (B, 1)).astype(np.int64),
+        "init_hidden": zeros, "init_cell": zeros}
+    rule = monitor.counter("executor_eager_by_rule_total",
+                           labels={"rule": "control_flow"})
+    captures = monitor.counter("executor_graph_capture_total")
+    exe = fluid.Executor(dev)
+    rule0, cap0 = rule.value, captures.value
+    while_warm, while_s, while_out = timed_replays(
+        exe, progs[False][0], feed, [progs[False][1]], scope, 1, 2)
+    rule1, cap1 = rule.value, captures.value
+    loop_warm, loop_s, loop_out = timed_replays(
+        exe, progs[True][0], feed, [progs[True][1]], scope, 2, PTB_WARM + 1)
+    cap2 = captures.value
+    logits = exe.run(progs[False][0], feed=feed, fetch_list=[progs[False][2]],
+                     scope=scope)[0]
+    exe.close()
+    cpu_logits = fluid.Executor("cpu").run(
+        one[0], feed=feed, fetch_list=[one[2]],
+        scope=card_scope_to_cpu(fluid, scope))[0]
+    tokens = while_out[0]
+    logit_err = float(np.abs(logits - cpu_logits).max())
+    rec = dict(
+        phase="control_flow", check="ptb_decode", batch=B,
+        new_tokens=PTB_DECODE, tokens_shape=list(tokens.shape),
+        while_ms=[x * 1e3 for x in while_warm + while_s],
+        while_loop_bounded_ms=[x * 1e3 for x in loop_warm + loop_s],
+        while_steady_ms=statistics.median(while_s) * 1e3,
+        while_loop_replay_ms=statistics.median(loop_s) * 1e3,
+        eager_by_control_flow_rule=rule1 - rule0,
+        while_captures=cap1 - cap0, while_loop_captures=cap2 - cap1,
+        while_runs_equal=all(np.array_equal(o, tokens) for o in while_out),
+        while_loop_equal_while=all(np.array_equal(o, tokens)
+                                   for o in loop_out),
+        first_logits_max_abs_err=logit_err,
+        first_logits_atol=PTB_LOGITS_ATOL,
+        distinct_tokens=int(np.unique(tokens[:, 1:]).size))
+    emit(**rec)
+    if not (rec["while_runs_equal"] and rec["while_loop_equal_while"]
+            and rec["eager_by_control_flow_rule"] == 3
+            and rec["while_captures"] == 0
+            and rec["while_loop_captures"] == 1
+            and tokens.shape == (B, PTB_DECODE + 1)
+            and np.array_equal(tokens[:, :1], feed["first"])
+            and logit_err <= PTB_LOGITS_ATOL):
+        raise AssertionError("control_flow: the PTB decodes: %s" % rec)
+
+
+def cf_programs(fluid):
+    """Small programs of cond, switch_case, IfElse and DynamicRNN, each
+    (main, fetch, feed)."""
+    L = fluid.layers
+    rng = np.random.RandomState(3)
+    x = rng.randn(64, 32).astype(np.float32)
+    lens = rng.randint(1, 17, 16).tolist()
+    flat = rng.randn(sum(lens), 32).astype(np.float32)
+
+    def cond():
+        xv = L.data("x", shape=[64, 32], dtype="float32",
+                    append_batch_size=False)
+        return L.cond(L.reduce_sum(xv) < 1e9, lambda: L.tanh(xv) * 2.0,
+                      lambda: L.sigmoid(xv)), {"x": x}
+
+    def switch_case():
+        xv = L.data("x", shape=[64, 32], dtype="float32",
+                    append_batch_size=False)
+        idx = L.data("idx", shape=[1], dtype="int64",
+                     append_batch_size=False)
+        return L.switch_case(idx, {0: lambda: L.scale(xv, scale=2.0),
+                                   1: lambda: L.tanh(xv)},
+                             default=lambda: xv - 1.0), {
+            "x": x, "idx": np.array([1], np.int64)}
+
+    def ifelse():
+        xv = L.data("x", shape=[64, 32], dtype="float32",
+                    append_batch_size=False)
+        ie = L.IfElse(L.greater_than(
+            L.reduce_sum(xv, dim=1, keep_dim=True),
+            L.fill_constant([64, 1], "float32", 0.0)))
+        with ie.true_block():
+            ie.output(ie.input(xv) * 2.0)
+        with ie.false_block():
+            ie.output(L.tanh(ie.input(xv)))
+        return ie()[0], {"x": x}
+
+    def dynamic_rnn():
+        xv = L.data("x", shape=[-1, 32], dtype="float32",
+                    append_batch_size=False, lod_level=1)
+        drnn = L.DynamicRNN(maxlen=16)
+        with drnn.block():
+            xt = drnn.step_input(xv)
+            h = drnn.memory(shape=[32], value=0.0)
+            nh = L.tanh(L.elementwise_add(h, xt))
+            drnn.update_memory(h, nh)
+            drnn.output(nh)
+        return drnn(), {"x": fluid.create_lod_tensor(flat, [lens])}
+
+    progs = {}
+    for name, fn in (("cond", cond), ("switch_case", switch_case),
+                     ("IfElse", ifelse), ("DynamicRNN", dynamic_rnn)):
+        main = fluid.Program()
+        with fluid.unique_name.guard(), \
+                fluid.program_guard(main, fluid.Program()):
+            out, feed = fn()
+        progs[name] = (main, out, feed)
+    return progs
+
+
+def cf_card_vs_cpu(fluid, dev):
+    """Each of ``cf_programs`` 3 times on the card (cond and switch_case
+    eager by the control_flow rule, IfElse and DynamicRNN run 1 eager,
+    then captured and replayed) against the CPU, within CF_ATOL."""
+    rec = dict(phase="control_flow", check="cf_card_vs_cpu",
+               atol=CF_ATOL)
+    for name, (main, out, feed) in cf_programs(fluid).items():
+        want = fluid.Executor("cpu").run(main, feed=feed, fetch_list=[out],
+                                         scope=fluid.Scope())[0]
+        exe = fluid.Executor(dev)
+        scope = fluid.Scope()
+        got = [exe.run(main, feed=feed, fetch_list=[out], scope=scope)[0]
+               for _ in range(3)]
+        exe.close()
+        rec[name] = max(float(np.abs(g - want).max()) for g in got)
+    emit(**rec)
+    if any(rec[n] > CF_ATOL for n in ("cond", "switch_case", "IfElse",
+                                      "DynamicRNN")):
+        raise AssertionError("control_flow: card vs CPU: %s" % rec)
+
+
+def control_flow_path(A, dev):
+    """The PTB LM trained through StaticRNN and decoded through While
+    (module docstring)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import monitor
+
+    t0 = time.perf_counter()
+    reset_launches(A)
+    main, startup, loss, _, _ = ptb_train_programs(fluid, PTB["dropout"])
+    check = ptb_train_programs(fluid, 0.0)[:3]
+    build_s = time.perf_counter() - t0
+    feed = ptb_feed(seed=0, **PTB)
+    tokens = PTB["batch"] * PTB["steps"]
+    scope = trained_phase(
+        fluid, dev, "control_flow", main, startup, loss, feed, feed,
+        PTB_WARM, PTB_TIMED, PTB_CPU_RTOL, PTB_CPU_UPDATE_RTOL,
+        {"tokens_per_s": tokens}, check_program=check, widths=PTB,
+        optimizer="SGD", lr=PTB_LR, global_norm_clip=PTB_CLIP,
+        tokens_a_step=tokens, build_s=build_s, cpu_dropout=0.0)
+    ptb_decodes(fluid, monitor, dev, scope)
+    del scope
+    torch.cuda.empty_cache()
+    cf_card_vs_cpu(fluid, dev)
+    no_attention(A, "control_flow", t0)
+
+
 def main():
     if sys.argv[1:2] == ["--cold-start-child"]:
         # a helper process of phase cold_start (its PLACE may be the CPU,
@@ -7057,6 +7488,8 @@ def main():
     card_memory("tagger_path")
     recommender_path(A, dev)
     card_memory("recommender_path")
+    control_flow_path(A, dev)
+    card_memory("control_flow_path")
     # the dense phase's model again (the same seed)
     model = T.Transformer.big(device=dev, seed=0)
     stream_launches = stream_path(T, A, inference, monitor, dev, model)

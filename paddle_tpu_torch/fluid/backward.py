@@ -10,7 +10,9 @@ int32 ``<grad>@ROWS`` var for the rows, listed in the ``autodiff`` op's
 ``sparse_wrt`` attr as [param, ids, lookup output].
 
 ``checkpoints`` (``RecomputeOptimizer``) are recorded on the
-``autodiff`` op for recompute. Not ported yet: the parameter-server push
+``autodiff`` op for recompute. Gradients flow through ``cond``,
+``switch``, ``StaticRNN`` and a bounded ``while_loop``, not through a
+``While`` or an unbounded ``while_loop`` (``ops/autodiff.py``). Not ported yet: the parameter-server push
 (``distributed_lookup_table``), which the ``autodiff`` op refuses.
 """
 

@@ -22,8 +22,9 @@ graph of the step:
   read from its static outputs.
 
 An eager run (run 1, the CPU, ``cuda_graphs=False``, and by rule a run
-that creates persistables, such as a startup program's, or a program
-with host-side ops) lowers the block op by op:
+that creates persistables, such as a startup program's, a program with
+host-side ops, or a program whose control flow reads a predicate on
+the host) lowers the block op by op:
 
 1. the feeds are normalised to their declared dtypes on the device
    (numpy has no bfloat16, so a numpy feed declared bfloat16 raises; a
@@ -41,6 +42,20 @@ with host-side ops) lowers the block op by op:
    autograd needs them;
 5. the persistables written and those created are committed to the
    scope, and the fetches returned as numpy (bfloat16 as float32).
+
+Control flow (``ops/control_flow.py``): a control-flow op lowers its
+sub-blocks itself, on copies of the environment, in the autograd mode
+of its place in the block. The plan counts its transitive reads and
+writes (``framework.transitive_args``): an entry one of its sub-blocks
+reads lives until it has run, and a persistable a sub-block writes is
+one the step writes. A program whose blocks hold, at any depth, a
+``while``, a ``cond``, a ``switch`` or an unbounded ``while_loop``
+decides on the host inside the step, which a graph cannot capture: it
+runs eagerly on the card (rule ``control_flow``). ``static_rnn``, the
+bounded ``while_loop``, ``IfElse`` and ``DynamicRNN`` decide nothing on
+the host and are captured like any step. As in the reference, no
+gradient flows through a ``while`` or an unbounded ``while_loop``, and a
+``save`` op inside a sub-block is refused; both before any op runs.
 
 A captured step binds tensors by address, so its key also holds the
 scope (``Scope._uid``), the scope's generator and each state tensor's
@@ -233,8 +248,9 @@ def _m_eager_by_rule(rule):
     return _monitor.counter(
         "executor_eager_by_rule_total",
         help="runs on the card kept eager by rule: the run creates "
-             "persistables (a startup program), or the program has "
-             "host-side ops", labels={"rule": rule})
+             "persistables (a startup program), the program has "
+             "host-side ops, or its control flow reads a predicate on "
+             "the host", labels={"rule": rule})
 
 
 # one CUDA graph capture at a time in the process (torch's capture
@@ -245,6 +261,38 @@ _CAPTURE_LOCK = threading.Lock()
 # outside its compiled step, and a graph cannot replay them
 _HOST_OPS = frozenset(("save", "load", "print", "listen_and_serv",
                        "fl_listen_and_serv", "host_embedding_init"))
+
+# control-flow op types that read a predicate on the host each time they
+# decide (``while_loop`` only without ``maximum_trip_count``)
+_HOST_DECIDING = frozenset(("while", "cond", "switch"))
+
+
+def _decides_on_host(op):
+    return op.type in _HOST_DECIDING or (
+        op.type == "while_loop" and not op.attr("maximum_trip_count"))
+
+
+def _refuse_loop_gradients(ops, grad_at, seeds):
+    """Raise where a ``while`` or an unbounded ``while_loop`` before the
+    ``autodiff`` op reads a value that depends on a ``seeds`` leaf: as
+    in the reference, whose ``lax.while_loop`` has no reverse mode, no
+    gradient flows through it."""
+    tainted = set(seeds)
+    for op in ops[:grad_at]:
+        reads, writes = framework.transitive_args(op)
+        if not reads & tainted:
+            continue
+        loop = next((o for o in framework.walk_ops([op])
+                     if o.type == "while" or (
+                         o.type == "while_loop"
+                         and not o.attr("maximum_trip_count"))), None)
+        if loop is not None:
+            raise ValueError(
+                "Reverse-mode differentiation does not work through a "
+                "%r op (an unbounded loop): build the loop with "
+                "layers.while_loop(..., maximum_trip_count=N), a bounded "
+                "loop that gradients flow through" % loop.type)
+        tainted |= writes
 
 # -- run hooks -----------------------------------------------------------------
 _RUN_HOOKS = []
@@ -515,6 +563,14 @@ class _Plan:
 
     def __init__(self, program, fetch_names):
         block = program.global_block()
+        for blk in program.blocks[1:]:
+            if any(op.type == "save" for op in blk.ops):
+                raise RuntimeError(
+                    "a save op inside a control-flow sub-block is not "
+                    "supported: the compiled step cannot conditionally "
+                    "write host files — move the save op to the global "
+                    "block or checkpoint from the host loop "
+                    "(fluid.io.save)")
         self.block = block
         self.ops = list(block.ops)
         self.fetch_names = list(fetch_names)
@@ -535,13 +591,18 @@ class _Plan:
             raise NotImplementedError(autodiff.RECOMPUTE_SPARSE)
         self.recompute = dict(autodiff.checkpoint_segments(
             self.ops, self.grad_at, checkpoints)) if checkpoints else {}
+        if grad_op is not None:
+            _refuse_loop_gradients(self.ops, self.grad_at, self.wrt
+                                   | self.sparse_outs)
         self.drop_after = _last_readers(
             self.ops, set(fetch_names) | self.persistable)
         self.written = sorted({n for op in self.ops
-                               for n in op.output_arg_names()
+                               for n in framework.transitive_args(op)[1]
                                if n in self.persistable})
-        self.host_ops = sorted({op.type for op in self.ops
+        nested = list(framework.walk_ops(self.ops))
+        self.host_ops = sorted({op.type for op in nested
                                 if op.type in _HOST_OPS})
+        self.control_flow = any(_decides_on_host(op) for op in nested)
 
     def to_entry(self):
         """The plan as plain data for a compile-cache entry: the ops by
@@ -557,6 +618,7 @@ class _Plan:
             "drop_after": tuple(tuple(names) for names in self.drop_after),
             "written": tuple(self.written),
             "host_ops": tuple(self.host_ops),
+            "control_flow": bool(self.control_flow),
         }
 
     @classmethod
@@ -583,6 +645,7 @@ class _Plan:
         plan.drop_after = [list(names) for names in data["drop_after"]]
         plan.written = list(data["written"])
         plan.host_ops = list(data["host_ops"])
+        plan.control_flow = bool(data.get("control_flow", False))
         return plan
 
 
@@ -1041,13 +1104,17 @@ class Executor:
     def _eager(self, step, scope):
         """Whether this run of ``step`` runs op by op: always off the
         card or with ``cuda_graphs=False``; by rule when it creates
-        persistables or the program has host-side ops; and as the warm
-        run of a new key."""
+        persistables, the program has host-side ops, or its control flow
+        reads a predicate on the host; and as the warm run of a new
+        key."""
         if not self.cuda_graphs:
             return True
         plan = step.plan
         if plan.host_ops:
             _m_eager_by_rule("host_ops").inc()
+            return True
+        if plan.control_flow:
+            _m_eager_by_rule("control_flow").inc()
             return True
         if any(not scope.has_var(n) for n in plan.written):
             _m_eager_by_rule("creates_persistables").inc()
@@ -1062,6 +1129,7 @@ class Executor:
         ctx = LowerCtx(plan.block, env, gen, self.place)
         ctx.promote_products = self.promote_products
         ctx.sparse_outs = plan.sparse_outs
+        ctx.wrt = frozenset(plan.wrt)
         ops, grad_at = plan.ops, plan.grad_at
 
         def after_op(i, env):
@@ -1509,10 +1577,12 @@ def _host_tier(program, block, feed, scope, iters):
 
 def _last_readers(ops, keep):
     """For each op index, the env names no later op touches (kept names
-    excepted): the run drops them once that op has run."""
+    excepted): the run drops them once that op has run. A control-flow
+    op touches what its sub-blocks read and write."""
     last = {}
     for i, op in enumerate(ops):
-        for n in op.input_arg_names() + op.output_arg_names():
+        reads, writes = framework.transitive_args(op)
+        for n in sorted(reads | writes):
             last[n] = i
             v = op.block._find_var_recursive(n)
             if getattr(v, "type", None) == "selected_rows":

@@ -13,12 +13,20 @@ reference's protobuf bytes through the port's own wire codec
 (``core/proto_io.py``); ``_prune`` cuts a program to the ops its fetch
 targets need (``io.save_inference_model``).
 
+Sub-blocks: ``Program._create_block`` opens a block whose parent is the
+current one and ``_rollback`` returns to the parent; the control-flow
+layers (``layers/control_flow.py``) build their bodies and branches
+there, and name them by index in their op's attrs (``sub_block``,
+``true_block``, ``blocks``, ...). Such an op reads and writes more than
+it declares: ``transitive_args`` adds what its sub-blocks' ops read and
+write, at any depth, for pruning, shape inference and the executor's
+liveness.
+
 The dygraph switch (``_dygraph_tracer``, ``in_dygraph_mode``,
 ``_dygraph_guard``) is the one ``dygraph.guard()`` sets. Not carried
-over yet: name scopes and sub-blocks' control flow (ROADMAP queue 1
-item 4). ``Variable`` carries the reference's operator sugar (``+ - *
-/ **``, unary minus, ``< <= > >=``), which appends ops through
-``layers/math_op_patch.py`` as the reference does.
+over yet: name scopes. ``Variable`` carries the reference's operator
+sugar (``+ - * / **``, unary minus, ``< <= > >=``), which appends ops
+through ``layers/math_op_patch.py`` as the reference does.
 """
 
 import contextlib
@@ -263,6 +271,63 @@ class Operator:
         }
 
 
+# attrs of a control-flow op that name outer vars its sub-blocks hand back
+# (a branch or a body may return an outer var as it is)
+_NAMED_READS = ("true_outs", "false_outs", "body_out_names", "cond_out",
+                "step_outputs", "mem_post")
+
+
+def sub_block_ids(op):
+    """The indices of the blocks ``op`` runs: its ``sub_block`` and
+    ``*_block`` attrs, and a ``switch``'s ``blocks``."""
+    ids = []
+    for key, val in op.attrs.items():
+        if key == "sub_block" or key.endswith("_block"):
+            if isinstance(val, int) and not isinstance(val, bool):
+                ids.append(val)
+        elif key == "blocks" and isinstance(val, (list, tuple)):
+            ids.extend(v for v in val if isinstance(v, int))
+    return ids
+
+
+def transitive_args(op):
+    """(reads, writes): the names ``op`` reads and writes, its own args
+    plus those of every op of its sub-blocks at any depth (the
+    reference's ``_transitive_args``). Names local to a sub-block are
+    among them; they never meet a parent block's names (unique-name
+    generation), so a caller only ever keeps more for them."""
+    reads = set(op.input_arg_names())
+    writes = set(op.output_arg_names())
+    blocks = op.block.program.blocks
+    seen, stack = set(), [op]
+    while stack:
+        o = stack.pop()
+        for key in _NAMED_READS:
+            val = o.attrs.get(key)
+            if isinstance(val, str):
+                reads.add(val)
+            elif isinstance(val, (list, tuple)):
+                reads.update(v for v in val if isinstance(v, str))
+        for idx in sub_block_ids(o):
+            if 0 <= idx < len(blocks) and idx not in seen:
+                seen.add(idx)
+                for sub_op in blocks[idx].ops:
+                    reads.update(sub_op.input_arg_names())
+                    writes.update(sub_op.output_arg_names())
+                    stack.append(sub_op)
+    return reads, writes
+
+
+def walk_ops(ops):
+    """``ops`` and every op of their sub-blocks, at any depth."""
+    for op in ops:
+        yield op
+        blocks = op.block.program.blocks
+        for idx in sub_block_ids(op):
+            if 0 <= idx < len(blocks):
+                yield from walk_ops(blocks[idx].ops)
+
+
 def _as_name_list(v):
     if v is None:
         return []
@@ -394,6 +459,24 @@ class Program:
     def block(self, idx):
         return self.blocks[idx]
 
+    @property
+    def num_blocks(self):
+        return len(self.blocks)
+
+    def _create_block(self, parent_idx=None):
+        """A new block whose parent is ``parent_idx`` (the current block
+        by default); it becomes the current block."""
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        self._bump()
+        return b
+
+    def _rollback(self):
+        """Make the current block's parent the current block again."""
+        self.current_block_idx = self.current_block().parent_idx
+
     def all_parameters(self):
         return self.global_block().all_parameters()
 
@@ -431,18 +514,20 @@ class Program:
         """A clone in eval mode (``for_test``) that keeps only the ops
         the ``targets`` (Variables or names) need: walking the global
         block backwards, an op stays when it writes a needed name, and
-        its inputs become needed. Optimizer updates and the backward drop
-        out unless a target reads them. Every var is kept. (The
-        reference also follows sub-blocks' reads and writes; the port has
-        no control-flow ops yet.)"""
+        what it reads becomes needed. A control-flow op's reads and
+        writes are its transitive ones (``transitive_args``), so a
+        branch's reads of parent-block vars keep their producers.
+        Optimizer updates and the backward drop out unless a target
+        reads them. Every var and every sub-block is kept."""
         needed = set(_as_name_list(targets))
         p = self.clone(for_test=True)
         blk = p.global_block()
         kept = []
         for op in reversed(blk.ops):
-            if needed & set(op.output_arg_names()):
+            reads, writes = transitive_args(op)
+            if needed & writes:
                 kept.append(op)
-                needed.update(op.input_arg_names())
+                needed.update(reads)
         blk.ops = kept[::-1]
         return p
 

@@ -3,10 +3,10 @@ program (and parameter init ops to the startup program). The subset the
 BERT, LeNet, ResNet, DeepFM, seq2seq, word2vec, VGG, sentiment, tagger
 and recommender programs use, the recurrent cells and beam search
 (``rnn``), the LoD sequence layers and recurrences, the structured
-losses, the learning-rate schedules, the comparisons
-(``control_flow``), and ``py_reader``; the counterparts of
-``paddle_tpu/fluid/layers``. What is not ported yet (control-flow
-sub-blocks) raises, naming its ROADMAP item."""
+losses, the learning-rate schedules, control flow over sub-blocks
+(``control_flow``: While, while_loop, cond, case, switch_case, Switch,
+StaticRNN, the tensor arrays; ``extras``: IfElse, DynamicRNN), and
+``py_reader``; the counterparts of ``paddle_tpu/fluid/layers``."""
 
 from . import (control_flow, learning_rate_scheduler,  # noqa: F401
                math_op_patch, nn, ops, rnn, sequence_lod, tensor)

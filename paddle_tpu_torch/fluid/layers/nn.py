@@ -1,6 +1,7 @@
 """NN layers (counterparts in ``paddle_tpu/fluid/layers/nn.py``): the
 subset the BERT, LeNet, ResNet, DeepFM, seq2seq, word2vec and VGG
-programs, the learning-rate schedules and the gradient clips emit. Each validates its arguments,
+programs, the learning-rate schedules, the gradient clips and the
+control-flow programs emit. Each validates its arguments,
 creates parameters through LayerHelper and appends its ops; the math is
 in the op lowerings (``fluid/ops``)."""
 
@@ -18,7 +19,8 @@ __all__ = [
     "reduce_sum", "elementwise_add", "elementwise_sub", "elementwise_mul",
     "elementwise_div", "elementwise_min", "elementwise_max",
     "elementwise_pow", "softmax", "einsum", "slice", "squeeze", "stack",
-    "expand", "split", "sum", "logical_or", "clip",
+    "expand", "split", "sum", "logical_and", "logical_or", "logical_xor",
+    "logical_not", "clip",
     "clip_by_norm", "autoincreased_step_counter", "im2sequence", "row_conv",
     "one_hot", "reduce_mean", "reduce_max", "reduce_min", "reduce_prod",
     "reduce_all", "reduce_any", "linear_chain_crf", "crf_decoding",
@@ -515,13 +517,31 @@ def sum(x):
     return out
 
 
-def logical_or(x, y, out=None, name=None):
-    helper = LayerHelper("logical_or", name=name)
+def _logical_layer(op_type, x, y=None, out=None, name=None):
+    helper = LayerHelper(op_type, name=name)
     if out is None:
         out = helper.create_variable_for_type_inference("bool")
-    helper.append_op(type="logical_or", inputs={"X": [x], "Y": [y]},
-                     outputs={"Out": [out]})
+    inputs = {"X": [x]}
+    if y is not None:
+        inputs["Y"] = [y]
+    helper.append_op(type=op_type, inputs=inputs, outputs={"Out": [out]})
     return out
+
+
+def logical_and(x, y, out=None, name=None):
+    return _logical_layer("logical_and", x, y, out, name)
+
+
+def logical_or(x, y, out=None, name=None):
+    return _logical_layer("logical_or", x, y, out, name)
+
+
+def logical_xor(x, y, out=None, name=None):
+    return _logical_layer("logical_xor", x, y, out, name)
+
+
+def logical_not(x, out=None, name=None):
+    return _logical_layer("logical_not", x, None, out, name)
 
 
 def clip(x, min, max, name=None):

@@ -5,7 +5,8 @@ schedules and gradient clips use, and ``cos_sim``."""
 
 from ..layer_helper import LayerHelper
 
-_UNARY_LAYERS = ["sigmoid", "exp", "sqrt", "ceil", "floor", "cos", "square"]
+_UNARY_LAYERS = ["sigmoid", "tanh", "exp", "sqrt", "ceil", "floor", "cos",
+                 "square"]
 
 __all__ = list(_UNARY_LAYERS) + ["cos_sim"]
 

@@ -9,6 +9,16 @@ so this op only asks autograd for the gradients. Without
 ``retain_graph`` the saved activations are freed before the optimizer
 ops run. Dropout masks need no replay: the graph holds them.
 
+Control flow: a control-flow op before this one lowers its sub-blocks
+in the same autograd mode (``registry.lower_block``), so ``cond``,
+``switch``, ``static_rnn`` and the bounded ``while_loop`` differentiate
+as the ops they ran, each step's or branch's ``stop_gradient`` outputs
+detached where they are produced. As in the reference, whose
+``lax.while_loop`` has no reverse mode, no gradient flows through a
+``while`` or an unbounded ``while_loop``: the executor's plan refuses
+one whose reads depend on a ``wrt`` leaf before any op runs, naming
+``while_loop(maximum_trip_count=)``.
+
 SelectedRows gradients (``sparse_wrt``: [param, ids, lookup output] for
 each parameter that only one sparse lookup reads): the lookup bound its
 output as a leaf before its padding mask (``tensor_ops.sparse_leaf``),

@@ -1,6 +1,6 @@
 """Elementwise binary ops with fluid's axis broadcast (add, sub, mul,
 div, min, max, pow), the comparisons (bool outputs, numpy broadcast),
-logical_and and logical_or (counterparts in
+logical_and, logical_or, logical_xor and logical_not (counterparts in
 ``paddle_tpu/fluid/ops/elementwise.py``)."""
 
 import torch
@@ -44,7 +44,8 @@ for _name in _FNS:
 _COMPARE = {"less_than": torch.lt, "less_equal": torch.le,
             "greater_than": torch.gt, "greater_equal": torch.ge,
             "equal": torch.eq, "not_equal": torch.ne,
-            "logical_and": torch.logical_and, "logical_or": torch.logical_or}
+            "logical_and": torch.logical_and, "logical_or": torch.logical_or,
+            "logical_xor": torch.logical_xor}
 
 
 def _make_compare(name):
@@ -56,3 +57,8 @@ def _make_compare(name):
 
 for _name in _COMPARE:
     _make_compare(_name)
+
+
+@register("logical_not")
+def _logical_not(ctx, op):
+    ctx.set_output(op, "Out", torch.logical_not(ctx.get_input(op, "X")))

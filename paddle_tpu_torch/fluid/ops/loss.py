@@ -46,9 +46,16 @@ def _softmax_with_cross_entropy(ctx, op):
         lab = lab.long()
         ignored = (lab == ignore).unsqueeze(-1)
         # an ignored label picks column 0, whose loss is then zeroed
-        picked = torch.gather(logp, axis,
-                              torch.where(lab == ignore, 0, lab)
-                              .unsqueeze(-1))
+        idx = torch.where(lab == ignore, 0, lab).unsqueeze(-1)
+        src = logp
+        if src.shape[:-1] != idx.shape[:-1]:
+            # the reference's take_along_axis broadcasts the leading dims
+            # (what its shape inference records for a logits var whose
+            # rows it could not infer)
+            lead = torch.broadcast_shapes(src.shape[:-1], idx.shape[:-1])
+            src = src.expand(*lead, src.shape[-1])
+            idx = idx.expand(*lead, 1)
+        picked = torch.gather(src, axis, idx)
         loss = (-picked).masked_fill(ignored, 0.0)
     ctx.set_output(op, "Softmax", logp.exp())
     ctx.set_output(op, "Loss", loss)

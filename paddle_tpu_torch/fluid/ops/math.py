@@ -160,6 +160,13 @@ def _arg_max(ctx, op):
                                            dim=op.attr("axis", -1)))
 
 
+@register("arg_min")
+def _arg_min(ctx, op):
+    """int64 index of the first minimum along ``axis``."""
+    ctx.set_output(op, "Out", torch.argmin(ctx.get_input(op, "X"),
+                                           dim=op.attr("axis", -1)))
+
+
 @register("einsum")
 def _einsum(ctx, op):
     ctx.set_output(op, "Out", torch.einsum(op.attr("equation"),

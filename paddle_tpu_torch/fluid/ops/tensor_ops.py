@@ -337,15 +337,19 @@ def _expand(ctx, op):
 
 @register("increment")
 def _increment(ctx, op):
-    """X + step in X's type. Where Out is X (the step counter of the
-    learning-rate schedules, ``@LR_STEP@``) the scope's tensor is added
-    to in place, so a captured step's replays advance the counter that
-    the next replay reads."""
+    """X + step in X's type. Where Out is X and X is persistable (the
+    step counter of the learning-rate schedules, ``@LR_STEP@``) the
+    scope's tensor is added to in place, so a captured step's replays
+    advance the counter that the next replay reads; any other X is left
+    as it is, so a loop's counter keeps its value from before a trip
+    (``while_loop``'s bounded form selects between the two)."""
     x = ctx.get_input(op, "X")
     step = op.attr("step", 1.0)
     if not x.is_floating_point():
         step = int(step)
-    if op.output("Out") == op.input("X"):
+    var = ctx.var(op.input("X")[0])
+    if op.output("Out") == op.input("X") and var is not None and \
+            var.persistable:
         ctx.set_output(op, "Out", x.add_(step))
     else:
         ctx.set_output(op, "Out", x + step)

@@ -15,6 +15,11 @@ on the context (``draw_record``) keeps what each op drew, and replays
 it: recompute runs a segment of ops a second time in the backward, and
 its ops must see the primal run's draws (the reference's
 ``replay_keys``) without moving the generator.
+
+A control-flow op lowers its sub-blocks with ``lower_block``, in a child
+context (``LowerCtx.child``) over an environment of its own: the child
+shares the parent's generator, device, draw record and flags, and the
+op decides which of the child's bindings reach the parent.
 """
 
 import torch
@@ -98,10 +103,13 @@ class LowerCtx:
       the block's ``autodiff`` op reads as a SelectedRows gradient; each
       such lookup binds its output as an autograd leaf in
       ``sparse_leaves`` (``ops/tensor_ops.py``, ``sparse_leaf``);
-    - ``draw_record``: None, or the ``DrawRecord`` the draws go through.
+    - ``draw_record``: None, or the ``DrawRecord`` the draws go through;
+    - ``wrt``: the names bound as autograd leaves, which a sub-block's
+      ``stop_gradient`` detaching leaves alone.
     """
 
     draw_record = None
+    wrt = frozenset()
 
     def __init__(self, block, env, generator, device):
         self.block = block
@@ -113,6 +121,19 @@ class LowerCtx:
         self.promote_products = False
         self.sparse_outs = frozenset()
         self.sparse_leaves = {}
+
+    def child(self, block, env):
+        """A context for lowering the sub-block ``block`` in ``env``: the
+        same generator, device, draw record and flags. Its ``written``
+        is its own; the control-flow op sets in the parent what its
+        carry keeps."""
+        c = LowerCtx(block, env, self.generator, self.device)
+        c.promote_products = self.promote_products
+        c.sparse_outs = self.sparse_outs
+        c.sparse_leaves = self.sparse_leaves
+        c.draw_record = self.draw_record
+        c.wrt = self.wrt
+        return c
 
     def get(self, name):
         if name not in self.env:
@@ -291,3 +312,22 @@ def lower_op(ctx, op):
     except Exception as e:  # noqa: BLE001 — attribute, then re-raise
         attribute_op_error(op, e)
     propagate_lod(ctx, op)
+
+
+def lower_block(ctx, block, env):
+    """Lower every op of the sub-block ``block`` in ``env`` (a child of
+    ``ctx``), in the autograd mode the parent runs in; where gradients
+    are on, each ``stop_gradient`` output is detached where it is
+    produced, as in the global block. Returns ``env``."""
+    sub = ctx.child(block, env)
+    grads = torch.is_grad_enabled()
+    for op in block.ops:
+        lower_op(sub, op)
+        if not grads:
+            continue
+        for n in op.output_arg_names():
+            v = block._find_var_recursive(n)
+            if v is not None and v.stop_gradient and n not in ctx.wrt \
+                    and isinstance(env.get(n), torch.Tensor):
+                env[n] = env[n].detach()
+    return env

@@ -7,6 +7,17 @@ shape function, and meta tensors carry shapes and dtypes without memory
 or arithmetic. Unknown (batch) dims are -1 in the IR; they are replaced
 by a distinctive dummy extent for the run and mapped back afterwards.
 
+A control-flow op's sub-blocks read outer vars the op does not declare
+(a ``while`` declares only its condition), so its meta environment is
+seeded from its transitive reads (``framework.transitive_args``); its
+lowering never reads a predicate on meta tensors (it traces every
+branch, one trip, one step). Its outputs take the inferred shapes only
+where every outer var its sub-blocks read is one it declares: the
+reference's abstract run sees the declared inputs alone, and otherwise
+fails and leaves the shapes the layer declared (a StaticRNN whose step
+reads a parameter keeps its (-1, ...) outputs), so both packages
+record the same desc.
+
 Recorded dtypes follow the reference, which runs with 64-bit types off:
 an int64 or float64 result is recorded as int32 or float32, so the two
 packages build the same program desc. At run time the port's tensors
@@ -16,6 +27,7 @@ keep torch's types (int64 indices).
 import numpy as np
 import torch
 
+from .framework import sub_block_ids, transitive_args
 from .registry import LowerCtx, registry, to_numpy_dtype, to_torch_dtype
 
 _DUMMY = 1097  # unlikely to appear as a real static dim
@@ -28,11 +40,21 @@ def infer_op_shapes(op):
     block = op.block
     if not registry.has(op.type):
         return
+    nested = bool(sub_block_ids(op))
+    names = op.input_arg_names()
+    record = True
+    if nested:
+        names = sorted(transitive_args(op)[0])
+        declared = set(op.input_arg_names())
+        record = all(n in declared for n in names
+                     if block._find_var_recursive(n) is not None)
     env = {}
     had_dummy = False
-    for name in op.input_arg_names():
+    for name in names:
         v = block._find_var_recursive(name)
         if v is None:
+            if nested:      # a sub-block's own var
+                continue
             return
         shape = []
         for s in v.shape:
@@ -42,6 +64,8 @@ def infer_op_shapes(op):
                                 device=_META)
     ctx = LowerCtx(block, env, None, _META)
     registry.get(op.type)(ctx, op)
+    if not record:
+        return
     for n in op.output_arg_names():
         v = block._find_var_recursive(n)
         if v is None or n not in env:

@@ -14,7 +14,12 @@ program (sequence_conv, dynamic_lstm, sequence_pool) replaying batches of
 other lengths equal to eager and near the CPU, and graphed against eager
 to the bit: the GRU + CRF tagger's step, a warpctc step, and the sampled
 losses (nce, sampled softmax, hsigmoid) with a cudnn LSTM's dropout,
-whose draws come from the generator in the graph. Every
+whose draws come from the generator in the graph; control flow: the PTB
+LM's StaticRNN step graphed against eager to the bit, its greedy decode
+through a bounded while_loop captured and through While kept eager by
+the control_flow rule (equal tokens, equal to the CPU's), a Print
+program kept eager by the host_ops rule, and cond, switch_case, IfElse
+and DynamicRNN against the CPU. Every
 test needs a CUDA device
 and skips without one. This file imports neither jax nor paddle_tpu, so it also runs on a
 machine without them, skipping the suite's conftest (which imports jax):
@@ -2450,3 +2455,129 @@ def test_sampled_losses_graphed_equal_eager(cuda_device):
             "lab": rng.randint(0, 50, (16, 1)).astype(np.int64)}
     smoke.graphed_vs_eager(fluid, cuda_device, main, feed, loss, scope,
                            "test_sampled_losses")
+
+
+# -- control flow -----------------------------------------------------------------
+
+PTB_SMALL = dict(vocab=200, layers=2, hidden=64, steps=8, batch=6,
+                 init_scale=0.1)
+
+
+def test_ptb_lm_step_graphed_equals_eager(cuda_device):
+    """The PTB LM (chip_smoke.ptb_lm_program: two LSTM layers in one
+    StaticRNN, dropout 0.65 between them, SGD under a global-norm clip)
+    at small widths: 3 graphed steps equal 3 eager ones to the bit, the
+    step's dropout masks drawn in step order inside the graph."""
+    from paddle_tpu_torch import fluid
+
+    with fluid.unique_name.guard():
+        main, startup, loss, _, _ = smoke.ptb_lm_program(
+            fluid, dropout=0.65, **PTB_SMALL)
+    scope = fluid.Scope()
+    fluid.Executor(cuda_device, cuda_graphs=False).run(startup, scope=scope)
+    smoke.graphed_vs_eager(fluid, cuda_device, main,
+                           smoke.ptb_feed(seed=3, **PTB_SMALL), loss, scope,
+                           "test_ptb_lm")
+
+
+def _ptb_decode_runs(fluid, monitor, dev, bounded, runs=3):
+    """``runs`` greedy decodes of 12 tokens from a fresh startup on the
+    card: (each run's tokens, its capture and control_flow-rule counts'
+    deltas, the CPU's tokens on the same state)."""
+    with fluid.unique_name.guard():
+        _, startup, _, _, _ = smoke.ptb_lm_program(fluid, dropout=0.0,
+                                                   **PTB_SMALL)
+    with fluid.unique_name.guard():
+        main, seqs, _ = smoke.ptb_decode_program(fluid, n=12,
+                                                 bounded=bounded,
+                                                 **PTB_SMALL)
+    scope = fluid.Scope()
+    fluid.Executor(dev, cuda_graphs=False).run(startup, scope=scope)
+    zeros = np.zeros((2, 6, 64), np.float32)
+    feed = {"first": np.arange(6, dtype=np.int64).reshape(6, 1) * 7,
+            "init_hidden": zeros, "init_cell": zeros}
+    rule = monitor.counter("executor_eager_by_rule_total",
+                           labels={"rule": "control_flow"})
+    caps = monitor.counter("executor_graph_capture_total")
+    r0, c0 = rule.value, caps.value
+    exe = fluid.Executor(dev)
+    got = [exe.run(main, feed=feed, fetch_list=[seqs], scope=scope)[0]
+           for _ in range(runs)]
+    exe.close()
+    cpu = fluid.Executor("cpu").run(
+        main, feed=feed, fetch_list=[seqs],
+        scope=smoke.card_scope_to_cpu(fluid, scope))[0]
+    return got, caps.value - c0, rule.value - r0, cpu
+
+
+def test_bounded_loop_decode_is_captured_and_equals_eager(cuda_device):
+    """The greedy decode as while_loop(maximum_trip_count=): run 1 eager,
+    run 2 captured (one capture), run 3 a replay; every run's tokens
+    equal the first's and the CPU's."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import monitor
+
+    got, captures, by_rule, cpu = _ptb_decode_runs(fluid, monitor,
+                                                   cuda_device, True)
+    assert captures == 1 and by_rule == 0
+    for g in got:
+        np.testing.assert_array_equal(g, cpu)
+
+
+def test_while_decode_runs_eagerly_by_the_control_flow_rule(cuda_device):
+    """The greedy decode through layers.While reads its condition on the
+    host each trip: every run stays eager, counted under
+    rule="control_flow", none captured; its tokens equal the bounded
+    loop's and the CPU's."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import monitor
+
+    got, captures, by_rule, cpu = _ptb_decode_runs(fluid, monitor,
+                                                   cuda_device, False)
+    assert captures == 0 and by_rule == 3
+    bounded = _ptb_decode_runs(fluid, monitor, cuda_device, True, runs=1)[0]
+    for g in got:
+        np.testing.assert_array_equal(g, cpu)
+        np.testing.assert_array_equal(g, bounded[0])
+
+
+def test_print_program_runs_eagerly_by_the_host_ops_rule(cuda_device,
+                                                         capsys):
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import monitor
+
+    main = fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main,
+                                                        fluid.Program()):
+        x = fluid.layers.data("x", [3], append_batch_size=False)
+        out = fluid.layers.Print(fluid.layers.scale(x, 2.0), message="v=")
+    rule = monitor.counter("executor_eager_by_rule_total",
+                           labels={"rule": "host_ops"})
+    r0 = rule.value
+    exe = fluid.Executor(cuda_device)
+    xv = np.array([1.0, 2.0, 3.0], np.float32)
+    for _ in range(2):
+        np.testing.assert_array_equal(
+            exe.run(main, feed={"x": xv}, fetch_list=[out],
+                    scope=fluid.Scope())[0], 2 * xv)
+    exe.close()
+    assert rule.value - r0 == 2 and "v=" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name", ["cond", "switch_case", "IfElse",
+                                  "DynamicRNN"])
+def test_control_flow_programs_on_card_equal_cpu(cuda_device, name):
+    """chip_smoke.cf_programs on the card, 3 runs each (cond and
+    switch_case eager by rule, IfElse and DynamicRNN captured and
+    replayed), against the port's CPU run within chip_smoke.CF_ATOL."""
+    from paddle_tpu_torch import fluid
+
+    main, out, feed = smoke.cf_programs(fluid)[name]
+    want = fluid.Executor("cpu").run(main, feed=feed, fetch_list=[out],
+                                     scope=fluid.Scope())[0]
+    exe = fluid.Executor(cuda_device)
+    scope = fluid.Scope()
+    for _ in range(3):
+        got = exe.run(main, feed=feed, fetch_list=[out], scope=scope)[0]
+        assert np.abs(got - want).max() <= smoke.CF_ATOL
+    exe.close()

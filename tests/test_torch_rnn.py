@@ -1,8 +1,7 @@
 """The port's recurrent, beam-search and small tensor ops
 (paddle_tpu_torch/fluid/ops/rnn_ops.py, sequence_ops.py and the ops the
 recurrent layers, schedules and clips lower to), its ``layers.rnn`` over
-GRUCell and LSTMCell, and its refusals, held to the JAX package on the
-CPU.
+GRUCell and LSTMCell, held to the JAX package on the CPU.
 
 - Ops: the same seeded numpy inputs through both registries' lowerings
   of one op. Integer outputs (ids, parents, masks) exactly; fp32 at
@@ -404,23 +403,3 @@ def test_rnn_over_cells_matches_reference(cell_kind, time_major, is_reverse,
     for w, g, v in zip(want, got, pout):
         np.testing.assert_allclose(g, np.asarray(w), rtol=RTOL, atol=ATOL,
                                    err_msg=v.name)
-
-
-# -- refusals -------------------------------------------------------------------------
-
-
-def _refusals():
-    L = pfluid.layers
-    return {
-        "While": lambda: L.While(None),
-        "cond": lambda: L.cond(None),
-        "StaticRNN": lambda: L.StaticRNN(),
-        "array_write": lambda: L.array_write(None, None),
-    }
-
-
-@pytest.mark.parametrize("name", sorted(_refusals()))
-def test_unported_layers_raise_naming_item_4(name):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1 item 4"):
-        _refusals()[name]()

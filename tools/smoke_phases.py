@@ -12,9 +12,12 @@ three cold child processes, a fleet of two replica processes),
 widths), ``book`` (word2vec with a schedule and a clip, VGG16-BN),
 ``sentiment`` (the book's convolution and stacked-LSTM sentiment nets on
 LoD reviews), ``tagger`` (the GRU + CRF tagger on LoD sentences) and
-``recommender`` (the MovieLens towers scored by cos_sim).
-``--no-build`` skips the kernel build: the seq2seq, book, sentiment,
-tagger and recommender phases launch none of the port's kernels. Each
+``recommender`` (the MovieLens towers scored by cos_sim) and
+``control_flow`` (the PTB LM trained through StaticRNN and decoded
+through While and a bounded while_loop; cond, switch_case, IfElse and
+DynamicRNN against the CPU). ``--no-build`` skips the kernel build: the
+seq2seq, book, sentiment, tagger, recommender and control_flow phases
+launch none of the port's kernels. Each
 prints the smoke's JSON lines and its wall seconds; a failed check
 raises, as in the smoke.
 """
@@ -39,7 +42,8 @@ PHASES = {"checkpoint": lambda dev: S.checkpoint_path(A, monitor, dev),
           "book": lambda dev: S.book_path(A, monitor, dev),
           "sentiment": lambda dev: S.sentiment_path(A, monitor, dev),
           "tagger": lambda dev: S.tagger_path(A, dev),
-          "recommender": lambda dev: S.recommender_path(A, dev)}
+          "recommender": lambda dev: S.recommender_path(A, dev),
+          "control_flow": lambda dev: S.control_flow_path(A, dev)}
 
 
 def main(names):
